@@ -1,0 +1,562 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the NTX reproduction on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, full-width llama3-8b
+
+Phases, one result line each:
+  1. build   — compile the CUDA kernels (src/repro_torch/kernels/csrc)
+               with nvcc and load them; print the card's name and limit.
+  2. check   — every kernel against its plain PyTorch version on the
+               card, at the serving path's shapes.
+  3. time    — each kernel's time (CUDA events), its bound, its plain
+               version's time and one PyTorch library call's time.
+  4. width   — llama3-8b at full width, depth cut to 2 layers, on the card
+               and on the CPU with the same weights: prefill logits and
+               4 greedy tokens.
+  5. serve   — Server.generate on the full 32-layer llama3-8b (bf16,
+               random weights from Model.init(0)): 4 requests, prompt 32,
+               16 new tokens, greedy and at temperature 0.8, with the
+               kernel launch counts of that run.
+The line before the last is the kernel table as JSON, the last line
+{"ok": true, "device": {...}}. Any failure exits non-zero before either.
+The script needs a CUDA device and the repository's src/ beside it; it
+imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense; fp32 off tensor cores
+PROMPT_LEN, NEW_TOKENS, BATCH = 32, 16, 4
+MAX_SEQ = PROMPT_LEN + NEW_TOKENS + 8        # launch/serve.py's sizing
+DEVICE = "cuda"
+
+
+class Failed(Exception):
+    pass
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def need(ok: bool, what: str) -> None:
+    if not ok:
+        raise Failed(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        raise Failed(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------------
+# timing
+# ----------------------------------------------------------------------
+def time_ms(fn, torch, warmup: int = 3, iters: int = 20) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, nops: float, kind: str) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------------
+# phase 2 / 3: kernels against their plain versions, and their times
+# ----------------------------------------------------------------------
+def kernel_cases(torch):
+    """One dict per check: the ``ops`` wrapper the serving path calls and
+    the kernel's plain version, as closures over inputs made on the card
+    with the path's dtypes and layouts, the library call (or None), how
+    to compare them, the bytes and operations the bound counts, and
+    whether the shape is one the serving path gives the kernel
+    (``path``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ntx_elementwise as ew
+    from repro_torch.kernels import ntx_gemm, ntx_reduce
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rn = lambda *s, dt=torch.float32, std=1.0: (
+        torch.randn(*s, generator=g, device=dev) * std).to(dt)
+    bf = torch.bfloat16
+    cases = []
+    gemm_src = "src/repro_torch/kernels/csrc/ntx_gemm.cu"
+    gemm_rep = "src/repro/kernels/ntx_gemm.py:137"
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    flash_rep = "src/repro/kernels/flash_attention.py:77"
+    stream_src = "src/repro_torch/kernels/csrc/ntx_stream.cu"
+
+    def gemm_case(name, m, k, n, dt, out_dt, ep_spec, tol, path=True):
+        """``ep_spec`` entries: (kind,), (kind, imm) or (kind, dtype) for
+        the array kinds, whose operand is made in that dtype (the path's
+        residual is the bf16 hidden state, its gate the fp32 GEMM)."""
+        a = rn(m, k, dt=dt)
+        b = rn(k, n, dt=dt, std=k ** -0.5)
+        ep = []
+        for kind, *rest in ep_spec:
+            if kind in ntx_gemm.EPILOGUE_ARRAY_KINDS:
+                op = rn(n) if kind == "bias" else rn(m, n)
+                if kind == "mask":
+                    op = (op > 0).float()
+                ep.append((kind, op.to(rest[0]) if rest else op))
+            elif rest:
+                ep.append((kind, float(rest[0])))
+            else:
+                ep.append((kind,))
+        norm = ops._norm_epilogue(ep)
+        def library():
+            return ntx_gemm.apply_epilogue(
+                torch.matmul(a, b).float(),
+                tuple((k_, i_) for k_, i_, _ in norm),
+                [o.float() for _, _, o in norm if o is not None]).to(out_dt)
+        nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
+                  + sum(o.numel() * o.element_size() for _, _, o in norm
+                        if o is not None)
+                  + m * n * torch.empty((), dtype=out_dt).element_size())
+        cases.append(dict(
+            name=name, wrapper="gemm", source=gemm_src, replaces=gemm_rep,
+            kernel=lambda: ops.gemm(a, b, out_dtype=out_dt, epilogue=ep),
+            plain=lambda: ntx_gemm.gemm_plain(a, b, out_dt, norm),
+            library=library, mode="close", tol=tol, bytes=nbytes,
+            ops=2.0 * m * n * k, kind="bf16" if dt == bf else "fp32",
+            path=path))
+
+    bf_tol = (1e-2, 1e-2)   # one bf16 ulp (2**-8 rel) + fp32 order noise
+    f_tol = (1e-4, 1e-4)    # fp32 summation order over k <= 14336
+    f32 = torch.float32
+    gemm_case("gemm:prefill_w3_gate", 128, 4096, 14336, bf, f32, [], f_tol)
+    gemm_case("gemm:prefill_w1_silu_mul", 128, 4096, 14336, bf, bf,
+              [("silu",), ("mul", f32)], bf_tol)
+    gemm_case("gemm:prefill_w2_residual", 128, 14336, 4096, bf, bf,
+              [("residual", bf)], bf_tol)
+    gemm_case("gemm:decode_w3_gate", 4, 4096, 14336, bf, f32, [], f_tol)
+    gemm_case("gemm:decode_w1_silu_mul", 4, 4096, 14336, bf, bf,
+              [("silu",), ("mul", f32)], bf_tol)
+    gemm_case("gemm:decode_w2_residual", 4, 14336, 4096, bf, bf,
+              [("residual", bf)], bf_tol)
+    gemm_case("gemm:fp32_bias_mask_thresh_gelu", 100, 300, 200, f32, f32,
+              [("bias",), ("mask",), ("thresh", 0.1), ("gelu",),
+               ("scale", 0.5), ("sub",), ("relu",)], f_tol, path=False)
+
+    def flash_case(name, b, hq, hkv, sq, skv, kv_len, dt, tol, path=True):
+        d = 128
+        # prefill q/k/v are (b, s, h, d) projections viewed as (b, h, s, d)
+        # as models/attention.py makes them; decode reads the cache
+        q = rn(b, sq, hq, d, dt=dt).transpose(1, 2)
+        kv = (lambda: rn(b, skv, hkv, d, dt=dt).transpose(1, 2)) \
+            if kv_len is None else (lambda: rn(b, hkv, skv, d, dt=dt))
+        k, v = kv(), kv()
+        kw = dict(causal=True, kv_len=kv_len)
+        n_kv = skv if kv_len is None else kv_len
+        qpos = torch.arange(sq, device=dev)[:, None] + (n_kv - sq)
+        kpos = torch.arange(skv, device=dev)[None, :]
+        mask = (kpos < n_kv) & (kpos <= qpos)
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        esz = q.element_size()
+        nbytes = (q.numel() + 2 * b * hkv * n_kv * d + q.numel()) * esz
+        cases.append(dict(
+            name=name, wrapper="attention", source=flash_src,
+            replaces=flash_rep,
+            kernel=lambda: ops.attention(q, k, v, **kw),
+            plain=lambda: fa.flash_attention_plain(q, k, v, **kw),
+            library=library, mode="close", tol=tol, bytes=nbytes,
+            ops=4.0 * b * hq * sq * n_kv * d,
+            kind="bf16" if dt == bf else "fp32", path=path))
+
+    flash_case("attention:prefill", 4, 32, 8, 32, 32, None, bf, bf_tol)
+    flash_case("attention:decode", 4, 32, 8, 1, MAX_SEQ, 40, bf, bf_tol)
+    flash_case("attention:decode_fp32", 4, 32, 8, 1, MAX_SEQ, 40, f32,
+               f_tol, path=False)
+
+    vocab = 128256
+    red_rep = "src/repro/kernels/ntx_reduce.py:153"
+    cr_rep = "src/repro/kernels/ntx_reduce.py:117"
+
+    def with_ties(x):
+        top, bot = x.max() + 1.0, x.min() - 1.0
+        for r in range(x.shape[0]):          # planted ties across threads
+            x[r, 1000 + r] = x[r, 90000 - r] = top
+            x[r, 2000 + r] = x[r, 120000 - r] = bot
+        return x
+
+    def reduce_case(op, x, path):
+        lib = {"sum": torch.sum, "min": torch.amin, "max": torch.amax,
+               "argmin": torch.argmin, "argmax": torch.argmax}[op]
+        cases.append(dict(
+            name=f"reduce:{op}_{x.shape[0]}x{vocab}", wrapper="reduce",
+            source=stream_src, replaces=red_rep,
+            kernel=lambda: ops.reduce(op, x),
+            plain=lambda: ntx_reduce.reduce_plain(op, x),
+            library=lambda: lib(x, -1), mode="sum" if op == "sum" else
+            "equal", tol=(1e-5, 0.0), scale=x.abs().sum(-1),
+            bytes=x.numel() * 4 + x.shape[0] * 4, ops=x.numel(),
+            kind="fp32", path=path))
+
+    x4 = with_ties(rn(4, vocab))
+    for op in ntx_reduce.REDUCE_OPS:
+        reduce_case(op, x4, path=False)
+    # greedy decode reduces each request's logits row on its own
+    reduce_case("argmax", with_ties(rn(1, vocab)), path=True)
+
+    row = rn(1, vocab, std=3.0)
+    gum = -torch.log(-torch.log(torch.rand(1, vocab, generator=g,
+                                           device=dev)))
+    row[0, 77] = row[0, 99999] = row.max() + 5.0     # tie for COPY->ARGMAX
+    chains = [
+        ("chain_reduce:copy_argmax_1x128256", [("copy", 0.0)], row, (),
+         True),
+        ("chain_reduce:axpy_argmax_1x128256", [("axpy", 1 / 0.8)], row,
+         (gum,), True),
+        ("chain_reduce:axpy_thresh_argmax_1x128256",
+         [("axpy", 1 / 0.8), ("thresh", 1024.0 + 2.0)], row,
+         (gum + 1024.0,), False),
+    ]
+    for name, stages, xx, ys, path in chains:
+        cases.append(dict(
+            name=name, wrapper="chain_reduce", source=stream_src,
+            replaces=cr_rep,
+            kernel=lambda s=stages, xx=xx, ys=ys: ops.chain_reduce(
+                s, "argmax", xx, ys),
+            plain=lambda s=stages, xx=xx, ys=ys: _chain_reduce_plain(
+                ops, ntx_reduce, s, xx, ys),
+            library=None, mode="equal", tol=(0.0, 0.0),
+            bytes=xx.numel() * 4 * (2 + len(ys)) + 4,
+            ops=xx.numel() * (len(stages) + 1), kind="fp32", path=path))
+
+    ew_rep = "src/repro/kernels/ntx_elementwise.py:61"
+    chain_rep = "src/repro/kernels/ntx_elementwise.py:109"
+    n = 100003                                        # ragged on purpose
+    ex, ey = rn(1, n), rn(1, n)
+    ey[0, ::7] = 0.0                                  # MASK zeros
+    imm = 0.3
+    libs = {"axpy": lambda: torch.add(ey, ex, alpha=imm),
+            "add": lambda: torch.add(ex, ey),
+            "sub": lambda: torch.sub(ex, ey),
+            "mul": lambda: torch.mul(ex, ey),
+            "mask": lambda: torch.where(ey != 0, ex, 0.0),
+            "relu": lambda: torch.relu(ex),
+            "thresh": lambda: F.threshold(ex, imm, 0.0),   # strict >
+            "copy": lambda: ex.clone(),
+            "set": lambda: torch.full_like(ex, imm)}
+    for op in ew._OPCODE:
+        y = ey if op in ew._OPS2 else None
+        cases.append(dict(
+            name=f"elementwise:{op}_1x{n}", wrapper="elementwise",
+            source=stream_src, replaces=ew_rep,
+            kernel=lambda op=op, y=y: ops.elementwise(op, ex, y, imm=imm),
+            plain=lambda op=op, y=y: ew.elementwise_plain(op, ex, y, imm),
+            library=libs[op], mode="equal", tol=(0.0, 0.0),
+            bytes=n * 4 * (2 + (y is not None) - (op == "set")), ops=n,
+            kind="fp32", path=False))
+    all_stages = [(op, 0.3 + 0.1 * i) for i, op in enumerate(ew._OPCODE)
+                  if op != "set"] + [("set", 2.0), ("axpy", -1.5)]
+    n_ys = sum(1 for op, _ in all_stages if op in ew._OPS2)
+    chain_ys = tuple(rn(1, n) for _ in range(n_ys))
+    cases.append(dict(
+        name=f"elementwise_chain:{len(all_stages)}_stages_1x{n}",
+        wrapper="elementwise_chain", source=stream_src, replaces=chain_rep,
+        kernel=lambda: ops.elementwise_chain(all_stages, ex, chain_ys),
+        plain=lambda: ew.elementwise_chain_plain(all_stages, ex, chain_ys),
+        library=None, mode="equal", tol=(0.0, 0.0),
+        bytes=n * 4 * (2 + n_ys), ops=n * len(all_stages), kind="fp32",
+        path=False))
+    return cases
+
+
+def _chain_reduce_plain(ops, ntx_reduce, stages, x, ys):
+    """The plain chain-reduce with the wrapper's int32 arg result."""
+    out, red = ntx_reduce.chain_reduce_plain(stages, "argmax", x, ys)
+    return out, ops._arg_int("argmax", red)
+
+
+def compare(torch, case, got, want) -> tuple:
+    """(ok, max_abs_err, max_rel_err) under the case's mode."""
+    gots = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    ok, max_abs, max_rel = True, 0.0, 0.0
+    for gg, ww in zip(gots, wants):
+        gg = gg.float()
+        ww = ww.float()
+        if gg.shape != ww.shape:
+            return False, float("inf"), float("inf")
+        diff = (gg - ww).abs()
+        max_abs = max(max_abs, float(diff.max()) if diff.numel() else 0.0)
+        rel = diff / ww.abs().clamp_min(1e-30)
+        max_rel = max(max_rel, float(rel.max()) if rel.numel() else 0.0)
+        if case["mode"] == "equal":
+            ok &= bool(torch.equal(gg, ww))
+        elif case["mode"] == "sum":       # relative to the sum of |x|
+            ok &= bool((diff <= case["tol"][0] * case["scale"]).all())
+        else:
+            rtol, atol = case["tol"]
+            ok &= bool(torch.isfinite(gg).all()) and bool(
+                (diff <= atol + rtol * ww.abs()).all())
+    return ok, max_abs, max_rel
+
+
+def phase_check_and_time(torch, do_time: bool) -> list:
+    cases = kernel_cases(torch)
+    rows, failed = [], []
+    for case in cases:
+        got = case["kernel"]()
+        torch.cuda.synchronize()
+        want = case["plain"]()
+        ok, max_abs, max_rel = compare(torch, case, got, want)
+        tol = ("bit-equal" if case["mode"] == "equal" else
+               f"|d| <= {case['tol'][0]:g} * sum|x|" if case["mode"] == "sum"
+               else f"rtol {case['tol'][0]:g} atol {case['tol'][1]:g}")
+        say("check", f"{case['name']}: max_abs_err {max_abs:.3e} "
+                     f"max_rel_err {max_rel:.3e} ({tol}) "
+                     f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(case["name"])
+        case["max_abs_err"] = max_abs
+        rows.append(case)
+    need(not failed, f"kernels disagree with their plain versions: {failed}")
+    if do_time:
+        for case in rows:
+            case["ms"] = time_ms(case["kernel"], torch)
+            case["plain_ms"] = time_ms(case["plain"], torch)
+            case["library_ms"] = (time_ms(case["library"], torch)
+                                  if case["library"] else None)
+            b_ms, b_by = bound_ms(case["bytes"], case["ops"], case["kind"])
+            case["bound_ms"], case["bound_by"] = b_ms, b_by
+            lib = (f"{case['library_ms']:.4f}" if case["library_ms"]
+                   is not None else "null")
+            say("time", f"{case['name']}: kernel {case['ms']:.4f} ms | "
+                        f"bound {b_ms:.4f} ms ({b_by}) | plain "
+                        f"{case['plain_ms']:.4f} ms | library {lib} ms")
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 4 / 5: the serving path
+# ----------------------------------------------------------------------
+def prompts_for(cfg, np):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, PROMPT_LEN) for _ in range(BATCH)]
+
+
+def phase_width(torch, np) -> None:
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.runtime import ServeConfig, Server
+
+    base = configs.get("llama3-8b").scaled(n_layers=2)
+    t0 = time.perf_counter()
+    params = Model(base).init(0, device=DEVICE)
+    params_cpu = copy.deepcopy(params).to("cpu")
+    prompts = prompts_for(base, np)
+    tokens = torch.as_tensor(np.stack(prompts), dtype=torch.long)
+    # bf16: about twice the worst card-vs-CPU logit error measured on an
+    # H100 (3.1e-2 absolute on logits of order 1); see PERF.md
+    for dtype, rtol, atol in (("float32", 1e-3, 1e-3),
+                              ("bfloat16", 2e-2, 6e-2)):
+        cfg = base.scaled(compute_dtype=dtype)
+        with torch.inference_mode():
+            lg_gpu, _, _ = Model(cfg).prefill(
+                params, {"tokens": tokens.to(DEVICE)}, cache_len=MAX_SEQ)
+            lg_cpu, _, _ = Model(cfg).prefill(
+                params_cpu, {"tokens": tokens}, cache_len=MAX_SEQ)
+        lg_gpu, lg_cpu = lg_gpu.float().cpu(), lg_cpu.float()
+        diff = (lg_gpu - lg_cpu).abs()
+        ok = bool(torch.isfinite(lg_gpu).all()) and bool(
+            (diff <= atol + rtol * lg_cpu.abs()).all())
+        say("width", f"{dtype} prefill logits {tuple(lg_gpu.shape)}: card vs "
+                     f"CPU max_abs_err {float(diff.max()):.3e} mean "
+                     f"{float(diff.mean()):.3e} (rtol {rtol:g} atol {atol:g})"
+                     f" {'ok' if ok else 'FAIL'}")
+        need(ok, f"{dtype} full-width prefill logits disagree")
+        scfg = ServeConfig(max_seq=MAX_SEQ, max_new_tokens=4, eos_token=-1)
+        gpu = Server(cfg, params, scfg).generate(prompts)["completions"]
+        cpu = Server(cfg, params_cpu, scfg).generate(prompts)["completions"]
+        same = gpu == cpu
+        say("width", f"{dtype} greedy tokens card {gpu} cpu {cpu} "
+                     f"{'equal' if same else 'DIFFER'}")
+        if dtype == "float32":
+            need(same, "fp32 full-width greedy tokens differ card vs CPU")
+        elif not same:
+            # bf16 logits carry ~2**-8 relative rounding, so two
+            # near-tied tokens may swap; hold the card's first token to
+            # the CPU's logits instead
+            first = [c[0] for c in gpu]
+            top = lg_cpu.max(-1).values
+            pick = lg_cpu[torch.arange(BATCH), torch.as_tensor(first)]
+            need(bool(((top - pick) <= atol + rtol * top.abs()).all()),
+                 "bf16 card token is not a near-argmax of the CPU logits")
+    say("width", f"llama3-8b full width, 2 of 32 layers (depth cut to fit "
+                 f"the CPU side), {time.perf_counter() - t0:.1f} s ok")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+
+
+def phase_serve(torch, np) -> dict:
+    import importlib
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    # the module, not the function repro_torch.core re-exports
+    dispatch = importlib.import_module("repro_torch.core.dispatch")
+    from repro_torch.models import Model
+    from repro_torch.runtime import ServeConfig, Server
+
+    cfg = configs.get("llama3-8b")
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("serve", f"llama3-8b {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+                 f"params bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} GB)"
+                 f", init {time.perf_counter() - t0:.1f} s")
+    prompts = prompts_for(cfg, np)
+    with torch.inference_mode():
+        logits, _, _ = Model(cfg).prefill(
+            params, {"tokens": torch.as_tensor(np.stack(prompts),
+                                               device=DEVICE)},
+            cache_len=MAX_SEQ)
+    need(tuple(logits.shape) == (BATCH, cfg.padded_vocab)
+         and bool(torch.isfinite(logits).all()),
+         f"prefill logits {tuple(logits.shape)} not finite/shaped")
+    card = card_line()
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    dispatch.reset_engine_fallbacks()
+    for name, temp in (("greedy", 0.0), ("temperature", 0.8)):
+        srv = Server(cfg, params, ServeConfig(
+            max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS, eos_token=-1,
+            temperature=temp))
+        out = srv.generate(prompts)
+        runs[name] = out
+    counts = ops.launches()
+    fallbacks = dispatch.engine_fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    for name, out in runs.items():
+        comp = out["completions"]
+        need(len(comp) == BATCH and all(
+            len(c) == NEW_TOKENS and all(0 <= t < cfg.padded_vocab
+                                         for t in c) for c in comp),
+             f"{name}: completions malformed")
+        say("serve", f"{name}: prefill {out['prefill_s'] * 1e3:.2f} ms | "
+                     f"decode {out['decode_tok_per_s']:.2f} tok/s | "
+                     f"req0 {comp[0]} | card {card}")
+    per_kernel = {"ntx_gemm": counts["gemm"],
+                  "flash_attention": counts["attention"],
+                  "ntx_stream": sum(counts[w] for w in (
+                      "elementwise", "elementwise_chain", "chain_reduce",
+                      "reduce"))}
+    say("serve", f"peak memory {peak / 1e9:.2f} GB | kernel launches "
+                 f"{per_kernel} (by wrapper {counts}) | engine_fallbacks "
+                 f"{fallbacks} | card {card}")
+    for wrapper in ("gemm", "attention", "reduce", "chain_reduce"):
+        need(counts[wrapper] > 0, f"{wrapper} kernel never launched")
+    need(fallbacks == 0, f"{fallbacks} descriptors fell back to the engine")
+    return counts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="comma-separated phases to run (default: all)")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this script runs the "
+              "port on the card only", file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+
+    try:
+        t0 = time.perf_counter()
+        _build.library()
+        build_s = time.perf_counter() - t0
+        spills = [ln.strip() for ln in _build.build_log.splitlines()
+                  if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        say("build", f"{len(_build.sources())} CUDA sources built and "
+                     f"loaded in {build_s:.1f} s; ptxas lines with spills: "
+                     f"{spills if spills else 'none'}")
+        card = card_line()
+        say("build", f"device {torch.cuda.get_device_name(0)} x "
+                     f"{torch.cuda.device_count()} | torch {torch.__version__}"
+                     f" cuda {torch.version.cuda}")
+        print("nvidia-smi name, power.limit:")
+        print(card)
+        rows = []
+        if phases & {2, 3}:
+            rows = phase_check_and_time(torch, do_time=3 in phases)
+        if 4 in phases:
+            phase_width(torch, np)
+        counts = None
+        if 5 in phases:
+            counts = phase_serve(torch, np)
+    except Failed as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+
+    if counts is not None and 3 in phases:
+        table = []
+        for case in rows:
+            if not case["path"]:
+                continue          # checked above, not a serving-path shape
+            table.append({
+                "name": case["name"], "route": "cuda",
+                "source": case["source"], "replaces": case["replaces"],
+                "launches": counts[case["wrapper"]],
+                "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"]})
+        print(card_line())
+        print(json.dumps({"kernels": table}))
+    if phases != {1, 2, 3, 4, 5}:
+        print(f"chip_smoke: partial run (phases {sorted(phases)}); no result "
+              f"line", file=sys.stderr)
+        return 3
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

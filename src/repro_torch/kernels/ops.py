@@ -1,0 +1,235 @@
+"""Public wrappers around the NTX kernels, the counterpart of
+``repro.kernels.ops`` for the slice's kernels.
+
+There is no backend switch: the device of the tensors decides. CPU
+tensors go to the plain PyTorch version of the kernel (the CPU tests run
+these); CUDA tensors launch the hand-written Hopper kernel from
+``csrc/`` or raise. Nothing falls back from one to the other.
+
+The CUDA kernels mask ragged edges themselves, so unlike the Pallas
+wrappers nothing here pads, and the Pallas-only machinery (block
+autotuning, ``_flash_block``, the chain-reduce attention for shapes the
+Pallas flash kernel cannot tile) has no counterpart.
+
+Each wrapper counts the kernel launches it makes in :data:`LAUNCHES`
+(only where it launches a kernel: the plain versions count nothing), so
+a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .ntx_elementwise import (MAX_STAGES, _OPS2, elementwise_chain_plain,
+                              elementwise_plain, normalize_stages,
+                              stream_cuda)
+from .ntx_gemm import EPILOGUE_ARRAY_KINDS, gemm_cuda, gemm_plain
+from .ntx_reduce import REDUCE_OPS, chain_reduce_plain, reduce_plain
+
+#: kernel launches per wrapper since the last :func:`reset_launches`
+LAUNCHES = {"gemm": 0, "attention": 0, "elementwise": 0,
+            "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launches() -> dict:
+    return dict(LAUNCHES)
+
+
+def _on_card(*tensors) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version); anything else, or a mix, raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on {sorted(kinds)}: the NTX ops take CPU "
+                     f"tensors (plain versions) or CUDA tensors (kernels)")
+
+
+# ----------------------------------------------------------------------
+# GEMM
+# ----------------------------------------------------------------------
+def _norm_epilogue(epilogue):
+    """Normalize user stages to (kind, imm, operand) triples."""
+    out = []
+    for stage in epilogue or ():
+        if isinstance(stage, str):
+            stage = (stage,)
+        kind = stage[0]
+        if kind in EPILOGUE_ARRAY_KINDS:
+            out.append((kind, 0.0, torch.as_tensor(stage[1])))
+        elif kind in ("scale", "thresh"):
+            out.append((kind, float(stage[1]), None))
+        else:
+            out.append((kind, 0.0, None))
+    return out
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
+         compensated: bool = False, epilogue=None) -> torch.Tensor:
+    """C = epilogue(A @ B), fp32 accumulate, arbitrary shapes.
+
+    ``epilogue``: optional fused stages applied to the accumulator at the
+    store step (one rounding): ("bias", vec), ("residual", mat),
+    ("mul", mat), ("sub", mat), ("mask", mat), ("scale", s),
+    ("thresh", t), "relu", "silu", "gelu".
+    """
+    if compensated:
+        raise NotImplementedError(
+            "compensated (Kahan) GEMM is not ported yet: ROADMAP queue 2, "
+            "ntx_gemm.py:_gemm_kernel_kahan")
+    epilogue = _norm_epilogue(epilogue)
+    if not _on_card(a, b, *(op for _, _, op in epilogue)):
+        return gemm_plain(a, b, out_dtype=out_dtype, epilogue=epilogue)
+    LAUNCHES["gemm"] += 1
+    return gemm_cuda(a, b, out_dtype=out_dtype, epilogue=epilogue)
+
+
+# ----------------------------------------------------------------------
+# Fused transformer MLP: activations/gate/residual as GEMM epilogues
+# ----------------------------------------------------------------------
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+              w3: torch.Tensor | None = None, act: str = "gelu",
+              residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``(residual +) (act(x @ w1) [* (x @ w3)]) @ w2`` for (..., d) inputs.
+
+    The activation, the SwiGLU gate multiply and the residual add run in
+    the GEMM store steps (fused epilogues), as on the reference's Pallas
+    backends: the gate is kept in fp32, the hidden activation is rounded
+    once to x's dtype."""
+    dt = x.dtype
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if act == "swiglu":
+        gate = gemm(x2, w3, out_dtype=torch.float32)
+        h = gemm(x2, w1, out_dtype=dt, epilogue=[("silu",), ("mul", gate)])
+    else:
+        h = gemm(x2, w1, out_dtype=dt, epilogue=[("gelu",)])
+    ep = []
+    if residual is not None:
+        ep.append(("residual", residual.reshape(-1, w2.shape[-1])))
+    out = gemm(h, w2, out_dtype=dt, epilogue=ep)
+    return out.reshape(*lead, w2.shape[-1])
+
+
+# ----------------------------------------------------------------------
+# Elementwise command set
+# ----------------------------------------------------------------------
+def _split_ys(stages, ys):
+    """Operands of each stage chunk when a chain is cut into launches of
+    at most MAX_STAGES stages."""
+    chunks, yi = [], 0
+    for i in range(0, len(stages), MAX_STAGES):
+        part = stages[i:i + MAX_STAGES]
+        n2 = sum(1 for op, _ in part if op in _OPS2)
+        chunks.append((part, tuple(ys[yi:yi + n2])))
+        yi += n2
+    return chunks
+
+
+def _chain_cuda(stages, x2, ys2, counter: str):
+    """Run a chain of any length as launches of at most MAX_STAGES."""
+    val = x2
+    for part, part_ys in _split_ys(stages, ys2):
+        LAUNCHES[counter] += 1
+        val, _ = stream_cuda(part, val, part_ys)
+    return val
+
+
+def elementwise(op: str, x: torch.Tensor, y: torch.Tensor | None = None,
+                imm: float = 0.0) -> torch.Tensor:
+    if not _on_card(x, y):
+        return elementwise_plain(op, x, y, imm)
+    shape = x.shape
+    x2 = x.reshape(1, -1).contiguous()
+    ys = (y.reshape(1, -1).contiguous(),) if op in _OPS2 else ()
+    LAUNCHES["elementwise"] += 1
+    out, _ = stream_cuda([(op, imm)], x2, ys)
+    return out.reshape(shape)
+
+
+def axpy(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return elementwise("axpy", x, y, imm=a)
+
+
+def elementwise_chain(stages, x: torch.Tensor, ys=()) -> torch.Tensor:
+    """Fused chain of streaming commands: one pass over ``x``.
+
+    ``stages``: sequence of (op, imm). Each 2-read op consumes the next
+    array from ``ys``. Equivalent to folding ``elementwise`` over the
+    stages, but the value never leaves registers between stages."""
+    stages = normalize_stages(stages)
+    ys = tuple(ys)
+    if not _on_card(x, *ys):
+        return elementwise_chain_plain(stages, x, ys)
+    shape = x.shape
+    x2 = x.reshape(1, -1).contiguous()
+    ys2 = tuple(y.reshape(1, -1).contiguous() for y in ys)
+    return _chain_cuda(stages, x2, ys2, "elementwise_chain").reshape(shape)
+
+
+def chain_reduce(stages, red: str, x: torch.Tensor, ys=()):
+    """Fused chain + reduction tail over the last axis of (rows, n).
+
+    Returns ``(chain_out (rows, n), reduction (rows,))``: the chain value
+    is written once AND reduced in the same pass. The arg tails return the
+    winning int32 index (ties first-wins, like ``np.argmax``)."""
+    if red not in REDUCE_OPS:
+        raise ValueError(red)
+    stages = normalize_stages(stages)
+    ys = tuple(ys)
+    if not _on_card(x, *ys):
+        out, red_v = chain_reduce_plain(stages, red, x, ys)
+        return out, _arg_int(red, red_v)
+    x2 = x.contiguous()
+    ys2 = tuple(y.contiguous() for y in ys)
+    cut = max(0, len(stages) - MAX_STAGES)
+    n_head = sum(1 for op, _ in stages[:cut] if op in _OPS2)
+    if cut:
+        x2 = _chain_cuda(stages[:cut], x2, ys2[:n_head], "chain_reduce")
+    LAUNCHES["chain_reduce"] += 1
+    out, red_v = stream_cuda(stages[cut:], x2, ys2[n_head:], tail=red)
+    return out, _arg_int(red, red_v)
+
+
+def _arg_int(red: str, red_v: torch.Tensor) -> torch.Tensor:
+    """Arg tails store fp32 indices; the wrapper returns int32 (exact
+    below 2**24, far above any row length here)."""
+    return red_v.to(torch.int32) if red in ("argmin", "argmax") else red_v
+
+
+# ----------------------------------------------------------------------
+# Reductions
+# ----------------------------------------------------------------------
+def reduce(op: str, x: torch.Tensor) -> torch.Tensor:
+    """Reduce over the last axis of (rows, n)."""
+    if op not in REDUCE_OPS:
+        raise ValueError(op)
+    if not _on_card(x):
+        return reduce_plain(op, x)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    LAUNCHES["reduce"] += 1
+    _, red = stream_cuda((), x2, tail=op, write_out=False, red_int=True)
+    return red.reshape(x.shape[:-1])
+
+
+# ----------------------------------------------------------------------
+# Attention
+# ----------------------------------------------------------------------
+def attention(q, k, v, *, causal: bool = True, scale=None,
+              kv_len: int | None = None) -> torch.Tensor:
+    """q: (b, hq, sq, d); k/v: (b, hkv, skv, d)."""
+    if not _on_card(q, k, v):
+        # the reference's ref branch; its mha_blocked switch for long
+        # sequences computes the same forward as mha
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     kv_len=kv_len)
+    LAUNCHES["attention"] += 1
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                kv_len=kv_len)

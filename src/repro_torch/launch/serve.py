@@ -1,0 +1,48 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
+
+Serves random-init weights (``Model.init(0)``) of the reduced config, or
+of the full config with ``--full``, on the card (``--device cpu`` runs
+the plain PyTorch versions of the kernels instead).
+"""
+import argparse
+import sys
+
+import numpy as np
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--full", action="store_true",
+                    help="serve the full config instead of the reduced one")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    args = ap.parse_args(argv)
+
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.runtime import Server, ServeConfig
+
+    cfg = configs.get(args.arch) if args.full else configs.get_reduced(
+        args.arch)
+    params = Model(cfg).init(0, device=args.device)
+    srv = Server(cfg, params, ServeConfig(
+        max_seq=args.prompt_len + args.new_tokens + 8,
+        max_new_tokens=args.new_tokens, eos_token=-1,
+        temperature=args.temperature))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, args.prompt_len)
+               for _ in range(args.batch)]
+    out = srv.generate(prompts)
+    print(f"prefill {out['prefill_s']*1e3:.0f} ms | "
+          f"decode {out['decode_tok_per_s']:.1f} tok/s")
+    for i, c in enumerate(out["completions"]):
+        print(f"req{i}: {c}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

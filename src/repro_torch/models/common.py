@@ -1,0 +1,258 @@
+"""Shared model components for the dense decoder: config, RMSNorm, RoPE,
+the MLP and the embeddings.
+
+Counterpart of ``repro.models.common`` (dense parts only). Parameters
+are ``nn.Module``s whose tensors keep the reference's layouts
+((d_in, d_out) weights used as ``x @ w``), so converted weights and the
+functions below compute what the reference computes. The QKV, WO and
+unembed products are plain ``x @ w`` as in the reference; the MLP goes
+through ``ops.fused_mlp`` (the GEMM kernel with fused epilogues).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+# ----------------------------------------------------------------------
+# Config
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """The reference's architecture config, field for field, so configs
+    are declared the same way in both packages."""
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    act: str = "swiglu"            # swiglu | gelu
+    tie_embeddings: bool = False
+    # --- MoE ---
+    moe: bool = False
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    moe_every: int = 1             # MoE FFN on layers where i % moe_every == moe_offset
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    # --- MLA (deepseek) ---
+    mla: bool = False
+    kv_lora_rank: int = 0
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+    # --- SSM (mamba2) ---
+    ssm: bool = False
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 64
+    # --- hybrid (jamba) ---
+    attn_period: int = 0           # attention at layers i % attn_period == attn_offset
+    attn_offset: int = 0
+    # --- enc-dec (whisper) ---
+    encoder_decoder: bool = False
+    n_enc_layers: int = 0
+    enc_seq: int = 1500            # stub frontend: precomputed frame embeds
+    # --- vlm (qwen2-vl) ---
+    mrope: bool = False
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    n_patches: int = 0             # stub frontend: precomputed patch embeds
+    # --- numerics / training ---
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    remat: str = "full"            # full | dots | none
+    logits_chunk: int = 0          # 0 = unchunked cross-entropy
+    grad_accum: int = 1            # microbatch accumulation (memory knob)
+    prefill_microbatch: int = 1    # chunked prefill (inference memory knob)
+    sp_residual: bool = True       # sequence-parallel residual carry
+    mla_absorb: bool = False       # absorbed-matmul MLA decode
+    ctx_parallel: bool = False     # context-parallel attention (seq-
+                                   # sharded q, replicated attn weights)
+    ctx_replicate_weights: bool = True  # False: keep attn weights sharded
+                                   # (transient per-layer gathers instead)
+    cache_shard: str = "seq"       # decode-cache layout: seq|latent|heads
+    unroll: bool = False           # unroll layer loops (dry-run delta method)
+    # reduced-config smoke marker
+    notes: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding tables padded to a multiple of 256, as the reference
+        pads them (labels never reference the padded ids)."""
+        return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    def scaled(self, **overrides) -> "ArchConfig":
+        return dataclasses.replace(self, **overrides)
+
+
+def check_dense(cfg: ArchConfig) -> None:
+    """This package serves the dense GQA decoder only (ROADMAP slice D
+    brings the other families)."""
+    unsupported = [name for name, on in (
+        ("moe", cfg.moe), ("mla", cfg.mla), ("ssm", cfg.ssm),
+        ("hybrid", bool(cfg.attn_period)), ("mrope", cfg.mrope),
+        ("encoder_decoder", cfg.encoder_decoder),
+        ("n_patches", bool(cfg.n_patches)),
+        ("layernorm", cfg.norm != "rmsnorm"),
+        ("tie_embeddings", cfg.tie_embeddings)) if on]
+    if unsupported:
+        raise NotImplementedError(f"{cfg.name}: {unsupported} not ported "
+                                  f"yet (ROADMAP queue 1, slice D)")
+
+
+# ----------------------------------------------------------------------
+# Initialisation helpers (the reference's distributions)
+# ----------------------------------------------------------------------
+def _trunc_normal(shape, std: float, dtype, gen: torch.Generator):
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(std).to(dtype)
+
+
+def dense_init(shape, gen: torch.Generator, in_axis: int = 0,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated normal at +-2 sigma scaled by 1/sqrt(fan_in)."""
+    return _trunc_normal(shape, 1.0 / np.sqrt(shape[in_axis]), dtype, gen)
+
+
+def embed_init(shape, gen: torch.Generator,
+               dtype=torch.float32) -> torch.Tensor:
+    return _trunc_normal(shape, 0.02, dtype, gen)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ----------------------------------------------------------------------
+# Norms
+# ----------------------------------------------------------------------
+class Norm(nn.Module):
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.scale = _param(scale)
+
+
+def norm_params(cfg: ArchConfig, d: int, device) -> Norm:
+    return Norm(torch.ones(d, dtype=cfg.pdtype, device=device))
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+def apply_norm(cfg: ArchConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} (ROADMAP slice D)")
+    return rmsnorm(x, p.scale)
+
+
+# ----------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (b, h, s, d); pos: (b, s) absolute positions. Rotates the split
+    halves (not interleaved pairs), as the reference does."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                 # (d/2,)
+    ang = pos[:, None, :, None].float() * freqs            # (b,1,s,d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# MLPs
+# ----------------------------------------------------------------------
+class MLP(nn.Module):
+    def __init__(self, w1, w2, w3=None):
+        super().__init__()
+        self.w1, self.w2 = _param(w1), _param(w2)
+        self.w3 = _param(w3) if w3 is not None else None
+
+
+def mlp_params(cfg: ArchConfig, gen: torch.Generator, d: int,
+               ff: int) -> MLP:
+    w1 = dense_init((d, ff), gen, 0, cfg.pdtype)
+    w2 = dense_init((ff, d), gen, 0, cfg.pdtype)
+    w3 = (dense_init((d, ff), gen, 0, cfg.pdtype) if cfg.act == "swiglu"
+          else None)
+    return MLP(w1, w2, w3)
+
+
+def apply_mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MLP through ``ops.fused_mlp``: the activation, the SwiGLU gate and
+    the caller's residual add run as GEMM store epilogues. Passing
+    ``residual`` returns ``residual + mlp(x)``."""
+    dt = cfg.cdtype
+    x = x.to(dt)
+    return ops.fused_mlp(
+        x, p.w1.to(dt), p.w2.to(dt),
+        w3=p.w3.to(dt) if cfg.act == "swiglu" else None,
+        act=cfg.act, residual=residual)
+
+
+# ----------------------------------------------------------------------
+# Embedding / unembedding
+# ----------------------------------------------------------------------
+class Embed(nn.Module):
+    def __init__(self, embed: torch.Tensor, unembed: torch.Tensor):
+        super().__init__()
+        self.embed, self.unembed = _param(embed), _param(unembed)
+
+
+def embed_params(cfg: ArchConfig, gen: torch.Generator) -> Embed:
+    v = cfg.padded_vocab
+    return Embed(embed_init((v, cfg.d_model), gen, cfg.pdtype),
+                 dense_init((cfg.d_model, v), gen, 0, cfg.pdtype))
+
+
+def embed_tokens(cfg: ArchConfig, p: Embed,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return p.embed[tokens].to(cfg.cdtype)
+
+
+def unembed(cfg: ArchConfig, p: Embed, x: torch.Tensor) -> torch.Tensor:
+    return x.to(cfg.cdtype) @ p.unembed.to(cfg.cdtype)

@@ -1,0 +1,274 @@
+"""Batched serving loop: prefill + decode with a pre-allocated KV cache.
+
+Counterpart of ``repro.runtime.serve`` for dense decoders. A batch of
+same-length prompts is prefilled, then decoded token by token against
+the bf16 KV cache. Sampling runs as NTX descriptor
+:class:`~repro_torch.core.program.Program`\\ s through the
+:class:`~repro_torch.core.executor.Executor`, on the model's device:
+
+* greedy decode: one ARGMAX command per request row;
+* greedy prefill: per request COPY (the head -> sampler handoff) then
+  ARGMAX, which the fused policy runs as one chain-reduce pass;
+* temperature: per request AXPY ``logits/T + gumbel`` -> optional THRESH
+  prune -> ARGMAX tail, one fused pass (Gumbel-max: the ARGMAX of the
+  perturbed logits is an exact draw from ``softmax(logits/T)``).
+
+The samplers build the same programs as the reference. The reference
+runs them under its ``multistream``/``pipeline`` policies; here they run
+under ``fused`` until ROADMAP slice C brings those policies. Every
+reference policy is bit-equal to ``serial``, and so is ``fused``, so the
+tokens are the same. The Gumbel noise is drawn with numpy, as in the
+reference, so both packages see the same bytes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import ExecutionPolicy, Executor, Program
+from repro_torch.models import ArchConfig, Model
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_seq: int = 512
+    max_new_tokens: int = 32
+    eos_token: int = 1
+    temperature: float = 0.0
+    seed: int = 0
+    multistream: bool = True        # sampling programs via the cluster mesh
+    pipeline: bool = True           # prefill sampling via the stage pipeline
+    #: optional THRESH prune in the temperature-sampling chain: perturbed
+    #: scaled logits at or below the floor drop to 0 before the ARGMAX
+    #: tail (None disables the stage)
+    min_logit: Optional[float] = None
+
+
+#: (b, vocab, device) -> (Program, Executor, row handles, slot handles);
+#: the Executor caches its plan on the Program, so steady-state decode
+#: re-plans nothing.
+_ARGMAX_PROGRAMS: Dict[tuple, Any] = {}
+_PREFILL_PROGRAMS: Dict[tuple, Any] = {}
+#: (b, vocab, temperature, min_logit, device) -> (Program, Executor, rows,
+#: noise handles, slot handles) for the temperature-sampling chains
+_TEMPERATURE_PROGRAMS: Dict[tuple, Any] = {}
+
+#: positive bias applied (via the noise operand) when ``min_logit``
+#: prunes: THRESH zeroes pruned entries, and the shift keeps every
+#: *surviving* perturbed logit above 0 so a pruned token can never win
+#: the ARGMAX. Power of two; assumes |logits/T + gumbel| < 1024.
+_PRUNE_SHIFT = 1024.0
+
+
+def _policy() -> ExecutionPolicy:
+    # fused until ROADMAP slice C ports multistream/pipeline (bit-equal)
+    return ExecutionPolicy(policy="fused")
+
+
+def _as_logits(logits, device) -> torch.Tensor:
+    return torch.as_tensor(logits, dtype=torch.float32, device=device)
+
+
+def _sampler_entry(cache: Dict[tuple, Any], b: int, vocab: int,
+                   staged: bool, device: torch.device):
+    ent = cache.get((b, vocab, device))
+    if ent is None:
+        prog = Program()
+        rows, slots = [], []
+        for i in range(b):
+            row = prog.buffer((vocab,), name=f"row{i}")
+            if staged:
+                # COPY hands the head cluster's row off to the sampler
+                # cluster (the inter-cluster DMA), ARGMAX reduces it
+                row_staged = prog.copy(row)
+                slots.append(prog.argmax(row_staged, name=f"slot{i}"))
+            else:
+                slots.append(prog.argmax(row, name=f"slot{i}"))
+            rows.append(row)
+        ent = (prog, Executor(_policy(), device=device), rows, slots)
+        cache[(b, vocab, device)] = ent
+    return ent
+
+
+def _run_sampler(ent, logits: torch.Tensor) -> np.ndarray:
+    prog, executor, rows, slots = ent
+    res = executor.run(prog, inputs=dict(zip(rows, logits)))
+    return np.asarray([res[s][0] for s in slots], np.float32).astype(np.int64)
+
+
+def greedy_argmax_multistream(logits, device="cuda") -> np.ndarray:
+    """Greedy sampling as a descriptor program: one ARGMAX command per
+    request row, cached per batch shape. Ties resolve to the first
+    maximum, matching ``np.argmax``."""
+    device = torch.device(device)
+    logits = _as_logits(logits, device)
+    b, vocab = logits.shape
+    return _run_sampler(
+        _sampler_entry(_ARGMAX_PROGRAMS, b, vocab, staged=False,
+                       device=device), logits)
+
+
+def greedy_argmax_pipelined(logits, device="cuda") -> np.ndarray:
+    """Prefill sampling: per request a dependent COPY -> ARGMAX chain (the
+    head -> sampler handoff, then the reduction); fused into one
+    chain-reduce pass. Bit-equal to ``np.argmax``."""
+    device = torch.device(device)
+    logits = _as_logits(logits, device)
+    b, vocab = logits.shape
+    return _run_sampler(
+        _sampler_entry(_PREFILL_PROGRAMS, b, vocab, staged=True,
+                       device=device), logits)
+
+
+def temperature_sample_multistream(logits, temperature: float, gumbel,
+                                   min_logit: Optional[float] = None,
+                                   device="cuda") -> np.ndarray:
+    """Batched temperature sampling as a descriptor program.
+
+    Per request one fused streaming chain: ``AXPY`` (``logits/T +
+    gumbel``) -> optional ``THRESH`` prune -> ``ARGMAX`` tail. By the
+    Gumbel-max identity the ARGMAX of the perturbed logits is an exact
+    draw from ``softmax(logits/T)``. ``gumbel`` is the (b, vocab) noise,
+    drawn by the caller. With ``min_logit`` set, the chain runs shifted by
+    ``_PRUNE_SHIFT`` (folded into the noise operand, threshold shifted to
+    match) so a pruned token can never out-rank a survivor; when
+    everything is pruned the row is all zeros and the first index wins.
+    """
+    if temperature <= 0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    device = torch.device(device)
+    logits = _as_logits(logits, device)
+    b, vocab = logits.shape
+    key = (b, vocab, float(temperature),
+           None if min_logit is None else float(min_logit), device)
+    ent = _TEMPERATURE_PROGRAMS.get(key)
+    if ent is None:
+        prog = Program()
+        rows, noises, slots = [], [], []
+        for i in range(b):
+            row = prog.buffer((vocab,), name=f"row{i}")
+            g = prog.buffer((vocab,), name=f"g{i}")
+            z = prog.axpy(1.0 / temperature, row, g)
+            if min_logit is not None:
+                prog.thresh(z, min_logit + _PRUNE_SHIFT, out=z)
+            slots.append(prog.argmax(z, name=f"slot{i}"))
+            rows.append(row)
+            noises.append(g)
+        ent = (prog, Executor(_policy(), device=device), rows, noises, slots)
+        _TEMPERATURE_PROGRAMS[key] = ent
+    prog, executor, rows, noises, slots = ent
+    gumbel = torch.as_tensor(np.asarray(gumbel, np.float32), device=device)
+    if min_logit is not None:
+        gumbel = gumbel + np.float32(_PRUNE_SHIFT)
+    inputs: Dict[Any, Any] = dict(zip(rows, logits))
+    inputs.update(zip(noises, gumbel))
+    res = executor.run(prog, inputs=inputs)
+    return np.asarray([res[s][0] for s in slots], np.float32).astype(np.int64)
+
+
+def sampler_stats() -> Dict[str, Any]:
+    """Executor stats of the cached sampling programs (one per shape)."""
+    out: Dict[str, Any] = {}
+    for kind, cache in (("decode", _ARGMAX_PROGRAMS),
+                        ("prefill", _PREFILL_PROGRAMS),
+                        ("temperature", _TEMPERATURE_PROGRAMS)):
+        for key, ent in cache.items():
+            b, vocab = key[0], key[1]
+            name = f"{kind}_b{b}_v{vocab}"
+            if kind == "temperature":
+                name += f"_T{key[2]:g}"       # one entry per (T, floor)
+                if key[3] is not None:
+                    name += f"_floor{key[3]:g}"
+            out[f"{name}_{key[-1]}"] = dict(ent[1].stats)
+    return out
+
+
+class Server:
+    """Serves ``params`` (a ``Transformer`` on the device it runs on)."""
+
+    def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig):
+        self.cfg, self.params, self.scfg = cfg, params, scfg
+        self.model = Model(cfg)
+        self.device = params.embed.embed.device
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _sample(self, logits: torch.Tensor, rng,
+                prefill: bool = False) -> np.ndarray:
+        dev = self.device
+        if self.scfg.temperature <= 0 and prefill and self.scfg.pipeline:
+            # prefill: the logits row is handed off head-cluster ->
+            # sampler-cluster (COPY) before the ARGMAX
+            return greedy_argmax_pipelined(logits, device=dev)
+        if self.scfg.temperature <= 0 and self.scfg.multistream:
+            return greedy_argmax_multistream(logits, device=dev)
+        if self.scfg.temperature > 0 and self.scfg.multistream:
+            # sampling prep runs as a descriptor program on the device;
+            # the host only draws the Gumbel noise
+            g = rng.gumbel(size=tuple(logits.shape))
+            return temperature_sample_multistream(
+                logits, self.scfg.temperature, g, self.scfg.min_logit,
+                device=dev)
+        logits = logits.float().cpu().numpy()
+        if self.scfg.temperature <= 0:
+            return logits.argmax(-1)
+        z = logits / self.scfg.temperature
+        z = z - z.max(-1, keepdims=True)
+        p = np.exp(z)
+        p /= p.sum(-1, keepdims=True)
+        return np.array([rng.choice(len(q), p=q) for q in p])
+
+    @torch.inference_mode()
+    def generate(self, prompts: List[np.ndarray],
+                 extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Greedy/temperature generation for a batch of same-length prompts."""
+        scfg = self.scfg
+        rng = np.random.default_rng(scfg.seed)
+        b = len(prompts)
+        plen = len(prompts[0])
+        if not all(len(p) == plen for p in prompts):
+            raise ValueError("prompts must have the same length")
+        tokens = torch.as_tensor(np.stack(prompts), dtype=torch.long,
+                                 device=self.device)
+        batch = {"tokens": tokens}
+        if extra:
+            batch.update(extra)
+
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache, fill = self.model.prefill(
+            self.params, batch, cache_len=scfg.max_seq)
+        self._sync()
+        prefill_s = time.perf_counter() - t0
+
+        out = [[] for _ in range(b)]
+        done = np.zeros(b, bool)
+        cur = self._sample(logits, rng, prefill=True)
+        t1 = time.perf_counter()
+        steps = 0
+        for _ in range(scfg.max_new_tokens):
+            for i in range(b):
+                if not done[i]:
+                    out[i].append(int(cur[i]))
+                    if cur[i] == scfg.eos_token:
+                        done[i] = True
+            if done.all():
+                break
+            step_tokens = torch.as_tensor(cur[:, None], dtype=torch.long,
+                                          device=self.device)
+            logits, cache = self.model.decode(self.params, step_tokens,
+                                              cache, fill)
+            fill = fill + 1
+            cur = self._sample(logits[:, -1], rng)
+            steps += 1
+        decode_s = time.perf_counter() - t1
+        return {"completions": out,
+                "prefill_s": prefill_s,
+                "decode_s": decode_s,
+                "decode_tok_per_s": (steps * b / decode_s) if decode_s else 0.0}
