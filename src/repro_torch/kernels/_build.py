@@ -36,6 +36,7 @@ build_log: str = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # (a, b, c, m, n, k, in_bf16, out_bf16, n_stages, kinds, imms,
     #  operands, stream)
@@ -47,6 +48,12 @@ _SIGNATURES = {
     # (x, out, rows, n, n_valid, n_stages, ops, imms, ys, tail, red,
     #  red_int, stream)
     "ntx_stream": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P],
+    # (x, dt, A, B, C, y, b, l, h, dh, n, chunk, bf16, stream)
+    "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (p, g, m, v, p_out, m_out, v_out, n, lr, b1, 1 - b1, b2, 1 - b2,
+    #  eps, wd, bc1, bc2, p_bf16, stream)
+    "ntx_adamw": [_P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
+                  _F, _F, _F, _I, _P],
 }
 
 

@@ -5,7 +5,8 @@ Counterpart of ``repro.kernels.ntx_elementwise``: AXPY / ADD / SUB / MUL /
 RELU / THRESH / MASK / COPY / SET, one element out per element in, as a
 single command (``elementwise_pallas``) or a fused chain whose carried
 value never leaves registers (``elementwise_chain_pallas``). The same
-CUDA kernel, with a reduction tail, serves ``ntx_reduce``.
+CUDA kernel, with a reduction tail, serves ``ntx_reduce``. The fused
+AdamW step (``adamw_pallas``) has its own kernel, ``csrc/ntx_adamw.cu``.
 """
 from __future__ import annotations
 
@@ -112,3 +113,60 @@ def stream_cuda(stages, x: torch.Tensor, ys=(), tail=None,
             int(bool(red_int)), _build.stream_of(x))
     _build.check(code, "ntx_stream")
     return out, red
+
+
+# ----------------------------------------------------------------------
+# Fused AdamW step
+# ----------------------------------------------------------------------
+def bias_corrections(step, b1: float, b2: float) -> tuple:
+    """``(1 / (1 - b1**t), 1 / (1 - b2**t))`` computed in fp32, as the
+    reference computes them from its int32 step, returned as floats."""
+    t = torch.as_tensor(step, dtype=torch.float32)
+    one = torch.ones((), dtype=torch.float32)
+    bc1 = one / (one - torch.tensor(b1, dtype=torch.float32) ** t)
+    bc2 = one / (one - torch.tensor(b2, dtype=torch.float32) ** t)
+    return float(bc1), float(bc2)
+
+
+def adamw_plain(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
+                wd=0.01):
+    """Plain version of ``_adamw_kernel``: fp32 math, the bias
+    corrections as reciprocals multiplied in. Returns ``(p, m, v)``: p
+    in its own dtype, m and v in fp32."""
+    bc1, bc2 = bias_corrections(step, b1, b2)
+    lr = f32(lr)
+    g = g.float()
+    m = b1 * m.float() + (1 - b1) * g
+    v = b2 * v.float() + (1 - b2) * g * g
+    mhat = m * bc1
+    vhat = v * bc2
+    pf = p.float()
+    pf = pf - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * pf)
+    return pf.to(p.dtype), m, v
+
+
+def adamw_cuda(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
+               wd=0.01):
+    """Launch ``csrc/ntx_adamw.cu`` over same-shaped CUDA tensors: p fp32
+    or bf16, g/m/v fp32 (cast here if not). Out of place: returns new
+    ``(p, m, v)``."""
+    if p.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"adamw takes an fp32 or bf16 p, got {p.dtype}")
+    if not (p.shape == g.shape == m.shape == v.shape):
+        raise ValueError(f"adamw shapes p {tuple(p.shape)} g "
+                         f"{tuple(g.shape)} m {tuple(m.shape)} v "
+                         f"{tuple(v.shape)}")
+    bc1, bc2 = bias_corrections(step, b1, b2)
+    p = p.contiguous()
+    g, m, v = (t.float().contiguous() for t in (g, m, v))
+    po, mo, vo = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
+    lib = _build.library()
+    with torch.cuda.device(p.device):
+        code = lib.ntx_adamw(
+            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+            po.data_ptr(), mo.data_ptr(), vo.data_ptr(), p.numel(),
+            f32(lr), f32(b1), f32(1 - b1), f32(b2), f32(1 - b2), f32(eps),
+            f32(wd), bc1, bc2, int(p.dtype == torch.bfloat16),
+            _build.stream_of(p))
+    _build.check(code, "ntx_adamw")
+    return po, mo, vo

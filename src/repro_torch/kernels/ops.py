@@ -14,21 +14,32 @@ Pallas flash kernel cannot tile) has no counterpart.
 Each wrapper counts the kernel launches it makes in :data:`LAUNCHES`
 (only where it launches a kernel: the plain versions count nothing), so
 a run can show that it went through the kernels.
+
+Gradients: ``ssd`` is a ``torch.autograd.Function`` (its backward is
+PyTorch autograd of the masked chunked form). The other kernels have no
+backward yet, so their CUDA routes raise under autograd rather than
+return results that no gradient reaches (ROADMAP: GEMM and flash
+backward for dense training); their CPU routes are plain PyTorch and
+differentiate as such.
 """
 from __future__ import annotations
 
 import torch
 
 from .flash_attention import flash_attention_cuda, flash_attention_plain
-from .ntx_elementwise import (MAX_STAGES, _OPS2, elementwise_chain_plain,
-                              elementwise_plain, normalize_stages,
-                              stream_cuda)
+from .ntx_elementwise import (MAX_STAGES, _OPS2, adamw_cuda, adamw_plain,
+                              elementwise_chain_plain, elementwise_plain,
+                              normalize_stages, stream_cuda)
 from .ntx_gemm import EPILOGUE_ARRAY_KINDS, gemm_cuda, gemm_plain
 from .ntx_reduce import REDUCE_OPS, chain_reduce_plain, reduce_plain
+from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-#: kernel launches per wrapper since the last :func:`reset_launches`
+#: kernel launches per wrapper since the last :func:`reset_launches`;
+#: ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
+#: not a kernel of this package yet)
 LAUNCHES = {"gemm": 0, "attention": 0, "elementwise": 0,
-            "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0}
+            "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0,
+            "ssd": 0, "ssd_bwd": 0, "adamw": 0}
 
 
 def reset_launches() -> None:
@@ -50,6 +61,17 @@ def _on_card(*tensors) -> bool:
         return False
     raise ValueError(f"tensors on {sorted(kinds)}: the NTX ops take CPU "
                      f"tensors (plain versions) or CUDA tensors (kernels)")
+
+
+def _no_backward(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be launched on a
+    tensor that autograd tracks: its gradient would silently be lost."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the {name} kernel has no backward yet (ROADMAP queue 1, GEMM "
+            f"and flash backward for dense training); run it under "
+            f"torch.no_grad() or on CPU tensors")
 
 
 # ----------------------------------------------------------------------
@@ -87,6 +109,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     epilogue = _norm_epilogue(epilogue)
     if not _on_card(a, b, *(op for _, _, op in epilogue)):
         return gemm_plain(a, b, out_dtype=out_dtype, epilogue=epilogue)
+    _no_backward("gemm", a, b, *(op for _, _, op in epilogue))
     LAUNCHES["gemm"] += 1
     return gemm_cuda(a, b, out_dtype=out_dtype, epilogue=epilogue)
 
@@ -146,6 +169,7 @@ def elementwise(op: str, x: torch.Tensor, y: torch.Tensor | None = None,
                 imm: float = 0.0) -> torch.Tensor:
     if not _on_card(x, y):
         return elementwise_plain(op, x, y, imm)
+    _no_backward("stream", x, y)
     shape = x.shape
     x2 = x.reshape(1, -1).contiguous()
     ys = (y.reshape(1, -1).contiguous(),) if op in _OPS2 else ()
@@ -168,6 +192,7 @@ def elementwise_chain(stages, x: torch.Tensor, ys=()) -> torch.Tensor:
     ys = tuple(ys)
     if not _on_card(x, *ys):
         return elementwise_chain_plain(stages, x, ys)
+    _no_backward("stream", x, *ys)
     shape = x.shape
     x2 = x.reshape(1, -1).contiguous()
     ys2 = tuple(y.reshape(1, -1).contiguous() for y in ys)
@@ -187,6 +212,7 @@ def chain_reduce(stages, red: str, x: torch.Tensor, ys=()):
     if not _on_card(x, *ys):
         out, red_v = chain_reduce_plain(stages, red, x, ys)
         return out, _arg_int(red, red_v)
+    _no_backward("stream", x, *ys)
     x2 = x.contiguous()
     ys2 = tuple(y.contiguous() for y in ys)
     cut = max(0, len(stages) - MAX_STAGES)
@@ -213,6 +239,7 @@ def reduce(op: str, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(op)
     if not _on_card(x):
         return reduce_plain(op, x)
+    _no_backward("stream", x)
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     LAUNCHES["reduce"] += 1
     _, red = stream_cuda((), x2, tail=op, write_out=False, red_int=True)
@@ -230,6 +257,66 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
         # sequences computes the same forward as mha
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      kv_len=kv_len)
+    _no_backward("flash attention", q, k, v)
     LAUNCHES["attention"] += 1
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
                                 kv_len=kv_len)
+
+
+# ----------------------------------------------------------------------
+# SSD scan
+# ----------------------------------------------------------------------
+class _SSD(torch.autograd.Function):
+    """Forward: the SSD kernel (CUDA tensors) or its plain version (CPU
+    tensors). Backward: PyTorch autograd of the plain version (the
+    masked chunked form, any length), recomputed from the saved inputs,
+    as the reference differentiates its jnp chunked form outside any
+    Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, B, C)
+        if not _on_card(x, dt, A, B, C):
+            return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        LAUNCHES["ssd"] += 1
+        return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        if saved[0].is_cuda:
+            LAUNCHES["ssd_bwd"] += 1
+        with torch.enable_grad(), torch.profiler.record_function("ssd_bwd"):
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(saved, ctx.needs_input_grad)]
+            y = ssd_scan_plain(*ins, chunk=ctx.chunk)
+            got = iter(torch.autograd.grad(
+                y, [t for t in ins if t.requires_grad], gy))
+        return (*(next(got) if t.requires_grad else None for t in ins), None)
+
+
+def ssd(x, dt, A, B, C, chunk: int = 64,
+        work_dtype=torch.float32) -> torch.Tensor:
+    """Mamba-2 SSD scan. x: (b, l, h, dh); dt: (b, l, h); A: (h,); B/C:
+    (b, l, n). Any l (a ragged last chunk is masked). ``work_dtype`` is
+    accepted for the reference's signature and, as on its Pallas path,
+    not used: the kernel and its plain version compute in fp32."""
+    del work_dtype
+    return _SSD.apply(x, dt, A, B, C, chunk)
+
+
+# ----------------------------------------------------------------------
+# Fused optimizer
+# ----------------------------------------------------------------------
+def adamw_update(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
+                 wd=0.01):
+    """One fused AdamW step over same-shaped tensors; returns new
+    ``(p, m, v)`` (p in its dtype, m and v fp32). ``lr`` is a float or a
+    0-d tensor on the CPU and enters the kernel as a launch argument."""
+    lr = float(lr)
+    if not _on_card(p, g, m, v):
+        return adamw_plain(p, g, m, v, step, lr=lr, b1=b1, b2=b2, eps=eps,
+                           wd=wd)
+    LAUNCHES["adamw"] += 1
+    return adamw_cuda(p, g, m, v, step, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd)

@@ -1,7 +1,8 @@
 """Plain PyTorch oracles for the kernels this package ports.
 
-The counterpart of ``repro.kernels.ref`` for the slice's kernels: GEMM,
-the streaming command set, the row reductions and reference attention.
+The counterpart of ``repro.kernels.ref`` for the ported kernels: GEMM,
+the streaming command set, the row reductions, reference attention, the
+Mamba-2 SSD scan (sequential and chunked) and AdamW.
 Same math, no tiling; the CPU path of every ``ops`` wrapper and the
 yardstick each CUDA kernel is compared with on the card.
 """
@@ -105,3 +106,125 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# Mamba-2 SSD
+# ----------------------------------------------------------------------
+def _ssd_sequential(x, dt, A, B, C):
+    """The recurrence step by step in fp32: (y fp32, final state)."""
+    b, l, h, dh = x.shape
+    n = B.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = B.float(), C.float()
+    s = torch.zeros(b, h, n, dh, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(l):
+        decay = torch.exp(dtf[:, t] * Af)                    # (b, h)
+        upd = dtf[:, t, :, None] * xf[:, t]                  # (b, h, dh)
+        s = decay[..., None, None] * s + \
+            Bf[:, t, None, :, None] * upd[:, :, None, :]
+        ys.append(torch.einsum("bn,bhnd->bhd", Cf[:, t], s))
+    y = torch.stack(ys, 1) if ys else torch.zeros_like(xf)
+    return y, s
+
+
+def ssd_scan(x, dt, A, B, C) -> torch.Tensor:
+    """Sequential state-space scan (the oracle the chunked forms match).
+
+    x: (b, l, h, dh); dt: (b, l, h) softplus-ed timestep; A: (h,) negative
+    decay per head; B/C: (b, l, n). Returns y (b, l, h, dh) in x.dtype:
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t (outer) x_t; y_t = C_t . h_t."""
+    return _ssd_sequential(x, dt, A, B, C)[0].to(x.dtype)
+
+
+def _chunk_terms(x, dt, A, B, chunk):
+    """Per-chunk fp32 quantities of the chunked form: x, dt, B and C
+    reshaped to (b, nc, L, ...), the inclusive log-decay ``la`` and the
+    chunk's own state contribution ``S_in`` (b, nc, h, n, dh)."""
+    b, l, h, dh = x.shape
+    n = B.shape[-1]
+    nc = l // chunk
+    xc = x.reshape(b, nc, chunk, h, dh).float()
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    Bc = B.reshape(b, nc, chunk, n).float()
+    la = torch.cumsum(dtc * A.float(), dim=2)               # (b,nc,L,h)
+    wS = torch.exp(la[:, :, -1:, :] - la) * dtc              # (b,nc,L,h)
+    return xc, dtc, Bc, la, wS
+
+
+def _carry(S_in, l_last):
+    """States before each chunk and after the last: S_c = e^{l_L} S_{c-1}
+    + S_in[c], from S_{-1} = 0."""
+    s = torch.zeros_like(S_in[:, 0])
+    prevs = []
+    for c in range(S_in.shape[1]):
+        prevs.append(s)
+        s = torch.exp(l_last[:, c])[..., None, None] * s + S_in[:, c]
+    return torch.stack(prevs, 1), s
+
+
+def ssd_scan_chunked(x, dt, A, B, C, chunk: int = 64,
+                     work_dtype=torch.float32) -> torch.Tensor:
+    """Chunked (state-space duality) form, the blocked algorithm of the
+    kernel: intra-chunk quadratic part plus the carried inter-chunk
+    state. ``work_dtype`` rounds the big intra-chunk operands (products
+    still accumulate in fp32); decay, cumsum and state stay fp32.
+
+    Unlike ``repro.kernels.ref.ssd_scan_chunked``, the exponent is masked
+    *before* ``exp``: ``where(s <= t, la_t - la_s, -inf)``. The reference
+    takes ``exp`` of every (t, s) pair and multiplies by the triangle
+    afterwards; above the diagonal the exponent is positive and at chunk
+    128 overflows, so ``inf * 0`` gives NaN there (ROADMAP queue 3). Here
+    the upper triangle is a 0 weight with a 0 gradient."""
+    b, l, h, dh = x.shape
+    n = B.shape[-1]
+    if l % chunk:
+        raise ValueError(f"sequence {l} is not a multiple of chunk {chunk}")
+    nc = l // chunk
+    xc, dtc, Bc, la, wS = _chunk_terms(x, dt, A, B, chunk)
+    Cc = C.reshape(b, nc, chunk, n).float()
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    diff = la[:, :, :, None, :] - la[:, :, None, :, :]       # (b,nc,t,s,h)
+    dec = torch.exp(torch.where(tri[:, :, None], diff, float("-inf")))
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    w = (cb[..., None] * dec).to(work_dtype).float()
+    xdt = (dtc[..., None] * xc).to(work_dtype).float()
+    y_intra = torch.einsum("bctsh,bcshd->bcthd", w, xdt)
+    S_in = torch.einsum("bcsn,bcsh,bcshd->bchnd",
+                        Bc.to(work_dtype).float(), wS.to(work_dtype).float(),
+                        xc.to(work_dtype).float())
+    s_prev, _ = _carry(S_in, la[:, :, -1, :])
+    y_inter = torch.einsum("bctn,bcth,bchnd->bcthd", Cc, torch.exp(la),
+                           s_prev)
+    return (y_intra + y_inter).reshape(b, l, h, dh).to(x.dtype)
+
+
+def ssd_scan_chunked_with_state(x, dt, A, B, C, chunk: int = 64):
+    """``ssd_scan_chunked`` plus the final recurrent state (b, h, n, dh),
+    which prefill hands to decode. A length that is not a multiple of
+    ``chunk`` takes the sequential scan, as in the reference."""
+    l = x.shape[1]
+    if l % chunk:
+        y, s = _ssd_sequential(x, dt, A, B, C)
+        return y.to(x.dtype), s
+    y = ssd_scan_chunked(x, dt, A, B, C, chunk=chunk)
+    xc, _, Bc, la, wS = _chunk_terms(x, dt, A, B, chunk)
+    S_in = torch.einsum("bcsn,bcsh,bcshd->bchnd", Bc, wS, xc)
+    _, s_final = _carry(S_in, la[:, :, -1, :])
+    return y, s_final
+
+
+# ----------------------------------------------------------------------
+# AdamW
+# ----------------------------------------------------------------------
+def adamw_update(p, g, m, v, step, lr, b1=0.9, b2=0.999, eps=1e-8,
+                 wd=0.01):
+    """One AdamW step in the reference's form (bias corrections divided
+    out). Returns ``(p, m, v)``."""
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    mhat = m / (1 - b1 ** step)
+    vhat = v / (1 - b2 ** step)
+    p = p - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p)
+    return p, m, v

@@ -1,0 +1,85 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
+
+    python -m repro_torch.launch.train --arch mamba2-1.3b --reduced \\
+        --device cpu --steps 20
+
+Wires the arch registry, the Trainer and checkpointing, with the
+reference launcher's flags. It trains on one device (``--device``, the
+card by default); the mesh (ROADMAP slice G) is not ported, and the
+Trainer runs with ``multistream_plan=False`` (the multistream update
+plan waits for ROADMAP slice C).
+"""
+import argparse
+import os
+import sys
+import tempfile
+
+
+def _parse(argv=None):
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="The Trainer runs with multistream_plan=False: the "
+               "multistream optimizer-update plan waits for the multistream "
+               "policy (ROADMAP slice C).")
+    ap.add_argument("--arch", default="mamba2-1.3b",
+                    help="the ssm family trains on the card; dense training "
+                         "on the card waits for GEMM and flash backward "
+                         "kernels (ROADMAP)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced smoke config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_launch_train"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", default="auto", choices=["auto", "none"])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the CUDA kernels) or cpu (their plain "
+                         "versions)")
+    ap.add_argument("--set", nargs="*", default=[],
+                    help="ArchConfig overrides key=value")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = _parse(argv)
+    from repro_torch import configs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get(args.arch))
+    overrides = {}
+    for kv in args.set:
+        k, v = kv.split("=", 1)
+        try:
+            v = int(v)
+        except ValueError:
+            try:
+                v = float(v)
+            except ValueError:
+                v = {"true": True, "false": False}.get(v.lower(), v)
+        overrides[k] = v
+    if overrides:
+        cfg = cfg.scaled(**overrides)
+
+    trainer = Trainer(
+        cfg,
+        AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 10),
+                    total_steps=args.steps),
+        TrainConfig(steps=args.steps, log_every=10,
+                    ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt,
+                    resume=args.resume, global_batch=args.global_batch,
+                    seq_len=args.seq, multistream_plan=False),
+        device=args.device)
+    r = trainer.run()
+    print(f"done: loss {r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}, "
+          f"stragglers={r['straggler_events']}, bad={r['bad_steps']}, "
+          f"resumed_from={r['resumed_from']}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,15 @@
-"""Unified model API (dense decoders), the counterpart of
-``repro.models.api``:
+"""Unified model API for the ported families (dense decoders and the
+Mamba-2 stack), the counterpart of ``repro.models.api``:
 
     model = Model(cfg)
-    params = model.init(seed, device="cuda")
+    params = model.init(seed, device="cuda", trainable=True)
+    loss, metrics = model.loss(params, batch)          # train
     logits, cache, fill = model.prefill(params, batch)  # inference prefill
     cache = model.init_cache(batch_size, seq_len)
     logits, cache = model.decode(params, tokens, cache, fill)
 
-Work runs on the device the parameters and tokens are on.
+Work runs on the device the parameters and tokens are on. Serving is
+dense-only for now (SSM serving: ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -15,18 +17,23 @@ from typing import Any, Dict
 
 import torch
 
-from .common import ArchConfig, check_dense
+from .common import ArchConfig, check_ported
 from . import transformer
 
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        check_dense(cfg)
+        check_ported(cfg)
         self.cfg = cfg
 
     # -- parameters ----------------------------------------------------
-    def init(self, seed: int = 0, device="cuda") -> transformer.Transformer:
-        return transformer.init_params(self.cfg, seed, device)
+    def init(self, seed: int = 0, device="cuda",
+             trainable: bool = False) -> transformer.Transformer:
+        return transformer.init_params(self.cfg, seed, device, trainable)
+
+    # -- training ------------------------------------------------------
+    def loss(self, params, batch: Dict[str, Any]):
+        return transformer.loss_fn(self.cfg, params, batch)
 
     # -- inference -----------------------------------------------------
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,

@@ -1,7 +1,8 @@
-"""Shared model components for the dense decoder: config, RMSNorm, RoPE,
-the MLP and the embeddings.
+"""Shared model components of the ported families (the dense decoder and
+Mamba-2): config, RMSNorm, RoPE, the MLP, the embeddings, the
+cross-entropy and activation recomputation.
 
-Counterpart of ``repro.models.common`` (dense parts only). Parameters
+Counterpart of ``repro.models.common`` (those parts only). Parameters
 are ``nn.Module``s whose tensors keep the reference's layouts
 ((d_in, d_out) weights used as ``x @ w``), so converted weights and the
 functions below compute what the reference computes. The QKV, WO and
@@ -11,11 +12,12 @@ through ``ops.fused_mlp`` (the GEMM kernel with fused epilogues).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -105,6 +107,22 @@ class ArchConfig:
         return ((self.vocab + 255) // 256) * 256
 
     @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    def is_attn_layer(self, i: int) -> bool:
+        if not self.attn_period:
+            return not self.ssm
+        return i % self.attn_period == self.attn_offset
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe and (i % self.moe_every == self.moe_offset)
+
+    @property
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
@@ -116,11 +134,15 @@ class ArchConfig:
         return dataclasses.replace(self, **overrides)
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """This package serves the dense GQA decoder only (ROADMAP slice D
-    brings the other families)."""
+def check_ported(cfg: ArchConfig) -> None:
+    """This package runs the dense GQA decoder and the attention-free
+    Mamba-2 stack (``family == "ssm"``); ROADMAP slice D brings the other
+    families (hybrid, MoE, MLA, enc-dec, VLM)."""
+    ssm_family = cfg.family == "ssm"
     unsupported = [name for name, on in (
-        ("moe", cfg.moe), ("mla", cfg.mla), ("ssm", cfg.ssm),
+        ("moe", cfg.moe), ("mla", cfg.mla),
+        ("ssm outside the ssm family", cfg.ssm and not ssm_family),
+        ("ssm family without ssm layers", ssm_family and not cfg.ssm),
         ("hybrid", bool(cfg.attn_period)), ("mrope", cfg.mrope),
         ("encoder_decoder", cfg.encoder_decoder),
         ("n_patches", bool(cfg.n_patches)),
@@ -151,8 +173,10 @@ def embed_init(shape, gen: torch.Generator,
     return _trunc_normal(shape, 0.02, dtype, gen)
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t: torch.Tensor, requires_grad: bool = False) -> nn.Parameter:
+    """A parameter, frozen unless asked: serving never needs gradients;
+    ``Model.init(..., trainable=True)`` and the Trainer turn them on."""
+    return nn.Parameter(t, requires_grad=requires_grad)
 
 
 # ----------------------------------------------------------------------
@@ -256,3 +280,60 @@ def embed_tokens(cfg: ArchConfig, p: Embed,
 
 def unembed(cfg: ArchConfig, p: Embed, x: torch.Tensor) -> torch.Tensor:
     return x.to(cfg.cdtype) @ p.unembed.to(cfg.cdtype)
+
+
+# ----------------------------------------------------------------------
+# Loss
+# ----------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy. logits (b, s, v); labels (b, s)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, -1)
+    ll = torch.take_along_dim(logits, labels[..., None].long(), -1)[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def chunked_xent(cfg: ArchConfig, p: Embed, h: torch.Tensor,
+                 labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy without materialising the full (b, s, v) logits: the
+    sequence is cut into ``cfg.logits_chunk`` slices, each unembedded and
+    reduced on its own (the reference's ``lax.scan`` is a loop here)."""
+    if not cfg.logits_chunk or h.shape[1] % cfg.logits_chunk:
+        return softmax_xent(unembed(cfg, p, h), labels, mask)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, h.shape[1], cfg.logits_chunk):
+        sl = slice(s0, s0 + cfg.logits_chunk)
+        logits = unembed(cfg, p, h[:, sl]).float()
+        lse = torch.logsumexp(logits, -1)
+        ll = torch.take_along_dim(logits, labels[:, sl, None].long(),
+                                  -1)[..., 0]
+        mx = (mask[:, sl].float() if mask is not None
+              else torch.ones_like(lse))
+        tot = tot + ((lse - ll) * mx).sum()
+        cnt = cnt + mx.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+# ----------------------------------------------------------------------
+# Activation recomputation
+# ----------------------------------------------------------------------
+def remat_wrap(cfg: ArchConfig, fn: Callable) -> Callable:
+    """``"full"``: recompute ``fn``'s activations in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``"none"``: keep them."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save only the matmul outputs) is not ported yet "
+            "(ROADMAP queue 1, slice D)")
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped

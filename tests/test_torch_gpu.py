@@ -101,3 +101,118 @@ def test_dispatch_engine_fallback_stays_on_the_card(cuda):
     with pytest.raises(NotImplementedError):
         dispatch.dispatch(running_dot, mem.to(cuda))
     assert dispatch.engine_fallbacks == 1
+
+
+def _ssd_inputs(dev, b, l, h, dh, n, dtype):
+    rng = np.random.default_rng(5)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    x = f(rng.standard_normal((b, l, h, dh))).to(dtype)
+    dt = f(np.log1p(np.exp(rng.standard_normal((b, l, h)))))
+    A = f(-np.exp(rng.uniform(np.log(0.25), np.log(4.0), h)))
+    B = f(0.3 * rng.standard_normal((b, l, n))).to(dtype)
+    C = f(0.3 * rng.standard_normal((b, l, n))).to(dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,chunk,h,dh,n", [(256, 128, 4, 64, 128),
+                                            (200, 64, 3, 16, 32),
+                                            (96, 16, 2, 32, 32)])
+def test_ssd_kernel(cuda, dtype, l, chunk, h, dh, n):
+    """The SSD kernel against its plain version: the reference's 1e-3 in
+    fp32; in bf16 both round an fp32 result, so one bf16 ulp apart."""
+    from repro_torch.kernels import ssd_scan
+    ins = _ssd_inputs(cuda, 2, l, h, dh, n, getattr(torch, dtype))
+    got = ssd_scan.ssd_scan_cuda(*ins, chunk=chunk)
+    want = ssd_scan.ssd_scan_plain(*ins, chunk=chunk)
+    tol = 1e-3 if dtype == "float32" else 1e-2
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+def test_adamw_kernel(cuda, p_dtype):
+    """The fused AdamW kernel against its plain version, at the
+    reference's 1e-5 / 1e-6 (p in bf16: one bf16 ulp, <= 2**-7 of p)."""
+    p = _t((33, 4501), cuda, 0.02).to(getattr(torch, p_dtype))
+    g, m = _t((33, 4501), cuda, 1e-3), _t((33, 4501), cuda, 1e-4)
+    v = _t((33, 4501), cuda, 1e-7).abs()
+    got = tew.adamw_cuda(p, g, m, v, 7, lr=3e-4)
+    want = tew.adamw_plain(p, g, m, v, 7, lr=3e-4)
+    assert got[0].dtype == p.dtype
+    rtol = 1e-5 if p_dtype == "float32" else 2.0 ** -7
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-6)
+
+
+def test_kernels_without_backward_raise_under_autograd(cuda):
+    """A CUDA route without a backward refuses tensors that autograd
+    tracks, instead of returning a result no gradient reaches."""
+    a = _t((8, 64), cuda).requires_grad_()
+    b = _t((64, 16), cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.gemm(a, b)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.reduce("sum", a)
+    with torch.no_grad():
+        ops.gemm(a, b)
+    q = _t((1, 2, 4, 64), cuda).requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.attention(q, q.detach(), q.detach())
+
+
+def test_ssd_gradient_on_the_card(cuda):
+    """ops.ssd on the card: the kernel forward, the PyTorch backward,
+    both against the CPU."""
+    ins = _ssd_inputs("cpu", 1, 160, 2, 16, 32, torch.float32)
+    outs = []
+    for dev in (cuda, "cpu"):
+        xs = [t.to(dev).requires_grad_() for t in ins]
+        y = ops.ssd(*xs, chunk=64)
+        grads = torch.autograd.grad((y * y).sum(), xs)
+        outs.append([y.cpu(), *(g.cpu() for g in grads)])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+def test_train_step_on_the_card(cuda):
+    """Two layers of the reduced mamba2 config: the gradients, leaf by
+    leaf, and one build_step_fn step on the card and on the CPU from the
+    same weights and batch."""
+    import copy
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import build_step_fn
+    cfg = configs.get_reduced("mamba2-1.3b").scaled(
+        n_layers=2, compute_dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    p_cpu = model.init(0, device="cpu", trainable=True)
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    batch = SyntheticLM(cfg, 2, 48, seed=0).batch_at(0)
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=10)
+    ops.reset_launches()
+    res = []
+    for dev, params in ((cuda, p_gpu), ("cpu", p_cpu)):
+        named = dict(params.named_parameters())
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = model.loss(params, b)
+        grads = {n: g.cpu() for n, g in zip(named, torch.autograd.grad(
+            loss, list(named.values())))}
+        _, state, loss, _ = build_step_fn(cfg, opt_cfg)(
+            params, init_opt_state(named), b)
+        res.append((float(loss), grads, {n: p.detach().cpu()
+                                         for n, p in named.items()}))
+    assert ops.launches()["ssd"] == 4 * cfg.n_layers
+    assert abs(res[0][0] - res[1][0]) <= 1e-4 * abs(res[1][0])
+    # fp32 on both sides: each leaf's gradient within 1e-4 relative L2
+    for n, want in res[1][1].items():
+        err = float((res[0][1][n] - want).norm() / want.norm())
+        assert err <= 1e-4, (n, err)
+    for n, want in res[1][2].items():
+        # the first AdamW step moves every element by about +-lr whatever
+        # its gradient (held above), so near-zero gradients may go either
+        # way: this holds the update's size and finiteness
+        torch.testing.assert_close(res[0][2][n], want, rtol=1e-5,
+                                   atol=2 * 3e-4)
