@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the NTX reproduction on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # every phase: serve llama3-8b, train mamba2-1.3b
+    python3 chip_smoke.py    # every phase: serve llama3-8b, train
+                             # mamba2-1.3b, run the paper's kernel suite
 
 Phases, one result line each:
   1. build   — compile the CUDA kernels (src/repro_torch/kernels/csrc)
@@ -10,7 +11,7 @@ Phases, one result line each:
                card, at the serving and training paths' shapes.
   3. time    — each kernel's time (CUDA events), its bound, its plain
                version's time and one PyTorch library call's time; the
-               PyTorch SSD backward on its own.
+               PyTorch SSD backward on its own, with its bound.
   4. width   — llama3-8b at full width, depth cut to 2 layers, on the card
                and on the CPU with the same weights: prefill logits and
                4 greedy tokens.
@@ -26,6 +27,14 @@ Phases, one result line each:
                checkpoint; step time, tokens/s, peak memory and launch
                counts; then apply_updates(use_fused=True) against
                use_fused=False on the final state.
+  8. suite   — the paper's §III-B kernel suite through the ops entry
+               points: conv2d 3x3/5x5/7x7 on an 8192 x 8192 plane, the
+               stencil pass on each axis of 512**3, Laplace 1-D/2-D/3-D
+               (2**26, 8192**2, 512**3), the compensated GEMM at 4096**3,
+               AXPY 2**22 and a THRESH->RELU->THRESH chain through ops and
+               as ntx.Programs, and the PCS RMSE study on the card against
+               the CPU; Gflop/s, bound shares and launch counts, then each
+               result against its plain version as in phase 2.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import math
 import os
@@ -56,7 +66,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+#: phase 8's shapes: the conv plane, the Laplace grids, the GEMM side
+CONV_HW, CONV_TAPS = 8192, (3, 5, 7)
+LAP_SHAPES = ((1 << 26,), (8192, 8192), (512, 512, 512))
+KAHAN_N = 4096
+AXPY_N = 1 << 22
+#: the 3-command streaming chain of benchmarks/run.py's fusion section
+CHAIN3 = [("thresh", 0.2), ("relu", 0.0), ("thresh", 0.5)]
 
 
 class Failed(Exception):
@@ -260,6 +277,9 @@ def kernel_cases(torch):
          (gum + 1024.0,), False),
     ]
     for name, stages, xx, ys, path in chains:
+        # COPY->ARGMAX is one torch.argmax; the AXPY chains have no one call
+        lib = (lambda xx=xx: torch.argmax(xx, -1)) \
+            if stages == [("copy", 0.0)] else None
         cases.append(dict(
             name=name, wrapper="chain_reduce", source=stream_src,
             replaces=cr_rep,
@@ -267,7 +287,7 @@ def kernel_cases(torch):
                 s, "argmax", xx, ys),
             plain=lambda s=stages, xx=xx, ys=ys: _chain_reduce_plain(
                 ops, ntx_reduce, s, xx, ys),
-            library=None, mode="equal", tol=(0.0, 0.0),
+            library=lib, mode="equal", tol=(0.0, 0.0),
             bytes=xx.numel() * 4 * (2 + len(ys)) + 4,
             ops=xx.numel() * (len(stages) + 1), kind="fp32", path=path))
 
@@ -309,6 +329,7 @@ def kernel_cases(torch):
         bytes=n * 4 * (2 + n_ys), ops=n * len(all_stages), kind="fp32",
         path=False))
     cases += train_cases(torch, rn)
+    cases += suite_cases(torch, rn)
     return cases
 
 
@@ -393,6 +414,204 @@ def train_cases(torch, rn):
     return cases
 
 
+def laplace_plain(x, stencil1d_plain):
+    """The plain route of ``ops.laplace``: the same per-axis passes over
+    the same interior slices, each the stencil's plain version."""
+    nd, out = x.dim(), None
+    for d in range(nd):
+        sl = [slice(1, -1)] * nd
+        sl[d] = slice(None)
+        term = stencil1d_plain(x[tuple(sl)], (1.0, -2.0, 1.0), d)
+        out = term if out is None else out + term
+    return out
+
+
+def star_weight(torch, nd, device):
+    """The (2 nd + 1)-point Laplace star as a conv weight (1, 1, 3, ...)."""
+    w = torch.zeros((3,) * nd, device=device)
+    centre = (1,) * nd
+    w[centre] = -2.0 * nd
+    for d in range(nd):
+        for side in (0, 2):
+            at = list(centre)
+            at[d] = side
+            w[tuple(at)] = 1.0
+    return w[None, None]
+
+
+def suite_cases(torch, rn):
+    """The paper's kernel suite (phase 8's shapes, ``phase="suite"``):
+    conv2d on an 8192 x 8192 fp32 plane (256 MiB, past the 50 MB L2),
+    the [1, -2, 1] stencil pass along each axis of a 512**3 volume, the
+    Laplace 1-D/2-D/3-D, the compensated GEMM at 4096**3, AXPY 2**22 and
+    the THRESH -> RELU -> THRESH chain as the ntx.Program path hands them
+    to the streaming kernel. Checked but not path shapes
+    (``path=False``): the paper's Figure-5 sizes
+    (``perfmodel/ntx.py:98-107``), which sit in L2, and the compensated
+    GEMM at the reference test's x100 inputs and on exact slabs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ntx_elementwise as ew
+    from repro_torch.kernels import ntx_gemm
+    from repro_torch.kernels.ntx_conv import conv2d_plain
+    from repro_torch.kernels.ntx_stencil import stencil1d_plain
+    cases = []
+    conv_src = "src/repro_torch/kernels/csrc/ntx_conv.cu"
+    conv_rep = "src/repro/kernels/ntx_conv.py:33"
+    st_src = "src/repro_torch/kernels/csrc/ntx_stencil.cu"
+    st_rep = "src/repro/kernels/ntx_stencil.py:31"
+    common = dict(kind="fp32", phase="suite")
+
+    def conv_case(img, k, path):
+        ker = rn(k, k, std=1.0 / k)
+        h, w = img.shape
+        oh, ow = h - k + 1, w - k + 1
+        cases.append(dict(
+            name=f"conv2d:{k}x{k}_{h}x{w}", wrapper="conv2d",
+            source=conv_src, replaces=conv_rep,
+            kernel=lambda: ops.conv2d(img, ker),
+            plain=lambda: conv2d_plain(img, ker),
+            library=lambda: F.conv2d(img[None, None], ker[None, None]),
+            mode="equal", tol=(0.0, 0.0), bytes=4.0 * (h * w + oh * ow),
+            ops=2.0 * k * k * oh * ow, path=path, **common))
+
+    plane = rn(CONV_HW, CONV_HW)
+    for k in CONV_TAPS:
+        conv_case(plane, k, True)
+    small = rn(256, 256)
+    for k in CONV_TAPS:
+        conv_case(small, k, False)
+
+    taps = (1.0, -2.0, 1.0)
+    vol = rn(*LAP_SHAPES[2])
+    for axis in range(3):
+        shape = [1, 1, 1]
+        shape[axis] = 3
+        wgt = torch.tensor(taps, device=DEVICE).reshape(1, 1, *shape)
+        n_out = vol.numel() // vol.shape[axis] * (vol.shape[axis] - 2)
+        cases.append(dict(
+            name=f"stencil:k3_axis{axis}_{'x'.join(map(str, vol.shape))}",
+            wrapper="stencil",
+            source=st_src, replaces=st_rep,
+            kernel=lambda a=axis: ops.stencil_axis(vol, taps, a),
+            plain=lambda a=axis: stencil1d_plain(vol, taps, a),
+            library=lambda wgt=wgt: F.conv3d(vol[None, None], wgt),
+            mode="equal", tol=(0.0, 0.0),
+            bytes=4.0 * (vol.numel() + n_out), ops=6.0 * n_out, path=True,
+            **common))
+
+    def laplace_case(x, path):
+        nd = x.dim()
+        interior = math.prod(s - 2 for s in x.shape)
+        conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[nd]
+        wgt = star_weight(torch, nd, DEVICE)
+        cases.append(dict(
+            name=f"laplace:{nd}d_{'x'.join(map(str, x.shape))}",
+            wrapper="stencil", source=st_src, replaces=st_rep,
+            kernel=lambda: ops.laplace(x),
+            plain=lambda: laplace_plain(x, stencil1d_plain),
+            library=lambda: conv(x[None, None], wgt)[0, 0],
+            mode="close", tol=(1e-5, 1e-5),
+            bytes=4.0 * (x.numel() + interior),
+            ops=2.0 * (2 * nd + 1) * interior, path=path, **common))
+
+    laplace_case(rn(*LAP_SHAPES[0]), True)
+    laplace_case(plane, True)
+    laplace_case(vol, True)
+    for shape in ((1 << 22,), (2048, 2048), (160, 160, 160)):
+        laplace_case(rn(*shape), False)
+
+    gemm_src = "src/repro_torch/kernels/csrc/ntx_gemm.cu"
+    kahan_rep = "src/repro/kernels/ntx_gemm.py:112"
+
+    def kahan_case(name, a, b, check, path, **how):
+        m, k = a.shape
+        n = b.shape[1]
+        cases.append(dict(
+            name=name, wrapper="gemm_kahan", source=gemm_src,
+            replaces=kahan_rep,
+            kernel=lambda: ops.gemm(a, b, compensated=True),
+            plain=lambda: ntx_gemm.gemm_kahan_plain(a, b),
+            library=None, aside=lambda: torch.matmul(a, b),
+            check=check, bytes=4.0 * (m * k + k * n + m * n),
+            ops=2.0 * m * n * k, path=path, **how, **common))
+
+    def errors(a, b, got):
+        """Max |error| of the compensated result and of the uncompensated
+        kernel against an fp64 product, and the fp64 product."""
+        ref64 = a.double() @ b.double()
+        err_c = float((got.double() - ref64).abs().max())
+        err_p = float((ops.gemm(a, b).double() - ref64).abs().max())
+        return err_c, err_p, ref64
+
+    def halves_the_error(a, b):
+        """The reference's property asks no more than x 1.01 the
+        uncompensated error, which skipping compensation would meet; at
+        most half of it is asked here (0.08 at 4096**3 and 0.13 at the
+        x100 inputs were measured on an H100)."""
+        def check(got):
+            err_c, err_p, _ = errors(a, b, got)
+            return err_c <= 0.5 * err_p, (
+                f"max |err| vs fp64: compensated {err_c:.4e}, uncompensated "
+                f"ntx_gemm {err_p:.4e} (limit x 0.5)")
+        return check
+
+    def rounded_once(a, b):
+        """Exact slabs: the fp64 product rounded once, bit for bit, and
+        the uncompensated kernel off by more."""
+        def check(got):
+            err_c, err_p, ref64 = errors(a, b, got)
+            return bool(torch.equal(got, ref64.float())) and (
+                err_p > err_c + 1.0), (
+                f"equals the fp64 product rounded once: "
+                f"{bool(torch.equal(got, ref64.float()))} | max |err| vs "
+                f"fp64: compensated {err_c:.4e}, uncompensated ntx_gemm "
+                f"{err_p:.4e}")
+        return check
+
+    # against the plain version: within 1e-5 of the product's standard
+    # deviation, std_a std_b sqrt(k) (a difference of 0 was measured)
+    for name, (m, k, n), std_a, std_b, path in (
+            (f"gemm_kahan:{KAHAN_N}^3_fp32", (KAHAN_N,) * 3, 1.0,
+             KAHAN_N ** -0.5, True),
+            ("gemm_kahan:128x2048x128_x100", (128, 2048, 128), 100.0, 100.0,
+             False)):
+        a, b = rn(m, k, std=std_a), rn(k, n, std=std_b)
+        kahan_case(name, a, b, halves_the_error(a, b), path, mode="close",
+                   tol=(0.0, 1e-5 * std_a * std_b * math.sqrt(k)))
+    # integers in [-8, 8], the first slab's times 2**16: every slab product
+    # is exact in fp32 in any order, the slab sums near 2**24 lose low
+    # bits, and only the compensation keeps them (so a kernel that skipped
+    # or dropped it fails); both routes are then exact
+    ints = lambda *s: (rn(*s) * 3.0).round().clamp(-8.0, 8.0)
+    a, b = ints(1024, 4096), ints(4096, 1024)
+    a[:, :ntx_gemm.KAHAN_SLAB] *= 2.0 ** 16
+    kahan_case("gemm_kahan:1024x4096x1024_exact_slabs", a, b,
+               rounded_once(a, b), False, mode="equal", tol=(0.0, 0.0))
+
+    # as phase 8's ntx.Programs hand them to the streaming kernel: AXPY,
+    # and the THRESH -> RELU -> THRESH chain (which is one F.threshold)
+    ex, ey = rn(1, AXPY_N), rn(1, AXPY_N)
+    stream_src = "src/repro_torch/kernels/csrc/ntx_stream.cu"
+    for name, wrapper, rep, run, plain, lib, nbytes, nops in (
+            (f"elementwise:axpy_1x{AXPY_N}", "elementwise",
+             "src/repro/kernels/ntx_elementwise.py:61",
+             lambda: ops.elementwise("axpy", ex, ey, imm=2.5),
+             lambda: ew.elementwise_plain("axpy", ex, ey, 2.5),
+             lambda: torch.add(ey, ex, alpha=2.5), 12, 2),
+            (f"elementwise_chain:thresh_relu_thresh_1x{AXPY_N}",
+             "elementwise_chain", "src/repro/kernels/ntx_elementwise.py:109",
+             lambda: ops.elementwise_chain(CHAIN3, ex),
+             lambda: ew.elementwise_chain_plain(CHAIN3, ex),
+             lambda: F.threshold(ex, 0.5, 0.0), 8, 3)):
+        cases.append(dict(
+            name=name, wrapper=wrapper, source=stream_src, replaces=rep,
+            kernel=run, plain=plain, library=lib, mode="equal",
+            tol=(0.0, 0.0), bytes=float(nbytes * AXPY_N),
+            ops=float(nops * AXPY_N), path=True, **common))
+    return cases
+
+
 def time_ssd_backward(torch) -> dict:
     """The SSD backward (PyTorch autograd of the plain version, which
     ``ops.ssd``'s backward recomputes; no kernel of this package yet) at
@@ -409,8 +628,15 @@ def time_ssd_backward(torch) -> dict:
         y = ssd_scan_plain(*ins, chunk=128)
         return torch.autograd.grad(y, ins, gy)
     ms = time_ms(bwd, torch, warmup=1, iters=5)
+    # the bound: read the inputs and gy once, write each input's gradient
+    # once; about twice the forward's operations, at the inputs' bf16 rate
+    nbytes = gy.numel() * gy.element_size() + 2 * sum(
+        t.numel() * t.element_size() for t in ins)
+    b_ms, b_by = bound_ms(nbytes, 2 * ssd_ops(TRAIN_SEQ, 64, 64, 128,
+                                              TRAIN_BATCH, 128), "bf16")
     say("time", f"ssd_bwd:train_b8_l1024_bf16 (PyTorch autograd, not a "
-                f"kernel): {ms:.4f} ms per layer | card {card_line()}")
+                f"kernel): {ms:.4f} ms per layer | bound {b_ms:.4f} ms "
+                f"({b_by}: {nbytes / 1e6:.1f} MB) | card {card_line()}")
     return {"name": "ssd_bwd", "ms": ms}
 
 
@@ -461,6 +687,12 @@ def phase_check_and_time(torch, do_time: bool) -> list:
                      f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(case["name"])
+        if case.get("check"):
+            ok, msg = case["check"](got)
+            say("check", f"{case['name']}: {msg} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(case["name"])
+        del got, want
         case["max_abs_err"] = max_abs
         rows.append(case)
     need(not failed, f"kernels disagree with their plain versions: {failed}")
@@ -474,11 +706,16 @@ def phase_check_and_time(torch, do_time: bool) -> list:
             case["bound_ms"], case["bound_by"] = b_ms, b_by
             lib = (f"{case['library_ms']:.4f}" if case["library_ms"]
                    is not None else "null")
+            aside = (f" | torch.matmul fp32 (not the same function) "
+                     f"{time_ms(case['aside'], torch):.4f} ms"
+                     if case.get("aside") else "")
             say("time", f"{case['name']}: kernel {case['ms']:.4f} ms | "
                         f"bound {b_ms:.4f} ms ({b_by}) | plain "
-                        f"{case['plain_ms']:.4f} ms | library {lib} ms")
+                        f"{case['plain_ms']:.4f} ms | library {lib} ms"
+                        f"{aside}")
     for case in rows:            # free the inputs the closures hold
-        for key in ("kernel", "plain", "library", "scale"):
+        for key in ("kernel", "plain", "library", "scale", "check",
+                    "aside"):
             case.pop(key, None)
     torch.cuda.empty_cache()
     return rows
@@ -852,9 +1089,149 @@ def phase_train(torch, np) -> dict:
     return dict(train_counts, adamw=n_fused)
 
 
+# ----------------------------------------------------------------------
+# phase 8: the paper's kernel suite
+# ----------------------------------------------------------------------
+def phase_suite(torch, np) -> dict:
+    """The paper's §III-B kernel suite through the entry points a user
+    calls: the path cases of ``suite_cases`` (``ops.conv2d``,
+    ``ops.stencil_axis``, ``ops.laplace``, ``ops.gemm(compensated=True)``,
+    ``ops.elementwise``/``ops.elementwise_chain``), AXPY and the 3-command
+    chain as ``ntx.Program``s run by ``ntx.Executor``, and the
+    ``precision`` RMSE study. After one untimed pass, each call is timed
+    once with CUDA events between a launch-count reset and a read; then
+    each result is held against its plain version by the case's own
+    mode, tolerance and check, as in phase 2."""
+    import ntx_torch as ntx
+    from repro_torch.core import precision
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ntx_elementwise as ew
+
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    rn = lambda *s, std=1.0: torch.randn(*s, generator=g,
+                                         device=DEVICE) * std
+    card = card_line()
+    cases = [case for case in suite_cases(torch, rn) if case["path"]]
+    xs, ys = rn(AXPY_N), rn(AXPY_N)
+    with ntx.Program() as prog:
+        xb = prog.buffer((AXPY_N,), name="x")
+        yb = prog.buffer((AXPY_N,), name="y")
+        axpy_out = prog.axpy(2.5, xb, yb)
+    with ntx.Program() as chain:          # benchmarks/run.py:_chain_program
+        cx = chain.buffer((AXPY_N,), name="x")
+        t = chain.thresh(cx, CHAIN3[0][1])
+        chain.relu(t, out=t)
+        chain.thresh(t, CHAIN3[2][1], out=t)
+
+    # (name, call, wrapper, bytes, operations)
+    items = [(case["name"], case["kernel"], case["wrapper"], case["bytes"],
+              case["ops"]) for case in cases]
+    for policy in ("serial", "fused"):
+        items.append((f"axpy {AXPY_N} ntx.Program {policy}",
+                      lambda p=policy: ntx.Executor(p, device=DEVICE).run(
+                          prog, inputs={xb: xs, yb: ys}).read_tensor(
+                              axpy_out),
+                      "elementwise", 12.0 * AXPY_N, 2.0 * AXPY_N))
+    items.append((f"thresh-relu-thresh {AXPY_N} ntx.Program fused",
+                  lambda: ntx.Executor("fused", device=DEVICE).run(
+                      chain, inputs={cx: xs}).read_tensor(t),
+                  "elementwise_chain", 8.0 * AXPY_N, 3.0 * AXPY_N))
+    # one untimed pass, its outputs held together as the timed pass holds
+    # them, so the timed calls reuse cached blocks instead of new ones
+    warm = [call() for _, call, _, _, _ in items]
+    del warm
+    torch.cuda.synchronize()
+    alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    alloc0 = torch.cuda.memory_stats()
+    gc0 = sum(g["collections"] for g in gc.get_stats())
+    ops.reset_launches()
+    outs, times, unlaunched = [], [], []
+    for name, call, wrapper, _, _ in items:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = ops.launches()[wrapper]
+        t0 = time.perf_counter()
+        start.record()
+        outs.append(call())
+        end.record()
+        times.append((start, end, (time.perf_counter() - t0) * 1e3))
+        if ops.launches()[wrapper] == before:
+            unlaunched.append(name)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    alloc1 = torch.cuda.memory_stats()
+    host = {k: alloc1.get(k, 0) - alloc0.get(k, 0) for k in alloc_keys}
+    host["gc_collections"] = sum(g["collections"]
+                                 for g in gc.get_stats()) - gc0
+    for (name, _, _, nbytes, nops), (start, end, host_ms) in zip(items,
+                                                                 times):
+        ms = start.elapsed_time(end)
+        flops, bps = nops / ms * 1e3, nbytes / ms * 1e3
+        b_ms, b_by = bound_ms(nbytes, nops, "fp32")
+        say("suite", f"{name}: {ms:.4f} ms | {flops / 1e9:.1f} Gflop/s "
+                     f"({flops / PEAK_OPS['fp32']:.4f} of the fp32 rate) | "
+                     f"{bps / 1e9:.1f} GB/s ({bps / HBM_BYTES_PER_S:.4f} of "
+                     f"HBM) | bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f}"
+                     f" of it | host {host_ms:.4f} ms to enqueue it | card "
+                     f"{card}")
+    say("suite", f"kernel launches {counts} | during the timed calls: "
+                 f"caching-allocator and Python gc events {host}")
+    need(not unlaunched, f"suite calls that launched no kernel: {unlaunched}")
+    for shape in LAP_SHAPES[1:]:
+        # ops.laplace hands each pass the slice interior on the other
+        # axes, which the stencil kernel needs contiguous: that copy's cost
+        x, nd = torch.empty(shape, device=DEVICE), len(shape)
+        views = []
+        for d in range(nd):
+            sl = [slice(1, -1)] * nd
+            sl[d] = slice(None)
+            views.append(x[tuple(sl)])
+        copy_ms = time_ms(lambda: [v.contiguous() for v in views], torch,
+                          warmup=1, iters=5)
+        say("suite", f"laplace {nd}-D: copying its {nd} interior slices "
+                     f"contiguous takes {copy_ms:.4f} ms (CUDA events, mean "
+                     f"of 5) | card {card}")
+        del x, views
+
+    # every result against its plain version on the card
+    bad = []
+    for case, got in zip(cases, outs):
+        ok, max_abs, _ = compare(torch, case, got, case["plain"]())
+        msg = f"max_abs_err {max_abs:.3e} vs its plain version"
+        if case.get("check"):
+            ok2, more = case["check"](got)
+            ok, msg = ok and ok2, f"{msg} | {more}"
+        say("suite", f"{case['name']}: {msg} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(case["name"])
+    rest = outs[len(cases):]
+    want = ref.elementwise("axpy", xs, ys, 2.5)
+    for policy, got in zip(("serial", "fused"), rest):
+        if not torch.equal(got, want):
+            bad.append(f"axpy program {policy}")
+    if not torch.equal(rest[2], ew.elementwise_chain_plain(CHAIN3, xs)):
+        bad.append("chain program fused")
+    del outs, rest, want, cases, items
+
+    t0 = time.perf_counter()
+    study = precision.conv_layer_rmse_study(n_outputs=128, device=DEVICE)
+    card_s = time.perf_counter() - t0
+    cpu = precision.conv_layer_rmse_study(n_outputs=128, device="cpu")
+    say("suite", f"PCS RMSE study, 128 outputs of 576 (Kahan on the card, "
+                 f"{card_s:.2f} s): {study} | equals the CPU run: "
+                 f"{study == cpu}")
+    if study != cpu or not (study["rmse_pcs"] < study["rmse_fp32_chained"]
+                            and study["rmse_kahan"]
+                            < study["rmse_fp32_chained"]):
+        bad.append("rmse study")
+    need(not bad, f"suite results disagree: {bad}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -905,11 +1282,13 @@ def main(argv=None) -> int:
             phase_train_width(torch, np)
         if 7 in phases:
             counts["train"] = phase_train(torch, np)
+        if 8 in phases:
+            counts["suite"] = phase_suite(torch, np)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    if {3, 5, 7} <= phases:
+    if {3, 5, 7, 8} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

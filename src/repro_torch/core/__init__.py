@@ -3,7 +3,8 @@
 The descriptor ISA (descriptor.py), the functional engines (engine.py),
 the kernel dispatch (dispatch.py), fused command streams (stream.py),
 the Program builder (program.py) and the policy-driven Executor
-(executor.py), over the paper's cluster spec (cluster.py, memory.py).
+(executor.py), over the paper's cluster spec (cluster.py, memory.py),
+and the PCS wide-accumulator precision study (precision.py).
 """
 from .descriptor import (Agu, Descriptor, Opcode, axpy, gemv, gemm, memcpy,
                          memset, relu, argmax, laplace1d,
@@ -16,6 +17,7 @@ from .dispatch import dispatch
 from .stream import CommandStream, plan_stream, program_spans
 from .program import BufferHandle, Program, ProgramResult
 from .executor import ExecutionPolicy, Executor
+from . import precision
 
 __all__ = [
     "Agu", "Descriptor", "Opcode", "axpy", "gemv", "gemm", "memcpy",
@@ -25,5 +27,5 @@ __all__ = [
     "NtxClusterSpec", "PAPER_CLUSTER", "NtxMemSpec", "PAPER_MEM",
     "dispatch", "CommandStream", "plan_stream", "program_spans",
     "BufferHandle", "Program", "ProgramResult", "ExecutionPolicy",
-    "Executor",
+    "Executor", "precision",
 ]

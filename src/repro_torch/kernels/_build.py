@@ -38,9 +38,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # (a, b, c, m, n, k, in_bf16, out_bf16, n_stages, kinds, imms,
-    #  operands, stream)
-    "ntx_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (a, b, c, m, n, k, in_bf16, out_bf16, compensated, n_stages, kinds,
+    #  imms, operands, stream)
+    "ntx_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # (q, k, v, o, b, hq, hkv, sq, skv, d, kv_len, causal, scale,
     #  bf16, stream)
     "ntx_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -50,6 +50,10 @@ _SIGNATURES = {
     "ntx_stream": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P],
     # (x, dt, A, B, C, y, b, l, h, dh, n, chunk, bf16, stream)
     "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (img, ker, out, h, w, kh, kw, in_bf16, stream)
+    "ntx_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (x, coef, out, outer, n, inner, k, in_bf16, stream)
+    "ntx_stencil": [_P, _P, _P, _L, _I, _L, _I, _I, _P],
     # (p, g, m, v, p_out, m_out, v_out, n, lr, b1, 1 - b1, b2, 1 - b2,
     #  eps, wd, bc1, bc2, p_bf16, stream)
     "ntx_adamw": [_P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,

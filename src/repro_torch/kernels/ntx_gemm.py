@@ -5,7 +5,8 @@ Counterpart of ``repro.kernels.ntx_gemm``: ``C = epilogue(A @ B)`` with
 an fp32 accumulator rounded once at the store (the PCS wide
 accumulator, the descriptor's store_level). The epilogue stages run on
 the fp32 accumulator in the store step, in order, before the single
-write.
+write. ``compensated=True`` (``_gemm_kernel_kahan``) carries a Neumaier
+compensation term across slabs of k and adds it before the epilogue.
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ EPILOGUE_KINDS = EPILOGUE_ARRAY_KINDS + ("scale", "relu", "thresh",
 _KIND = {k: i for i, k in enumerate(EPILOGUE_KINDS)}
 #: stages the kernel takes per launch
 MAX_EPILOGUE = 16
+#: depth of the k slabs the compensated GEMM sums exactly-then-compensates
+#: (the default block_k of gemm_pallas; ``kKahanSlab`` in the kernel).
+#: The result depends on it, so both routes use this one width.
+KAHAN_SLAB = 128
 
 
 def apply_epilogue(acc: torch.Tensor, stages, operands) -> torch.Tensor:
@@ -79,14 +84,42 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     return apply_epilogue(acc, stages, operands).to(out_dtype)
 
 
+def kahan_add(acc: torch.Tensor, comp: torch.Tensor, x: torch.Tensor):
+    """One Neumaier step: returns (acc', comp'). ``|acc| >= |x|`` picks
+    the branch whose rounding error is exact."""
+    t = acc + x
+    comp = comp + torch.where(acc.abs() >= x.abs(), (acc - t) + x,
+                              (x - t) + acc)
+    return t, comp
+
+
+def gemm_kahan_plain(a: torch.Tensor, b: torch.Tensor,
+                     out_dtype=torch.float32, epilogue=()) -> torch.Tensor:
+    """Plain version of ``gemm_pallas(compensated=True)``: each
+    KAHAN_SLAB-deep slab's fp32 product ``a[:, s] @ b[s, :]`` is
+    Neumaier-added into ``(acc, comp)`` as ``_gemm_kernel_kahan`` adds its
+    k blocks; the epilogue runs on ``acc + comp``, rounded once."""
+    m, k = a.shape
+    acc = torch.zeros((m, b.shape[1]), dtype=torch.float32, device=a.device)
+    comp = torch.zeros_like(acc)
+    for s in range(0, k, KAHAN_SLAB):
+        x = a[:, s:s + KAHAN_SLAB].float() @ b[s:s + KAHAN_SLAB].float()
+        acc, comp = kahan_add(acc, comp, x)
+    stages = tuple((kind, imm) for kind, imm, _ in epilogue)
+    operands = [op for kind, _, op in epilogue
+                if kind in EPILOGUE_ARRAY_KINDS]
+    return apply_epilogue(acc + comp, stages, operands).to(out_dtype)
+
+
 _GEMM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
-              epilogue=()) -> torch.Tensor:
+              epilogue=(), compensated: bool = False) -> torch.Tensor:
     """Launch ``csrc/ntx_gemm.cu``: a (m, k) @ b (k, n), both fp32 or both
     bf16, output fp32 or bf16; array epilogue operands are passed as
-    contiguous fp32 ((n,) for bias, (m, n) otherwise)."""
+    contiguous fp32 ((n,) for bias, (m, n) otherwise). ``compensated``
+    takes the kernel's Neumaier variant over KAHAN_SLAB-deep slabs."""
     if a.dtype != b.dtype or a.dtype not in _GEMM_DTYPES:
         raise ValueError(f"ntx_gemm takes two fp32 or two bf16 operands, "
                          f"got {a.dtype} @ {b.dtype}")
@@ -117,7 +150,8 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     with torch.cuda.device(a.device):
         code = lib.ntx_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                             int(a.dtype == torch.bfloat16),
-                            int(out_dtype == torch.bfloat16), len(epilogue),
+                            int(out_dtype == torch.bfloat16),
+                            int(compensated), len(epilogue),
                             kinds, imms, ops_arr, _build.stream_of(a))
     _build.check(code, "ntx_gemm")
     return c

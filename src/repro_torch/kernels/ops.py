@@ -17,29 +17,36 @@ a run can show that it went through the kernels.
 
 Gradients: ``ssd`` is a ``torch.autograd.Function`` (its backward is
 PyTorch autograd of the masked chunked form). The other kernels have no
-backward yet, so their CUDA routes raise under autograd rather than
-return results that no gradient reaches (ROADMAP: GEMM and flash
-backward for dense training); their CPU routes are plain PyTorch and
-differentiate as such.
+backward yet (the reference has none for conv, the stencil pass or the
+compensated GEMM either), so their CUDA routes raise under autograd
+rather than return results that no gradient reaches (ROADMAP: GEMM and
+flash backward for dense training); their CPU routes are plain PyTorch
+and differentiate as such.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .ntx_elementwise import (MAX_STAGES, _OPS2, adamw_cuda, adamw_plain,
                               elementwise_chain_plain, elementwise_plain,
                               normalize_stages, stream_cuda)
-from .ntx_gemm import EPILOGUE_ARRAY_KINDS, gemm_cuda, gemm_plain
+from .ntx_conv import check_shapes, conv2d_cuda, conv2d_plain
+from .ntx_gemm import (EPILOGUE_ARRAY_KINDS, gemm_cuda, gemm_kahan_plain,
+                       gemm_plain)
+from .ntx_stencil import as_blocks, stencil1d_cuda, stencil1d_plain
 from .ntx_reduce import REDUCE_OPS, chain_reduce_plain, reduce_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 #: kernel launches per wrapper since the last :func:`reset_launches`;
 #: ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
 #: not a kernel of this package yet)
-LAUNCHES = {"gemm": 0, "attention": 0, "elementwise": 0,
+LAUNCHES = {"gemm": 0, "gemm_kahan": 0, "attention": 0, "elementwise": 0,
             "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0,
-            "ssd": 0, "ssd_bwd": 0, "adamw": 0}
+            "ssd": 0, "ssd_bwd": 0, "adamw": 0, "conv2d": 0, "stencil": 0}
 
 
 def reset_launches() -> None:
@@ -101,17 +108,19 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     store step (one rounding): ("bias", vec), ("residual", mat),
     ("mul", mat), ("sub", mat), ("mask", mat), ("scale", s),
     ("thresh", t), "relu", "silu", "gelu".
+
+    ``compensated``: Neumaier-compensated accumulation across
+    ``ntx_gemm.KAHAN_SLAB``-deep slabs of k (the reference's
+    ``_gemm_kernel_kahan``, which compensates across its k blocks).
     """
-    if compensated:
-        raise NotImplementedError(
-            "compensated (Kahan) GEMM is not ported yet: ROADMAP queue 2, "
-            "ntx_gemm.py:_gemm_kernel_kahan")
     epilogue = _norm_epilogue(epilogue)
     if not _on_card(a, b, *(op for _, _, op in epilogue)):
-        return gemm_plain(a, b, out_dtype=out_dtype, epilogue=epilogue)
+        plain = gemm_kahan_plain if compensated else gemm_plain
+        return plain(a, b, out_dtype=out_dtype, epilogue=epilogue)
     _no_backward("gemm", a, b, *(op for _, _, op in epilogue))
-    LAUNCHES["gemm"] += 1
-    return gemm_cuda(a, b, out_dtype=out_dtype, epilogue=epilogue)
+    LAUNCHES["gemm_kahan" if compensated else "gemm"] += 1
+    return gemm_cuda(a, b, out_dtype=out_dtype, epilogue=epilogue,
+                     compensated=compensated)
 
 
 # ----------------------------------------------------------------------
@@ -244,6 +253,77 @@ def reduce(op: str, x: torch.Tensor) -> torch.Tensor:
     LAUNCHES["reduce"] += 1
     _, red = stream_cuda((), x2, tail=op, write_out=False, red_int=True)
     return red.reshape(x.shape[:-1])
+
+
+# ----------------------------------------------------------------------
+# Convolution
+# ----------------------------------------------------------------------
+def conv2d(img: torch.Tensor, ker: torch.Tensor,
+           strip_rows: int = 256) -> torch.Tensor:
+    """Valid 2-D correlation of an (h, w) plane with (kh, kw) taps, fp32.
+
+    ``strip_rows`` is the reference's host strip height. Every output
+    element is computed on its own, so the strips do not change the
+    result: the plain version runs over the whole plane, and on the card
+    one launch covers it (its grid of tiles replaces the strip loop).
+    ``strip_rows`` is only validated."""
+    if strip_rows <= 0:
+        raise ValueError(f"strip_rows must be positive, got {strip_rows}")
+    check_shapes(img, ker)
+    if not _on_card(img, ker):
+        return conv2d_plain(img, ker)
+    _no_backward("conv2d", img, ker)
+    LAUNCHES["conv2d"] += 1
+    return conv2d_cuda(img, ker)
+
+
+# ----------------------------------------------------------------------
+# Stencils (paper §III-B3: star stencils as per-axis passes)
+# ----------------------------------------------------------------------
+def stencil_axis(x: torch.Tensor, coeffs, axis: int) -> torch.Tensor:
+    """Valid 1-D stencil along ``axis`` with ``len(coeffs)`` taps, fp32
+    out. ``coeffs``: a sequence of floats or a tensor of taps on any
+    device, rounded to fp32. On the card ``x`` is viewed as (outer, n,
+    inner) around ``axis`` (a copy only if ``x`` is not contiguous) and
+    one launch runs it."""
+    if not _on_card(x):
+        if torch.is_tensor(coeffs):
+            coeffs = coeffs.detach().cpu()
+        vals = [float(c) for c in np.asarray(coeffs, np.float32).reshape(-1)]
+        return stencil1d_plain(x, vals, axis)
+    _no_backward("stencil", x)
+    axis = axis % x.dim()
+    taps = torch.as_tensor(coeffs, dtype=torch.float32,
+                           device=x.device).reshape(-1)
+    LAUNCHES["stencil"] += 1
+    out = stencil1d_cuda(as_blocks(x.contiguous(), axis), taps)
+    shape = list(x.shape)
+    shape[axis] = out.shape[1]
+    return out.view(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _laplace_taps(device: torch.device) -> torch.Tensor:
+    """The [1, -2, 1] taps, made once per device."""
+    return torch.tensor((1.0, -2.0, 1.0), dtype=torch.float32, device=device)
+
+
+def laplace(x: torch.Tensor) -> torch.Tensor:
+    """n-D discrete Laplace on the interior, the paper's decomposition:
+    per axis d, a [1, -2, 1] ``stencil_axis`` pass over the slice that is
+    interior on the other axes, the passes summed in axis order (the
+    reference's Pallas route; ``ref.laplace`` sums in another order).
+    On the card each slice but the 1-D one is a strided view that
+    ``stencil_axis`` copies to make contiguous."""
+    nd = x.ndim
+    taps = _laplace_taps(x.device)
+    out = None
+    for d in range(nd):
+        sl = [slice(1, -1)] * nd
+        sl[d] = slice(None)
+        term = stencil_axis(x[tuple(sl)], taps, d)
+        out = term if out is None else out + term
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Plain PyTorch oracles for the kernels this package ports.
 
 The counterpart of ``repro.kernels.ref`` for the ported kernels: GEMM,
-the streaming command set, the row reductions, reference attention, the
-Mamba-2 SSD scan (sequential and chunked) and AdamW.
+the streaming command set, the row reductions, the paper's convolution
+and star stencils, reference attention, the Mamba-2 SSD scan (sequential
+and chunked) and AdamW.
 Same math, no tiling; the CPU path of every ``ops`` wrapper and the
 yardstick each CUDA kernel is compared with on the card.
 """
@@ -80,6 +81,72 @@ def reduce(op: str, x: torch.Tensor) -> torch.Tensor:
     if op == "argmax":
         return torch.argmax(x, -1).to(torch.int32)
     raise ValueError(op)
+
+
+# ----------------------------------------------------------------------
+# Convolution (paper §III-B2): valid 2-D, single channel plane
+# ----------------------------------------------------------------------
+def conv2d(img: torch.Tensor, ker: torch.Tensor) -> torch.Tensor:
+    """Valid correlation of (H, W) with (kh, kw): the NTX conv command.
+
+    Both are taken in fp32 (an fp32 0-d tap times a bf16 plane is fp32 in
+    JAX but bf16 in PyTorch); the taps run i outer, j inner, each product
+    rounded before its add, as ``repro.kernels.ref.conv2d``."""
+    img, ker = img.float(), ker.float()
+    kh, kw = ker.shape
+    h, w = img.shape
+    oh, ow = h - kh + 1, w - kw + 1
+    out = torch.zeros((oh, ow), dtype=torch.float32, device=img.device)
+    for i in range(kh):
+        for j in range(kw):
+            out = out + ker[i, j] * img[i:i + oh, j:j + ow]
+    return out
+
+
+# ----------------------------------------------------------------------
+# Stencils (paper §III-B3)
+# ----------------------------------------------------------------------
+def stencil_axis(x: torch.Tensor, coeffs, axis: int) -> torch.Tensor:
+    """1-D stencil along ``axis`` (valid region), len(coeffs) taps."""
+    k = len(coeffs)
+    n = x.shape[axis]
+    out = None
+    for i, c in enumerate(coeffs):
+        sl = [slice(None)] * x.ndim
+        sl[axis] = slice(i, i + n - k + 1)
+        term = f32(c) * x[tuple(sl)]
+        out = term if out is None else out + term
+    return out
+
+
+def laplace(x: torch.Tensor) -> torch.Tensor:
+    """Discrete Laplace operator in ndim dims (3/5/7-point star stencil):
+    interior(out) = sum_d (x[+1_d] + x[-1_d]) - 2 ndim x."""
+    nd = x.ndim
+    core = [slice(1, -1)] * nd
+    out = torch.zeros(x[tuple(core)].shape, dtype=torch.float32,
+                      device=x.device)
+    for d in range(nd):
+        sl_p = list(core)
+        sl_m = list(core)
+        sl_p[d] = slice(2, None)
+        sl_m[d] = slice(0, -2)
+        out = out + x[tuple(sl_p)] + x[tuple(sl_m)]
+    return out - 2.0 * nd * x[tuple(core)]
+
+
+def diffusion(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
+    """The 13-coefficient 2nd-order diffusion stencil of Gysi et al.,
+    decomposed as the paper describes (§III-B3) into a 9-point 3x3 kernel
+    plus the two distance-2 axis taps: x + alpha * L2(x) on the valid
+    interior."""
+    k9 = torch.tensor([[1., 2., 1.], [2., -12., 2.], [1., 2., 1.]],
+                      dtype=torch.float32, device=x.device)
+    inner = conv2d(x, k9)
+    core = x[2:-2, 2:-2]
+    t_v = x[:-4, 2:-2] + x[4:, 2:-2]
+    t_h = x[2:-2, :-4] + x[2:-2, 4:]
+    return core + alpha * (inner[1:-1, 1:-1] + t_v + t_h)
 
 
 # ----------------------------------------------------------------------

@@ -31,6 +31,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -216,3 +217,174 @@ def test_train_step_on_the_card(cuda):
         # way: this holds the update's size and finiteness
         torch.testing.assert_close(res[0][2][n], want, rtol=1e-5,
                                    atol=2 * 3e-4)
+
+
+# ----------------------------------------------------------------------
+# The paper's kernel suite: conv, the stencil pass, the compensated GEMM
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("img_shape,ker_shape", [
+    ((64, 96), (3, 3)), ((64, 96), (7, 7)), ((130, 70), (5, 5)),
+    ((9, 9), (7, 7)), ((1, 50), (1, 3)), ((50, 1), (3, 1)),
+    # taps past the 48 KB halo tile: chunks of tap columns, of tap rows
+    ((70, 300), (3, 200)), ((400, 40), (300, 5))])
+def test_conv_kernel_bit_equal(cuda, dtype, img_shape, ker_shape):
+    """The conv kernel pins every product's rounding, so it is bit-equal
+    to its plain version, ragged edges, bf16 planes and chunked taps
+    included."""
+    from repro_torch.kernels import ntx_conv
+    img = _t(img_shape, cuda).to(getattr(torch, dtype))
+    ker = _t(ker_shape, cuda, 0.3)
+    got = ntx_conv.conv2d_cuda(img, ker)
+    want = ntx_conv.conv2d_plain(img, ker)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,axis,k", [
+    ((12, 14, 16), 0, 3), ((12, 14, 16), 1, 5), ((12, 14, 16), 2, 3),
+    ((1, 50), 1, 3), ((50, 1), 0, 3), ((7, 9), 1, 7), ((3, 5000, 2), 1, 4),
+    ((40, 33, 70), 2, 70)])
+def test_stencil_kernel_bit_equal(cuda, dtype, shape, axis, k):
+    """The stencil pass along any axis of a contiguous block (a view as
+    (outer, n, inner)), bit-equal to its plain version."""
+    x = _t(shape, cuda).to(getattr(torch, dtype))
+    coeffs = [float(c) for c in RNG.standard_normal(k).astype(np.float32)]
+    ops.reset_launches()
+    got = ops.stencil_axis(x, coeffs, axis)
+    assert ops.launches()["stencil"] == 1
+    from repro_torch.kernels import ntx_stencil
+    want = ntx_stencil.stencil1d_plain(x, coeffs, axis)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_stencil_axis_takes_taps_on_the_card(cuda):
+    """A tensor of taps already on the card, as the reference's
+    ``ops.stencil_axis`` takes an array of taps: the same result as the
+    same floats, in one launch each."""
+    x = _t((12, 14, 16), cuda)
+    coeffs = [float(c) for c in RNG.standard_normal(5).astype(np.float32)]
+    ops.reset_launches()
+    got = ops.stencil_axis(x, torch.tensor(coeffs, device=cuda), 1)
+    want = ops.stencil_axis(x, coeffs, 1)
+    assert ops.launches()["stencil"] == 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(300,), (40, 50), (12, 14, 16),
+                                   (3, 1000, 4)])
+def test_laplace_on_the_card_matches_the_cpu(cuda, shape):
+    """One stencil launch per axis; the passes are bit-equal to the
+    plain versions and the sums are the same torch adds, so the card
+    gives the CPU's values."""
+    x = _t(shape, "cpu")
+    ops.reset_launches()
+    got = ops.laplace(x.to(cuda))
+    assert ops.launches()["stencil"] == len(shape)
+    assert torch.equal(got.cpu(), ops.laplace(x))
+
+
+def test_conv2d_on_the_card_ignores_strip_rows(cuda):
+    img, ker = _t((300, 200), "cpu"), _t((5, 5), "cpu")
+    ops.reset_launches()
+    got = [ops.conv2d(img.to(cuda), ker.to(cuda), strip_rows=r).cpu()
+           for r in (17, 256)]
+    assert ops.launches()["conv2d"] == 2
+    want = ops.conv2d(img, ker, strip_rows=17)
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
+    with pytest.raises(ValueError, match="strip_rows"):
+        ops.conv2d(img.to(cuda), ker.to(cuda), strip_rows=0)
+
+
+@pytest.mark.parametrize("m,k,n,scale", [(128, 2048, 128, 100.0),
+                                         (3, 4000, 90, 1.0),
+                                         (70, 3000, 130, 1.0)])
+def test_compensated_gemm_kernel(cuda, m, k, n, scale):
+    """Against an fp64 product the compensated kernel's max error is at
+    most half the uncompensated kernel's (the reference's property asks
+    for no more than x 1.01, which a kernel that skipped compensation
+    would meet; 0.08-0.13 was measured at 4096**3 and at these x100
+    inputs). Against its plain version: within 1e-5 of the product's
+    standard deviation, scale**2 sqrt(k) (measured difference 0)."""
+    a, b = _t((m, k), cuda, scale), _t((k, n), cuda, scale)
+    ref64 = a.double() @ b.double()
+    ops.reset_launches()
+    comp = ops.gemm(a, b, compensated=True)
+    plain = ops.gemm(a, b)
+    assert ops.launches()["gemm_kahan"] == 1
+    assert ops.launches()["gemm"] == 1
+    err_c = float((comp.double() - ref64).abs().max())
+    err_p = float((plain.double() - ref64).abs().max())
+    assert err_c <= 0.5 * err_p
+    want = tgemm.gemm_kahan_plain(a, b)
+    torch.testing.assert_close(comp, want, rtol=0.0,
+                               atol=1e-5 * scale ** 2 * k ** 0.5)
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("m,k,n", [(64, 4096, 48), (70, 1000, 130),
+                                   (3, 300, 90)])
+def test_compensated_gemm_kernel_rounds_exact_slabs_once(cuda, m, k, n,
+                                                         epilogue):
+    """On inputs whose every slab product is exact in fp32 but whose slab
+    sums lose low bits (integers, the first slab's times 2**16), the
+    compensated kernel is the fp64 product rounded once, bit for bit,
+    and so equal to its plain version; the uncompensated kernel is not.
+    A kernel that dropped the compensation term fails here."""
+    rng = np.random.default_rng(m + k + n)
+    a = rng.integers(-8, 9, (m, k)).astype(np.float32)
+    a[:, :tgemm.KAHAN_SLAB] *= 2.0 ** 16
+    b = rng.integers(-8, 9, (k, n)).astype(np.float32)
+    ref64 = torch.from_numpy(a.astype(np.float64) @ b.astype(np.float64))
+    want = (ref64 * 0.5).clamp_min(0.0) if epilogue else ref64
+    a, b = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    ep = [("scale", 0.5), "relu"] if epilogue else None
+    ops.reset_launches()
+    got = ops.gemm(a, b, compensated=True, epilogue=ep).cpu()
+    plain = ops.gemm(a, b, epilogue=ep).cpu()
+    assert ops.launches()["gemm_kahan"] == 1
+    assert torch.equal(got, want.float())
+    assert torch.equal(got, tgemm.gemm_kahan_plain(
+        a, b, epilogue=ops._norm_epilogue(ep)).cpu())
+    assert float((plain.double() - want).abs().max()) > float(
+        (got.double() - want).abs().max()) + 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compensated_gemm_kernel_with_epilogue(cuda, dtype):
+    dt = getattr(torch, dtype)
+    a, b = _t((70, 700), cuda).to(dt), _t((700, 90), cuda, 0.1).to(dt)
+    ep = ops._norm_epilogue([("bias", _t((90,), cuda)), "relu",
+                             ("residual", _t((70, 90), cuda))])
+    got = tgemm.gemm_cuda(a, b, torch.float32, ep, compensated=True)
+    want = tgemm.gemm_kahan_plain(a, b, torch.float32, ep)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    got16 = tgemm.gemm_cuda(a, b, torch.bfloat16, ep, compensated=True)
+    torch.testing.assert_close(got16.float(), want, rtol=1e-2, atol=1e-2)
+
+
+def test_suite_routes_raise_under_autograd(cuda):
+    """conv, the stencil pass and the compensated GEMM have no backward
+    (neither has the reference): their CUDA routes refuse tracked
+    tensors."""
+    img = _t((20, 20), cuda).requires_grad_()
+    ker = _t((3, 3), cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.conv2d(img, ker)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.stencil_axis(img, [1.0, -2.0, 1.0], 0)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.laplace(img)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.gemm(img, ker.new_ones(20, 4), compensated=True)
+    with torch.no_grad():
+        ops.conv2d(img, ker)
+
+
+def test_rmse_study_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.core import precision
+    got = precision.conv_layer_rmse_study(n_outputs=16, device=cuda)
+    assert got == precision.conv_layer_rmse_study(n_outputs=16,
+                                                  device="cpu")

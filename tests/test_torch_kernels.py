@@ -126,11 +126,6 @@ def test_fused_mlp(act):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-3, atol=1e-3)
 
 
-def test_compensated_gemm_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tops.gemm(torch.ones(2, 2), torch.ones(2, 2), compensated=True)
-
-
 # ----------------------------------------------------------------------
 # Attention
 # ----------------------------------------------------------------------
