@@ -8,17 +8,22 @@ Phases, one result line each:
   1. build   — compile the CUDA kernels (src/repro_torch/kernels/csrc)
                with nvcc and load them; print the card's name and limit.
   2. check   — every kernel against its plain PyTorch version on the
-               card, at the serving and training paths' shapes.
-  3. time    — each kernel's time (CUDA events), its bound, its plain
-               version's time and one PyTorch library call's time; the
-               PyTorch SSD backward on its own, with its bound.
+               card, at the serving and training paths' shapes; an
+               AXPY -> RELU -> SUM ntx.Program bit-equal under the serial
+               and fused policies.
+  3. time    — each kernel's time (CUDA events) and its host issue time,
+               its bound, its plain version's time and one PyTorch
+               library call's time; each serving MLP GEMM at its split-k
+               plan and at two blocks per SM; the PyTorch SSD backward on
+               its own, with its bound.
   4. width   — llama3-8b at full width, depth cut to 2 layers, on the card
                and on the CPU with the same weights: prefill logits and
                4 greedy tokens.
   5. serve   — Server.generate on the full 32-layer llama3-8b (bf16,
                random weights from Model.init(0)): 4 requests, prompt 32,
                16 new tokens, greedy and at temperature 0.8, with the
-               kernel launch counts of that run.
+               kernel launch counts of that run; then one decode step
+               under torch.profiler, its device time by kernel family.
   6. train width — mamba2-1.3b at full width, depth cut to 2 layers, one
                build_step_fn step on the card and on the CPU from the
                same weights and batch: loss, grad norm and new params.
@@ -101,18 +106,28 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
-def time_ms(fn, torch, warmup: int = 3, iters: int = 20) -> float:
+def time_ms_host(fn, torch, warmup: int = 3, iters: int = 20) -> tuple:
+    """(device ms, host ms) per call: CUDA events around ``iters`` calls,
+    and the host's clock over the same calls before it synchronises (the
+    time to issue one call; where it exceeds the device time, the host
+    sets the event time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def time_ms(fn, torch, warmup: int = 3, iters: int = 20) -> float:
+    return time_ms_host(fn, torch, warmup, iters)[0]
 
 
 def bound_ms(nbytes: float, nops: float, kind: str) -> tuple:
@@ -149,12 +164,15 @@ def kernel_cases(torch):
     flash_rep = "src/repro/kernels/flash_attention.py:77"
     stream_src = "src/repro_torch/kernels/csrc/ntx_stream.cu"
 
-    def gemm_case(name, m, k, n, dt, out_dt, ep_spec, tol, path=True):
+    def gemm_case(name, m, k, n, dt, out_dt, ep_spec, tol, path=True,
+                  offset=0):
         """``ep_spec`` entries: (kind,), (kind, imm) or (kind, dtype) for
         the array kinds, whose operand is made in that dtype (the path's
-        residual is the bf16 hidden state, its gate the fp32 GEMM)."""
-        a = rn(m, k, dt=dt)
-        b = rn(k, n, dt=dt, std=k ** -0.5)
+        residual is the bf16 hidden state, its gate the fp32 GEMM).
+        ``offset``: a and b are contiguous views that start that many
+        elements into their storage."""
+        a = rn(m * k + offset, dt=dt)[offset:].view(m, k)
+        b = rn(k * n + offset, dt=dt, std=k ** -0.5)[offset:].view(k, n)
         ep = []
         for kind, *rest in ep_spec:
             if kind in ntx_gemm.EPILOGUE_ARRAY_KINDS:
@@ -176,13 +194,23 @@ def kernel_cases(torch):
                   + sum(o.numel() * o.element_size() for _, _, o in norm
                         if o is not None)
                   + m * n * torch.empty((), dtype=out_dt).element_size())
-        cases.append(dict(
+        case = dict(
             name=name, wrapper="gemm", source=gemm_src, replaces=gemm_rep,
             kernel=lambda: ops.gemm(a, b, out_dtype=out_dt, epilogue=ep),
             plain=lambda: ntx_gemm.gemm_plain(a, b, out_dt, norm),
             library=library, mode="close", tol=tol, bytes=nbytes,
             ops=2.0 * m * n * k, kind="bf16" if dt == bf else "fp32",
-            path=path))
+            path=path)
+        if path and dt == bf:
+            # the split choice against two blocks per SM, timed in phase 3
+            plan = ntx_gemm.split_k_plan(m, n, k)
+            alt = max(1, min(2 * ntx_gemm.SMS // (plan.m_tiles
+                                                  * plan.n_tiles),
+                             plan.k_tiles // ntx_gemm.MIN_SPLIT_K_TILES,
+                             ntx_gemm.MAX_SPLITS))
+            case["splits"] = (plan.splits, alt, lambda s: ntx_gemm.gemm_cuda(
+                a, b, out_dt, norm, splits=s))
+        cases.append(case)
 
     bf_tol = (1e-2, 1e-2)   # one bf16 ulp (2**-8 rel) + fp32 order noise
     f_tol = (1e-4, 1e-4)    # fp32 summation order over k <= 14336
@@ -200,6 +228,14 @@ def kernel_cases(torch):
     gemm_case("gemm:fp32_bias_mask_thresh_gelu", 100, 300, 200, f32, f32,
               [("bias",), ("mask",), ("thresh", 0.1), ("gelu",),
                ("scale", 0.5), ("sub",), ("relu",)], f_tol, path=False)
+    # the bf16 route off the path: ragged n on 16-byte copies, k and n not
+    # multiples of 8 and operands at an odd element offset (masked loads)
+    gemm_case("gemm:bf16_m128_k14336_n1000_gelu", 128, 14336, 1000, bf, bf,
+              [("gelu",)], bf_tol, path=False)
+    gemm_case("gemm:bf16_m70_k1007_n1003_residual", 70, 1007, 1003, bf, f32,
+              [("residual", bf)], f_tol, path=False)
+    gemm_case("gemm:bf16_offset1_m4_k1007_n1003_silu_mul", 4, 1007, 1003, bf,
+              bf, [("silu",), ("mul", f32)], bf_tol, path=False, offset=1)
 
     def flash_case(name, b, hq, hkv, sq, skv, kv_len, dt, tol, path=True):
         d = 128
@@ -328,6 +364,16 @@ def kernel_cases(torch):
         library=None, mode="equal", tol=(0.0, 0.0),
         bytes=n * 4 * (2 + n_ys), ops=n * len(all_stages), kind="fp32",
         path=False))
+    # a view at an odd element offset takes the scalar instantiation
+    flat = rn(2 * n + 1)
+    ux, uy = flat[1:n + 1].view(1, n), flat[n + 1:].view(1, n)
+    cases.append(dict(
+        name=f"elementwise:axpy_1x{n}_offset_1", wrapper="elementwise",
+        source=stream_src, replaces=ew_rep,
+        kernel=lambda: ops.elementwise("axpy", ux, uy, imm=imm),
+        plain=lambda: ew.elementwise_plain("axpy", ux, uy, imm),
+        library=lambda: torch.add(uy, ux, alpha=imm), mode="equal",
+        tol=(0.0, 0.0), bytes=n * 12, ops=2 * n, kind="fp32", path=False))
     cases += train_cases(torch, rn)
     cases += suite_cases(torch, rn)
     return cases
@@ -671,6 +717,47 @@ def compare(torch, case, got, want) -> tuple:
     return ok, max_abs, max_rel
 
 
+def check_policies(torch) -> None:
+    """A chain ending in a SUM as one ntx.Program, under the serial policy
+    (two elementwise launches, then the reduce kernel) and the fused one
+    (one chain-reduce launch): the same bits, call after call, and within
+    the phase-2 SUM tolerance of an fp64 sum."""
+    import ntx_torch as ntx
+    from repro_torch.kernels import ops
+    n = (1 << 20) + 3                  # 257 chunks, a ragged last one
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    xs = torch.randn(n, generator=g, device=DEVICE)
+    ys = torch.randn(n, generator=g, device=DEVICE)
+    with ntx.Program() as prog:
+        x = prog.buffer((n,), name="x")
+        y = prog.buffer((n,), name="y")
+        t = prog.axpy(0.5, x, y)
+        prog.relu(t, out=t)
+        total = prog.reduce("sum", t, name="total")
+    runs = []
+    for policy in ("serial", "fused", "serial", "fused"):
+        ops.reset_launches()
+        res = ntx.Executor(policy, device=DEVICE).run(
+            prog, inputs={x: xs, y: ys})
+        runs.append((policy, res.read_tensor(total).clone(),
+                     res.read_tensor(t).clone(), ops.launches()))
+    want = runs[0][2].double().sum()
+    bits = {int(r[1].view(torch.int32)[0]) for r in runs}
+    err = float((runs[0][1].double() - want).abs()[0])
+    scale = float(runs[0][2].abs().double().sum())
+    counts = {p: (c["elementwise"], c["reduce"], c["chain_reduce"])
+              for p, _, _, c in runs}
+    ok = (len(bits) == 1 and all(torch.equal(r[2], runs[0][2]) for r in runs)
+          and counts == {"serial": (2, 1, 0), "fused": (0, 0, 1)}
+          and err <= 1e-5 * scale)
+    say("check", f"ntx.Program axpy->relu->sum over {n}: serial and fused "
+                 f"sums {sorted(bits)} (int32 bits, 4 runs) | |sum - fp64| "
+                 f"{err:.3e} (<= 1e-5 * sum|t| = {1e-5 * scale:.3e}) | "
+                 f"launches (elementwise, reduce, chain_reduce) {counts} "
+                 f"{'ok' if ok else 'FAIL'}")
+    need(ok, "serial and fused SUM programs disagree on the card")
+
+
 def phase_check_and_time(torch, do_time: bool) -> list:
     cases = kernel_cases(torch)
     rows, failed = [], []
@@ -696,9 +783,10 @@ def phase_check_and_time(torch, do_time: bool) -> list:
         case["max_abs_err"] = max_abs
         rows.append(case)
     need(not failed, f"kernels disagree with their plain versions: {failed}")
+    check_policies(torch)
     if do_time:
         for case in rows:
-            case["ms"] = time_ms(case["kernel"], torch)
+            case["ms"], host_ms = time_ms_host(case["kernel"], torch)
             case["plain_ms"] = time_ms(case["plain"], torch)
             case["library_ms"] = (time_ms(case["library"], torch)
                                   if case["library"] else None)
@@ -710,12 +798,19 @@ def phase_check_and_time(torch, do_time: bool) -> list:
                      f"{time_ms(case['aside'], torch):.4f} ms"
                      if case.get("aside") else "")
             say("time", f"{case['name']}: kernel {case['ms']:.4f} ms | "
-                        f"bound {b_ms:.4f} ms ({b_by}) | plain "
-                        f"{case['plain_ms']:.4f} ms | library {lib} ms"
-                        f"{aside}")
+                        f"host issue {host_ms:.4f} ms | bound {b_ms:.4f} ms"
+                        f" ({b_by}) | plain {case['plain_ms']:.4f} ms | "
+                        f"library {lib} ms{aside}")
+            if case.get("splits"):
+                plan, alt, run = case["splits"]
+                say("time", f"{case['name']}: split-k plan {plan} -> "
+                            f"{time_ms(lambda: run(plan), torch):.4f} ms | "
+                            f"two blocks per SM, {alt} -> "
+                            f"{time_ms(lambda: run(alt), torch):.4f} ms "
+                            f"(gemm_cuda alone)")
     for case in rows:            # free the inputs the closures hold
         for key in ("kernel", "plain", "library", "scale", "check",
-                    "aside"):
+                    "aside", "splits"):
             case.pop(key, None)
     torch.cuda.empty_cache()
     return rows
@@ -842,7 +937,59 @@ def phase_serve(torch, np) -> dict:
     for wrapper in ("gemm", "attention", "reduce", "chain_reduce"):
         need(counts[wrapper] > 0, f"{wrapper} kernel never launched")
     need(fallbacks == 0, f"{fallbacks} descriptors fell back to the engine")
+    profile_decode_step(torch, np, cfg, params, prompts)
     return counts
+
+
+def profile_decode_step(torch, np, cfg, params, prompts) -> None:
+    """One greedy decode step of the batch (Model.decode, then the
+    per-request ARGMAX programs) under torch.profiler, after one
+    unprofiled step: device time by kernel family, and the host's share
+    of the step's wall time. Its launches are not counted in the kernels
+    line."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import ServeConfig, Server
+    srv = Server(cfg, params, ServeConfig(max_seq=MAX_SEQ, eos_token=-1))
+    rng = np.random.default_rng(0)
+
+    def step(cur, cache, fill):
+        tok = torch.as_tensor(cur[:, None], dtype=torch.long, device=DEVICE)
+        logits, cache = srv.model.decode(params, tok, cache, fill)
+        return srv._sample(logits[:, -1], rng), cache, fill + 1
+
+    with torch.inference_mode():
+        logits, cache, fill = srv.model.prefill(
+            params, {"tokens": torch.as_tensor(np.stack(prompts),
+                                               device=DEVICE)},
+            cache_len=MAX_SEQ)
+        cur = srv._sample(logits, rng, prefill=True)
+        cur, cache, fill = step(cur, cache, fill)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(cur, cache, fill)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    split = kernel_split(prof.key_averages(), {
+        "ntx_gemm.cu": ("gemm_bf16_tc", "tc_reduce", "::gemm_kernel<"),
+        "flash_attention.cu": ("flash_kernel",),
+        "ntx_stream.cu": ("stream_flat", "stream_chunk_kernel",
+                          "stream_merge_kernel"),
+        "cuBLAS": CUBLAS_KEYS})
+    if split is None:
+        say("serve", "profiler saw no device time: decode split not measured")
+        return
+    busy, by_group, top = split
+    say("serve", f"profiled decode step (batch {len(prompts)}): wall "
+                 f"{wall_ms:.2f} ms (profiler on) | device busy {busy:.2f} ms"
+                 f" ({busy / wall_ms:.3f} of wall) | host gap "
+                 f"{wall_ms - busy:.2f} ms | kernels by group (ms, launches) "
+                 f"{ {k: (round(v[0], 3), v[1]) for k, v in by_group.items()} }"
+                 f" | card {card_line()}")
+    for e in top:
+        say("serve", f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                     f"x{e.count:5d}  {e.key[:110]}")
 
 
 # ----------------------------------------------------------------------
@@ -926,6 +1073,34 @@ def phase_train_width(torch, np) -> None:
                        f"{time.perf_counter() - t0:.1f} s ok")
 
 
+#: substrings of cuBLAS/cuDNN kernel names (after the port's own kernels
+#: are matched: ``ntx_gemm.cu``'s names contain "gemm" too)
+CUBLAS_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_",
+               "gemv")
+
+
+def kernel_split(evs, groups, skip=()):
+    """Device time of a profile's kernels: ``(busy ms, {group: (ms,
+    launches)}, the 8 longest kernels)``, each kernel in the first group
+    one of whose substrings its name contains, else in "other PyTorch
+    kernels"; None when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in evs if e.device_type == DeviceType.CUDA
+               and e.key not in skip]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy:
+        return None
+    by_group = {g: [0.0, 0] for g in (*groups, "other PyTorch kernels")}
+    for e in kernels:
+        name = e.key.lower()
+        g = next((g for g, keys in groups.items()
+                  if any(k in name for k in keys)), "other PyTorch kernels")
+        by_group[g][0] += e.self_device_time_total / 1e3
+        by_group[g][1] += e.count
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return busy, by_group, top
+
+
 def profile_step(torch, cfg, step_fn, params, opt):
     """One more training step under torch.profiler: where its device
     time goes, by kernel and by the step's profiler ranges."""
@@ -945,28 +1120,19 @@ def profile_step(torch, cfg, step_fn, params, opt):
     evs = prof.key_averages()
     span = {e.key: e.device_time_total / 1e3 for e in evs
             if e.key in ranges and e.device_type == DeviceType.CPU}
-    kernels = [e for e in evs if e.device_type == DeviceType.CUDA
-               and e.key not in ranges]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    if not busy:
+    split = kernel_split(evs, {"ssd_scan.cu": ("ssd_kernel",),
+                               "cuBLAS/cuDNN matmul": CUBLAS_KEYS},
+                         skip=ranges)
+    if split is None:
         say("train", "profiler saw no device time: breakdown not measured")
         return params, opt
-    groups = {"ssd_scan.cu": ("ssd_kernel",),
-              "cuBLAS/cuDNN matmul": ("gemm", "nvjet", "xmma", "cutlass",
-                                      "cublas", "sm90_")}
-    by_group = {g: 0.0 for g in (*groups, "other PyTorch kernels")}
-    for e in kernels:
-        name = e.key.lower()
-        g = next((g for g, keys in groups.items()
-                  if any(k in name for k in keys)), "other PyTorch kernels")
-        by_group[g] += e.self_device_time_total / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    busy, by_group, top = split
     say("train", f"profiled step: wall {wall_ms:.1f} ms (profiler on) | "
                  f"device busy {busy:.1f} ms ({busy / wall_ms:.3f} of "
                  f"wall) | ranges (device ms) "
                  f"{ {k: round(v, 1) for k, v in span.items()} } | "
                  f"kernels by group (ms) "
-                 f"{ {k: round(v, 1) for k, v in by_group.items()} } | "
+                 f"{ {k: round(v[0], 1) for k, v in by_group.items()} } | "
                  f"card {card_line()}")
     for e in top:
         say("train", f"  {e.self_device_time_total / 1e3:9.2f} ms "

@@ -13,6 +13,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libntx_kernels.so"
 
 _lock = threading.Lock()
+_SAME_DEVICE = contextlib.nullcontext()
 _lib: ctypes.CDLL | None = None
 #: nvcc's output of the build (``-Xptxas -v``: registers, shared memory,
 #: spills), kept as ``nvcc.log`` beside the library
@@ -39,15 +41,17 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # (a, b, c, m, n, k, in_bf16, out_bf16, compensated, n_stages, kinds,
-    #  imms, operands, stream)
-    "ntx_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    #  imms, operands, op_bf16, tile, splits, ws, stream)
+    "ntx_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                 _I, _P, _P],
     # (q, k, v, o, b, hq, hkv, sq, skv, d, kv_len, causal, scale,
     #  bf16, stream)
     "ntx_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P],
     # (x, out, rows, n, n_valid, n_stages, ops, imms, ys, tail, red,
-    #  red_int, stream)
-    "ntx_stream": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P],
+    #  red_int, chunk, counters, part, stream)
+    "ntx_stream": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
+                   _P, _P],
     # (x, dt, A, B, C, y, b, l, h, dh, n, chunk, bf16, stream)
     "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # (img, ker, out, h, w, kh, kw, in_bf16, stream)
@@ -133,6 +137,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call in this process)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -154,9 +160,23 @@ def check(code: int, what: str) -> None:
 
 
 def stream_of(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as a pointer."""
+    """PyTorch's current stream on ``t``'s device, as a pointer (through
+    the raw-stream query where this PyTorch has it: no Stream object is
+    made on the launch path)."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t):
+    """A context that makes ``t``'s card current for a launch: a no-op
+    when it already is (the common case, and the cheap one)."""
+    import torch
+    if t.get_device() == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(t.device)
 
 
 def ptr_array(ctype, values):

@@ -7,39 +7,74 @@
 // compensated=True)): the same with a Neumaier compensation term carried
 // across k slabs and added before the epilogue.
 // The Pallas kernel walks k as the sequential third grid axis with the
-// accumulator in VMEM scratch; here the k loop runs inside the block and
-// the accumulator lives in registers (the PCS wide accumulator), so no
-// block ever waits on another.
+// accumulator in VMEM scratch; here each block runs its k range in a
+// loop with the accumulator in registers (the PCS wide accumulator).
 //
-// Bound on the H100 at the serving shapes:
-//   * decode (m = 4, the batch): bytes. The weight matrix dominates:
-//     4096 x 14336 bf16 is ~117 MB, ~35 us at 3.35 TB/s, against ~0.5
-//     GFLOP of work (<1 us at the bf16 tensor-core rate).
-//   * prefill (m = 128): about 15 GFLOP per MLP GEMM and the same
-//     ~117 MB, near the ridge point of the bf16 tensor cores (~15 us
-//     either way), so operations on FFMA units.
-// Design: a simple shared-memory tiled kernel. A and B tiles are staged
-// through shared memory as fp32 (bf16 widened with __bfloat162float),
-// each thread keeps a TM x TN register tile of fp32 accumulators and
-// runs IEEE fp32 FFMA (never TF32). Two tile shapes: 16 x 128 for small
-// m (decode: less padding waste, more blocks across n) and 64 x 64
-// otherwise. Ragged m/n/k edges are masked in the loads and the store;
-// the host never pads. The ten epilogue stages run in the reference
-// order on the fp32 accumulator in the store step, then the result is
-// written once in the output dtype.
-// Compensated variant (a compile-time switch of the same kernel): the
-// FFMA accumulators collect one kKahanSlab-deep slab of k at a time as a
-// partial product; at each slab's end every partial is Neumaier-added
-// into two more register tiles, sum and comp, with __fadd_rn/__fsub_rn
-// (no products in those terms, no contraction, never fast-math), and
-// sum + comp enters the epilogue. The slab is fixed at 128, the default
-// block_k of gemm_pallas, and kernels/ntx_gemm.py:gemm_kahan_plain
-// compensates over the same slabs: the result depends on the slab width.
-// Three register tiles instead of one; -Xptxas -v shows the spills.
-// Left for later: wgmma on bf16 tiles fed by TMA through a multi-stage
-// mbarrier ring (the tensor-core rate for prefill), vectorised 16-byte
-// loads, and a split-k or persistent schedule so that decode's narrow
-// grids fill all 132 SMs.
+// Two routes, chosen by the launcher:
+//
+// 1. bf16 inputs, not compensated (the serving MLP: ops.fused_mlp's gate,
+//    w1 and w2 products). Bound on the H100 at the serving shapes:
+//    bytes. The 4096 x 14336 bf16 weight matrix is ~117 MB, ~35 us at
+//    3.35 TB/s; decode (m = 4) does ~0.5 GFLOP (<1 us on the tensor
+//    cores), prefill (m = 128) ~15 GFLOP (~15 us at 989 TFLOP/s), so at
+//    both the goal is to stream B at the card's bandwidth. A first port
+//    widened bf16 to fp32 in shared memory and ran FFMA from 2-byte
+//    loads with one block per output tile: 0.86-3.0 ms, 25-85x the bound.
+//    Design:
+//    * tensor cores: mma.sync.m16n8k16 bf16 with fp32 accumulators, A
+//      fragments by ldmatrix, B (row-major (k, n)) by ldmatrix.trans;
+//      a 16 x 128 x 64 tile for m <= 16 (decode: the unused rows of the
+//      mma cost no bytes) and a 128 x 128 x 64 tile otherwise;
+//    * a ring of A/B tiles in dynamic shared memory (4 stages, 77 KB, for
+//      the small tile; 3 stages, 105 KB, for the large one; rows padded
+//      by 16 bytes so ldmatrix is conflict-free), filled by 16-byte
+//      cp.async copies, so the next tiles are in flight while the
+//      tensor cores work on the current one. Ragged m/n/k edges are zero-
+//      filled by the copies (src-size 0); an operand whose pointer is
+//      not 16-byte aligned, or whose k or n is not a multiple of 8, takes
+//      an instantiation that fills the ring with masked 2-byte loads.
+//      The host never pads and nothing falls back;
+//    * deterministic split-k: kernels/ntx_gemm.py:split_k_plan picks the
+//      number of k splits from (m, n, k): as many as fit the grid in one
+//      block per SM (w2 at decode has 32 output tiles for 132 SMs: 4
+//      splits; gate and w1 have 112 tiles: none). On an H100 two blocks
+//      per SM were slower at four of the six path shapes and level at a
+//      fifth; prefill w1 alone gains from 2 splits (its epilogue then
+//      runs in the reduction pass), and it shares its shape with gate.
+//      Each split stores fp32 partials to a workspace the wrapper
+//      allocates; a second launch adds them in split order, runs the
+//      epilogue once on the fp32 sum and rounds once. No float atomics:
+//      two calls give the same bits. With one split the epilogue runs in
+//      the first launch, on the tile staged through shared memory, a
+//      stage at a time with 16 read-only operand loads in flight per
+//      thread; stores and operand reads are coalesced either way.
+//    What bounds it now (H100, chip_smoke phase 3): decode streams B at
+//    ~2.6 TB/s (45-48 us against the 35 us bound); prefill takes 74-97
+//    us, w1's in-kernel epilogue ~20 us of it, as one 8-warp block per
+//    SM cannot hide the operand and store latency after its k loop.
+//    Left for later: wgmma fed by TMA with mbarriers and a persistent
+//    tile schedule whose epilogue overlaps the next tile's loads.
+//
+// 2. fp32 inputs (descriptor programs, the paper's suite), and the
+//    compensated variant for either input type: a shared-memory tiled
+//    FFMA kernel. A and B tiles are staged through shared memory as fp32
+//    (bf16 widened with __bfloat162float), each thread keeps a TM x TN
+//    register tile of fp32 accumulators and runs IEEE fp32 FFMA (never
+//    TF32). Two tile shapes: 16 x 128 for small m and 64 x 64 otherwise.
+//    Compensated variant (a compile-time switch of the same kernel): the
+//    FFMA accumulators collect one kKahanSlab-deep slab of k at a time as
+//    a partial product; at each slab's end every partial is Neumaier-
+//    added into two more register tiles, sum and comp, with __fadd_rn/
+//    __fsub_rn (no products in those terms, no contraction, never fast-
+//    math), and sum + comp enters the epilogue. The slab is fixed at 128,
+//    the default block_k of gemm_pallas, and kernels/ntx_gemm.py:
+//    gemm_kahan_plain compensates over the same slabs: the result depends
+//    on the slab width.
+//
+// Both routes run the ten epilogue stages in the reference order on the
+// fp32 accumulator (tanh GELU; silu as acc * (1 / (1 + exp(-acc)))),
+// reading each array operand in its own dtype (fp32 or bf16), and write
+// the result once in the output dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,7 +95,8 @@ struct Epilogue {
   int n;
   int kind[kMaxEpilogue];
   float imm[kMaxEpilogue];
-  const float* op[kMaxEpilogue];   // fp32: (n,) for bias, else (m, n)
+  const void* op[kMaxEpilogue];   // (n,) for bias, else (m, n)
+  int op_bf16[kMaxEpilogue];      // op is bf16 (1) or fp32 (0)
 };
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
@@ -72,28 +108,89 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// Element i of epilogue operand s, widened to fp32 (exact for bf16).
+__device__ __forceinline__ float operand(const Epilogue& ep, int s,
+                                         size_t i) {
+  return ep.op_bf16[s]
+             ? load(static_cast<const __nv_bfloat16*>(ep.op[s]) + i)
+             : static_cast<const float*>(ep.op[s])[i];
+}
+
+// One epilogue stage on the fp32 accumulator; o is the stage's operand
+// element (array kinds), imm its immediate (scale, thresh).
+__device__ __forceinline__ float apply_stage(int kind, float acc, float o,
+                                             float imm) {
+  switch (kind) {
+    case K_BIAS:
+    case K_RESIDUAL: return acc + o;
+    case K_MUL: return acc * o;
+    case K_SUB: return acc - o;
+    case K_MASK: return (o != 0.0f) ? acc : 0.0f;
+    case K_SCALE: return acc * imm;
+    case K_RELU: return fmaxf(acc, 0.0f);
+    case K_THRESH: return (acc > imm) ? acc : 0.0f;
+    case K_SILU: return acc * (1.0f / (1.0f + expf(-acc)));
+    default: {   // K_GELU, tanh form (jax.nn.gelu's default)
+      const float k0 = 0.7978845608028654f;   // sqrt(2/pi)
+      return 0.5f * acc *
+             (1.0f + tanhf(k0 * (acc + 0.044715f * acc * acc * acc)));
+    }
+  }
+}
+
 __device__ __forceinline__ float epilogue(float acc, const Epilogue& ep,
                                           int r, int c, int n) {
   const size_t at = (size_t)r * n + c;
   for (int s = 0; s < ep.n; ++s) {
-    switch (ep.kind[s]) {
-      case K_BIAS: acc = acc + ep.op[s][c]; break;
-      case K_RESIDUAL: acc = acc + ep.op[s][at]; break;
-      case K_MUL: acc = acc * ep.op[s][at]; break;
-      case K_SUB: acc = acc - ep.op[s][at]; break;
-      case K_MASK: acc = (ep.op[s][at] != 0.0f) ? acc : 0.0f; break;
-      case K_SCALE: acc = acc * ep.imm[s]; break;
-      case K_RELU: acc = fmaxf(acc, 0.0f); break;
-      case K_THRESH: acc = (acc > ep.imm[s]) ? acc : 0.0f; break;
-      case K_SILU: acc = acc * (1.0f / (1.0f + expf(-acc))); break;
-      default: {   // K_GELU, tanh form (jax.nn.gelu's default)
-        const float k0 = 0.7978845608028654f;   // sqrt(2/pi)
-        acc = 0.5f * acc *
-              (1.0f + tanhf(k0 * (acc + 0.044715f * acc * acc * acc)));
+    const int kind = ep.kind[s];
+    const float o = kind > K_MASK ? 0.0f
+                                  : operand(ep, s, kind == K_BIAS ? c : at);
+    acc = apply_stage(kind, acc, o, ep.imm[s]);
+  }
+  return acc;
+}
+
+// The epilogue over a block's BM x BN fp32 tile in shared memory (row
+// stride kCStride), thread tid on elements tid + j * kThreads, a stage
+// at a time and 16 elements at a time. An array stage's 16 operand loads
+// are read-only global loads (__ldg) with no branch between them
+// (indices outside M x N read element 0), so they are in flight
+// together: with one block per SM, a load at a time made the epilogue
+// of a 128 x 128 tile cost as much as streaming its k range.
+template <class T>
+__device__ __forceinline__ void tile_epilogue(float* sC, const Epilogue& ep,
+                                              int m0, int n0, int M,
+                                              int N) {
+  constexpr int E = T::BM * T::BN / T::kThreads;
+  constexpr int G = E < 16 ? E : 16;
+  static_assert(E % G == 0, "whole groups");
+  for (int s = 0; s < ep.n; ++s) {
+    const int kind = ep.kind[s];
+    const bool array = kind <= K_MASK, bias = kind == K_BIAS;
+    const bool bf16 = ep.op_bf16[s] != 0;
+    const float* p32 = static_cast<const float*>(ep.op[s]);
+    const __nv_bfloat16* p16 = static_cast<const __nv_bfloat16*>(ep.op[s]);
+    const float imm = ep.imm[s];
+#pragma unroll 1
+    for (int g = 0; g < E; g += G) {
+      float o[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int e = threadIdx.x + (g + i) * T::kThreads;
+        const int r = m0 + e / T::BN, c = n0 + e % T::BN;
+        const size_t at = (r >= M || c >= N) ? 0
+                          : bias ? (size_t)c : (size_t)r * N + c;
+        o[i] = !array ? 0.0f
+               : bf16 ? __bfloat162float(__ldg(p16 + at)) : __ldg(p32 + at);
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int e = threadIdx.x + (g + i) * T::kThreads;
+        float& x = sC[(e / T::BN) * T::kCStride + e % T::BN];
+        x = apply_stage(kind, x, o[i], imm);
       }
     }
   }
-  return acc;
 }
 
 // One Neumaier step: (s, c) += x, |s| >= |x| choosing the exact branch.
@@ -205,6 +302,321 @@ void launch(const void* a, const void* b, void* c, int m, int n, int k,
   else launch<TI, TO, false>(a, b, c, m, n, k, ep, s);
 }
 
+// ---------------------------------------------------------------------
+// bf16 route: tensor cores, a cp.async ring, deterministic split-k.
+// ---------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block tile BM x BN x BK, WM x WN warps each owning a (BM / WM) x
+// (BN / WN) piece, STAGES tiles of A and B in the ring. Rows of both
+// shared tiles are padded by 8 bf16 (16 bytes): ldmatrix then reads
+// eight rows from eight different bank groups.
+template <int BM_, int BN_, int BK_, int WM_, int WN_, int STAGES_>
+struct TcTile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int kThreads = WM * WN * 32;
+  static constexpr int kAStride = BK + 8;
+  static constexpr int kBStride = BN + 8;
+  static constexpr int kAStage = BM * kAStride;   // bf16 elements
+  static constexpr int kBStage = BK * kBStride;
+  static constexpr int kCStride = BN + 4;         // fp32 tile of the store
+  static constexpr int kRingBytes = STAGES * (kAStage + kBStage) * 2;
+  static constexpr int kCBytes = BM * kCStride * 4;
+  static constexpr int kSmem = kRingBytes > kCBytes ? kRingBytes : kCBytes;
+  static constexpr int WTM = BM / WM, WTN = BN / WN;
+  static constexpr int MI = WTM / 16, NI = WTN / 8;
+  static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BK % 16 == 0,
+                "whole mma tiles, B fragments loaded in pairs");
+  static_assert((BM * BK / 8) % kThreads == 0 &&
+                (BK * BN / 8) % kThreads == 0 &&
+                (BM * BN) % kThreads == 0, "whole copies per thread");
+};
+// kernels/ntx_gemm.py:TC_TILES lists the same (BM, BN, BK), in this order
+using TileSmall = TcTile<16, 128, 64, 1, 4, 4>;    // m <= 16 (decode)
+using TileLarge = TcTile<128, 128, 64, 2, 4, 3>;   // prefill and larger
+
+// Fill one ring stage with the A tile (rows m0.., k k0..) and the B tile
+// (k k0.., cols n0..); whatever lies past M, N or K is zero.
+template <class T, bool VEC>
+__device__ __forceinline__ void tc_load(uint16_t* a_s, uint16_t* b_s,
+                                        const uint16_t* __restrict__ A,
+                                        const uint16_t* __restrict__ B,
+                                        int M, int N, int K, int m0, int n0,
+                                        int k0) {
+  const int tid = threadIdx.x;
+  if (VEC) {   // 16-byte copies; K and N are multiples of 8
+    constexpr int ACR = T::BK / 8, BCR = T::BN / 8;
+#pragma unroll
+    for (int i = 0; i < T::BM * T::BK / 8 / T::kThreads; ++i) {
+      const int c = tid + i * T::kThreads;
+      const int r = c / ACR, kc = (c % ACR) * 8;
+      const int gr = m0 + r, gk = k0 + kc;
+      const bool ok = gr < M && gk < K;
+      cp_async16(a_s + r * T::kAStride + kc,
+                 ok ? A + (size_t)gr * K + gk : A, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < T::BK * T::BN / 8 / T::kThreads; ++i) {
+      const int c = tid + i * T::kThreads;
+      const int r = c / BCR, nc = (c % BCR) * 8;
+      const int gk = k0 + r, gn = n0 + nc;
+      const bool ok = gk < K && gn < N;
+      cp_async16(b_s + r * T::kBStride + nc,
+                 ok ? B + (size_t)gk * N + gn : B, ok ? 16 : 0);
+    }
+  } else {     // masked 2-byte loads: any alignment, any K and N
+    for (int e = tid; e < T::BM * T::BK; e += T::kThreads) {
+      const int r = e / T::BK, kk = e % T::BK;
+      const int gr = m0 + r, gk = k0 + kk;
+      a_s[r * T::kAStride + kk] =
+          (gr < M && gk < K) ? A[(size_t)gr * K + gk] : (uint16_t)0;
+    }
+    for (int e = tid; e < T::BK * T::BN; e += T::kThreads) {
+      const int r = e / T::BN, j = e % T::BN;
+      const int gk = k0 + r, gn = n0 + j;
+      b_s[r * T::kBStride + j] =
+          (gk < K && gn < N) ? B[(size_t)gk * N + gn] : (uint16_t)0;
+    }
+  }
+}
+
+// The warp's share of one ring stage: BK / 16 k-steps of MI x NI mmas.
+template <class T>
+__device__ __forceinline__ void tc_compute(const uint16_t* a_s,
+                                           const uint16_t* b_s,
+                                           float (&acc)[T::MI][T::NI][4],
+                                           int wm, int wn, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < T::BK; kk += 16) {
+    uint32_t af[T::MI][4];
+    uint32_t bf[T::NI][2];
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi) {
+      // lanes 0-15 address rows 0-15 at k 0, lanes 16-31 the same rows
+      // at k 8: a0..a3 of the m16n8k16 A fragment
+      const int row = wm * T::WTM + mi * 16 + (lane & 15);
+      const int col = kk + (lane >> 4) * 8;
+      ldmatrix_x4(af[mi], a_s + row * T::kAStride + col);
+    }
+#pragma unroll
+    for (int nj = 0; nj < T::NI; nj += 2) {
+      // lanes 0-15 address k rows 0-15 at n 0, lanes 16-31 at n 8; the
+      // transpose gives b0, b1 of two n8 tiles
+      const int krow = kk + (lane & 15);
+      const int col = wn * T::WTN + nj * 8 + (lane >> 4) * 8;
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, b_s + krow * T::kBStride + col);
+      bf[nj][0] = r[0];
+      bf[nj][1] = r[1];
+      bf[nj + 1][0] = r[2];
+      bf[nj + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < T::NI; ++ni)
+        mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+  }
+}
+
+// Grid (m tiles, n tiles, splits); split z takes k tiles
+// [z * kt / splits, (z + 1) * kt / splits) of kt = ceil(K / BK).
+// splits == 1: the epilogue and the store in the output dtype here;
+// otherwise the fp32 partial to ws (splits, M, N) for tc_reduce.
+template <class T, typename TO, bool VEC>
+__global__ void __launch_bounds__(T::kThreads)
+gemm_bf16_tc(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
+             TO* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
+             int splits, Epilogue ep) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* sA = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* sB = sA + T::STAGES * T::kAStage;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / T::WN, wn = warp % T::WN;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  const int k_tiles = (K + T::BK - 1) / T::BK;
+  const int kt0 = (int)((long long)blockIdx.z * k_tiles / splits);
+  const int kt1 = (int)((long long)(blockIdx.z + 1) * k_tiles / splits);
+  const int nkt = kt1 - kt0;
+
+  float acc[T::MI][T::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < T::STAGES - 1; ++st) {
+    if (st < nkt)
+      tc_load<T, VEC>(sA + st * T::kAStage, sB + st * T::kBStage, A, B, M,
+                      N, K, m0, n0, (kt0 + st) * T::BK);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nkt; ++i) {
+    cp_async_wait<T::STAGES - 2>();   // tile i has landed
+    __syncthreads();                  // ... for every thread; stage
+                                      // (i - 1) % STAGES is free again
+    const int nxt = i + T::STAGES - 1;
+    if (nxt < nkt) {
+      const int st = nxt % T::STAGES;
+      tc_load<T, VEC>(sA + st * T::kAStage, sB + st * T::kBStage, A, B, M,
+                      N, K, m0, n0, (kt0 + nxt) * T::BK);
+    }
+    cp_async_commit();
+    const int cur = i % T::STAGES;
+    tc_compute<T>(sA + cur * T::kAStage, sB + cur * T::kBStage, acc, wm, wn,
+                  lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                    // the ring is free: reuse it
+
+  // accumulators -> shared fp32 tile (c0, c1 at row g, c2, c3 at g + 8)
+  float* sC = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wm * T::WTM + mi * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int c = wn * T::WTN + ni * 8 + (lane & 3) * 2 + (e & 1);
+        sC[r * T::kCStride + c] = acc[mi][ni][e];
+      }
+  __syncthreads();
+  // the epilogue, then the store, on elements tid + j * kThreads: each
+  // thread reads back only what it wrote, and a warp covers whole rows
+  if (splits == 1) tile_epilogue<T>(sC, ep, m0, n0, M, N);
+  float* part = ws + (size_t)blockIdx.z * M * N;
+  for (int e = tid; e < T::BM * T::BN; e += T::kThreads) {
+    const int r = m0 + e / T::BN, c = n0 + e % T::BN;
+    if (r >= M || c >= N) continue;
+    const float v = sC[(e / T::BN) * T::kCStride + e % T::BN];
+    if (splits == 1) store(C + (size_t)r * N + c, v);
+    else part[(size_t)r * N + c] = v;
+  }
+}
+
+// The partials of every split added in split order, then the epilogue
+// once on the fp32 sum and one rounding to the output dtype.
+template <typename TO>
+__global__ void __launch_bounds__(256)
+tc_reduce(const float* __restrict__ ws, TO* __restrict__ C, int M, int N,
+          int splits, Epilogue ep) {
+  const size_t total = (size_t)M * N;
+  const size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += step) {
+    float acc = ws[i];
+    for (int z = 1; z < splits; ++z) acc = acc + ws[(size_t)z * total + i];
+    const int r = (int)(i / N), c = (int)(i % N);
+    store(C + i, epilogue(acc, ep, r, c, N));
+  }
+}
+
+// cudaFuncAttributeMaxDynamicSharedMemorySize once per instantiation and
+// card (the ring is past the 48 KB a launch gets without it)
+template <class T, typename TO, bool VEC>
+cudaError_t allow_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(gemm_bf16_tc<T, TO, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::kSmem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+template <class T, typename TO, bool VEC>
+cudaError_t launch_tc_tile(const void* a, const void* b, void* c,
+                           float* ws, int m, int n, int k, int splits,
+                           const Epilogue& ep, cudaStream_t s) {
+  cudaError_t err = allow_smem<T, TO, VEC>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((m + T::BM - 1) / T::BM, (n + T::BN - 1) / T::BN, splits);
+  gemm_bf16_tc<T, TO, VEC><<<grid, T::kThreads, T::kSmem, s>>>(
+      static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b),
+      static_cast<TO*>(c), ws, m, n, k, splits, ep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t total = (size_t)m * n;
+  const size_t need = (total + 255) / 256;
+  const int blocks = (int)(need < 132 * 8 ? need : 132 * 8);
+  tc_reduce<TO><<<blocks, 256, 0, s>>>(ws, static_cast<TO*>(c), m, n,
+                                       splits, ep);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t launch_tc(const void* a, const void* b, void* c, float* ws,
+                      int m, int n, int k, int tile, int splits, bool vec,
+                      const Epilogue& ep, cudaStream_t s) {
+  if (tile == 0 && vec)
+    return launch_tc_tile<TileSmall, TO, true>(a, b, c, ws, m, n, k, splits,
+                                               ep, s);
+  if (tile == 0)
+    return launch_tc_tile<TileSmall, TO, false>(a, b, c, ws, m, n, k, splits,
+                                                ep, s);
+  if (vec)
+    return launch_tc_tile<TileLarge, TO, true>(a, b, c, ws, m, n, k, splits,
+                                               ep, s);
+  return launch_tc_tile<TileLarge, TO, false>(a, b, c, ws, m, n, k, splits,
+                                              ep, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -212,31 +624,59 @@ extern "C" {
 // a (m, k), b (k, n), c (m, n): contiguous row-major on the device, a and
 // b both fp32 (in_bf16 = 0) or both bf16; c fp32 or bf16 (out_bf16);
 // compensated = 1 takes the Neumaier (Kahan) variant.
-// kinds/imms/operands: host arrays of n_stages epilogue stages; each
-// operand is a device pointer to contiguous fp32 ((n,) for bias, (m, n)
-// for residual/mul/sub/mask), or null for the scalar kinds.
+// kinds/imms/operands/op_bf16: host arrays of n_stages epilogue stages;
+// each operand is a device pointer to a contiguous fp32 or bf16 (op_bf16)
+// array ((n,) for bias, (m, n) for residual/mul/sub/mask), or null for
+// the scalar kinds.
+// bf16 and not compensated: the tensor-core route, with tile 0 (16 x
+// 128 x 64) or 1 (128 x 128 x 32) and splits k splits, each at least one
+// k tile; with splits > 1, ws holds splits * m * n fp32 partials. The
+// other routes take tile 0, splits 1 and no ws.
 int ntx_gemm(const void* a, const void* b, void* c, int m, int n, int k,
              int in_bf16, int out_bf16, int compensated, int n_stages,
              const int* kinds, const float* imms,
-             const void* const* operands, void* stream) {
-  if (n_stages < 0 || n_stages > kMaxEpilogue || m < 0 || n < 0 || k < 0)
+             const void* const* operands, const int* op_bf16, int tile,
+             int splits, void* ws, void* stream) {
+  if (n_stages < 0 || n_stages > kMaxEpilogue || m < 0 || n < 0 || k < 0 ||
+      tile < 0 || tile > 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
+  const bool tc = in_bf16 && !compensated;
+  if (tc) {
+    const int bk = tile == 0 ? TileSmall::BK : TileLarge::BK;
+    const int k_tiles = (k + bk - 1) / bk;
+    if ((splits > 1 && (ws == nullptr || splits > k_tiles)) || splits > 65535)
+      return (int)cudaErrorInvalidValue;
+  } else if (tile != 0 || splits != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (m == 0 || n == 0) return (int)cudaGetLastError();
   Epilogue ep;
   ep.n = n_stages;
   for (int s = 0; s < kMaxEpilogue; ++s) {
     ep.kind[s] = s < n_stages ? kinds[s] : K_SCALE;
     ep.imm[s] = s < n_stages ? imms[s] : 1.0f;
-    ep.op[s] = s < n_stages ? static_cast<const float*>(operands[s])
-                            : nullptr;
+    ep.op[s] = s < n_stages ? operands[s] : nullptr;
+    ep.op_bf16[s] = s < n_stages ? op_bf16[s] : 0;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool kahan = compensated != 0;
-  if (in_bf16) {
+  if (tc) {
+    const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+    const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
+    const bool vec = ((pa | pb) & 15u) == 0 && k % 8 == 0 && n % 8 == 0;
+    float* w = static_cast<float*>(ws);
+    cudaError_t err =
+        out_bf16 ? launch_tc<__nv_bfloat16>(a, b, c, w, m, n, k, tile, splits,
+                                            vec, ep, s)
+                 : launch_tc<float>(a, b, c, w, m, n, k, tile, splits, vec,
+                                    ep, s);
+    return (int)err;
+  }
+  if (in_bf16) {   // compensated: the tensor-core route took the rest
     if (out_bf16)
-      launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, m, n, k, kahan, ep, s);
-    else launch<__nv_bfloat16, float>(a, b, c, m, n, k, kahan, ep, s);
+      launch<__nv_bfloat16, __nv_bfloat16, true>(a, b, c, m, n, k, ep, s);
+    else launch<__nv_bfloat16, float, true>(a, b, c, m, n, k, ep, s);
   } else {
+    const bool kahan = compensated != 0;
     if (out_bf16) launch<float, __nv_bfloat16>(a, b, c, m, n, k, kahan, ep, s);
     else launch<float, float>(a, b, c, m, n, k, kahan, ep, s);
   }

@@ -11,6 +11,7 @@ AdamW step (``adamw_pallas``) has its own kernel, ``csrc/ntx_adamw.cu``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,11 +63,63 @@ def elementwise_chain_plain(stages, x: torch.Tensor, ys=()) -> torch.Tensor:
     return val
 
 
+#: elements of a row one block of a reduction tail reduces (``kChunk`` in
+#: ``csrc/ntx_stream.cu``, which refuses any other value)
+STREAM_CHUNK = 4096
+
+
+def stream_chunks(n: int) -> int:
+    """Blocks a reduction tail splits a row of ``n`` elements into, each
+    writing one partial that the row's last block merges in chunk order.
+    A function of ``n`` alone, so every chain ending in the same tail
+    over rows of the same length reduces in the same order."""
+    return max(1, -(-int(n) // STREAM_CHUNK))
+
+
+#: (device, stream) -> (counters, partials) of the reduction tails. The
+#: kernel needs the counters at 0 and leaves them at 0 (each row's last
+#: block resets its own), and launches on one stream run in order, so
+#: each stream keeps one pair and no call allocates or clears anything.
+_TAIL_SCRATCH: dict = {}
+
+
+def _tail_scratch(x: torch.Tensor, stream: int, rows: int, chunks: int):
+    """The counters (int32, zero) and partials (2 * rows * chunks words)
+    for a tail launch on ``stream``, grown geometrically as needed."""
+    key = (x.get_device(), stream)
+    counters, part = _TAIL_SCRATCH.get(key, (None, None))
+    if counters is None or counters.numel() < rows:
+        size = max(rows, 2 * counters.numel() if counters is not None else 64)
+        counters = torch.zeros(size, dtype=torch.int32, device=x.device)
+    need = 2 * rows * chunks
+    if part is None or part.numel() < need:
+        size = max(need, 2 * part.numel() if part is not None else 1 << 12)
+        part = torch.empty(size, dtype=torch.float32, device=x.device)
+    _TAIL_SCRATCH[key] = (counters, part)
+    return counters, part
+
+
+@functools.lru_cache(maxsize=256)
+def _encode(stages: tuple) -> tuple:
+    """``(stages, two-read flags, opcode array, imm array, null operand
+    array)`` for a tuple of (op, imm) pairs, normalized and checked once
+    per chain: the serving samplers issue the same few chains at every
+    step."""
+    stages = normalize_stages(stages)
+    if len(stages) > MAX_STAGES:
+        raise ValueError(f"{len(stages)} stages > {MAX_STAGES} per launch")
+    flags = tuple(op in _OPS2 for op, _ in stages)
+    ops_arr = _build.ptr_array(ctypes.c_int, [_OPCODE[op] for op, _ in stages])
+    imm_arr = _build.ptr_array(ctypes.c_float, [f32(i) for _, i in stages])
+    no_ys = _build.ptr_array(ctypes.c_void_p, [None] * len(stages))
+    return stages, flags, ops_arr, imm_arr, no_ys
+
+
 def _check_stream_operand(t: torch.Tensor, shape, what: str) -> None:
     if not t.is_cuda or t.dtype != torch.float32:
         raise ValueError(f"{what}: the stream kernel takes fp32 CUDA "
                          f"tensors, got {t.dtype} on {t.device}")
-    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+    if t.shape != shape or not t.is_contiguous():
         raise ValueError(f"{what}: need a contiguous {tuple(shape)} tensor, "
                          f"got {tuple(t.shape)}")
 
@@ -74,43 +127,59 @@ def _check_stream_operand(t: torch.Tensor, shape, what: str) -> None:
 def stream_cuda(stages, x: torch.Tensor, ys=(), tail=None,
                 n_valid: int | None = None, write_out: bool = True,
                 red_int: bool = False):
-    """Launch ``csrc/ntx_stream.cu`` over a contiguous fp32 (rows, n) CUDA
-    tensor: at most ``MAX_STAGES`` stages, then the optional reduction
-    ``tail``. Returns ``(out or None, red or None)``; ``red`` has one
-    entry per row, int32 when ``red_int`` and the tail is an arg tail."""
-    stages = normalize_stages(stages)
-    if len(stages) > MAX_STAGES:
-        raise ValueError(f"{len(stages)} stages > {MAX_STAGES} per launch")
-    rows, n = x.shape
-    _check_stream_operand(x, (rows, n), "x")
+    """Launch ``csrc/ntx_stream.cu``: at most ``MAX_STAGES`` (op, imm)
+    stages over a contiguous fp32 CUDA tensor, each two-read stage taking
+    the next of ``ys`` (contiguous, of x's shape), then the optional
+    reduction ``tail`` over the last axis of a (rows, n) ``x``. Without a
+    tail x may have any shape: the kernel streams it as one flat run.
+    Returns ``(out or None, red or None)``; ``red`` has one entry per
+    row, int32 when ``red_int`` and the tail is an arg tail. A tail over
+    rows of more than ``STREAM_CHUNK`` elements uses the stream's
+    scratch of partials (:func:`_tail_scratch`); it is still one launch.
+    Any element offset works: unaligned views take the kernel's scalar
+    instantiation."""
+    stages, flags, ops_arr, imm_arr, no_ys = _encode(tuple(stages))
+    shape = x.shape
+    _check_stream_operand(x, shape, "x")
     for i, y in enumerate(ys):
-        _check_stream_operand(y, (rows, n), f"ys[{i}]")
+        _check_stream_operand(y, shape, f"ys[{i}]")
+    if sum(flags) != len(ys):
+        raise ValueError(f"{len(ys)} operands for {sum(flags)} two-read "
+                         f"stages")
+    if tail is None:
+        rows, n = 1, x.numel()
+    elif x.dim() == 2:
+        rows, n = shape
+    else:
+        raise ValueError(f"a reduction tail takes a (rows, n) tensor, got "
+                         f"{tuple(shape)}")
+    if n >= 1 << 31:
+        raise ValueError(f"{n} elements per row: the kernel counts in int32")
     n_valid = n if n_valid is None else int(n_valid)
+    stream = _build.stream_of(x)
     out = torch.empty_like(x) if write_out else None
-    red = None
+    red = counters = part = None
     if tail is not None:
         arg_int = red_int and tail in ("argmin", "argmax")
         red = torch.empty(rows, dtype=torch.int32 if arg_int
                           else torch.float32, device=x.device)
-    y_ptrs, yi = [], 0
-    for op, _ in stages:
-        if op in _OPS2:
-            y_ptrs.append(ys[yi].data_ptr())
-            yi += 1
-        else:
-            y_ptrs.append(None)
-    if yi != len(ys):
-        raise ValueError(f"{len(ys)} operands for {yi} two-read stages")
-    ops_arr = _build.ptr_array(ctypes.c_int, [_OPCODE[op] for op, _ in stages])
-    imm_arr = _build.ptr_array(ctypes.c_float, [f32(i) for _, i in stages])
-    ys_arr = _build.ptr_array(ctypes.c_void_p, y_ptrs)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        code = lib.ntx_stream(
+        chunks = stream_chunks(n)
+        if chunks > 1:
+            counters, part = _tail_scratch(x, stream, rows, chunks)
+    if ys:
+        yit = iter(ys)
+        y_arr = _build.ptr_array(ctypes.c_void_p, [
+            next(yit).data_ptr() if two else None for two in flags])
+    else:
+        y_arr = no_ys
+    with _build.on_device(x):
+        code = _build.library().ntx_stream(
             x.data_ptr(), out.data_ptr() if out is not None else None,
-            rows, n, n_valid, len(stages), ops_arr, imm_arr, ys_arr,
+            rows, n, n_valid, len(stages), ops_arr, imm_arr, y_arr,
             _TAIL[tail], red.data_ptr() if red is not None else None,
-            int(bool(red_int)), _build.stream_of(x))
+            int(bool(red_int)), STREAM_CHUNK,
+            counters.data_ptr() if counters is not None else None,
+            part.data_ptr() if part is not None else None, stream)
     _build.check(code, "ntx_stream")
     return out, red
 

@@ -11,6 +11,8 @@ compensation term across slabs of k and adds it before the epilogue.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -113,13 +115,92 @@ def gemm_kahan_plain(a: torch.Tensor, b: torch.Tensor,
 
 _GEMM_DTYPES = (torch.float32, torch.bfloat16)
 
+#: the bf16 tensor-core route's block tiles (BM, BN, BK), indexed as
+#: ``csrc/ntx_gemm.cu`` numbers them (``TileSmall``, ``TileLarge``)
+TC_TILES = ((16, 128, 64), (128, 128, 64))
+#: SMs of an H100 SXM. A split-k grid holds at most one block per SM:
+#: on an H100 two per SM were slower at four of the six serving shapes
+#: and level at a fifth (chip_smoke phase 3 times each path shape both
+#: ways; prefill w1 is the one faster with them)
+SMS = 132
+#: fewest k tiles a split takes (enough to fill the kernel's 3- or
+#: 4-stage copy ring), and most splits
+MIN_SPLIT_K_TILES = 4
+MAX_SPLITS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitKPlan:
+    """How the bf16 tensor-core route cuts one (m, n, k) product: the
+    block tile, its grid, the number of k splits and the fp32 workspace
+    (elements) that holds their partials."""
+
+    tile: int
+    bm: int
+    bn: int
+    bk: int
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int
+    splits: int
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+    def k_ranges(self, k: int) -> list:
+        """The ``[start, stop)`` range of k each split sums, in split
+        order, as the kernel derives it from its block index: split z
+        takes k tiles ``[z kt // splits, (z + 1) kt // splits)``."""
+        kt, s = self.k_tiles, self.splits
+        return [(min(k, z * kt // s * self.bk),
+                 min(k, (z + 1) * kt // s * self.bk)) for z in range(s)]
+
+
+@functools.lru_cache(maxsize=1024)
+def split_k_plan(m: int, n: int, k: int) -> SplitKPlan:
+    """The bf16 route's tile and k split for an (m, k) @ (k, n) product, a
+    pure function of the shape: the 16-row tile for m <= 16, else the
+    128-row one; as many k splits as fit the grid in one block per SM
+    (``SMS``), but no split shorter than ``MIN_SPLIT_K_TILES`` k tiles
+    and at most ``MAX_SPLITS``. With more than one split the partials
+    take ``splits * m * n`` fp32 of workspace."""
+    tile = 0 if m <= TC_TILES[0][0] else 1
+    bm, bn, bk = TC_TILES[tile]
+    m_tiles, n_tiles = -(-m // bm), -(-n // bn)
+    k_tiles = -(-k // bk)
+    want = SMS // max(1, m_tiles * n_tiles)
+    splits = max(1, min(want, k_tiles // MIN_SPLIT_K_TILES, MAX_SPLITS))
+    return SplitKPlan(tile=tile, bm=bm, bn=bn, bk=bk, m_tiles=m_tiles,
+                      n_tiles=n_tiles, k_tiles=k_tiles, splits=splits,
+                      workspace=splits * m * n if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _encode_epilogue(stages: tuple) -> tuple:
+    """The kernel's (kinds, imms, operand-is-bf16) arrays for (kind, imm,
+    operand dtype or None) stages, made once per epilogue signature: the
+    serving path issues the same three at every layer."""
+    return (_build.ptr_array(ctypes.c_int, [_KIND[k] for k, _, _ in stages]),
+            _build.ptr_array(ctypes.c_float, [f32(i) for _, i, _ in stages]),
+            _build.ptr_array(ctypes.c_int, [int(dt == torch.bfloat16)
+                                            for _, _, dt in stages]))
+
 
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
-              epilogue=(), compensated: bool = False) -> torch.Tensor:
+              epilogue=(), compensated: bool = False,
+              splits: int | None = None) -> torch.Tensor:
     """Launch ``csrc/ntx_gemm.cu``: a (m, k) @ b (k, n), both fp32 or both
-    bf16, output fp32 or bf16; array epilogue operands are passed as
-    contiguous fp32 ((n,) for bias, (m, n) otherwise). ``compensated``
-    takes the kernel's Neumaier variant over KAHAN_SLAB-deep slabs."""
+    bf16, output fp32 or bf16. bf16 without ``compensated`` takes the
+    tensor-core route, cut by :func:`split_k_plan` (a second launch adds
+    the splits' partials); the rest the FFMA route. Array epilogue
+    operands are read in their own dtype when fp32 or bf16 (others are
+    cast to fp32), as contiguous (n,) for bias and (m, n) otherwise.
+    ``compensated`` takes the kernel's Neumaier variant over
+    KAHAN_SLAB-deep slabs. ``splits`` replaces the plan's number of k
+    splits on the tensor-core route (to time the choice; the ``ops``
+    entry points never pass it)."""
     if a.dtype != b.dtype or a.dtype not in _GEMM_DTYPES:
         raise ValueError(f"ntx_gemm takes two fp32 or two bf16 operands, "
                          f"got {a.dtype} @ {b.dtype}")
@@ -134,24 +215,39 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     n = b.shape[1]
     a, b = a.contiguous(), b.contiguous()
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    keep, ptrs = [], []
+    operands = []
     for kind, _, operand in epilogue:
-        if kind not in EPILOGUE_ARRAY_KINDS:
-            ptrs.append(None)
-            continue
-        want = (n,) if kind == "bias" else (m, n)
-        op = operand.to(torch.float32).reshape(want).contiguous()
-        keep.append(op)
-        ptrs.append(op.data_ptr())
-    kinds = _build.ptr_array(ctypes.c_int, [_KIND[k] for k, _, _ in epilogue])
-    imms = _build.ptr_array(ctypes.c_float, [f32(i) for _, i, _ in epilogue])
-    ops_arr = _build.ptr_array(ctypes.c_void_p, ptrs)
-    lib = _build.library()
-    with torch.cuda.device(a.device):
-        code = lib.ntx_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                            int(a.dtype == torch.bfloat16),
-                            int(out_dtype == torch.bfloat16),
-                            int(compensated), len(epilogue),
-                            kinds, imms, ops_arr, _build.stream_of(a))
+        if kind in EPILOGUE_ARRAY_KINDS:
+            want = (n,) if kind == "bias" else (m, n)
+            if operand.dtype not in _GEMM_DTYPES:
+                operand = operand.to(torch.float32)
+            if operand.shape != want:
+                operand = operand.reshape(want)
+            operands.append(operand.contiguous())
+        else:
+            operands.append(None)
+    kinds, imms, op_bf16 = _encode_epilogue(tuple(
+        (kind, imm, None if op is None else op.dtype)
+        for (kind, imm, _), op in zip(epilogue, operands)))
+    tile, ws = 0, None
+    if a.dtype == torch.bfloat16 and not compensated:
+        plan = split_k_plan(m, n, k)
+        tile, splits = plan.tile, splits or plan.splits
+        if splits > 1:
+            ws = torch.empty(splits * m * n, dtype=torch.float32,
+                             device=a.device)
+    elif splits not in (None, 1):
+        raise ValueError("only the bf16 tensor-core route splits k")
+    else:
+        splits = 1
+    ops_arr = _build.ptr_array(ctypes.c_void_p, [
+        None if op is None else op.data_ptr() for op in operands])
+    with _build.on_device(a):
+        code = _build.library().ntx_gemm(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+            int(a.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            int(compensated), len(epilogue), kinds, imms, ops_arr, op_bf16,
+            tile, splits, ws.data_ptr() if ws is not None else None,
+            _build.stream_of(a))
     _build.check(code, "ntx_gemm")
     return c

@@ -61,9 +61,10 @@ def launches() -> dict:
 def _on_card(*tensors) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors
     (run the plain version); anything else, or a mix, raises."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cuda"}:
+    cuda = [t.is_cuda for t in tensors if t is not None]
+    if cuda and all(cuda):
         return True
+    kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on {sorted(kinds)}: the NTX ops take CPU "
@@ -156,6 +157,8 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 def _split_ys(stages, ys):
     """Operands of each stage chunk when a chain is cut into launches of
     at most MAX_STAGES stages."""
+    if len(stages) <= MAX_STAGES:
+        return [(stages, ys)]
     chunks, yi = [], 0
     for i in range(0, len(stages), MAX_STAGES):
         part = stages[i:i + MAX_STAGES]
@@ -165,13 +168,19 @@ def _split_ys(stages, ys):
     return chunks
 
 
-def _chain_cuda(stages, x2, ys2, counter: str):
+def _chain_cuda(stages, x, ys, counter: str):
     """Run a chain of any length as launches of at most MAX_STAGES."""
-    val = x2
-    for part, part_ys in _split_ys(stages, ys2):
+    val = x
+    for part, part_ys in _split_ys(stages, ys):
         LAUNCHES[counter] += 1
         val, _ = stream_cuda(part, val, part_ys)
     return val
+
+
+def _like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y`` as a contiguous tensor of ``x``'s shape (the kernel streams
+    both as one flat run of elements)."""
+    return (y if y.shape == x.shape else y.reshape(x.shape)).contiguous()
 
 
 def elementwise(op: str, x: torch.Tensor, y: torch.Tensor | None = None,
@@ -179,12 +188,10 @@ def elementwise(op: str, x: torch.Tensor, y: torch.Tensor | None = None,
     if not _on_card(x, y):
         return elementwise_plain(op, x, y, imm)
     _no_backward("stream", x, y)
-    shape = x.shape
-    x2 = x.reshape(1, -1).contiguous()
-    ys = (y.reshape(1, -1).contiguous(),) if op in _OPS2 else ()
+    ys = (_like(y, x),) if op in _OPS2 else ()
     LAUNCHES["elementwise"] += 1
-    out, _ = stream_cuda([(op, imm)], x2, ys)
-    return out.reshape(shape)
+    out, _ = stream_cuda(((op, imm),), x.contiguous(), ys)
+    return out
 
 
 def axpy(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -202,10 +209,8 @@ def elementwise_chain(stages, x: torch.Tensor, ys=()) -> torch.Tensor:
     if not _on_card(x, *ys):
         return elementwise_chain_plain(stages, x, ys)
     _no_backward("stream", x, *ys)
-    shape = x.shape
-    x2 = x.reshape(1, -1).contiguous()
-    ys2 = tuple(y.reshape(1, -1).contiguous() for y in ys)
-    return _chain_cuda(stages, x2, ys2, "elementwise_chain").reshape(shape)
+    return _chain_cuda(stages, x.contiguous(), tuple(_like(y, x) for y in ys),
+                       "elementwise_chain")
 
 
 def chain_reduce(stages, red: str, x: torch.Tensor, ys=()):
@@ -229,8 +234,8 @@ def chain_reduce(stages, red: str, x: torch.Tensor, ys=()):
     if cut:
         x2 = _chain_cuda(stages[:cut], x2, ys2[:n_head], "chain_reduce")
     LAUNCHES["chain_reduce"] += 1
-    out, red_v = stream_cuda(stages[cut:], x2, ys2[n_head:], tail=red)
-    return out, _arg_int(red, red_v)
+    return stream_cuda(stages[cut:], x2, ys2[n_head:], tail=red,
+                       red_int=True)
 
 
 def _arg_int(red: str, red_v: torch.Tensor) -> torch.Tensor:
@@ -249,10 +254,11 @@ def reduce(op: str, x: torch.Tensor) -> torch.Tensor:
     if not _on_card(x):
         return reduce_plain(op, x)
     _no_backward("stream", x)
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    two_d = x.dim() == 2
+    x2 = (x if two_d else x.reshape(-1, x.shape[-1])).contiguous()
     LAUNCHES["reduce"] += 1
     _, red = stream_cuda((), x2, tail=op, write_out=False, red_int=True)
-    return red.reshape(x.shape[:-1])
+    return red if two_d else red.reshape(x.shape[:-1])
 
 
 # ----------------------------------------------------------------------

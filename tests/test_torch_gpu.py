@@ -388,3 +388,231 @@ def test_rmse_study_on_the_card_equals_the_cpu(cuda):
     got = precision.conv_layer_rmse_study(n_outputs=16, device=cuda)
     assert got == precision.conv_layer_rmse_study(n_outputs=16,
                                                   device="cpu")
+
+
+# ----------------------------------------------------------------------
+# The streaming kernel with rows split across blocks
+# ----------------------------------------------------------------------
+CHUNK = tew.STREAM_CHUNK
+LONG_ROWS = [(1, (1 << 20) + 3), (4, (1 << 20) + 3), (1, 128256),
+             (4, 128256)]
+
+
+def _plant_ties(x, lo, hi):
+    """Equal maxima on both sides of a chunk boundary and at the first
+    element of a later chunk, equal minima at the first elements of two
+    chunks and across a later boundary: the lowest index must win."""
+    for c in (5 * CHUNK, 2 * CHUNK, 2 * CHUNK - 1):
+        x[:, c] = hi
+    for c in (7 * CHUNK, 4 * CHUNK, 4 * CHUNK - 1, 3 * CHUNK):
+        x[:, c] = lo
+    return x
+
+
+@pytest.mark.parametrize("red", ["min", "max", "argmin", "argmax"])
+@pytest.mark.parametrize("rows,n", LONG_ROWS)
+def test_stream_kernel_long_rows_bit_equal(cuda, rows, n, red):
+    """Rows over many blocks (257 or 32 chunks): the chain output and the
+    MIN/MAX/arg tails bit-equal to the plain version, planted ties across
+    chunks resolved first-wins."""
+    x = _plant_ties(_t((rows, n), cuda), -40.0, 40.0)
+    y = torch.zeros_like(x)
+    stages = [("axpy", 1.0), ("thresh", -100.0)]
+    out, r = tew.stream_cuda(stages, x, (y,), tail=red)
+    w_out, w_r = tred.chain_reduce_plain(stages, red, x, (y,))
+    assert torch.equal(out, w_out) and torch.equal(r, w_r)
+    if red == "argmax":
+        assert r.tolist() == [float(2 * CHUNK - 1)] * rows
+    if red == "argmin":
+        assert r.tolist() == [float(3 * CHUNK)] * rows
+
+
+@pytest.mark.parametrize("rows,n", LONG_ROWS)
+def test_stream_kernel_long_rows_sum(cuda, rows, n):
+    """SUM over rows split into chunks: within the reference's 1e-5 of
+    sum |v|, and the same bits from call to call (partials merged in
+    chunk order, no atomics)."""
+    x, y = _t((rows, n), cuda), _t((rows, n), cuda)
+    stages = [("axpy", 0.5), ("relu", 0.0)]
+    got = [tew.stream_cuda(stages, x, (y,), tail="sum") for _ in range(2)]
+    w_out, w_r = tred.chain_reduce_plain(stages, "sum", x, (y,))
+    assert torch.equal(got[0][0], w_out)
+    assert torch.equal(got[0][1], got[1][1])
+    scale = w_out.abs().double().sum(-1)
+    err = (got[0][1].double() - w_out.double().sum(-1)).abs()
+    assert bool((err <= 1e-5 * scale).all())
+
+
+def test_stream_kernel_tail_scratch_is_reused(cuda):
+    """Tails over rows of several lengths and row counts, in turns, reuse
+    one per-stream scratch: each row's last block merges its partials and
+    sets its counter back to 0, so every result stays exact and the
+    counters end at 0."""
+    xs = [_t((rows, n), cuda) for rows, n in LONG_ROWS]
+    for _ in range(3):
+        for x in xs:
+            for red in ("argmax", "sum"):
+                out, r = tew.stream_cuda([("relu", 0.0)], x, tail=red)
+                w_out, w_r = tred.chain_reduce_plain([("relu", 0.0)], red, x)
+                assert torch.equal(out, w_out)
+                if red == "argmax":
+                    assert torch.equal(r, w_r)
+    torch.cuda.synchronize()
+    for counters, _ in tew._TAIL_SCRATCH.values():
+        assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("red", ["sum", "min", "max", "argmin", "argmax"])
+def test_stream_kernel_n_valid_across_chunks(cuda, red):
+    """Columns at or past n_valid (mid-chunk, three chunks in) add the
+    tail's identity: extremes planted there do not win."""
+    n, n_valid = 5 * CHUNK + 11, 3 * CHUNK + 17
+    x = _t((4, n), cuda)
+    x[:, n_valid + 3] = 100.0
+    x[:, n_valid + 5] = -100.0
+    out, r = tew.stream_cuda([("copy", 0.0)], x, tail=red, n_valid=n_valid)
+    w_out, w_r = tred.chain_reduce_plain([("copy", 0.0)], red, x,
+                                         n_valid=n_valid)
+    assert torch.equal(out, w_out)
+    if red == "sum":
+        scale = x[:, :n_valid].abs().double().sum(-1)
+        assert bool(((r.double() - w_r.double()).abs() <= 1e-5 * scale)
+                    .all())
+    else:
+        assert torch.equal(r, w_r)
+
+
+@pytest.mark.parametrize("tail", [None, "argmax", "min"])
+def test_stream_kernel_on_views_at_an_odd_offset(cuda, tail):
+    """Views one element into their storage (as descriptor programs hand
+    them over) take the scalar instantiation: the same bits as the
+    plain version and as aligned copies on the vector path."""
+    rows, n = 2, 3 * CHUNK + 5
+    flat = _t((3 * rows * n + 1,), cuda)
+    x, y1, y2 = (flat[1 + i * rows * n:1 + (i + 1) * rows * n].view(rows, n)
+                 for i in range(3))
+    assert x.data_ptr() % 16 != 0
+    stages = [("axpy", 0.75), ("mul", 0.0), ("thresh", 0.05)]
+    got = tew.stream_cuda(stages, x, (y1, y2), tail=tail)
+    aligned = tew.stream_cuda(stages, x.clone(), (y1.clone(), y2.clone()),
+                              tail=tail)
+    if tail is None:
+        want = tew.elementwise_chain_plain(stages, x, (y1, y2))
+        assert torch.equal(got[0], want) and torch.equal(aligned[0], want)
+    else:
+        want = tred.chain_reduce_plain(stages, tail, x, (y1, y2))
+        for out, r in (got, aligned):
+            assert torch.equal(out, want[0]) and torch.equal(r, want[1])
+
+
+@pytest.mark.parametrize("op", ["axpy", "thresh", "set"])
+@pytest.mark.parametrize("n", [(1 << 22) + 3, 1001])
+def test_elementwise_long_stream_bit_equal(cuda, op, n):
+    """One command over a long row: the grid-stride float4 pass and its
+    scalar remainder, bit-equal to the plain version."""
+    x, y = _t((1, n), cuda), _t((1, n), cuda)
+    ops.reset_launches()
+    got = ops.elementwise(op, x, y if op in tew._OPS2 else None, imm=0.3)
+    assert ops.launches()["elementwise"] == 1
+    want = tew.elementwise_plain(op, x, y if op in tew._OPS2 else None, 0.3)
+    assert torch.equal(got, want)
+
+
+def test_serial_and_fused_sum_programs_bit_equal(cuda):
+    """AXPY -> RELU -> SUM as one ntx.Program: the serial policy (two
+    elementwise launches, then the reduce kernel) and the fused one (one
+    chain-reduce launch) give the same bits."""
+    import ntx_torch as ntx
+    n = (1 << 20) + 3
+    xs, ys = _t((n,), cuda), _t((n,), cuda)
+    with ntx.Program() as prog:
+        x = prog.buffer((n,), name="x")
+        y = prog.buffer((n,), name="y")
+        t = prog.axpy(0.5, x, y)
+        prog.relu(t, out=t)
+        total = prog.reduce("sum", t, name="total")
+    res = {}
+    for policy in ("serial", "fused"):
+        ops.reset_launches()
+        run = ntx.Executor(policy, device=cuda).run(prog,
+                                                    inputs={x: xs, y: ys})
+        res[policy] = (run.read_tensor(total).clone(),
+                       run.read_tensor(t).clone(), ops.launches())
+    assert res["serial"][2]["reduce"] == 1
+    assert res["fused"][2]["chain_reduce"] == 1
+    assert res["fused"][2]["reduce"] == 0
+    assert torch.equal(res["serial"][1], res["fused"][1])
+    assert torch.equal(res["serial"][0], res["fused"][0])
+
+
+# ----------------------------------------------------------------------
+# The bf16 GEMM on the tensor cores
+# ----------------------------------------------------------------------
+def _all_epilogue_kinds(dev, m, n):
+    """Every epilogue kind once. THRESH at 0 is continuous there, so a
+    last-bit difference in the product cannot move a value across it."""
+    mask = (_t((m, n), dev) > 0).float()
+    return ops._norm_epilogue([
+        ("bias", _t((n,), dev)), ("residual", _t((m, n), dev).bfloat16()),
+        ("mul", _t((m, n), dev)), ("sub", _t((m, n), dev, 0.1).bfloat16()),
+        ("scale", 0.5), "gelu", "silu", ("mask", mask), ("thresh", 0.0),
+        "relu"])
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(1007, 1003), (14336, 1000)])
+@pytest.mark.parametrize("m", [1, 4, 16, 70, 128])
+def test_bf16_gemm_tensor_cores(cuda, m, k, n, out_dtype):
+    """The tensor-core route, split over k as split_k_plan says (both
+    tiles, ragged m and n, k and n off the 16-byte copies at k = 1007),
+    with every epilogue kind, against its plain version at the existing
+    tolerances; two calls give the same bits."""
+    odt = getattr(torch, out_dtype)
+    a = _t((m, k), cuda).bfloat16()
+    b = _t((k, n), cuda, k ** -0.5).bfloat16()
+    ep = _all_epilogue_kinds(cuda, m, n)
+    got = tgemm.gemm_cuda(a, b, odt, ep)
+    again = tgemm.gemm_cuda(a, b, odt, ep)
+    want = tgemm.gemm_plain(a, b, odt, ep)
+    assert got.dtype == odt and torch.equal(got, again)
+    tol = 1e-4 if out_dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m", [4, 70])
+def test_bf16_gemm_operand_at_an_odd_offset(cuda, m):
+    """An operand one element into its storage takes the masked-load
+    instantiation; the tiles it builds are the same, so the result has
+    the same bits as the 16-byte-copy path on aligned copies."""
+    k, n = 4096, 1024
+    flat = _t((m * k + 1,), cuda).bfloat16()
+    a = flat[1:].view(m, k)
+    b = _t((k, n), cuda, k ** -0.5).bfloat16()
+    assert a.data_ptr() % 16 != 0
+    assert tgemm.split_k_plan(m, n, k).splits > 1
+    got = tgemm.gemm_cuda(a, b, torch.bfloat16, [])
+    assert torch.equal(got, tgemm.gemm_cuda(a.clone(), b, torch.bfloat16, []))
+    torch.testing.assert_close(
+        got.float(), tgemm.gemm_plain(a, b, torch.bfloat16).float(),
+        rtol=1e-2, atol=1e-2)
+
+
+def test_fused_mlp_on_the_card(cuda):
+    """ops.fused_mlp's three products (gate to fp32, w1 with silu * gate,
+    w2 with the bf16 residual) as the serving path runs them, against the
+    plain versions of the same three calls."""
+    d, f, m = 512, 1536, 4
+    x = _t((m, d), cuda).bfloat16()
+    w1, w3 = (_t((d, f), cuda, d ** -0.5).bfloat16() for _ in range(2))
+    w2 = _t((f, d), cuda, f ** -0.5).bfloat16()
+    res = _t((m, d), cuda).bfloat16()
+    ops.reset_launches()
+    got = ops.fused_mlp(x, w1, w2, w3, act="swiglu", residual=res)
+    assert ops.launches()["gemm"] == 3
+    gate = tgemm.gemm_plain(x, w3)
+    h = tgemm.gemm_plain(x, w1, torch.bfloat16, ops._norm_epilogue(
+        [("silu",), ("mul", gate)]))
+    want = tgemm.gemm_plain(h, w2, torch.bfloat16,
+                            ops._norm_epilogue([("residual", res)]))
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
