@@ -39,7 +39,8 @@ Phases, one result line each:
                AXPY 2**22 and a THRESH->RELU->THRESH chain through ops and
                as ntx.Programs, and the PCS RMSE study on the card against
                the CPU; Gflop/s, bound shares and launch counts, then each
-               result against its plain version as in phase 2.
+               result against its plain version as in phase 2; the fused
+               Laplace timed beside the per-axis route it replaced.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -62,7 +63,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense; fp32 off tensor cores
+#: dense peaks; fp32 off the tensor cores. ``fp32_unfused`` is the rate of
+#: separate FMUL and FADD instructions (132 SMs x 128 lanes x ~1.98 GHz),
+#: the bound of kernels whose products are rounded before their adds
+#: (conv, the stencil pass, the Laplace): bit-equality forbids FMA there
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "fp32_unfused": 33.5e12}
 PROMPT_LEN, NEW_TOKENS, BATCH = 32, 16, 4
 MAX_SEQ = PROMPT_LEN + NEW_TOKENS + 8        # launch/serve.py's sizing
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
@@ -460,14 +465,16 @@ def train_cases(torch, rn):
     return cases
 
 
-def laplace_plain(x, stencil1d_plain):
-    """The plain route of ``ops.laplace``: the same per-axis passes over
-    the same interior slices, each the stencil's plain version."""
+def laplace_per_axis(x, ops):
+    """The per-axis route of ``ops.laplace`` before the fused kernel: a
+    ``stencil_axis`` pass per axis over a contiguous copy of the slice
+    interior on the other axes, the terms added with torch adds."""
     nd, out = x.dim(), None
     for d in range(nd):
         sl = [slice(1, -1)] * nd
         sl[d] = slice(None)
-        term = stencil1d_plain(x[tuple(sl)], (1.0, -2.0, 1.0), d)
+        term = ops.stencil_axis(x[tuple(sl)].contiguous(), (1.0, -2.0, 1.0),
+                                d)
         out = term if out is None else out + term
     return out
 
@@ -499,27 +506,41 @@ def suite_cases(torch, rn):
     from repro_torch.kernels import ops
     from repro_torch.kernels import ntx_elementwise as ew
     from repro_torch.kernels import ntx_gemm
-    from repro_torch.kernels.ntx_conv import conv2d_plain
-    from repro_torch.kernels.ntx_stencil import stencil1d_plain
+    from repro_torch.kernels import ntx_conv
+    from repro_torch.kernels.ntx_stencil import laplace_plain, stencil1d_plain
     cases = []
     conv_src = "src/repro_torch/kernels/csrc/ntx_conv.cu"
     conv_rep = "src/repro/kernels/ntx_conv.py:33"
     st_src = "src/repro_torch/kernels/csrc/ntx_stencil.cu"
     st_rep = "src/repro/kernels/ntx_stencil.py:31"
     common = dict(kind="fp32", phase="suite")
+    unfused = dict(common, kind="fp32_unfused")
 
     def conv_case(img, k, path):
         ker = rn(k, k, std=1.0 / k)
         h, w = img.shape
         oh, ow = h - k + 1, w - k + 1
-        cases.append(dict(
+        case = dict(
             name=f"conv2d:{k}x{k}_{h}x{w}", wrapper="conv2d",
             source=conv_src, replaces=conv_rep,
             kernel=lambda: ops.conv2d(img, ker),
-            plain=lambda: conv2d_plain(img, ker),
+            plain=lambda: ntx_conv.conv2d_plain(img, ker),
             library=lambda: F.conv2d(img[None, None], ker[None, None]),
             mode="equal", tol=(0.0, 0.0), bytes=4.0 * (h * w + oh * ow),
-            ops=2.0 * k * k * oh * ow, path=path, **common))
+            ops=2.0 * k * k * oh * ow, path=path, **unfused)
+        if path:
+            # the plan's one block per tile against a persistent grid of
+            # two blocks per SM (each walks its tiles with the next tile's
+            # copy in flight), timed in phase 3
+            plan = ntx_conv.tile_plan(oh, ow, k, k)
+            sms = torch.cuda.get_device_properties(
+                DEVICE).multi_processor_count
+            case["plans"] = (
+                (("one block per tile", plan),
+                 ("persistent, two blocks per SM",
+                  plan._replace(blocks=min(plan.tiles, 2 * sms)))),
+                lambda p: ntx_conv.conv2d_cuda(img, ker, plan=p))
+        cases.append(case)
 
     plane = rn(CONV_HW, CONV_HW)
     for k in CONV_TAPS:
@@ -544,7 +565,7 @@ def suite_cases(torch, rn):
             library=lambda wgt=wgt: F.conv3d(vol[None, None], wgt),
             mode="equal", tol=(0.0, 0.0),
             bytes=4.0 * (vol.numel() + n_out), ops=6.0 * n_out, path=True,
-            **common))
+            **unfused))
 
     def laplace_case(x, path):
         nd = x.dim()
@@ -553,13 +574,13 @@ def suite_cases(torch, rn):
         wgt = star_weight(torch, nd, DEVICE)
         cases.append(dict(
             name=f"laplace:{nd}d_{'x'.join(map(str, x.shape))}",
-            wrapper="stencil", source=st_src, replaces=st_rep,
+            wrapper="laplace", source=st_src, replaces=st_rep,
             kernel=lambda: ops.laplace(x),
-            plain=lambda: laplace_plain(x, stencil1d_plain),
+            plain=lambda: laplace_plain(x),
             library=lambda: conv(x[None, None], wgt)[0, 0],
-            mode="close", tol=(1e-5, 1e-5),
+            mode="equal", tol=(0.0, 0.0),
             bytes=4.0 * (x.numel() + interior),
-            ops=2.0 * (2 * nd + 1) * interior, path=path, **common))
+            ops=2.0 * (2 * nd + 1) * interior, path=path, **unfused))
 
     laplace_case(rn(*LAP_SHAPES[0]), True)
     laplace_case(plane, True)
@@ -808,9 +829,21 @@ def phase_check_and_time(torch, do_time: bool) -> list:
                             f"two blocks per SM, {alt} -> "
                             f"{time_ms(lambda: run(alt), torch):.4f} ms "
                             f"(gemm_cuda alone)")
+            if case.get("plans"):
+                plans, run = case["plans"]
+                outs = [run(p) for _, p in plans]
+                same = all(torch.equal(o, outs[0]) for o in outs)
+                del outs
+                msg = " | ".join(
+                    f"{label}, {p.blocks} blocks -> "
+                    f"{time_ms(lambda p=p: run(p), torch):.4f} ms"
+                    for label, p in plans)
+                say("time", f"{case['name']}: {msg} (conv2d_cuda alone) | "
+                            f"bit-equal {same}")
+                need(same, f"{case['name']}: the conv plans disagree")
     for case in rows:            # free the inputs the closures hold
         for key in ("kernel", "plain", "library", "scale", "check",
-                    "aside", "splits"):
+                    "aside", "splits", "plans"):
             case.pop(key, None)
     torch.cuda.empty_cache()
     return rows
@@ -1289,22 +1322,22 @@ def phase_suite(torch, np) -> dict:
         chain.relu(t, out=t)
         chain.thresh(t, CHAIN3[2][1], out=t)
 
-    # (name, call, wrapper, bytes, operations)
+    # (name, call, wrapper, bytes, operations, kind of operations)
     items = [(case["name"], case["kernel"], case["wrapper"], case["bytes"],
-              case["ops"]) for case in cases]
+              case["ops"], case["kind"]) for case in cases]
     for policy in ("serial", "fused"):
         items.append((f"axpy {AXPY_N} ntx.Program {policy}",
                       lambda p=policy: ntx.Executor(p, device=DEVICE).run(
                           prog, inputs={xb: xs, yb: ys}).read_tensor(
                               axpy_out),
-                      "elementwise", 12.0 * AXPY_N, 2.0 * AXPY_N))
+                      "elementwise", 12.0 * AXPY_N, 2.0 * AXPY_N, "fp32"))
     items.append((f"thresh-relu-thresh {AXPY_N} ntx.Program fused",
                   lambda: ntx.Executor("fused", device=DEVICE).run(
                       chain, inputs={cx: xs}).read_tensor(t),
-                  "elementwise_chain", 8.0 * AXPY_N, 3.0 * AXPY_N))
+                  "elementwise_chain", 8.0 * AXPY_N, 3.0 * AXPY_N, "fp32"))
     # one untimed pass, its outputs held together as the timed pass holds
     # them, so the timed calls reuse cached blocks instead of new ones
-    warm = [call() for _, call, _, _, _ in items]
+    warm = [call() for _, call, _, _, _, _ in items]
     del warm
     torch.cuda.synchronize()
     alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
@@ -1312,7 +1345,7 @@ def phase_suite(torch, np) -> dict:
     gc0 = sum(g["collections"] for g in gc.get_stats())
     ops.reset_launches()
     outs, times, unlaunched = [], [], []
-    for name, call, wrapper, _, _ in items:
+    for name, call, wrapper, _, _, _ in items:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         before = ops.launches()[wrapper]
@@ -1329,13 +1362,13 @@ def phase_suite(torch, np) -> dict:
     host = {k: alloc1.get(k, 0) - alloc0.get(k, 0) for k in alloc_keys}
     host["gc_collections"] = sum(g["collections"]
                                  for g in gc.get_stats()) - gc0
-    for (name, _, _, nbytes, nops), (start, end, host_ms) in zip(items,
-                                                                 times):
+    for (name, _, _, nbytes, nops, kind), (start, end, host_ms) in zip(
+            items, times):
         ms = start.elapsed_time(end)
         flops, bps = nops / ms * 1e3, nbytes / ms * 1e3
-        b_ms, b_by = bound_ms(nbytes, nops, "fp32")
+        b_ms, b_by = bound_ms(nbytes, nops, kind)
         say("suite", f"{name}: {ms:.4f} ms | {flops / 1e9:.1f} Gflop/s "
-                     f"({flops / PEAK_OPS['fp32']:.4f} of the fp32 rate) | "
+                     f"({flops / PEAK_OPS[kind]:.4f} of the {kind} rate) | "
                      f"{bps / 1e9:.1f} GB/s ({bps / HBM_BYTES_PER_S:.4f} of "
                      f"HBM) | bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f}"
                      f" of it | host {host_ms:.4f} ms to enqueue it | card "
@@ -1343,24 +1376,28 @@ def phase_suite(torch, np) -> dict:
     say("suite", f"kernel launches {counts} | during the timed calls: "
                  f"caching-allocator and Python gc events {host}")
     need(not unlaunched, f"suite calls that launched no kernel: {unlaunched}")
+    bad = []
     for shape in LAP_SHAPES[1:]:
-        # ops.laplace hands each pass the slice interior on the other
-        # axes, which the stencil kernel needs contiguous: that copy's cost
-        x, nd = torch.empty(shape, device=DEVICE), len(shape)
-        views = []
-        for d in range(nd):
-            sl = [slice(1, -1)] * nd
-            sl[d] = slice(None)
-            views.append(x[tuple(sl)])
-        copy_ms = time_ms(lambda: [v.contiguous() for v in views], torch,
-                          warmup=1, iters=5)
-        say("suite", f"laplace {nd}-D: copying its {nd} interior slices "
-                     f"contiguous takes {copy_ms:.4f} ms (CUDA events, mean "
-                     f"of 5) | card {card}")
-        del x, views
+        # the fused Laplace beside the per-axis route it replaced (three
+        # stencil_axis passes over contiguous copies of the interior
+        # slices, and torch adds), in turns: fused, per-axis, per-axis,
+        # fused; the two results bit-equal
+        x, nd = rn(*shape), len(shape)
+        fused = lambda: ops.laplace(x)
+        per_axis = lambda: laplace_per_axis(x, ops)
+        same = bool(torch.equal(fused(), per_axis()))
+        got = [time_ms(fn, torch, warmup=1, iters=5)
+               for fn in (fused, per_axis, per_axis, fused)]
+        say("suite", f"laplace {nd}-D {'x'.join(map(str, shape))}: fused "
+                     f"{got[0]:.4f} / {got[3]:.4f} ms | per-axis route "
+                     f"(copies, {nd} passes, adds) {got[1]:.4f} / "
+                     f"{got[2]:.4f} ms (CUDA events, mean of 5) | "
+                     f"bit-equal {same} | card {card}")
+        if not same:
+            bad.append(f"laplace {nd}-D fused vs per-axis")
+        del x
 
     # every result against its plain version on the card
-    bad = []
     for case, got in zip(cases, outs):
         ok, max_abs, _ = compare(torch, case, got, case["plain"]())
         msg = f"max_abs_err {max_abs:.3e} vs its plain version"

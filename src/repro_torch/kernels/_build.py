@@ -54,10 +54,14 @@ _SIGNATURES = {
                    _P, _P],
     # (x, dt, A, B, C, y, b, l, h, dh, n, chunk, bf16, stream)
     "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # (img, ker, out, h, w, kh, kw, in_bf16, stream)
-    "ntx_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (img, ker, out, h, w, kh, kw, in_bf16, tx, ty, rpt, ci, cj, blocks,
+    #  stream)
+    "ntx_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
     # (x, coef, out, outer, n, inner, k, in_bf16, stream)
     "ntx_stencil": [_P, _P, _P, _L, _I, _L, _I, _I, _P],
+    # (x, out, nd, n0, n1, n2, in_bf16, stream)
+    "ntx_laplace": [_P, _P, _I, _L, _L, _L, _I, _P],
     # (p, g, m, v, p_out, m_out, v_out, n, lr, b1, 1 - b1, b2, 1 - b2,
     #  eps, wd, bc1, bc2, p_bf16, stream)
     "ntx_adamw": [_P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,

@@ -37,16 +37,21 @@ from .ntx_elementwise import (MAX_STAGES, _OPS2, adamw_cuda, adamw_plain,
 from .ntx_conv import check_shapes, conv2d_cuda, conv2d_plain
 from .ntx_gemm import (EPILOGUE_ARRAY_KINDS, gemm_cuda, gemm_kahan_plain,
                        gemm_plain)
-from .ntx_stencil import as_blocks, stencil1d_cuda, stencil1d_plain
+from .ntx_stencil import (LAPLACE_TAPS, as_blocks, laplace_cuda,
+                          laplace_plain, laplace_shape, stencil1d_cuda,
+                          stencil1d_plain)
 from .ntx_reduce import REDUCE_OPS, chain_reduce_plain, reduce_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 #: kernel launches per wrapper since the last :func:`reset_launches`;
 #: ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
-#: not a kernel of this package yet)
+#: not a kernel of this package yet); ``laplace`` counts the fused Laplace
+#: launches (one per ``laplace`` call of 1-3 dimensions), ``stencil`` the
+#: per-axis passes
 LAUNCHES = {"gemm": 0, "gemm_kahan": 0, "attention": 0, "elementwise": 0,
             "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0,
-            "ssd": 0, "ssd_bwd": 0, "adamw": 0, "conv2d": 0, "stencil": 0}
+            "ssd": 0, "ssd_bwd": 0, "adamw": 0, "conv2d": 0, "stencil": 0,
+            "laplace": 0}
 
 
 def reset_launches() -> None:
@@ -286,6 +291,13 @@ def conv2d(img: torch.Tensor, ker: torch.Tensor,
 # ----------------------------------------------------------------------
 # Stencils (paper §III-B3: star stencils as per-axis passes)
 # ----------------------------------------------------------------------
+@functools.lru_cache(maxsize=64)
+def _taps_on(values: tuple, device: torch.device) -> torch.Tensor:
+    """A tap vector on the card, made once per values and device (a copy
+    from the host on every call would wait for the stream)."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def stencil_axis(x: torch.Tensor, coeffs, axis: int) -> torch.Tensor:
     """Valid 1-D stencil along ``axis`` with ``len(coeffs)`` taps, fp32
     out. ``coeffs``: a sequence of floats or a tensor of taps on any
@@ -299,8 +311,11 @@ def stencil_axis(x: torch.Tensor, coeffs, axis: int) -> torch.Tensor:
         return stencil1d_plain(x, vals, axis)
     _no_backward("stencil", x)
     axis = axis % x.dim()
-    taps = torch.as_tensor(coeffs, dtype=torch.float32,
-                           device=x.device).reshape(-1)
+    if torch.is_tensor(coeffs):
+        taps = coeffs.to(device=x.device, dtype=torch.float32).reshape(-1)
+    else:
+        taps = _taps_on(tuple(np.asarray(coeffs, np.float32).reshape(-1)
+                              .tolist()), x.device)
     LAUNCHES["stencil"] += 1
     out = stencil1d_cuda(as_blocks(x.contiguous(), axis), taps)
     shape = list(x.shape)
@@ -308,21 +323,33 @@ def stencil_axis(x: torch.Tensor, coeffs, axis: int) -> torch.Tensor:
     return out.view(shape)
 
 
-@functools.lru_cache(maxsize=None)
-def _laplace_taps(device: torch.device) -> torch.Tensor:
-    """The [1, -2, 1] taps, made once per device."""
-    return torch.tensor((1.0, -2.0, 1.0), dtype=torch.float32, device=device)
-
-
 def laplace(x: torch.Tensor) -> torch.Tensor:
     """n-D discrete Laplace on the interior, the paper's decomposition:
-    per axis d, a [1, -2, 1] ``stencil_axis`` pass over the slice that is
-    interior on the other axes, the passes summed in axis order (the
-    reference's Pallas route; ``ref.laplace`` sums in another order).
-    On the card each slice but the 1-D one is a strided view that
-    ``stencil_axis`` copies to make contiguous."""
+    per axis d, a [1, -2, 1] pass over the slice that is interior on the
+    other axes, the passes summed in axis order (the reference's Pallas
+    route; ``ref.laplace`` sums in another order). fp32 out; an axis
+    shorter than 3 gives an empty interior.
+
+    On the card, a 1-D, 2-D or 3-D array is one ``ntx_laplace`` launch
+    that computes the same per-axis terms and sums (bit-equal to
+    ``laplace_plain``); x is copied only if it is not contiguous. Four or
+    more dimensions take the per-axis route: one ``stencil_axis`` launch
+    per axis over a contiguous copy of its interior slice, and torch adds.
+    """
+    if not _on_card(x):
+        return laplace_plain(x)
+    _no_backward("stencil", x)
     nd = x.ndim
-    taps = _laplace_taps(x.device)
+    if 1 <= nd <= 3:
+        if not x.is_contiguous():
+            x = x.contiguous()
+        if min(x.shape) >= 3:
+            LAUNCHES["laplace"] += 1
+        return laplace_cuda(x)
+    if nd and min(x.shape) < 3:
+        return torch.empty(laplace_shape(x.shape), dtype=torch.float32,
+                           device=x.device)
+    taps = _taps_on(LAPLACE_TAPS, x.device)
     out = None
     for d in range(nd):
         sl = [slice(1, -1)] * nd

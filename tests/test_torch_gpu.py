@@ -242,6 +242,80 @@ def test_conv_kernel_bit_equal(cuda, dtype, img_shape, ker_shape):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("img_shape,ker_shape", [
+    ((256, 256), (3, 3)), ((256, 256), (5, 5)), ((256, 256), (7, 7)),
+    ((70, 133), (3, 3)), ((65, 97), (7, 7)), ((40, 90), (5, 9)),
+    ((1000, 1000), (3, 3)), ((1100, 1030), (5, 5)), ((1024, 1024), (7, 7)),
+    ((2000, 1400), (3, 700)), ((300, 77), (2, 11))])
+def test_conv_kernel_tile_edges_bit_equal(cuda, dtype, img_shape,
+                                          ker_shape):
+    """Shapes across the kernel's plans and edges: the 256^2 plane, an
+    output width that is not a multiple of the 4-column run (and one that
+    is even but not a multiple of 4), taps wider than the run, rows that
+    are not 16-byte aligned (4-byte copies), the large-tile plan with
+    ragged tiles, and taps chunked by columns."""
+    from repro_torch.kernels import ntx_conv
+    img = _t(img_shape, cuda).to(getattr(torch, dtype))
+    ker = _t(ker_shape, cuda, 0.3)
+    got = ntx_conv.conv2d_cuda(img, ker)
+    want = ntx_conv.conv2d_plain(img, ker)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_conv_kernel_on_a_view_and_other_tap_dtypes(cuda):
+    """A plane that is a strided view and taps in another dtype are made
+    fp32 and contiguous by the wrapper."""
+    from repro_torch.kernels import ntx_conv
+    img = _t((90, 200), cuda)[:, ::2]
+    ker = _t((3, 3), cuda).double()
+    got = ntx_conv.conv2d_cuda(img, ker)
+    assert torch.equal(got, ntx_conv.conv2d_plain(img, ker.float()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("img_shape,ker_shape,blocks", [
+    ((256, 256), (3, 3), 7), ((1100, 1030), (5, 5), 64),
+    ((1024, 1024), (7, 7), 264), ((65, 97), (7, 7), 1),
+    ((400, 40), (300, 5), 2), ((2000, 1400), (3, 700), 5)])
+def test_conv_kernel_persistent_grid_bit_equal(cuda, dtype, img_shape,
+                                               ker_shape, blocks):
+    """A grid smaller than the tile count: each block walks its tiles
+    through the two-stage ring, the next tile's copy in flight, with one
+    tap chunk or several; bit-equal all the same."""
+    from repro_torch.kernels import ntx_conv
+    img = _t(img_shape, cuda).to(getattr(torch, dtype))
+    ker = _t(ker_shape, cuda, 0.3)
+    (h, w), (kh, kw) = img_shape, ker_shape
+    plan = ntx_conv.tile_plan(h - kh + 1, w - kw + 1, kh, kw)
+    plan = plan._replace(blocks=min(blocks, plan.tiles))
+    got = ntx_conv.conv2d_cuda(img, ker, plan=plan)
+    want = ntx_conv.conv2d_plain(img, ker)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("change", [
+    dict(ci=2, cj=2), dict(ci=1, cj=2), dict(ci=4), dict(cj=0),
+    dict(tx=5), dict(tx=128, ty=4), dict(rpt=4), dict(blocks=0),
+    dict(blocks=10 ** 6), dict(tx=64, ty=4, rpt=8, ci=300)])
+def test_conv_kernel_refuses_a_plan_it_cannot_run(cuda, change):
+    """The launch checks the plan it is given: tap chunks that would break
+    the i-outer, j-inner order or the 16-byte copies, more taps than the
+    kernel has, a block that is not whole warps or past 256 threads, rows
+    per thread it was not compiled for, a grid past the tiles, a stage
+    past the shared-memory budget."""
+    from repro_torch.kernels import ntx_conv
+    img, ker = _t((400, 400), cuda), _t((300, 5), cuda)
+    if "ci" in change and change["ci"] != 300:
+        ker = _t((3, 3), cuda)
+    kh, kw = ker.shape
+    plan = ntx_conv.tile_plan(401 - kh, 401 - kw, kh, kw)
+    with pytest.raises(RuntimeError, match="ntx_conv2d"):
+        ntx_conv.conv2d_cuda(img, ker, plan=plan._replace(**change))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,axis,k", [
     ((12, 14, 16), 0, 3), ((12, 14, 16), 1, 5), ((12, 14, 16), 2, 3),
     ((1, 50), 1, 3), ((50, 1), 0, 3), ((7, 9), 1, 7), ((3, 5000, 2), 1, 4),
@@ -260,6 +334,39 @@ def test_stencil_kernel_bit_equal(cuda, dtype, shape, axis, k):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,axis,k", [
+    ((20, 30, 64), 1, 3), ((16, 8, 12), 0, 5), ((9, 21, 4), 1, 2),
+    ((512, 8), 0, 3), ((37, 300), 1, 3), ((5, 1000), 1, 9),
+    ((3, 7), 1, 7), ((700, 3), 1, 3), ((64, 64, 64), 2, 3)])
+def test_stencil_pass_vector_and_flat_routes_bit_equal(cuda, dtype, shape,
+                                                        axis, k):
+    """The pass's 4-wide route (inner a multiple of 4) and its flat route
+    (inner == 1, outputs of many rows in one run), ragged edges
+    included."""
+    from repro_torch.kernels import ntx_stencil
+    x = _t(shape, cuda).to(getattr(torch, dtype))
+    coeffs = [float(c) for c in RNG.standard_normal(k).astype(np.float32)]
+    got = ops.stencil_axis(x, coeffs, axis)
+    want = ntx_stencil.stencil1d_plain(x, coeffs, axis)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stencil_pass_at_an_odd_offset(cuda, dtype):
+    """A contiguous view that starts one element into its storage: the
+    4-wide loads are not aligned, so the pass takes its scalar route."""
+    from repro_torch.kernels import ntx_stencil
+    base = _t((1 + 6 * 10 * 8,), cuda).to(getattr(torch, dtype))
+    x = base[1:].view(6, 10, 8)
+    coeffs = [1.0, -2.0, 1.0]
+    for axis in range(3):
+        got = ops.stencil_axis(x, coeffs, axis)
+        want = ntx_stencil.stencil1d_plain(x, coeffs, axis)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_stencil_axis_takes_taps_on_the_card(cuda):
     """A tensor of taps already on the card, as the reference's
     ``ops.stencil_axis`` takes an array of taps: the same result as the
@@ -276,14 +383,58 @@ def test_stencil_axis_takes_taps_on_the_card(cuda):
 @pytest.mark.parametrize("shape", [(300,), (40, 50), (12, 14, 16),
                                    (3, 1000, 4)])
 def test_laplace_on_the_card_matches_the_cpu(cuda, shape):
-    """One stencil launch per axis; the passes are bit-equal to the
-    plain versions and the sums are the same torch adds, so the card
-    gives the CPU's values."""
+    """One fused Laplace launch for 1-3 dimensions; it computes the
+    per-axis terms and their sums in the plain version's order, so the
+    card gives the CPU's values."""
     x = _t(shape, "cpu")
     ops.reset_launches()
     got = ops.laplace(x.to(cuda))
-    assert ops.launches()["stencil"] == len(shape)
+    assert ops.launches()["laplace"] == 1
+    assert ops.launches()["stencil"] == 0
     assert torch.equal(got.cpu(), ops.laplace(x))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(300,), (40, 50), (12, 14, 16),
+                                   (3, 1000, 4), (130, 3, 67), (5000,),
+                                   (3, 3), (70, 530), (19, 37, 300),
+                                   (2, 40, 40)])
+def test_fused_laplace_bit_equal(cuda, dtype, shape):
+    """``ntx_laplace`` against ``laplace_plain`` bit for bit, on shapes
+    that are not multiples of its runs and tiles (an empty interior for
+    an axis shorter than 3, with no launch)."""
+    from repro_torch.kernels import ntx_stencil
+    x = _t(shape, cuda).to(getattr(torch, dtype))
+    ops.reset_launches()
+    got = ops.laplace(x)
+    want = ntx_stencil.laplace_plain(x)
+    assert ops.launches()["laplace"] == (1 if min(shape) >= 3 else 0)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(4, 5, 6, 7), (3, 9, 2, 5)])
+def test_laplace_4d_takes_the_per_axis_route(cuda, shape):
+    """Four dimensions: one stencil pass per axis and torch adds, as the
+    reference's route; an axis shorter than 3 launches nothing."""
+    from repro_torch.kernels import ntx_stencil
+    x = _t(shape, cuda)
+    ops.reset_launches()
+    got = ops.laplace(x)
+    launched = len(shape) if min(shape) >= 3 else 0
+    assert ops.launches()["stencil"] == launched
+    assert ops.launches()["laplace"] == 0
+    want = ntx_stencil.laplace_plain(x)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_laplace_of_a_strided_view(cuda):
+    """A view that is not contiguous is copied once, then fused."""
+    from repro_torch.kernels import ntx_stencil
+    x = _t((40, 60), cuda)[:, ::2]
+    got = ops.laplace(x)
+    assert torch.equal(got, ntx_stencil.laplace_plain(x))
 
 
 def test_conv2d_on_the_card_ignores_strip_rows(cuda):

@@ -227,6 +227,10 @@ def test_cpu_routes_launch_nothing():
     tops.reset_launches()
     tops.conv2d(torch.ones(8, 8), torch.ones(3, 3))
     tops.laplace(torch.ones(6, 6))
+    tops.laplace(torch.ones(5, 6, 7))
+    tops.laplace(torch.ones(4, 4, 4, 4))
+    tops.laplace(torch.ones(2, 6))
+    tops.stencil_axis(torch.ones(6, 6), (1.0, 2.0), 1)
     tops.gemm(torch.ones(4, 4), torch.ones(4, 4), compensated=True)
     assert all(v == 0 for v in tops.launches().values())
 
