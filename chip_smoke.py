@@ -8,13 +8,15 @@ Phases, one result line each:
   1. build   — compile the CUDA kernels (src/repro_torch/kernels/csrc)
                with nvcc and load them; print the card's name and limit.
   2. check   — every kernel against its plain PyTorch version on the
-               card, at the serving and training paths' shapes; an
-               AXPY -> RELU -> SUM ntx.Program bit-equal under the serial
-               and fused policies.
+               card, at the serving and training paths' shapes (and the
+               fused AdamW on odd-length operands off a 16-byte
+               boundary); an AXPY -> RELU -> SUM ntx.Program bit-equal
+               under the serial and fused policies.
   3. time    — each kernel's time (CUDA events) and its host issue time,
                its bound, its plain version's time and one PyTorch
                library call's time; each serving MLP GEMM at its split-k
-               plan and at two blocks per SM; the PyTorch SSD backward on
+               plan and at two blocks per SM; the SSD call's three
+               kernels under torch.profiler; the PyTorch SSD backward on
                its own, with its bound.
   4. width   — llama3-8b at full width, depth cut to 2 layers, on the card
                and on the CPU with the same weights: prefill logits and
@@ -419,8 +421,10 @@ def train_cases(torch, rn):
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     ssd_rep = "src/repro/kernels/ssd_scan.py:68"
     chunk = 128
-    # bf16 y: the kernel and the plain version agree in fp32 to ~1e-6 and
-    # then round to bf16, so they may differ by one bf16 ulp (2**-8 rel)
+    # bf16 y: the kernel (every product exact on the tensor cores, its
+    # fp32 operands split into three bf16 parts) and the plain version
+    # agree in fp32 to ~1e-6 and then round to bf16, so they may differ
+    # by one bf16 ulp (2**-8 rel)
     for name, b, l, dt_x, tol, path in (
             ("ssd:train_b8_l1024_bf16", TRAIN_BATCH, TRAIN_SEQ, bf,
              (1e-2, 1e-2), True),
@@ -462,6 +466,25 @@ def train_cases(torch, rn):
             library=library, mode="close", tol=(1e-5, 1e-6),
             bytes=28.0 * p.numel(), ops=16.0 * p.numel(), kind="fp32",
             path=True, phase="train"))
+    # off the path: an odd length whose operands start 1 element past a
+    # 16-byte boundary together (a scalar head and tail around the
+    # vectors), and apart (element by element throughout)
+    n = 4 * 1000003 + 3
+    for name, offs in (("adamw:offset1_odd_fp32", (1, 1, 1, 1)),
+                       ("adamw:offsets0123_odd_fp32", (0, 1, 2, 3))):
+        ins = []
+        for off, std in zip(offs, (0.02, 1e-3, 1e-4, 1e-7)):
+            buf = torch.empty(n + 4, device=DEVICE)
+            view = buf[off:off + n]
+            view.copy_(rn(n, std=std))
+            ins.append(view)
+        ins[3].abs_()
+        cases.append(dict(
+            name=name, wrapper="adamw", source=adamw_src, replaces=adamw_rep,
+            kernel=lambda a=tuple(ins): ops.adamw_update(*a, step, lr=lr),
+            plain=lambda a=tuple(ins): ew.adamw_plain(*a, step, lr=lr),
+            library=None, mode="close", tol=(1e-5, 1e-6), bytes=28.0 * n,
+            ops=16.0 * n, kind="fp32", path=False, phase="train"))
     return cases
 
 
@@ -705,6 +728,37 @@ def time_ssd_backward(torch) -> dict:
                 f"kernel): {ms:.4f} ms per layer | bound {b_ms:.4f} ms "
                 f"({b_by}: {nbytes / 1e6:.1f} MB) | card {card_line()}")
     return {"name": "ssd_bwd", "ms": ms}
+
+
+def profile_ssd_passes(torch) -> None:
+    """Device time of each of the three kernels of one ``ops.ssd`` call
+    at the training shape, bf16 and fp32 (torch.profiler over 5 calls)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    rn = lambda *s, dt=torch.float32, std=1.0: (
+        torch.randn(*s, generator=g, device=DEVICE) * std).to(dt)
+    for dt_x in (torch.bfloat16, torch.float32):
+        ins = ssd_inputs(torch, rn, TRAIN_BATCH, TRAIN_SEQ, dt_x)
+        ops.ssd(*ins, chunk=128)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                ops.ssd(*ins, chunk=128)
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                m = re.search(r"ssd_\w+", e.key)
+                name = m.group(0) if m else e.key[:40]
+                per[name] = per.get(name, 0.0) + e.self_device_time_total / 5e3
+        msg = " | ".join(f"{k} {v:.4f} ms" for k, v in per.items()) or (
+            "profiler saw no device time: not measured")
+        say("time", f"ssd passes, b8 l1024 {str(dt_x)[6:]} (device ms per "
+                    f"call): {msg}")
+        del ins
 
 
 def _chain_reduce_plain(ops, ntx_reduce, stages, x, ys):
@@ -1153,7 +1207,8 @@ def profile_step(torch, cfg, step_fn, params, opt):
     evs = prof.key_averages()
     span = {e.key: e.device_time_total / 1e3 for e in evs
             if e.key in ranges and e.device_type == DeviceType.CPU}
-    split = kernel_split(evs, {"ssd_scan.cu": ("ssd_kernel",),
+    split = kernel_split(evs, {"ssd_scan.cu": ("ssd_state_", "ssd_carry",
+                                               "ssd_out_"),
                                "cuBLAS/cuDNN matmul": CUBLAS_KEYS},
                          skip=ranges)
     if split is None:
@@ -1480,6 +1535,7 @@ def main(argv=None) -> int:
         if 5 in phases:
             counts["serve"] = phase_serve(torch, np)
         if 3 in phases:
+            profile_ssd_passes(torch)
             time_ssd_backward(torch)
         if 6 in phases:
             phase_train_width(torch, np)

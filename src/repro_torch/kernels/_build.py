@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -52,8 +53,10 @@ _SIGNATURES = {
     #  red_int, chunk, counters, part, stream)
     "ntx_stream": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
                    _P, _P],
-    # (x, dt, A, B, C, y, b, l, h, dh, n, chunk, bf16, stream)
-    "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (x, dt, A, B, C, y, S, dec, b, l, h, dh, n, chunk, bf16, lp, np,
+    #  dtile, heads, stream)
+    "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _P],
     # (img, ker, out, h, w, kh, kw, in_bf16, tx, ty, rpt, ci, cj, blocks,
     #  stream)
     "ntx_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -62,10 +65,9 @@ _SIGNATURES = {
     "ntx_stencil": [_P, _P, _P, _L, _I, _L, _I, _I, _P],
     # (x, out, nd, n0, n1, n2, in_bf16, stream)
     "ntx_laplace": [_P, _P, _I, _L, _L, _L, _I, _P],
-    # (p, g, m, v, p_out, m_out, v_out, n, lr, b1, 1 - b1, b2, 1 - b2,
-    #  eps, wd, bc1, bc2, p_bf16, stream)
-    "ntx_adamw": [_P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
-                  _F, _F, _F, _I, _P],
+    # (p, g, m, v, p_out, m_out, v_out, n, hyper (lr, b1, 1 - b1, b2,
+    #  1 - b2, eps, wd, bc1, bc2), p_bf16, head, vecs, blocks, stream)
+    "ntx_adamw": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _L, _L, _I, _P],
 }
 
 
@@ -161,6 +163,13 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().ntx_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of a card, queried once per device."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def stream_of(t) -> int:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -189,7 +190,13 @@ def stream_cuda(stages, x: torch.Tensor, ys=(), tail=None,
 # ----------------------------------------------------------------------
 def bias_corrections(step, b1: float, b2: float) -> tuple:
     """``(1 / (1 - b1**t), 1 / (1 - b2**t))`` computed in fp32, as the
-    reference computes them from its int32 step, returned as floats."""
+    reference computes them from its int32 step, returned as floats
+    (cached per step: the fused update asks once per leaf)."""
+    return _bias_corrections(int(step), float(b1), float(b2))
+
+
+@functools.lru_cache(maxsize=64)
+def _bias_corrections(step: int, b1: float, b2: float) -> tuple:
     t = torch.as_tensor(step, dtype=torch.float32)
     one = torch.ones((), dtype=torch.float32)
     bc1 = one / (one - torch.tensor(b1, dtype=torch.float32) ** t)
@@ -214,28 +221,109 @@ def adamw_plain(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
     return pf.to(p.dtype), m, v
 
 
+#: ``kThreads`` and ``kUnroll`` of ``csrc/ntx_adamw.cu``: threads a block,
+#: 16-byte vectors in flight per thread
+ADAMW_THREADS = 256
+ADAMW_UNROLL = 4
+#: blocks per SM the AdamW grid is capped at (past it, blocks stride):
+#: at the 2048x4096 layer the grid then gives each block one pass
+ADAMW_BLOCKS_PER_SM = 16
+
+
+@dataclass(frozen=True)
+class AdamWPlan:
+    """How ``csrc/ntx_adamw.cu`` covers n elements: ``head`` elements one
+    at a time, then ``vecs`` vectors of 4 (16 bytes of each fp32 operand,
+    8 of a bf16 p), then ``tail`` elements one at a time, on ``blocks``
+    blocks of ``ADAMW_THREADS``."""
+    head: int
+    vecs: int
+    tail: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def adamw_plan(n: int, phases: tuple, sms: int) -> AdamWPlan:
+    """The plan for n elements whose operands start at element ``phases``
+    (each operand's address over its element size, modulo 4): when they
+    all agree, the head runs up to the first 4-element boundary and the
+    vectors cover the rest but for a tail of fewer than 4; when they
+    disagree no vector is aligned in every operand, and every element goes
+    one at a time. The grid covers the work at ``ADAMW_UNROLL`` vectors a
+    thread, at most ``ADAMW_BLOCKS_PER_SM`` blocks per SM."""
+    if n < 0:
+        raise ValueError(f"adamw over {n} elements")
+    distinct = {int(ph) % 4 for ph in phases}
+    if len(distinct) == 1:
+        head = min(n, -distinct.pop() % 4)
+        vecs = (n - head) // 4
+    else:
+        head, vecs = n, 0
+    tail = n - head - 4 * vecs
+    work = max(-(-vecs // (ADAMW_UNROLL * ADAMW_THREADS)),
+               -(-(head + tail) // ADAMW_THREADS), 1)
+    return AdamWPlan(head, vecs, tail,
+                     min(work, max(1, sms) * ADAMW_BLOCKS_PER_SM))
+
+
+def _phase(t: torch.Tensor) -> int:
+    return (t.data_ptr() // t.element_size()) % 4
+
+
+def _empty_at(like: torch.Tensor, phase: int, dtype) -> torch.Tensor:
+    """An uninitialised tensor of ``like``'s shape whose first element
+    sits at ``phase`` modulo 4 elements, so that it shares the inputs'
+    16-byte boundaries (phase 0: a fresh allocation)."""
+    if phase == 0:
+        return torch.empty(like.shape, dtype=dtype, device=like.device)
+    n = like.numel()
+    buf = torch.empty(n + 3, dtype=dtype, device=like.device)
+    off = (phase - _phase(buf)) % 4
+    return buf[off:off + n].view(like.shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _hyper(lr: float, b1: float, b2: float, eps: float, wd: float,
+           step: int):
+    """The kernel's nine fp32 scalars, ``(lr, b1, 1 - b1, b2, 1 - b2,
+    eps, wd, bc1, bc2)``, as one ctypes array: made once per step and
+    setting, not per leaf."""
+    bc1, bc2 = bias_corrections(step, b1, b2)
+    vals = (f32(lr), f32(b1), f32(1 - b1), f32(b2), f32(1 - b2), f32(eps),
+            f32(wd), bc1, bc2)
+    return _build.ptr_array(ctypes.c_float, vals)
+
+
 def adamw_cuda(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
                wd=0.01):
     """Launch ``csrc/ntx_adamw.cu`` over same-shaped CUDA tensors: p fp32
     or bf16, g/m/v fp32 (cast here if not). Out of place: returns new
-    ``(p, m, v)``."""
+    ``(p, m, v)``, placed at p's phase modulo 16 bytes, so that operands
+    that start off a 16-byte boundary together still take the vector
+    route (:func:`adamw_plan`)."""
     if p.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"adamw takes an fp32 or bf16 p, got {p.dtype}")
     if not (p.shape == g.shape == m.shape == v.shape):
         raise ValueError(f"adamw shapes p {tuple(p.shape)} g "
                          f"{tuple(g.shape)} m {tuple(m.shape)} v "
                          f"{tuple(v.shape)}")
-    bc1, bc2 = bias_corrections(step, b1, b2)
+    hyper = _hyper(float(lr), float(b1), float(b2), float(eps), float(wd),
+                   int(step))
     p = p.contiguous()
     g, m, v = (t.float().contiguous() for t in (g, m, v))
-    po, mo, vo = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
-    lib = _build.library()
-    with torch.cuda.device(p.device):
-        code = lib.ntx_adamw(
+    ins = (p, g, m, v)
+    phases = tuple(_phase(t) for t in ins)
+    phase = phases[0] if phases.count(phases[0]) == 4 else 0
+    po = _empty_at(p, phase, p.dtype)
+    mo, vo = _empty_at(m, phase, m.dtype), _empty_at(v, phase, v.dtype)
+    if phase:   # outputs at phase 0 are fresh allocations, so aligned
+        phases += (_phase(po), _phase(mo), _phase(vo))
+    plan = adamw_plan(p.numel(), phases, _build.sm_count(p.get_device()))
+    with _build.on_device(p):
+        code = _build.library().ntx_adamw(
             p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            po.data_ptr(), mo.data_ptr(), vo.data_ptr(), p.numel(),
-            f32(lr), f32(b1), f32(1 - b1), f32(b2), f32(1 - b2), f32(eps),
-            f32(wd), bc1, bc2, int(p.dtype == torch.bfloat16),
+            po.data_ptr(), mo.data_ptr(), vo.data_ptr(), p.numel(), hyper,
+            int(p.dtype == torch.bfloat16), plan.head, plan.vecs, plan.blocks,
             _build.stream_of(p))
     _build.check(code, "ntx_adamw")
     return po, mo, vo

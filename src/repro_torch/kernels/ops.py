@@ -44,7 +44,8 @@ from .ntx_reduce import REDUCE_OPS, chain_reduce_plain, reduce_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 #: kernel launches per wrapper since the last :func:`reset_launches`;
-#: ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
+#: ``ssd`` counts calls of the scan, each three kernels of
+#: ``csrc/ssd_scan.cu`` (state, carry, output passes); ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
 #: not a kernel of this package yet); ``laplace`` counts the fused Laplace
 #: launches (one per ``laplace`` call of 1-3 dimensions), ``stencil`` the
 #: per-axis passes
@@ -414,7 +415,9 @@ def ssd(x, dt, A, B, C, chunk: int = 64,
     """Mamba-2 SSD scan. x: (b, l, h, dh); dt: (b, l, h); A: (h,); B/C:
     (b, l, n). Any l (a ragged last chunk is masked). ``work_dtype`` is
     accepted for the reference's signature and, as on its Pallas path,
-    not used: the kernel and its plain version compute in fp32."""
+    not used: the kernel and its plain version compute in fp32 (the
+    kernel's bf16 route splits each fp32 operand exactly into bf16 parts
+    for the tensor cores)."""
     del work_dtype
     return _SSD.apply(x, dt, A, B, C, chunk)
 

@@ -767,3 +767,144 @@ def test_fused_mlp_on_the_card(cuda):
                             ops._norm_epilogue([("residual", res)]))
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# ----------------------------------------------------------------------
+# The SSD scan's three passes and the vectorised AdamW step
+# ----------------------------------------------------------------------
+_SSD_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,dh,n,chunk", [
+    (2, 256, 8, 64, 128, 128),       # the training head shape
+    (1, 1000, 3, 64, 128, 128),      # ragged last chunk (1000 = 7*128+104)
+    (1, 200, 11, 32, 32, 64),        # h not a multiple of 8 heads a block
+    (2, 96, 2, 16, 32, 16),
+    (1, 130, 4, 128, 128, 128),      # dh 128: the widest head-dim tile
+    (1, 200, 5, 128, 32, 64),
+    (1, 77, 3, 48, 40, 50),          # chunk, n, dh off the tile sizes
+    (1, 1, 2, 16, 32, 128)])         # one step
+def test_ssd_kernel_sweep(cuda, dtype, b, l, h, dh, n, chunk):
+    """The three-pass SSD kernel against its plain version over chunk
+    16/50/64/128, head dim 16-128, d_state 32-128, ragged lengths and head
+    counts that leave the last head group short, at the same tolerances
+    as test_ssd_kernel (fp32 1e-3; bf16 output rounded once, one ulp)."""
+    from repro_torch.kernels import ssd_scan
+    ins = _ssd_inputs(cuda, b, l, h, dh, n, getattr(torch, dtype))
+    got = ssd_scan.ssd_scan_cuda(*ins, chunk=chunk)
+    want = ssd_scan.ssd_scan_plain(*ins, chunk=chunk)
+    assert torch.isfinite(got.float()).all()
+    tol = _SSD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_strong_decay_stays_finite(cuda, dtype):
+    """dt * A down to about -80 a step at chunk 128: the exponent is
+    masked before exp, so the kernel stays finite and on the plain
+    version (ROADMAP queue 3, record 2)."""
+    from repro_torch.kernels import ssd_scan
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 256, 4, 64, 128,
+                                 getattr(torch, dtype))
+    dt = dt * 5.0
+    got = ssd_scan.ssd_scan_cuda(x, dt, A, B, C, chunk=128)
+    want = ssd_scan.ssd_scan_plain(x, dt, A, B, C, chunk=128)
+    assert torch.isfinite(got.float()).all()
+    tol = _SSD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_plans_agree_bit_for_bit(cuda, dtype):
+    """Narrower head-dim tiles and fewer heads per block change only which
+    block computes an output, not its arithmetic: the same bits."""
+    import dataclasses
+    from repro_torch.kernels import ssd_scan
+    bf16 = dtype == "bfloat16"
+    b, l, h, dh, n = 1, 300, 5, 128, 64
+    ins = _ssd_inputs(cuda, b, l, h, dh, n, getattr(torch, dtype))
+    base = ssd_scan.scan_plan(b, l, h, dh, n, 64, bf16)
+    want = ssd_scan.ssd_scan_cuda(*ins, chunk=64)
+    for dtile in ssd_scan.D_TILES[bf16]:
+        if dtile >= dh:
+            continue
+        for heads in (1, 3):
+            p = dataclasses.replace(base, dtile=dtile, heads=heads)
+            assert torch.equal(ssd_scan.ssd_scan_cuda(*ins, chunk=64, plan=p),
+                               want), (dtile, heads)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("change", ["lp", "np", "dtile", "heads_0",
+                                    "heads_65", "smem"])
+def test_ssd_kernel_refuses_a_plan_it_cannot_run(cuda, dtype, change):
+    """A plan that does not match the shapes, or that needs more shared
+    memory than a block has, is refused before any launch."""
+    import dataclasses
+    from repro_torch.kernels import ssd_scan
+    bf16 = dtype == "bfloat16"
+    ins = _ssd_inputs(cuda, 1, 256, 4, 128, 128, getattr(torch, dtype))
+    p = ssd_scan.scan_plan(1, 256, 4, 128, 128, 128, bf16)
+    bad = {"lp": dict(lp=p.lp - 16), "np": dict(np=p.np + 16),
+           "dtile": dict(dtile=48), "heads_0": dict(heads=0),
+           "heads_65": dict(heads=65),
+           "smem": dict(dtile=128, heads=64)}[change]
+    with pytest.raises(RuntimeError, match="ntx_ssd_scan"):
+        ssd_scan.ssd_scan_cuda(*ins, chunk=128,
+                               plan=dataclasses.replace(p, **bad))
+
+
+def _offset_view(t, off):
+    """t's values in a tensor that starts ``off`` elements into its
+    storage (off 0: a fresh, aligned copy)."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = flat[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 7, 1001, 65539])
+@pytest.mark.parametrize("offsets", [(0, 0, 0, 0), (1, 1, 1, 1),
+                                     (3, 3, 3, 3), (0, 1, 2, 3),
+                                     (2, 0, 0, 0), (0, 0, 0, 3)])
+def test_adamw_kernel_offsets_and_lengths(cuda, p_dtype, n, offsets):
+    """Operands 0-3 elements off a 16-byte boundary (together: a scalar
+    head, then 16-byte vectors; apart: element by element) and lengths
+    that leave a tail: within the reference's 1e-5 / 1e-6 of the plain
+    version (bf16 p one ulp), and bit-equal to aligned copies of the same
+    values, which take the vector route."""
+    dt = getattr(torch, p_dtype)
+    p = _offset_view(_t((n,), cuda, 0.02).to(dt), offsets[0])
+    g = _offset_view(_t((n,), cuda, 1e-3), offsets[1])
+    m = _offset_view(_t((n,), cuda, 1e-4), offsets[2])
+    v = _offset_view(_t((n,), cuda, 1e-7).abs(), offsets[3])
+    got = tew.adamw_cuda(p, g, m, v, 7, lr=3e-4)
+    aligned = tew.adamw_cuda(*(t.clone() for t in (p, g, m, v)), 7, lr=3e-4)
+    want = tew.adamw_plain(p, g, m, v, 7, lr=3e-4)
+    rtol = 1e-5 if p_dtype == "float32" else 2.0 ** -7
+    for a, al, b in zip(got, aligned, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, al)
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-6)
+
+
+def test_adamw_kernel_plan_routes(cuda):
+    """The wrapper's outputs share the inputs' phase, so operands off a
+    16-byte boundary together keep the vector route; operands apart take
+    the element route."""
+    n = 4099
+    ins = [_offset_view(_t((n,), cuda, 1e-3).abs(), 1) for _ in range(4)]
+    po, mo, vo = tew.adamw_cuda(*ins, 7, lr=3e-4)
+    phases = tuple(tew._phase(t) for t in (*ins, po, mo, vo))
+    assert phases == (1,) * 7
+    plan = tew.adamw_plan(n, phases, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert (plan.head, plan.vecs, plan.tail) == (3, 1024, 0)
+    apart = [ins[0], _offset_view(ins[1], 2), ins[2], ins[3]]
+    assert tew.adamw_plan(n, tuple(tew._phase(t) for t in apart),
+                          132).vecs == 0
+    got = tew.adamw_cuda(*apart, 7, lr=3e-4)
+    for a, b in zip(got, (po, mo, vo)):
+        assert torch.equal(a, b)
