@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py    # every phase: serve llama3-8b, train
                              # mamba2-1.3b, run the paper's kernel suite
+    python3 chip_smoke.py --phases 1,3 --only attention:prefill_4096 \
+        --src ../parent/src  # one case's check and time, another tree's
+                             # kernels on the same card
 
 Phases, one result line each:
   1. build   — compile the CUDA kernels (src/repro_torch/kernels/csrc)
@@ -14,18 +17,26 @@ Phases, one result line each:
                under the serial and fused policies.
   3. time    — each kernel's time (CUDA events) and its host issue time,
                its bound, its plain version's time and one PyTorch
-               library call's time; each serving MLP GEMM at its split-k
-               plan and at two blocks per SM; the SSD call's three
-               kernels under torch.profiler; the PyTorch SSD backward on
-               its own, with its bound.
+               library call's time (SDPA in its fastest form, with the
+               backend it ran); each serving MLP GEMM at its split-k
+               plan and at two blocks per SM; flash attention at a 4096-
+               token prefill (its 128-row plan beside 64-row blocks) and
+               a decode step over 4000 keys, the split-kv merge alone,
+               the fp32 FFMA GEMM at 4096^3 against torch.matmul (TF32
+               off); the SSD call's three kernels under torch.profiler;
+               the PyTorch SSD backward on its own, with its bound.
   4. width   — llama3-8b at full width, depth cut to 2 layers, on the card
                and on the CPU with the same weights: prefill logits and
                4 greedy tokens.
   5. serve   — Server.generate on the full 32-layer llama3-8b (bf16,
                random weights from Model.init(0)): 4 requests, prompt 32,
-               16 new tokens, greedy and at temperature 0.8, with the
-               kernel launch counts of that run; then one decode step
-               under torch.profiler, its device time by kernel family.
+               16 new tokens, greedy and at temperature 0.8, and one
+               request with a 2048-token prompt and 8 new tokens (its
+               decode steps split the keys), with the kernel launch
+               counts of that run; the long prompt's prefill under
+               torch.profiler (an observation, no limit); then one
+               decode step under torch.profiler, its device time by
+               kernel family.
   6. train width — mamba2-1.3b at full width, depth cut to 2 layers, one
                build_step_fn step on the card and on the CPU from the
                same weights and batch: loss, grad norm and new params.
@@ -52,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -72,6 +84,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "fp32_unfused": 33.5e12}
 PROMPT_LEN, NEW_TOKENS, BATCH = 32, 16, 4
 MAX_SEQ = PROMPT_LEN + NEW_TOKENS + 8        # launch/serve.py's sizing
+#: phase 5's long-prompt request: one prompt of 2048 tokens, 8 new ones
+LONG_PROMPT, LONG_NEW = 2048, 8
+LONG_SEQ = LONG_PROMPT + LONG_NEW + 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: phase 6's limit on the worst leaf's relative L2 gradient error, card vs
 #: CPU: 10x the 9.9e-6 measured on an H100 in fp32, 4x the 1.27e-2 in bf16
@@ -86,6 +101,12 @@ KAHAN_N = 4096
 AXPY_N = 1 << 22
 #: the 3-command streaming chain of benchmarks/run.py's fusion section
 CHAIN3 = [("thresh", 0.2), ("relu", 0.0), ("thresh", 0.5)]
+#: ``--only``: phase 2/3 case-name prefixes to keep (empty: all)
+ONLY: tuple = ()
+
+
+def wanted(name: str) -> bool:
+    return not ONLY or name.startswith(ONLY)
 
 
 class Failed(Exception):
@@ -243,6 +264,10 @@ def kernel_cases(torch):
               [("residual", bf)], f_tol, path=False)
     gemm_case("gemm:bf16_offset1_m4_k1007_n1003_silu_mul", 4, 1007, 1003, bf,
               bf, [("silu",), ("mul", f32)], bf_tol, path=False, offset=1)
+    # the fp32 FFMA route's register-tiled 128-row tile, uncompensated;
+    # its library call is torch.matmul in fp32 with TF32 off
+    gemm_case("gemm:fp32_4096^3", 4096, 4096, 4096, f32, f32, [], f_tol,
+              path=False)
 
     def flash_case(name, b, hq, hkv, sq, skv, kv_len, dt, tol, path=True):
         d = 128
@@ -254,27 +279,65 @@ def kernel_cases(torch):
         k, v = kv(), kv()
         kw = dict(causal=True, kv_len=kv_len)
         n_kv = skv if kv_len is None else kv_len
-        qpos = torch.arange(sq, device=dev)[:, None] + (n_kv - sq)
-        kpos = torch.arange(skv, device=dev)[None, :]
-        mask = (kpos < n_kv) & (kpos <= qpos)
+        # the library gets its fastest form of the same function: SDPA's
+        # own causal flag where the mask is plain causal (sq = skv =
+        # kv_len), the first kv_len keys and no mask for one query, else
+        # the dense mask
+        if sq == skv == n_kv:
+            lib_kw = dict(is_causal=True)
+            lk, lv = k, v
+        elif sq == 1:
+            lib_kw, lk, lv = {}, k[:, :, :n_kv], v[:, :, :n_kv]
+        else:
+            qpos = torch.arange(sq, device=dev)[:, None] + (n_kv - sq)
+            kpos = torch.arange(skv, device=dev)[None, :]
+            lib_kw = dict(attn_mask=(kpos < n_kv) & (kpos <= qpos))
+            lk, lv = k, v
         def library():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(q, lk, lv, enable_gqa=True,
+                                                  **lib_kw)
         esz = q.element_size()
         nbytes = (q.numel() + 2 * b * hkv * n_kv * d + q.numel()) * esz
-        cases.append(dict(
+        # operations over the unmasked (query, key) pairs only: query i
+        # takes min(n_kv, n_kv - sq + i + 1) keys
+        pairs = sum(max(0, min(n_kv, n_kv - sq + i + 1)) for i in range(sq))
+        case = dict(
             name=name, wrapper="attention", source=flash_src,
             replaces=flash_rep,
             kernel=lambda: ops.attention(q, k, v, **kw),
             plain=lambda: fa.flash_attention_plain(q, k, v, **kw),
-            library=library, mode="close", tol=tol, bytes=nbytes,
-            ops=4.0 * b * hq * sq * n_kv * d,
-            kind="bf16" if dt == bf else "fp32", path=path))
+            library=library, backend=library, mode="close", tol=tol,
+            bytes=nbytes, ops=4.0 * b * hq * d * pairs,
+            kind="bf16" if dt == bf else "fp32", path=path)
+        plan = fa.flash_plan(b, hq, hkv, sq, skv, n_kv, d, dt)
+        if plan.wr == 8:
+            # the plan's 128-row blocks against 64-row ones (each K/V
+            # tile read from L2 for half the rows), timed in phase 3
+            rows64 = dataclasses.replace(
+                plan, qn=64, rows=64, wr=4, stages=fa.tc_stages(4),
+                q_tiles=-(-sq // 64), smem=fa.tc_smem(d, 4))
+            case["plans"] = (
+                (("128-row blocks (the plan)", plan),
+                 ("64-row blocks", rows64)),
+                lambda p: fa.flash_attention_cuda(q, k, v, plan=p, **kw))
+        cases.append(case)
 
     flash_case("attention:prefill", 4, 32, 8, 32, 32, None, bf, bf_tol)
     flash_case("attention:decode", 4, 32, 8, 1, MAX_SEQ, 40, bf, bf_tol)
     flash_case("attention:decode_fp32", 4, 32, 8, 1, MAX_SEQ, 40, f32,
                f_tol, path=False)
+    # a real prompt length, and a decode step over a long cache: the
+    # kernel, not the host, sets these times
+    flash_case("attention:prefill_4096", 1, 32, 8, 4096, 4096, None, bf,
+               bf_tol, path=False)
+    flash_case("attention:decode_4096", 4, 32, 8, 1, 4096, 4000, bf, bf_tol,
+               path=False)
+
+    # the split-kv merge alone, at the decode step of phase 5's long
+    # prompt (b 1, kv_len 2049 of 2064: the plan splits the keys), on the
+    # partials its split kernel leaves
+    if wanted("attention_merge"):
+        cases.append(merge_case(torch, rn, fa, flash_src, flash_rep, bf_tol))
 
     vocab = 128256
     red_rep = "src/repro/kernels/ntx_reduce.py:153"
@@ -384,6 +447,30 @@ def kernel_cases(torch):
     cases += train_cases(torch, rn)
     cases += suite_cases(torch, rn)
     return cases
+
+
+def merge_case(torch, rn, fa, flash_src, flash_rep, tol) -> dict:
+    """The split-kv merge of ``csrc/flash_attention.cu`` on its own, on
+    the partials the split kernel leaves at the decode step of phase 5's
+    long prompt."""
+    bf = torch.bfloat16
+    mq = rn(1, 32, 1, 128, dt=bf)
+    mk, mv = (rn(1, 8, LONG_SEQ, 128, dt=bf) for _ in range(2))
+    plan = fa.flash_plan(1, 32, 8, 1, LONG_SEQ, LONG_PROMPT + 1, 128, bf)
+    ws, mo = fa.flash_attention_cuda(mq, mk, mv, kv_len=LONG_PROMPT + 1,
+                                     plan=plan, partials=True)
+    case = dict(
+        name=f"attention_merge:decode_kv{LONG_PROMPT + 1}_{plan.splits}"
+             f"_splits", wrapper="attention_merge", source=flash_src,
+        replaces=flash_rep,
+        kernel=lambda: fa.flash_merge_cuda(ws, mo, plan.splits),
+        plain=lambda: fa.flash_merge_plain(ws, plan.splits, 1, 32, 1, 128,
+                                           bf),
+        library=None, mode="close", tol=tol,
+        bytes=ws.numel() * 4 + mo.numel() * 2,
+        ops=3.0 * ws.numel(), kind="fp32", path=True)
+    del mk, mv
+    return case
 
 
 def ssd_inputs(torch, rn, b, l, dt_x, h=64, dh=64, n=128):
@@ -761,6 +848,21 @@ def profile_ssd_passes(torch) -> None:
         del ins
 
 
+def sdpa_backend(fn) -> str:
+    """Which of SDPA's backends one call of ``fn`` ran, by the aten op
+    the profiler records (CPU side only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = {e.key for e in prof.key_averages()}
+    for backend in ("flash", "efficient", "cudnn"):
+        if f"aten::_scaled_dot_product_{backend}_attention" in names:
+            return backend
+    if "aten::_scaled_dot_product_attention_math" in names:
+        return "math"
+    return "not recorded"
+
+
 def _chain_reduce_plain(ops, ntx_reduce, stages, x, ys):
     """The plain chain-reduce with the wrapper's int32 arg result."""
     out, red = ntx_reduce.chain_reduce_plain(stages, "argmax", x, ys)
@@ -834,7 +936,7 @@ def check_policies(torch) -> None:
 
 
 def phase_check_and_time(torch, do_time: bool) -> list:
-    cases = kernel_cases(torch)
+    cases = [case for case in kernel_cases(torch) if wanted(case["name"])]
     rows, failed = [], []
     for case in cases:
         got = case["kernel"]()
@@ -872,6 +974,8 @@ def phase_check_and_time(torch, do_time: bool) -> list:
             aside = (f" | torch.matmul fp32 (not the same function) "
                      f"{time_ms(case['aside'], torch):.4f} ms"
                      if case.get("aside") else "")
+            if case.get("backend"):
+                aside += f" | SDPA backend {sdpa_backend(case['backend'])}"
             say("time", f"{case['name']}: kernel {case['ms']:.4f} ms | "
                         f"host issue {host_ms:.4f} ms | bound {b_ms:.4f} ms"
                         f" ({b_by}) | plain {case['plain_ms']:.4f} ms | "
@@ -892,12 +996,13 @@ def phase_check_and_time(torch, do_time: bool) -> list:
                     f"{label}, {p.blocks} blocks -> "
                     f"{time_ms(lambda p=p: run(p), torch):.4f} ms"
                     for label, p in plans)
-                say("time", f"{case['name']}: {msg} (conv2d_cuda alone) | "
+                say("time", f"{case['name']}: {msg} (the kernel alone) | "
                             f"bit-equal {same}")
-                need(same, f"{case['name']}: the conv plans disagree")
+                if case["mode"] == "equal":
+                    need(same, f"{case['name']}: the plans disagree")
     for case in rows:            # free the inputs the closures hold
         for key in ("kernel", "plain", "library", "scale", "check",
-                    "aside", "splits", "plans"):
+                    "aside", "splits", "plans", "backend"):
             case.pop(key, None)
     torch.cuda.empty_cache()
     return rows
@@ -1001,6 +1106,12 @@ def phase_serve(torch, np) -> dict:
             temperature=temp))
         out = srv.generate(prompts)
         runs[name] = out
+    # one long prompt: its decode steps split the keys (the merge runs)
+    long_prompt = np.random.default_rng(1).integers(0, cfg.vocab,
+                                                    LONG_PROMPT)
+    long_srv = Server(cfg, params, ServeConfig(
+        max_seq=LONG_SEQ, max_new_tokens=LONG_NEW, eos_token=-1))
+    long_out = long_srv.generate([long_prompt])
     counts = ops.launches()
     fallbacks = dispatch.engine_fallbacks
     peak = torch.cuda.max_memory_allocated()
@@ -1015,17 +1126,56 @@ def phase_serve(torch, np) -> dict:
                      f"req0 {comp[0]} | card {card}")
     per_kernel = {"ntx_gemm": counts["gemm"],
                   "flash_attention": counts["attention"],
+                  "flash_merge": counts["attention_merge"],
                   "ntx_stream": sum(counts[w] for w in (
                       "elementwise", "elementwise_chain", "chain_reduce",
                       "reduce"))}
     say("serve", f"peak memory {peak / 1e9:.2f} GB | kernel launches "
                  f"{per_kernel} (by wrapper {counts}) | engine_fallbacks "
                  f"{fallbacks} | card {card}")
-    for wrapper in ("gemm", "attention", "reduce", "chain_reduce"):
+    for wrapper in ("gemm", "attention", "attention_merge", "reduce",
+                    "chain_reduce"):
         need(counts[wrapper] > 0, f"{wrapper} kernel never launched")
     need(fallbacks == 0, f"{fallbacks} descriptors fell back to the engine")
+    comp = long_out["completions"]
+    need(len(comp) == 1 and len(comp[0]) == LONG_NEW and all(
+        0 <= t < cfg.padded_vocab for t in comp[0]),
+         "long-prompt completion malformed")
+    profile_long_prefill(torch, cfg, params, long_srv, long_prompt,
+                         long_out)
     profile_decode_step(torch, np, cfg, params, prompts)
     return counts
+
+
+def profile_long_prefill(torch, cfg, params, srv, prompt, out) -> None:
+    """An observation, no limit: the long-prompt request's prefill and
+    decode times (the run counted above), then its prefill once more
+    under torch.profiler, device ms of flash_attention.cu and ntx_gemm.cu
+    (their launches here are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    card = card_line()
+    say("serve", f"long prompt {LONG_PROMPT} + {LONG_NEW} new tokens (batch 1,"
+                 f" max_seq {LONG_SEQ}): prefill {out['prefill_s'] * 1e3:.2f} "
+                 f"ms | decode {out['decode_tok_per_s']:.2f} tok/s | card "
+                 f"{card}")
+    tokens = torch.as_tensor(prompt[None], device=DEVICE)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            srv.model.prefill(params, {"tokens": tokens}, cache_len=LONG_SEQ)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    split = kernel_split(prof.key_averages(), KERNEL_GROUPS)
+    if split is None:
+        say("serve", "profiler saw no device time: long prefill not measured")
+        return
+    busy, by_group, _ = split
+    groups = {k: (round(v[0], 3), v[1]) for k, v in by_group.items()}
+    say("serve", f"profiled long prefill: wall {wall_ms:.2f} ms (profiler on)"
+                 f" | device busy {busy:.2f} ms | kernels by group (ms, "
+                 f"launches) {groups} | card {card}")
 
 
 def profile_decode_step(torch, np, cfg, params, prompts) -> None:
@@ -1058,12 +1208,7 @@ def profile_decode_step(torch, np, cfg, params, prompts) -> None:
             step(cur, cache, fill)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    split = kernel_split(prof.key_averages(), {
-        "ntx_gemm.cu": ("gemm_bf16_tc", "tc_reduce", "::gemm_kernel<"),
-        "flash_attention.cu": ("flash_kernel",),
-        "ntx_stream.cu": ("stream_flat", "stream_chunk_kernel",
-                          "stream_merge_kernel"),
-        "cuBLAS": CUBLAS_KEYS})
+    split = kernel_split(prof.key_averages(), KERNEL_GROUPS)
     if split is None:
         say("serve", "profiler saw no device time: decode split not measured")
         return
@@ -1164,6 +1309,16 @@ def phase_train_width(torch, np) -> None:
 #: are matched: ``ntx_gemm.cu``'s names contain "gemm" too)
 CUBLAS_KEYS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_",
                "gemv")
+
+
+#: the serving path's kernels by source file, for kernel_split
+KERNEL_GROUPS = {
+    "ntx_gemm.cu": ("gemm_bf16_tc", "tc_reduce", "::gemm_kernel<",
+                    "gemm_ffma"),
+    "flash_attention.cu": ("flash_tc", "flash_f32", "flash_merge"),
+    "ntx_stream.cu": ("stream_flat", "stream_chunk_kernel",
+                      "stream_merge_kernel"),
+    "cuBLAS": CUBLAS_KEYS}
 
 
 def kernel_split(evs, groups, skip=()):
@@ -1491,8 +1646,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated case-name prefixes: check and time "
+                         "only these phase 2/3 cases")
+    ap.add_argument("--src", default=None,
+                    help="take repro_torch from this src/ directory (to "
+                         "time another checkout's kernels, e.g. the parent "
+                         "commit's, on the same card)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    global ONLY
+    ONLY = tuple(p for p in args.only.split(",") if p)
 
     import numpy as np
     import torch
@@ -1500,7 +1664,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device visible; this script runs the "
               "port on the card only", file=sys.stderr)
         return 2
-    src = ROOT / "src"
+    src = Path(args.src).resolve() if args.src else ROOT / "src"
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
@@ -1534,7 +1698,7 @@ def main(argv=None) -> int:
         counts = {}
         if 5 in phases:
             counts["serve"] = phase_serve(torch, np)
-        if 3 in phases:
+        if 3 in phases and not ONLY:
             profile_ssd_passes(torch)
             time_ssd_backward(torch)
         if 6 in phases:

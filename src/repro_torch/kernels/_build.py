@@ -45,10 +45,10 @@ _SIGNATURES = {
     #  imms, operands, op_bf16, tile, splits, ws, stream)
     "ntx_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                  _I, _P, _P],
-    # (q, k, v, o, b, hq, hkv, sq, skv, d, kv_len, causal, scale,
-    #  bf16, stream)
-    "ntx_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _F, _I, _P],
+    # (q, k, v, o, ws, params (strides, shapes, plan), scale, stream)
+    "ntx_flash_attention": [_P, _P, _P, _P, _P, _P, _F, _P],
+    # (ws, o, o_strides, b, hq, sq, d, splits, bf16, stream)
+    "ntx_flash_merge": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (x, out, rows, n, n_valid, n_stages, ops, imms, ys, tail, red,
     #  red_int, chunk, counters, part, stream)
     "ntx_stream": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,

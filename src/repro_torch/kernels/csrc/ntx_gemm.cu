@@ -56,12 +56,23 @@
 //    tile schedule whose epilogue overlaps the next tile's loads.
 //
 // 2. fp32 inputs (descriptor programs, the paper's suite), and the
-//    compensated variant for either input type: a shared-memory tiled
-//    FFMA kernel. A and B tiles are staged through shared memory as fp32
-//    (bf16 widened with __bfloat162float), each thread keeps a TM x TN
-//    register tile of fp32 accumulators and runs IEEE fp32 FFMA (never
-//    TF32). Two tile shapes: 16 x 128 for small m and 64 x 64 otherwise.
-//    Compensated variant (a compile-time switch of the same kernel): the
+//    compensated variant for either input type: IEEE fp32 FFMA (never
+//    TF32), tiles picked by kernels/ntx_gemm.py:ffma_plan (the kernel
+//    refuses any other):
+//    * fp32 inputs with m > 16 where 128 x 128 blocks fill the card (one
+//      block per SM or more, e.g. the suite's 4096^3): gemm_ffma, 8 x 8
+//      register tiles read from k-major A and row-major B as float4 (64
+//      FFMA per 4 shared loads), a 3-stage ring filled by cp.async (B)
+//      and float4 loads staged through registers (A, transposed) while
+//      the current stage computes. Bound by operations: 4096^3 is 137
+//      GFLOP, 2.05 ms at 67 TFLOP/s. The 64 x 64 synchronous kernel below
+//      with 4 x 4 tiles took 8.46 ms there (0.24 of the rate);
+//    * otherwise gemm_kernel: A and B tiles staged through shared memory
+//      as fp32 (bf16 widened with __bfloat162float), synchronous loads,
+//      a TM x TN register tile per thread; 16 x 128 for m <= 16 and 64 x
+//      64 otherwise (smaller products, whose 128 x 128 grid is less than
+//      a wave, and the bf16-input compensated GEMM).
+//    Compensated variant (a compile-time switch of either kernel): the
 //    FFMA accumulators collect one kKahanSlab-deep slab of k at a time as
 //    a partial product; at each slab's end every partial is Neumaier-
 //    added into two more register tiles, sum and comp, with __fadd_rn/
@@ -84,6 +95,7 @@ namespace {
 
 constexpr int kMaxEpilogue = 16;
 constexpr int kThreads = 256;
+constexpr int kSms = 132;            // SMs of an H100 SXM (ntx_gemm.SMS)
 constexpr int BK = 16;
 constexpr int kKahanSlab = 128;   // kernels/ntx_gemm.py:KAHAN_SLAB
 static_assert(kKahanSlab % BK == 0, "slabs end on a k step");
@@ -280,11 +292,11 @@ gemm_kernel(const TI* __restrict__ A, const TI* __restrict__ B,
 
 template <typename TI, typename TO, bool KAHAN>
 void launch(const void* a, const void* b, void* c, int m, int n, int k,
-            const Epilogue& ep, cudaStream_t s) {
+            int tile, const Epilogue& ep, cudaStream_t s) {
   const TI* A = static_cast<const TI*>(a);
   const TI* B = static_cast<const TI*>(b);
   TO* C = static_cast<TO*>(c);
-  if (m <= 16) {
+  if (tile == 0) {
     dim3 grid((n + 127) / 128, (m + 15) / 16);
     gemm_kernel<TI, TO, 16, 128, 2, 4, KAHAN><<<grid, kThreads, 0, s>>>(
         A, B, C, m, n, k, ep);
@@ -295,12 +307,6 @@ void launch(const void* a, const void* b, void* c, int m, int n, int k,
   }
 }
 
-template <typename TI, typename TO>
-void launch(const void* a, const void* b, void* c, int m, int n, int k,
-            bool compensated, const Epilogue& ep, cudaStream_t s) {
-  if (compensated) launch<TI, TO, true>(a, b, c, m, n, k, ep, s);
-  else launch<TI, TO, false>(a, b, c, m, n, k, ep, s);
-}
 
 // ---------------------------------------------------------------------
 // bf16 route: tensor cores, a cp.async ring, deterministic split-k.
@@ -617,6 +623,289 @@ cudaError_t launch_tc(const void* a, const void* b, void* c, float* ws,
                                               ep, s);
 }
 
+
+// ---------------------------------------------------------------------
+// fp32 route, large tile: register-tiled FFMA from a multi-stage ring.
+// ---------------------------------------------------------------------
+// A 128 x BN block tile, 256 threads as 16 x 16, an 8 x TN fp32 register
+// tile per thread (rows ty * 4 + {0..3} and 64 + ty * 4 + {0..3}, columns
+// tx * 4 + {0..3} of each BN / (TN / 4)-wide column group), BK = 16. A is
+// kept k-major in shared memory and B row-major, both rows padded by 4
+// floats, in a STAGES-deep ring: B tiles arrive by 16-byte cp.async
+// STAGES - 1 tiles ahead; A, transposed on the way, by float4 loads into
+// registers issued before a tile's products and stored after them. Each
+// k step reads its fragments as float4 (2 + TN / 4 shared loads for
+// 8 TN FFMA).
+template <int BN_, int TN_, int STAGES_>
+struct FfmaTile {
+  static constexpr int BM = 128, BN = BN_, TM = 8, TN = TN_, BK = 16;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int TX = BN / TN, TY = BM / TM;
+  static constexpr int LDA = BM + 4, LDB = BN + 4;
+  static constexpr int kAStage = BK * LDA, kBStage = BK * LDB;   // floats
+  static constexpr int kSmem = STAGES * (kAStage + kBStage) * 4;
+  static constexpr int AV = BM * BK / 4 / kThreads;   // A float4 a thread
+  static constexpr int BV = BK * BN / 4 / kThreads;   // B float4 a thread
+  static constexpr int CW = BN / (TN / 4);            // column group width
+  static_assert(TX * TY == kThreads && TY == 16 && TN % 4 == 0 && AV >= 1 &&
+                BV >= 1 && kKahanSlab % BK == 0, "thread tile");
+};
+// kernels/ntx_gemm.py:FFMA_TILES[2] lists its (BM, BN, TM, TN, STAGES);
+// compensated, its 3 x 64 fp32 register tiles take 255 registers, no spill
+using FfmaLarge = FfmaTile<128, 8, 3>;
+
+// The A tile (rows m0.., k k0..k0 + 15) into registers; whatever lies
+// past M or K is zero. VEC: K % 4 == 0 and A 16-byte aligned.
+template <class T, bool VEC>
+__device__ __forceinline__ void ffma_load_a(float4 (&ra)[T::AV],
+                                            const float* __restrict__ A,
+                                            int M, int K, int m0, int k0) {
+#pragma unroll
+  for (int j = 0; j < T::AV; ++j) {
+    const int f = threadIdx.x + j * kThreads;
+    const int gr = m0 + (f >> 2), gk = k0 + (f & 3) * 4;
+    const float* p = A + (size_t)gr * K + gk;
+    if (VEC) {
+      ra[j] = (gr < M && gk < K) ? __ldg(reinterpret_cast<const float4*>(p))
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      const bool r_ok = gr < M;
+      ra[j].x = r_ok && gk < K ? __ldg(p) : 0.0f;
+      ra[j].y = r_ok && gk + 1 < K ? __ldg(p + 1) : 0.0f;
+      ra[j].z = r_ok && gk + 2 < K ? __ldg(p + 2) : 0.0f;
+      ra[j].w = r_ok && gk + 3 < K ? __ldg(p + 3) : 0.0f;
+    }
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void ffma_store_a(float* as,
+                                             const float4 (&ra)[T::AV]) {
+#pragma unroll
+  for (int j = 0; j < T::AV; ++j) {
+    const int f = threadIdx.x + j * kThreads;
+    const int r = f >> 2, kc = (f & 3) * 4;
+    as[(kc + 0) * T::LDA + r] = ra[j].x;
+    as[(kc + 1) * T::LDA + r] = ra[j].y;
+    as[(kc + 2) * T::LDA + r] = ra[j].z;
+    as[(kc + 3) * T::LDA + r] = ra[j].w;
+  }
+}
+
+// The B tile (k k0.., columns n0..): VEC by cp.async into bs (N % 4 == 0,
+// B 16-byte aligned); otherwise masked scalar loads into rb.
+template <class T, bool VEC>
+__device__ __forceinline__ void ffma_load_b(float* bs, float4 (&rb)[T::BV],
+                                            const float* __restrict__ B,
+                                            int N, int K, int n0, int k0) {
+#pragma unroll
+  for (int j = 0; j < T::BV; ++j) {
+    const int f = threadIdx.x + j * kThreads;
+    const int kr = f / (T::BN / 4), nc = (f % (T::BN / 4)) * 4;
+    const int gk = k0 + kr, gn = n0 + nc;
+    const float* p = B + (size_t)gk * N + gn;
+    if (VEC) {
+      const bool ok = gk < K && gn < N;
+      cp_async16(bs + kr * T::LDB + nc, ok ? p : B, ok ? 16 : 0);
+    } else {
+      const bool k_ok = gk < K;
+      rb[j].x = k_ok && gn < N ? __ldg(p) : 0.0f;
+      rb[j].y = k_ok && gn + 1 < N ? __ldg(p + 1) : 0.0f;
+      rb[j].z = k_ok && gn + 2 < N ? __ldg(p + 2) : 0.0f;
+      rb[j].w = k_ok && gn + 3 < N ? __ldg(p + 3) : 0.0f;
+    }
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void ffma_store_b(float* bs,
+                                             const float4 (&rb)[T::BV]) {
+#pragma unroll
+  for (int j = 0; j < T::BV; ++j) {
+    const int f = threadIdx.x + j * kThreads;
+    const int kr = f / (T::BN / 4), nc = (f % (T::BN / 4)) * 4;
+    *reinterpret_cast<float4*>(bs + kr * T::LDB + nc) = rb[j];
+  }
+}
+
+// Four output elements from column c on: one 16- (fp32) or 8-byte (bf16)
+// store where all four lie inside N and the row is so aligned.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v[0], v[1]),
+                                            pack_bf16(v[2], v[3]));
+}
+
+// Grid (ceil(N / BN), ceil(M / 128)). KAHAN compensates across
+// kKahanSlab-deep slabs of k exactly as gemm_kernel does.
+template <class T, typename TO, bool KAHAN, bool VEC>
+__global__ void __launch_bounds__(kThreads, KAHAN ? 1 : 2)
+gemm_ffma(const float* __restrict__ A, const float* __restrict__ B,
+          TO* __restrict__ C, int M, int N, int K, Epilogue ep) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sA = reinterpret_cast<float*>(smem);
+  float* sB = sA + T::STAGES * T::kAStage;
+  const int tid = threadIdx.x, tx = tid % T::TX, ty = tid / T::TX;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int nkt = (K + T::BK - 1) / T::BK;
+
+  constexpr int SM = KAHAN ? T::TM : 1, SN = KAHAN ? T::TN : 1;
+  float acc[T::TM][T::TN], sum[SM][SN], comp[SM][SN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < SM; ++i)
+#pragma unroll
+    for (int j = 0; j < SN; ++j) sum[i][j] = comp[i][j] = 0.0f;
+
+  float4 ra[T::AV], rb[T::BV];
+#pragma unroll
+  for (int st = 0; st < T::STAGES - 1; ++st) {
+    if (st < nkt) {
+      ffma_load_a<T, VEC>(ra, A, M, K, m0, st * T::BK);
+      ffma_store_a<T>(sA + st * T::kAStage, ra);
+      ffma_load_b<T, VEC>(sB + st * T::kBStage, rb, B, N, K, n0, st * T::BK);
+      if (!VEC) ffma_store_b<T>(sB + st * T::kBStage, rb);
+    }
+    cp_async_commit();
+  }
+  for (int it = 0; it < nkt; ++it) {
+    const int nxt = it + T::STAGES - 1;
+    const bool more = nxt < nkt;
+    const int ns = nxt % T::STAGES;
+    if (more) {   // in flight while tile it is multiplied
+      ffma_load_a<T, VEC>(ra, A, M, K, m0, nxt * T::BK);
+      if (!VEC)
+        ffma_load_b<T, false>(sB + ns * T::kBStage, rb, B, N, K, n0,
+                              nxt * T::BK);
+    }
+    cp_async_wait<T::STAGES - 2>();   // tile it's B has landed
+    __syncthreads();                  // ... for all; stage ns is free again
+    if (more && VEC)
+      ffma_load_b<T, true>(sB + ns * T::kBStage, rb, B, N, K, n0,
+                           nxt * T::BK);
+    cp_async_commit();
+    const float* as = sA + (it % T::STAGES) * T::kAStage;
+    const float* bs = sB + (it % T::STAGES) * T::kBStage;
+#pragma unroll
+    for (int kk = 0; kk < T::BK; ++kk) {
+      float a[T::TM], b[T::TN];
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(as + kk * T::LDA + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + kk * T::LDA + 64 + ty * 4);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+#pragma unroll
+      for (int j4 = 0; j4 < T::TN / 4; ++j4) {
+        const float4 bv = *reinterpret_cast<const float4*>(
+            bs + kk * T::LDB + j4 * T::CW + tx * 4);
+        b[4 * j4] = bv.x; b[4 * j4 + 1] = bv.y;
+        b[4 * j4 + 2] = bv.z; b[4 * j4 + 3] = bv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j)
+          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (more) {   // stage ns was last read before this iteration's barrier
+      ffma_store_a<T>(sA + ns * T::kAStage, ra);
+      if (!VEC) ffma_store_b<T>(sB + ns * T::kBStage, rb);
+    }
+    if (KAHAN && (((it + 1) * T::BK) % kKahanSlab == 0 || it + 1 == nkt)) {
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j) {
+          neumaier(sum[i % SM][j % SN], comp[i % SM][j % SN], acc[i][j]);
+          acc[i][j] = 0.0f;
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int r = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
+    if (r >= M) continue;
+#pragma unroll
+    for (int j4 = 0; j4 < T::TN / 4; ++j4) {
+      const int c = n0 + j4 * T::CW + tx * 4;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * j4 + e;
+        v[e] = KAHAN ? __fadd_rn(sum[i % SM][j % SN], comp[i % SM][j % SN])
+                     : acc[i][j];
+        if (c + e < N) v[e] = epilogue(v[e], ep, r, c + e, N);
+      }
+      TO* out = C + (size_t)r * N + c;
+      if (VEC && c + 3 < N) {
+        store4(out, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < N) store(out + e, v[e]);
+      }
+    }
+  }
+}
+
+template <class T, typename TO, bool KAHAN, bool VEC>
+cudaError_t launch_ffma_tile(const void* a, const void* b, void* c, int m,
+                             int n, int k, const Epilogue& ep,
+                             cudaStream_t s) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !done[dev]) {
+    err = cudaFuncSetAttribute(gemm_ffma<T, TO, KAHAN, VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::kSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) done[dev] = true;
+  }
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM);
+  gemm_ffma<T, TO, KAHAN, VEC><<<grid, kThreads, T::kSmem, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<TO*>(c), m, n, k, ep);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t launch_ffma(const void* a, const void* b, void* c, int m, int n,
+                        int k, bool kahan, bool vec, const Epilogue& ep,
+                        cudaStream_t s) {
+  using T = FfmaLarge;
+  if (kahan)
+    return vec ? launch_ffma_tile<T, TO, true, true>(a, b, c, m, n, k, ep, s)
+               : launch_ffma_tile<T, TO, true, false>(a, b, c, m, n, k, ep, s);
+  return vec ? launch_ffma_tile<T, TO, false, true>(a, b, c, m, n, k, ep, s)
+             : launch_ffma_tile<T, TO, false, false>(a, b, c, m, n, k, ep, s);
+}
+
+// The FFMA route's tile for a product, as ntx_gemm.ffma_plan picks it:
+// 0 (16 x 128) for m <= 16, 2 (the register-tiled 128-row tile) for fp32
+// inputs where it gives at least one block per SM, 1 (64 x 64) otherwise.
+int ffma_tile(int m, int n, bool in_bf16) {
+  if (m <= 16) return 0;
+  if (in_bf16) return 1;
+  using T = FfmaLarge;
+  const long long blocks =
+      (long long)((m + T::BM - 1) / T::BM) * ((n + T::BN - 1) / T::BN);
+  return blocks >= kSms ? 2 : 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -629,24 +918,26 @@ extern "C" {
 // array ((n,) for bias, (m, n) for residual/mul/sub/mask), or null for
 // the scalar kinds.
 // bf16 and not compensated: the tensor-core route, with tile 0 (16 x
-// 128 x 64) or 1 (128 x 128 x 32) and splits k splits, each at least one
+// 128 x 64) or 1 (128 x 128 x 64) and splits k splits, each at least one
 // k tile; with splits > 1, ws holds splits * m * n fp32 partials. The
-// other routes take tile 0, splits 1 and no ws.
+// FFMA routes take splits 1, no ws and the tile ffma_tile gives (0: 16 x
+// 128, 1: 64 x 64, 2: the register-tiled 128-row tile).
 int ntx_gemm(const void* a, const void* b, void* c, int m, int n, int k,
              int in_bf16, int out_bf16, int compensated, int n_stages,
              const int* kinds, const float* imms,
              const void* const* operands, const int* op_bf16, int tile,
              int splits, void* ws, void* stream) {
   if (n_stages < 0 || n_stages > kMaxEpilogue || m < 0 || n < 0 || k < 0 ||
-      tile < 0 || tile > 1 || splits < 1)
+      tile < 0 || tile > 2 || splits < 1)
     return (int)cudaErrorInvalidValue;
   const bool tc = in_bf16 && !compensated;
   if (tc) {
+    if (tile > 1) return (int)cudaErrorInvalidValue;
     const int bk = tile == 0 ? TileSmall::BK : TileLarge::BK;
     const int k_tiles = (k + bk - 1) / bk;
     if ((splits > 1 && (ws == nullptr || splits > k_tiles)) || splits > 65535)
       return (int)cudaErrorInvalidValue;
-  } else if (tile != 0 || splits != 1) {
+  } else if (splits != 1 || tile != ffma_tile(m, n, in_bf16 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   if (m == 0 || n == 0) return (int)cudaGetLastError();
@@ -673,12 +964,29 @@ int ntx_gemm(const void* a, const void* b, void* c, int m, int n, int k,
   }
   if (in_bf16) {   // compensated: the tensor-core route took the rest
     if (out_bf16)
-      launch<__nv_bfloat16, __nv_bfloat16, true>(a, b, c, m, n, k, ep, s);
-    else launch<__nv_bfloat16, float, true>(a, b, c, m, n, k, ep, s);
+      launch<__nv_bfloat16, __nv_bfloat16, true>(a, b, c, m, n, k, tile, ep,
+                                                 s);
+    else launch<__nv_bfloat16, float, true>(a, b, c, m, n, k, tile, ep, s);
+    return (int)cudaGetLastError();
+  }
+  const bool kahan = compensated != 0;
+  if (tile == 2) {
+    const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+    const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
+    const bool vec = ((pa | pb) & 15u) == 0 && k % 4 == 0 && n % 4 == 0;
+    return (int)(out_bf16 ? launch_ffma<__nv_bfloat16>(a, b, c, m, n, k, kahan,
+                                                       vec, ep, s)
+                          : launch_ffma<float>(a, b, c, m, n, k, kahan, vec,
+                                               ep, s));
+  }
+  if (kahan) {
+    if (out_bf16)
+      launch<float, __nv_bfloat16, true>(a, b, c, m, n, k, tile, ep, s);
+    else launch<float, float, true>(a, b, c, m, n, k, tile, ep, s);
   } else {
-    const bool kahan = compensated != 0;
-    if (out_bf16) launch<float, __nv_bfloat16>(a, b, c, m, n, k, kahan, ep, s);
-    else launch<float, float>(a, b, c, m, n, k, kahan, ep, s);
+    if (out_bf16)
+      launch<float, __nv_bfloat16, false>(a, b, c, m, n, k, tile, ep, s);
+    else launch<float, float, false>(a, b, c, m, n, k, tile, ep, s);
   }
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,18 @@
-"""Flash attention forward: the plain version and the launcher of
-``csrc/flash_attention.cu``.
+"""Flash attention forward: the plain version, the planner and the
+launcher of ``csrc/flash_attention.cu``.
 
 Counterpart of ``repro.kernels.flash_attention``: online-softmax
 attention as the NTX MAX+MAC streaming reduction, with GQA (``h // g``),
 a runtime ``kv_len`` and the causal query position ``kv_len - sq + i``.
 The CUDA kernel masks ragged sequence edges itself, so unlike the
-Pallas kernel it takes any sq and skv.
+Pallas kernel it takes any sq and skv, and it reads q / k / v / o by
+strides (d contiguous), so views are not copied.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -16,6 +21,158 @@ from .ref import f32, mha
 
 #: head dims the CUDA kernel is instantiated for
 HEAD_DIMS = (64, 128)
+#: SMs of an H100 SXM: the planner splits the keys until the grid holds
+#: about one block per SM
+SMS = 132
+#: keys per tile (``kTcKeys``, ``kF32Keys``) and rows per block
+#: (``kF32Rows``; bf16: 16 per row warp) in ``csrc/flash_attention.cu``
+TC_KEYS, F32_KEYS, F32_ROWS = 64, 32, 16
+#: bf16 rows padded by 8 elements (16 bytes) for ldmatrix
+PAD = 8
+#: shared memory one block may use on the H100, and without opting in
+MAX_SMEM, STATIC_SMEM = 232448, 48 * 1024
+#: fewest key tiles a split takes, and most splits
+MIN_SPLIT_TILES = 4
+MAX_SPLITS = 64
+
+
+def tc_warps(wr: int) -> int:
+    """Warps of a tensor-core block with ``wr`` 16-row warps: 8 for the
+    128-row blocks of long prefills, else 4 (4 // wr key warps a row)."""
+    return max(4, wr)
+
+
+def tc_stages(wr: int) -> int:
+    """K/V ring depth of the tensor-core route: 2 for 64-row blocks (two
+    blocks per SM), 3 for the others (one block per SM)."""
+    return 2 if wr == 4 else 3
+
+
+def tc_smem(d: int, wr: int) -> int:
+    """Shared memory of a tensor-core block, as ``tc_smem`` in the kernel:
+    the Q rows and the K/V ring in bf16, or the fp32 staging of the key
+    warps' merge (16 rows a warp of d + 4, and m, l), whichever is
+    larger."""
+    ring = 2 * (16 * wr * (d + PAD) + tc_stages(wr) * 2 * TC_KEYS * (d + PAD))
+    rows = 16 * tc_warps(wr)
+    return max(ring, 4 * (rows * (d + 4) + 2 * rows))
+
+
+def f32_smem(d: int) -> int:
+    """The fp32 route's static shared memory: Q rows, a K tile (rows
+    padded by one) and a V tile, in fp32."""
+    return 4 * (F32_ROWS * d + F32_KEYS * (d + 1) + F32_KEYS * d)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FlashPlan:
+    """How ``csrc/flash_attention.cu`` cuts one call. A block takes ``gh``
+    query heads of one kv head times ``qn`` queries (row r: head
+    ``j0 + r // qn``, query ``q0 + r % qn``), ``rows`` rows in all (bf16:
+    ``wr`` row warps of 16), and walks its key tiles of ``bk`` keys
+    through a ring of ``stages``; each block's tiles are cut into
+    ``splits`` contiguous ranges. Grid: ``(head_blocks * groups,
+    q_tiles, splits)``. Plans compare and hash by identity (the planner
+    caches them), so the launcher's argument cache is cheap to key."""
+
+    bf16: bool
+    d: int
+    sq: int
+    skv: int
+    kv_len: int
+    causal: bool
+    g: int
+    gh: int
+    qn: int
+    rows: int
+    wr: int
+    bk: int
+    stages: int
+    head_blocks: int
+    q_tiles: int
+    groups: int
+    splits: int
+    smem: int
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        return self.head_blocks * self.groups * self.q_tiles * self.splits
+
+    def keys(self, q_tile: int) -> tuple:
+        """``(visit, full)`` of the block at query tile ``q_tile`` (from
+        the first): it visits keys ``[0, visit)`` and masks none below
+        ``full``, as ``geometry`` in the kernel derives them. A block
+        holding a row with no valid key visits every key of the array,
+        whose logits are all -1e30, as the reference does."""
+        q0 = q_tile * self.qn
+        qlo = self.kv_len - self.sq + q0
+        qhi = qlo + min(self.qn, self.sq - q0) - 1
+        lim_lo = min(self.kv_len, qlo + 1) if self.causal else self.kv_len
+        lim_hi = min(self.kv_len, qhi + 1) if self.causal else self.kv_len
+        visit = self.skv if lim_lo <= 0 else min(self.skv, lim_hi)
+        return visit, max(0, min(self.skv, lim_lo))
+
+    def split_ranges(self, q_tile: int) -> list:
+        """The ``[start, stop)`` keys each split of the block at
+        ``q_tile`` takes, in split order: split z takes key tiles
+        ``[z nt // splits, (z + 1) nt // splits)`` of ``nt = ceil(visit /
+        bk)``."""
+        visit = self.keys(q_tile)[0]
+        nt, s = -(-visit // self.bk), self.splits
+        return [(min(visit, z * nt // s * self.bk),
+                 min(visit, (z + 1) * nt // s * self.bk)) for z in range(s)]
+
+
+@functools.lru_cache(maxsize=4096)
+def flash_plan(b: int, hq: int, hkv: int, sq: int, skv: int, kv_len: int,
+               d: int, dtype, causal: bool = True) -> FlashPlan:
+    """The kernel's plan for q (b, hq, sq, d) against k/v (b, hkv, skv, d),
+    a pure function of the shapes, ``kv_len`` and the dtype.
+
+    Rows: ``qn = min(sq, rows)`` queries of the largest ``gh`` dividing g
+    with ``gh * qn`` within a block (bf16: 128 rows for sq >= 128, else
+    64; fp32: 16): a decode step stacks the group's g heads into one
+    block, a long prefill takes 128 queries of one head. bf16 row warps:
+    the fewest 16-row warps that hold them. Splits: as many as fill
+    ``SMS`` with one block each, with at least ``MIN_SPLIT_TILES`` key
+    tiles a split, at most ``MAX_SPLITS``. Raises for what the kernel
+    cannot run."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash attention takes fp32 or bf16, not {dtype}")
+    if min(b, sq, skv) < 0 or hq <= 0 or hkv <= 0 or hq % hkv:
+        raise ValueError(f"flash attention shapes b {b} hq {hq} hkv {hkv} "
+                         f"sq {sq} skv {skv}")
+    bf16 = dtype == torch.bfloat16
+    g = hq // hkv
+    cap = (128 if sq >= 128 else 64) if bf16 else F32_ROWS
+    qn = max(1, min(sq, cap))
+    gh = max(j for j in range(1, g + 1) if g % j == 0 and j * qn <= cap)
+    if bf16:
+        wr = next(w for w in (1, 2, 4, 8) if 16 * w >= gh * qn)
+        rows, bk, stages = 16 * wr, TC_KEYS, tc_stages(wr)
+        smem = tc_smem(d, wr)
+    else:
+        wr, rows, bk, stages, smem = 1, F32_ROWS, F32_KEYS, 1, f32_smem(d)
+    if smem > (MAX_SMEM if bf16 else STATIC_SMEM):
+        raise ValueError(f"flash attention: {smem} bytes of shared memory")
+    q_tiles = -(-sq // qn) if sq else 0
+    plan = FlashPlan(bf16=bf16, d=d, sq=sq, skv=skv, kv_len=kv_len,
+                     causal=bool(causal), g=g, gh=gh, qn=qn, rows=rows,
+                     wr=wr, bk=bk, stages=stages, head_blocks=g // gh,
+                     q_tiles=q_tiles, groups=b * hkv, splits=1, smem=smem,
+                     workspace=0)
+    base = plan.blocks
+    if not base:
+        return plan
+    nt = max(-(-plan.keys(t)[0] // bk) for t in range(q_tiles))
+    splits = max(1, min(SMS // base, nt // MIN_SPLIT_TILES, MAX_SPLITS))
+    if splits == 1:
+        return plan
+    return dataclasses.replace(plan, splits=splits,
+                               workspace=splits * b * hq * sq * (d + 2))
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
@@ -28,30 +185,88 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
                q_offset=eff - q.shape[2])
 
 
+def flash_merge_plain(ws: torch.Tensor, splits: int, b: int, hq: int,
+                      sq: int, d: int, dtype=torch.float32) -> torch.Tensor:
+    """Plain version of ``flash_merge``: the splits' fp32 partials (m in
+    base 2, l, acc) combined in split order, the guard, one rounding.
+    Returns (b, hq, sq, d) in ``dtype``."""
+    rows = b * hq * sq
+    ml = ws[:2 * splits * rows].view(splits, rows, 2)
+    acc = ws[2 * splits * rows:splits * rows * (d + 2)].view(splits, rows, d)
+    mm = ml[..., 0].amax(0)
+    f = torch.exp2(ml[..., 0] - mm)
+    ll = (ml[..., 1] * f).sum(0)
+    aa = (acc * f[..., None]).sum(0)
+    out = aa / torch.where(ll == 0, torch.ones_like(ll), ll)[:, None]
+    return out.view(b, hq, sq, d).to(dtype)
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    return tuple(t.stride()[:3])
+
+
+@functools.lru_cache(maxsize=1024)
+def _params(strides: tuple, b, hq, hkv, sq, skv, d, kv_len, causal,
+            plan: FlashPlan, merge: bool):
+    """The kernel's integer arguments as one host array, made once per
+    call shape: a decode step issues the same one at every layer."""
+    return _build.ptr_array(ctypes.c_longlong, (
+        *strides, b, hq, hkv, sq, skv, d, kv_len, int(causal),
+        int(plan.bf16), plan.gh, plan.qn, plan.wr, plan.stages, plan.splits,
+        int(merge)))
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
-                         kv_len: int | None = None) -> torch.Tensor:
+                         kv_len: int | None = None,
+                         plan: FlashPlan | None = None,
+                         partials: bool = False):
     """Launch ``csrc/flash_attention.cu``. q: (b, hq, sq, d); k/v:
-    (b, hkv, skv, d), all fp32 or all bf16, d in ``HEAD_DIMS``."""
+    (b, hkv, skv, d), all fp32 or all bf16, d in ``HEAD_DIMS``, any
+    strides with d contiguous (an operand whose d is strided is copied).
+    ``plan`` defaults to :func:`flash_plan`; another plan is passed only
+    to test that the kernel refuses it. ``partials`` (a split plan only):
+    return the splits' workspace and the output, unmerged, to time the
+    merge on its own."""
     b, hq, sq, d = q.shape
     _, hkv, skv, dk = k.shape
     if k.shape != v.shape or dk != d or k.shape[0] != b or hq % hkv:
         raise ValueError(f"flash attention shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
-            torch.float32, torch.bfloat16):
-        raise ValueError(f"flash attention takes fp32 or bf16 q/k/v, got "
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash attention takes one dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     kv_len = skv if kv_len is None else int(kv_len)
+    p = plan or flash_plan(b, hq, hkv, sq, skv, kv_len, d, q.dtype,
+                           bool(causal))
+    if partials and p.splits == 1:
+        raise ValueError("partials needs a plan with more than one split")
     scale = (d ** -0.5) if scale is None else scale
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        code = lib.ntx_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
-            hkv, sq, skv, d, kv_len, int(causal), f32(scale),
-            int(q.dtype == torch.bfloat16), _build.stream_of(q))
+    ws = (torch.empty(p.workspace, dtype=torch.float32, device=q.device)
+          if p.splits > 1 else None)
+    params = _params(_strides(q) + _strides(k) + _strides(v) + _strides(o),
+                     b, hq, hkv, sq, skv, d, kv_len, bool(causal), p,
+                     not partials)
+    with _build.on_device(q):
+        code = _build.library().ntx_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            ws.data_ptr() if ws is not None else None, params, f32(scale),
+            _build.stream_of(q))
     _build.check(code, "ntx_flash_attention")
+    return (ws, o) if partials else o
+
+
+def flash_merge_cuda(ws: torch.Tensor, o: torch.Tensor,
+                     splits: int) -> torch.Tensor:
+    """Launch ``flash_merge`` alone: the partials of ``splits`` splits in
+    ``ws`` (as ``flash_attention_cuda(partials=True)`` leaves them) into
+    ``o`` (b, hq, sq, d), fp32 or bf16, d contiguous."""
+    b, hq, sq, d = o.shape
+    os_ = _build.ptr_array(ctypes.c_longlong, _strides(o))
+    with _build.on_device(o):
+        code = _build.library().ntx_flash_merge(
+            ws.data_ptr(), o.data_ptr(), os_, b, hq, sq, d, splits,
+            int(o.dtype == torch.bfloat16), _build.stream_of(o))
+    _build.check(code, "ntx_flash_merge")
     return o

@@ -177,6 +177,48 @@ def split_k_plan(m: int, n: int, k: int) -> SplitKPlan:
                       workspace=splits * m * n if splits > 1 else 0)
 
 
+#: the FFMA route's tiles, as ``csrc/ntx_gemm.cu`` numbers them: (BM, BN,
+#: TM, TN, STAGES) of the 16 x 128 tile (m <= 16), the 64 x 64 one, and
+#: the register-tiled 128-row tile of fp32 inputs (``FfmaLarge``)
+FFMA_TILES = ((16, 128, 2, 4, 1), (64, 64, 4, 4, 1), (128, 128, 8, 8, 3))
+
+
+@dataclasses.dataclass(frozen=True)
+class FfmaPlan:
+    """How the FFMA route (fp32 inputs, and any compensated product) cuts
+    one (m, n, k) product: the tile ``csrc/ntx_gemm.cu`` numbers ``tile``,
+    its shape and the grid's blocks."""
+
+    tile: int
+    bm: int
+    bn: int
+    tm: int
+    tn: int
+    stages: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def ffma_plan(m: int, n: int, k: int, compensated: bool,
+              bf16: bool = False) -> FfmaPlan:
+    """The FFMA route's tile for an (m, k) @ (k, n) product, a pure
+    function of the shape (``k`` and ``compensated`` do not change it:
+    both variants run the same tiles): the 16 x 128 tile for m <= 16;
+    for fp32 inputs, the register-tiled 128-row tile where its grid holds
+    at least one block per SM (``SMS``), else the 64 x 64 tile (``bf16``:
+    the compensated product of bf16 inputs, which keeps the 64 x 64
+    tile). The kernel refuses any other tile."""
+    del k, compensated
+    if m <= 16:
+        tile = 0
+    else:
+        bm, bn = FFMA_TILES[2][:2]
+        tile = 2 if not bf16 and -(-m // bm) * -(-n // bn) >= SMS else 1
+    bm, bn, tm, tn, stages = FFMA_TILES[tile]
+    return FfmaPlan(tile=tile, bm=bm, bn=bn, tm=tm, tn=tn, stages=stages,
+                    blocks=-(-m // bm) * -(-n // bn))
+
+
 @functools.lru_cache(maxsize=256)
 def _encode_epilogue(stages: tuple) -> tuple:
     """The kernel's (kinds, imms, operand-is-bf16) arrays for (kind, imm,
@@ -190,7 +232,8 @@ def _encode_epilogue(stages: tuple) -> tuple:
 
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
               epilogue=(), compensated: bool = False,
-              splits: int | None = None) -> torch.Tensor:
+              splits: int | None = None, tile: int | None = None
+              ) -> torch.Tensor:
     """Launch ``csrc/ntx_gemm.cu``: a (m, k) @ b (k, n), both fp32 or both
     bf16, output fp32 or bf16. bf16 without ``compensated`` takes the
     tensor-core route, cut by :func:`split_k_plan` (a second launch adds
@@ -200,7 +243,8 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     ``compensated`` takes the kernel's Neumaier variant over
     KAHAN_SLAB-deep slabs. ``splits`` replaces the plan's number of k
     splits on the tensor-core route (to time the choice; the ``ops``
-    entry points never pass it)."""
+    entry points never pass it). ``tile`` replaces :func:`ffma_plan`'s
+    tile on the FFMA route, only to test that the kernel refuses it."""
     if a.dtype != b.dtype or a.dtype not in _GEMM_DTYPES:
         raise ValueError(f"ntx_gemm takes two fp32 or two bf16 operands, "
                          f"got {a.dtype} @ {b.dtype}")
@@ -229,7 +273,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     kinds, imms, op_bf16 = _encode_epilogue(tuple(
         (kind, imm, None if op is None else op.dtype)
         for (kind, imm, _), op in zip(epilogue, operands)))
-    tile, ws = 0, None
+    ws = None
     if a.dtype == torch.bfloat16 and not compensated:
         plan = split_k_plan(m, n, k)
         tile, splits = plan.tile, splits or plan.splits
@@ -240,6 +284,9 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
         raise ValueError("only the bf16 tensor-core route splits k")
     else:
         splits = 1
+        tile = ffma_plan(m, n, k, bool(compensated),
+                         a.dtype == torch.bfloat16).tile \
+            if tile is None else tile
     ops_arr = _build.ptr_array(ctypes.c_void_p, [
         None if op is None else op.data_ptr() for op in operands])
     with _build.on_device(a):

@@ -30,7 +30,8 @@ import functools
 import numpy as np
 import torch
 
-from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .flash_attention import (flash_attention_cuda, flash_attention_plain,
+                              flash_plan)
 from .ntx_elementwise import (MAX_STAGES, _OPS2, adamw_cuda, adamw_plain,
                               elementwise_chain_plain, elementwise_plain,
                               normalize_stages, stream_cuda)
@@ -48,8 +49,10 @@ from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 #: ``csrc/ssd_scan.cu`` (state, carry, output passes); ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
 #: not a kernel of this package yet); ``laplace`` counts the fused Laplace
 #: launches (one per ``laplace`` call of 1-3 dimensions), ``stencil`` the
-#: per-axis passes
-LAUNCHES = {"gemm": 0, "gemm_kahan": 0, "attention": 0, "elementwise": 0,
+#: per-axis passes; ``attention_merge`` counts the split-kv merge launched
+#: after an ``attention`` call whose plan splits the keys
+LAUNCHES = {"gemm": 0, "gemm_kahan": 0, "attention": 0,
+            "attention_merge": 0, "elementwise": 0,
             "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0,
             "ssd": 0, "ssd_bwd": 0, "adamw": 0, "conv2d": 0, "stencil": 0,
             "laplace": 0}
@@ -372,9 +375,15 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      kv_len=kv_len)
     _no_backward("flash attention", q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    plan = flash_plan(b, hq, hkv, sq, skv, skv if kv_len is None else
+                      int(kv_len), d, q.dtype, bool(causal))
     LAUNCHES["attention"] += 1
+    if plan.splits > 1:
+        LAUNCHES["attention_merge"] += 1
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
-                                kv_len=kv_len)
+                                kv_len=kv_len, plan=plan)
 
 
 # ----------------------------------------------------------------------

@@ -908,3 +908,180 @@ def test_adamw_kernel_plan_routes(cuda):
     got = tew.adamw_cuda(*apart, 7, lr=3e-4)
     for a, b in zip(got, (po, mo, vo)):
         assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# Flash attention: tensor cores (bf16), the causal tile bound, strides,
+# the grouped split-kv decode
+# ----------------------------------------------------------------------
+def _attention_want(q, k, v, kv_len):
+    """``flash_attention_plain``, except for rows with no valid key (query
+    position kv_len - sq + i < 0): there the reference kernel's logits
+    are all -1e30, so each key of the array weighs 1 and the row is the
+    mean of v (the plain softmax over no key gives NaN)."""
+    want = tfa.flash_attention_plain(q, k, v, causal=True,
+                                     kv_len=kv_len).float()
+    b, hq, sq, _ = q.shape
+    hkv = k.shape[1]
+    dead = sq - kv_len                       # rows 0 .. dead - 1
+    if dead > 0:
+        mean = v.float().mean(2, keepdim=True)            # (b, hkv, 1, d)
+        mean = mean.repeat_interleave(hq // hkv, 1)
+        want[:, :, :dead] = mean.expand(-1, -1, min(dead, sq), -1)
+    return want
+
+
+def _bhsd(shape, dev, dt, scale, layout):
+    """A (b, h, s, d) operand: contiguous, the (b, s, h, d) projection
+    viewed as (b, h, s, d), or contiguous one element into its storage
+    (off the 16-byte boundary)."""
+    b, h, s, d = shape
+    if layout == "bshd":
+        return _t((b, s, h, d), dev, scale).to(dt).transpose(1, 2)
+    if layout == "offset":
+        flat = _t((b * h * s * d + 1,), dev, scale).to(dt)
+        return flat[1:].view(b, h, s, d)
+    return _t(shape, dev, scale).to(dt)
+
+
+ATTN_SHAPES = [(1, 4099, 4000), (15, 77, 60), (17, 200, 200), (63, 63, 63),
+               (65, 130, 100), (300, 301, 300), (65, 130, 40)]
+
+
+@pytest.mark.parametrize("sq,skv,kv_len", ATTN_SHAPES)
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (8, 2), (8, 1)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_sweep(cuda, dtype, d, hq, hkv, sq, skv, kv_len):
+    """Ragged sq and skv, kv_len < skv, rows with no valid key (sq 65 at
+    kv_len 40), split-kv decode (sq 1 over 4000 keys), every GQA ratio,
+    both head dims and dtypes, q as the strided (b, s, h, d) view, against
+    the plain version at phase 2's tolerances; two calls, the same bits."""
+    dt = getattr(torch, dtype)
+    q = _bhsd((2, hq, sq, d), cuda, dt, 0.5, "bshd")
+    k = _bhsd((2, hkv, skv, d), cuda, dt, 0.5, "contiguous")
+    v = _bhsd((2, hkv, skv, d), cuda, dt, 1.0, "bshd")
+    got = tfa.flash_attention_cuda(q, k, v, causal=True, kv_len=kv_len)
+    again = tfa.flash_attention_cuda(q, k, v, causal=True, kv_len=kv_len)
+    assert got.shape == q.shape and got.dtype == dt
+    assert torch.equal(got, again)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), _attention_want(q, k, v, kv_len),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "bshd", "offset"])
+@pytest.mark.parametrize("sq,skv,kv_len", [(1, 2000, 1999), (100, 100, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_layouts(cuda, dtype, sq, skv, kv_len, layout):
+    """q, k and v in each layout (an operand off the 16-byte boundary
+    takes the masked-load instantiation): the same values give the same
+    bits as contiguous copies."""
+    dt = getattr(torch, dtype)
+    q, k, v = (_bhsd(shape, cuda, dt, s, layout) for shape, s in (
+        ((2, 8, sq, 128), 0.5), ((2, 2, skv, 128), 0.5),
+        ((2, 2, skv, 128), 1.0)))
+    got = tfa.flash_attention_cuda(q, k, v, causal=True, kv_len=kv_len)
+    same = tfa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=True, kv_len=kv_len)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), _attention_want(q, k, v, kv_len),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got.contiguous(), same)
+
+
+def test_flash_decode_splits_and_counts(cuda):
+    """The serving-style decode (b 4, hq 32, hkv 8, sq 1, kv_len 4000 of
+    4096) takes the grouped split-kv plan: one block per (b, kv head,
+    split) filling the SMs, and ops.attention counts the merge."""
+    q = _t((4, 32, 1, 128), cuda, 0.5).bfloat16()
+    k, v = (_t((4, 8, 4096, 128), cuda, 0.5).bfloat16() for _ in range(2))
+    plan = tfa.flash_plan(4, 32, 8, 1, 4096, 4000, 128, torch.bfloat16)
+    assert (plan.gh, plan.qn, plan.wr, plan.splits) == (4, 1, 1, 4)
+    ops.reset_launches()
+    got = ops.attention(q, k, v, causal=True, kv_len=4000)
+    assert ops.launches()["attention"] == 1
+    assert ops.launches()["attention_merge"] == 1
+    torch.testing.assert_close(got.float(), _attention_want(q, k, v, 4000),
+                               rtol=1e-2, atol=1e-2)
+    ws, o = tfa.flash_attention_cuda(q, k, v, kv_len=4000, partials=True)
+    merged = tfa.flash_merge_cuda(ws, o, plan.splits)
+    assert torch.equal(merged, got)
+    torch.testing.assert_close(
+        merged.float(), tfa.flash_merge_plain(ws, plan.splits, 4, 32, 1, 128
+                                              ).float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("change", ["wr_3", "stages", "gh_3", "rows",
+                                    "splits_0", "splits_65", "fp32_wr"])
+def test_flash_kernel_refuses_a_plan_it_cannot_run(cuda, change):
+    import dataclasses
+    dt = torch.float32 if change == "fp32_wr" else torch.bfloat16
+    q = _t((1, 8, 40, 128), cuda).to(dt)
+    k = v = _t((1, 2, 80, 128), cuda).to(dt)
+    p = tfa.flash_plan(1, 8, 2, 40, 80, 80, 128, dt)
+    bad = {"wr_3": dict(wr=3), "stages": dict(stages=p.stages + 1),
+           "gh_3": dict(gh=3), "rows": dict(qn=p.rows + 1),
+           "splits_0": dict(splits=0), "splits_65": dict(splits=65),
+           "fp32_wr": dict(wr=2)}[change]
+    with pytest.raises(RuntimeError, match="ntx_flash_attention"):
+        tfa.flash_attention_cuda(q, k, v, plan=dataclasses.replace(p, **bad))
+
+
+# ----------------------------------------------------------------------
+# The fp32 FFMA route: the register-tiled 128-row tile
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m,k,n", [(2047, 1001, 1153), (1023, 4097, 1001),
+                                   (4096, 512, 4096)])
+def test_ffma_gemm_ragged_and_misaligned(cuda, m, k, n, offset, compensated):
+    """Ragged shapes on either FFMA tile (ffma_plan picks), operands one
+    element off the 16-byte boundary (the masked instantiation), against
+    the plain versions: the compensated product within 1e-5 of the
+    product's standard deviation, the plain one at f_tol."""
+    a = _offset_view(_t((m, k), cuda), offset)
+    b = _offset_view(_t((k, n), cuda, k ** -0.5), offset)
+    ep = ops._norm_epilogue([("bias", _t((n,), cuda)), "relu"])
+    got = tgemm.gemm_cuda(a, b, torch.float32, ep, compensated=compensated)
+    assert torch.equal(got, tgemm.gemm_cuda(a.clone(), b.clone(),
+                                            torch.float32, ep,
+                                            compensated=compensated))
+    if compensated:
+        want = tgemm.gemm_kahan_plain(a, b, torch.float32, ep)
+        # 1e-5 of the product's standard deviation, sqrt(k) k**-0.5 = 1
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
+    else:
+        want = tgemm.gemm_plain(a, b, torch.float32, ep)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    got16 = tgemm.gemm_cuda(a, b, torch.bfloat16, ep, compensated=compensated)
+    torch.testing.assert_close(got16.float(), want, rtol=1e-2, atol=1e-2)
+
+
+def test_ffma_large_tile_rounds_exact_slabs_once(cuda):
+    """The compensated 128-row tile on exact slabs (as phase 2's check):
+    the fp64 product rounded once, bit for bit; the uncompensated one
+    off by more."""
+    rng = np.random.default_rng(5)
+    m, k, n = 2048, 1024, 2048
+    assert tgemm.ffma_plan(m, n, k, True).tile == 2
+    a = rng.integers(-8, 9, (m, k)).astype(np.float32)
+    a[:, :tgemm.KAHAN_SLAB] *= 2.0 ** 16
+    b = rng.integers(-8, 9, (k, n)).astype(np.float32)
+    want = torch.from_numpy(a.astype(np.float64) @ b.astype(np.float64))
+    a, b = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    got = ops.gemm(a, b, compensated=True).cpu()
+    plain = ops.gemm(a, b).cpu()
+    assert torch.equal(got, want.float())
+    assert float((plain.double() - want).abs().max()) > float(
+        (got.double() - want).abs().max()) + 1.0
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("m,n,tile", [(4096, 4096, 1), (4096, 4096, 0),
+                                      (256, 256, 2), (8, 4096, 2)])
+def test_ffma_gemm_refuses_a_foreign_tile(cuda, compensated, m, n, tile):
+    a, b = _t((m, 64), cuda), _t((64, n), cuda)
+    assert tgemm.ffma_plan(m, n, 64, compensated).tile != tile
+    with pytest.raises(RuntimeError, match="ntx_gemm"):
+        tgemm.gemm_cuda(a, b, compensated=compensated, tile=tile)

@@ -99,3 +99,47 @@ def test_stream_chunks_depend_on_n_alone(n):
     assert chunks == max(1, -(-n // tew.STREAM_CHUNK))
     assert (chunks - 1) * tew.STREAM_CHUNK < max(n, 1) <= (
         chunks * tew.STREAM_CHUNK)
+
+
+@pytest.mark.parametrize("m,n,compensated,tile", [
+    (4096, 4096, True, 2),       # the suite's 4096^3: 1024 blocks
+    (4096, 4096, False, 2),
+    (128, 128, True, 1),         # 128x2048x128 x100: 1 block at 128 x 128
+    (1024, 1024, True, 1),       # the exact-slab case: 64 blocks
+    (12 * 128, 11 * 128, False, 2),   # exactly one block per SM
+    (12 * 128, 11 * 128 - 1, False, 2),
+    (12 * 128, 10 * 128, False, 1),   # 120 blocks: less than a wave
+    (16, 1 << 16, False, 0),     # m <= 16 keeps the 16 x 128 tile
+    (17, 1 << 16, True, 2),
+])
+def test_ffma_plan_picks_the_large_tile_by_wave(m, n, compensated, tile):
+    """The register-tiled 128-row tile where it gives at least one block
+    per SM (``SMS``), the 64 x 64 tile below that, the 16 x 128 tile for
+    m <= 16; k never changes the tile."""
+    for k in (1, 128, 4096):
+        plan = tgemm.ffma_plan(m, n, k, compensated)
+        assert plan.tile == tile
+        assert plan.blocks == -(-m // plan.bm) * -(-n // plan.bn)
+        if tile == 2:
+            assert plan.blocks >= tgemm.SMS and plan.bm == 128
+
+
+@pytest.mark.parametrize("m", [17, 4096])
+def test_ffma_plan_keeps_the_64_tile_for_bf16_inputs(m):
+    """The compensated GEMM of bf16 inputs keeps today's 64 x 64 template
+    whatever its size."""
+    assert tgemm.ffma_plan(m, 4096, 4096, True, bf16=True).tile == 1
+
+
+def test_ffma_tiles_match_the_kernel_source():
+    """FFMA_TILES[2] is csrc/ntx_gemm.cu's FfmaLarge (BM 128, TM 8), and
+    kSms the SM count its tile rule uses; the kernel refuses a tile other
+    than the one that rule (ffma_tile, the planner's rule) gives, so a
+    plan built from other numbers is refused on the card."""
+    src = _source("ntx_gemm.cu")
+    bn, tn, st = (int(v) for v in re.search(
+        r"using FfmaLarge = FfmaTile<(\d+), (\d+), (\d+)>;", src).groups())
+    assert tgemm.FFMA_TILES[2] == (128, bn, 8, tn, st)
+    assert int(re.search(r"constexpr int kSms = (\d+);", src).group(1)) == \
+        tgemm.SMS
+    assert "tile != ffma_tile(m, n, in_bf16 != 0)" in src
