@@ -54,6 +54,18 @@ Phases, one result line each:
                the CPU; Gflop/s, bound shares and launch counts, then each
                result against its plain version as in phase 2; the fused
                Laplace timed beside the per-axis route it replaced.
+  9. policies — the Executor's five policies on the card, every one
+               bit-equal to serial: the serving samplers at phase 5's
+               shapes (greedy, staged prefill, temperature 0.8; tokens
+               equal to torch.argmax), 8 lanes of AXPY -> RELU -> SUM over
+               2**20 each, 4 fp32 GEMM(512, 512, 512) + RELU lanes, one
+               2**20 chain larger than the TCDM (auto picks tiled), a
+               fitting program raced under autotune="measure" (the second
+               race hits the cache) and shard_map on one device (raises);
+               each policy's wall time and launches per run, the lane
+               launches checked against their plain versions and timed
+               beside L one-lane launches, and the sampler's decode-step
+               time under fused against multistream.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -93,12 +105,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
 #: phase 8's shapes: the conv plane, the Laplace grids, the GEMM side
 CONV_HW, CONV_TAPS = 8192, (3, 5, 7)
 LAP_SHAPES = ((1 << 26,), (8192, 8192), (512, 512, 512))
 KAHAN_N = 4096
 AXPY_N = 1 << 22
+#: phase 9's shapes: the sampler batch and vocabulary (phase 5's), the
+#: data-parallel lanes and their length, the GEMM lanes and their side
+VOCAB = 128256
+LANES, LANE_N = 8, 1 << 20
+GEMM_LANES, GEMM_N = 4, 512
 #: the 3-command streaming chain of benchmarks/run.py's fusion section
 CHAIN3 = [("thresh", 0.2), ("relu", 0.0), ("thresh", 0.5)]
 #: ``--only``: phase 2/3 case-name prefixes to keep (empty: all)
@@ -874,7 +891,7 @@ def compare(torch, case, got, want) -> tuple:
     gots = got if isinstance(got, tuple) else (got,)
     wants = want if isinstance(want, tuple) else (want,)
     ok, max_abs, max_rel = True, 0.0, 0.0
-    for gg, ww in zip(gots, wants):
+    for part, (gg, ww) in enumerate(zip(gots, wants)):
         gg = gg.float()
         ww = ww.float()
         if gg.shape != ww.shape:
@@ -883,8 +900,12 @@ def compare(torch, case, got, want) -> tuple:
         max_abs = max(max_abs, float(diff.max()) if diff.numel() else 0.0)
         rel = diff / ww.abs().clamp_min(1e-30)
         max_rel = max(max_rel, float(rel.max()) if rel.numel() else 0.0)
-        if case["mode"] == "equal":
+        if case["mode"] == "equal" or (case["mode"] == "lanesum"
+                                       and part == 0):
             ok &= bool(torch.equal(gg, ww))
+        elif case["mode"] == "lanesum":   # a row's sum, to its sum of |v|
+            scale = wants[0].abs().double().sum(-1)
+            ok &= bool((diff.double() <= case["tol"][0] * scale).all())
         elif case["mode"] == "sum":       # relative to the sum of |x|
             ok &= bool((diff <= case["tol"][0] * case["scale"]).all())
         else:
@@ -937,6 +958,16 @@ def check_policies(torch) -> None:
 
 def phase_check_and_time(torch, do_time: bool) -> list:
     cases = [case for case in kernel_cases(torch) if wanted(case["name"])]
+    rows = check_and_time(torch, cases, do_time, "check", "time")
+    check_policies(torch)
+    return rows
+
+
+def check_and_time(torch, cases, do_time: bool, check: str,
+                   timing: str) -> list:
+    """Each case's kernel against its plain version (failing on any
+    disagreement), then, with ``do_time``, its time, bound, plain and
+    library times; the cases' closures are dropped before returning."""
     rows, failed = [], []
     for case in cases:
         got = case["kernel"]()
@@ -944,23 +975,23 @@ def phase_check_and_time(torch, do_time: bool) -> list:
         want = case["plain"]()
         ok, max_abs, max_rel = compare(torch, case, got, want)
         tol = ("bit-equal" if case["mode"] == "equal" else
-               f"|d| <= {case['tol'][0]:g} * sum|x|" if case["mode"] == "sum"
+               f"|d| <= {case['tol'][0]:g} * sum|x|"
+               if case["mode"] in ("sum", "lanesum")
                else f"rtol {case['tol'][0]:g} atol {case['tol'][1]:g}")
-        say("check", f"{case['name']}: max_abs_err {max_abs:.3e} "
-                     f"max_rel_err {max_rel:.3e} ({tol}) "
-                     f"{'ok' if ok else 'FAIL'}")
+        say(check, f"{case['name']}: max_abs_err {max_abs:.3e} "
+                   f"max_rel_err {max_rel:.3e} ({tol}) "
+                   f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(case["name"])
         if case.get("check"):
             ok, msg = case["check"](got)
-            say("check", f"{case['name']}: {msg} {'ok' if ok else 'FAIL'}")
+            say(check, f"{case['name']}: {msg} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(case["name"])
         del got, want
         case["max_abs_err"] = max_abs
         rows.append(case)
     need(not failed, f"kernels disagree with their plain versions: {failed}")
-    check_policies(torch)
     if do_time:
         for case in rows:
             case["ms"], host_ms = time_ms_host(case["kernel"], torch)
@@ -976,13 +1007,17 @@ def phase_check_and_time(torch, do_time: bool) -> list:
                      if case.get("aside") else "")
             if case.get("backend"):
                 aside += f" | SDPA backend {sdpa_backend(case['backend'])}"
-            say("time", f"{case['name']}: kernel {case['ms']:.4f} ms | "
+            if case.get("singles"):
+                n_single, singles = case["singles"]
+                aside += (f" | {n_single} one-lane launches "
+                          f"{time_ms(singles, torch):.4f} ms")
+            say(timing, f"{case['name']}: kernel {case['ms']:.4f} ms | "
                         f"host issue {host_ms:.4f} ms | bound {b_ms:.4f} ms"
                         f" ({b_by}) | plain {case['plain_ms']:.4f} ms | "
                         f"library {lib} ms{aside}")
             if case.get("splits"):
                 plan, alt, run = case["splits"]
-                say("time", f"{case['name']}: split-k plan {plan} -> "
+                say(timing, f"{case['name']}: split-k plan {plan} -> "
                             f"{time_ms(lambda: run(plan), torch):.4f} ms | "
                             f"two blocks per SM, {alt} -> "
                             f"{time_ms(lambda: run(alt), torch):.4f} ms "
@@ -996,13 +1031,13 @@ def phase_check_and_time(torch, do_time: bool) -> list:
                     f"{label}, {p.blocks} blocks -> "
                     f"{time_ms(lambda p=p: run(p), torch):.4f} ms"
                     for label, p in plans)
-                say("time", f"{case['name']}: {msg} (the kernel alone) | "
+                say(timing, f"{case['name']}: {msg} (the kernel alone) | "
                             f"bit-equal {same}")
                 if case["mode"] == "equal":
                     need(same, f"{case['name']}: the plans disagree")
     for case in rows:            # free the inputs the closures hold
         for key in ("kernel", "plain", "library", "scale", "check",
-                    "aside", "splits", "plans", "backend"):
+                    "aside", "splits", "plans", "backend", "singles"):
             case.pop(key, None)
     torch.cuda.empty_cache()
     return rows
@@ -1403,8 +1438,8 @@ def phase_train(torch, np) -> dict:
     with tempfile.TemporaryDirectory() as ckpt_dir:
         trainer = Trainer(cfg, opt_cfg, TrainConfig(
             steps=TRAIN_STEPS, log_every=0, ckpt_every=50, ckpt_dir=ckpt_dir,
-            global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, resume="none",
-            multistream_plan=False), device=DEVICE)
+            global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, resume="none"),
+            device=DEVICE)
         times = []
         step_fn = trainer.step_fn
 
@@ -1444,6 +1479,11 @@ def phase_train(torch, np) -> dict:
     say("train", f"kernel launches in {TRAIN_STEPS} steps {train_counts} "
                  f"({train_counts['ssd'] / TRAIN_STEPS:g} ssd per step) | "
                  f"checkpoint {saved[-1]} with {len(manifest)} leaves")
+    plan = r["multistream"]
+    say("train", f"multistream update plan (priced, not launched): "
+                 f"{plan['n_substreams']} sub-streams on {plan['n_clusters']} "
+                 f"cluster(s), model speedup {plan['model_speedup']:.3f}, "
+                 f"pipeline {plan['pipeline']['n_stages']} stages")
     need(train_counts["ssd"] == 2 * cfg.n_layers * TRAIN_STEPS,
          f"ssd launched {train_counts['ssd']} times, expected "
          f"{2 * cfg.n_layers} per step (forward and recompute)")
@@ -1642,9 +1682,384 @@ def phase_suite(torch, np) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 9: the Executor's policies
+# ----------------------------------------------------------------------
+#: (label, policy, ExecutionPolicy overrides): every policy and transport
+#: phase 9 runs each program under
+POLICY_RUNS = (
+    ("serial", "serial", {}),
+    ("fused", "fused", {}),
+    ("multistream/vmap", "multistream", {"transport": "vmap"}),
+    ("multistream/interleave", "multistream", {"transport": "interleave"}),
+    ("multistream/serial", "multistream", {"transport": "serial"}),
+    ("pipeline/vmap", "pipeline", {"transport": "vmap"}),
+    ("pipeline/interleave", "pipeline", {"transport": "interleave"}),
+    ("pipeline/overlap", "pipeline", {"transport": "overlap"}),
+    ("tiled/dma_overlap", "tiled", {"dma_overlap": True}),
+    ("tiled/no_dma", "tiled", {"dma_overlap": False}),
+    ("auto/model", "auto", {"autotune": "model"}),
+    ("auto/measure", "auto", {"autotune": "measure"}),
+)
+
+
+def lane_programs(torch, np, ntx):
+    """Phase 9's programs: (name, Program, inputs, the launches expected
+    per run under the vmap transports, slots or None). The samplers'
+    programs are the ones ``runtime.serve`` builds, bound to logits and
+    numpy Gumbel noise. Under multistream a request's dependent commands
+    are one sub-stream (COPY -> ARGMAX fuses into one chain-reduce);
+    under pipeline they are stages, one lane launch each."""
+    from repro_torch.runtime import serve
+    rng = np.random.default_rng(9)
+    logits = torch.as_tensor(
+        (rng.standard_normal((BATCH, VOCAB)) * 3.0).astype(np.float32),
+        device=DEVICE)
+    top = logits.max() + 1.0                    # a tie in every row
+    logits[:, VOCAB // 30] = logits[:, VOCAB * 7 // 10] = top
+    gumbel = rng.gumbel(size=(BATCH, VOCAB)).astype(np.float32)
+    dev = torch.device(DEVICE)
+    progs = []
+    for name, staged, lane in (
+            ("greedy", False, {"multistream/vmap": dict(reduce=1),
+                               "pipeline/vmap": dict(reduce=1)}),
+            ("prefill", True, {"multistream/vmap": dict(chain_reduce=1),
+                               "pipeline/vmap": dict(elementwise=1,
+                                                    reduce=1)})):
+        cache = serve._PREFILL_PROGRAMS if staged else serve._ARGMAX_PROGRAMS
+        fn = (serve.greedy_argmax_pipelined if staged
+              else serve.greedy_argmax_multistream)
+        fn(logits, device=dev)               # builds and caches the program
+        prog, _, rows, slots = cache[(BATCH, VOCAB, dev)]
+        progs.append((f"sampler:{name}_{BATCH}x{VOCAB}", prog,
+                      dict(zip(rows, logits)), lane, slots))
+    serve.temperature_sample_multistream(logits, 0.8, gumbel, device=dev)
+    prog, _, rows, noises, slots = serve._TEMPERATURE_PROGRAMS[
+        (BATCH, VOCAB, 0.8, None, dev)]
+    inputs = dict(zip(rows, logits))
+    inputs.update(zip(noises, torch.as_tensor(gumbel, device=dev)))
+    progs.append((f"sampler:temperature0.8_{BATCH}x{VOCAB}", prog, inputs,
+                   {"multistream/vmap": dict(chain_reduce=1),
+                    "pipeline/vmap": dict(elementwise=1, reduce=1)}, slots))
+
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    with ntx.Program() as dp:
+        dp_in = {}
+        for i in range(LANES):
+            x = dp.buffer((LANE_N,), name=f"x{i}")
+            y = dp.buffer((LANE_N,), name=f"y{i}")
+            t = dp.axpy(0.5, x, y)
+            dp.relu(t, out=t)
+            dp.reduce("sum", t, name=f"s{i}")
+            dp_in[x] = torch.randn(LANE_N, generator=g, device=DEVICE)
+            dp_in[y] = torch.randn(LANE_N, generator=g, device=DEVICE)
+    progs.append((f"data_parallel:axpy_relu_sum_{LANES}x2^20", dp, dp_in,
+                  {"multistream/vmap": dict(chain_reduce=1),
+                   "pipeline/vmap": dict(elementwise_chain=1, reduce=1)},
+                  None))
+    with ntx.Program() as gp:
+        gp_in = {}
+        for i in range(GEMM_LANES):
+            a = gp.buffer((GEMM_N, GEMM_N), name=f"a{i}")
+            b = gp.buffer((GEMM_N, GEMM_N), name=f"b{i}")
+            c = gp.gemm(a, b)
+            gp.relu(c, out=c)
+            gp_in[a] = torch.randn(GEMM_N, GEMM_N, generator=g,
+                                   device=DEVICE)
+            gp_in[b] = torch.randn(GEMM_N, GEMM_N, generator=g,
+                                   device=DEVICE) * GEMM_N ** -0.5
+    progs.append((f"gemm_lanes:relu_{GEMM_LANES}x{GEMM_N}^3", gp, gp_in,
+                  {"multistream/vmap": dict(gemm=1),
+                   "pipeline/vmap": dict(gemm=1)}, None))
+    with ntx.Program() as big:
+        x = big.buffer((LANE_N,), name="x")
+        y = big.buffer((LANE_N,), name="y")
+        t = big.axpy(0.5, x, y)
+        big.relu(t, out=t)
+        big.reduce("sum", t, name="s")
+    progs.append(("oversize:axpy_relu_sum_2^20", big,
+                  {x: dp_in[dp.resolve("x0")], y: dp_in[dp.resolve("y0")]},
+                  None, None))
+    return progs, logits, gumbel
+
+
+def run_policies(torch, ntx, ops, name, prog, inputs, lane) -> dict:
+    """One program under every policy run: bit-equal to serial or fail;
+    its wall time per run (host clock around runs that end in a
+    synchronize, median of 3 after a warm run) and launches per run."""
+    base = None
+    out = {}
+    for label, policy, kw in POLICY_RUNS:
+        ex = ntx.Executor(policy, device=DEVICE, **kw)
+        ex.run(prog, inputs=inputs)                    # plan, build, race
+        torch.cuda.synchronize()
+        before = ops.launches()
+        res = ex.run(prog, inputs=inputs)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in ops.launches().items()
+                    if v != before[k]}
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ex.run(prog, inputs=inputs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        mem = res.mem
+        if base is None:
+            base = mem.clone()
+        same = bool(torch.equal(mem, base))
+        sched = ex.stats["scheduler"] or {}
+        mode = sched.get("stage_modes") or sched.get("mode_used")
+        out[label] = dict(policy=ex.stats["policy"], wall_ms=sorted(
+            walls)[1] * 1e3, launches=launches, same=same)
+        say("policies", f"{name} {label}: ran {ex.stats['policy']}"
+                        f"{f' ({mode})' if mode else ''} | wall "
+                        f"{out[label]['wall_ms']:.3f} ms per run | launches "
+                        f"per run {launches} | bit-equal to serial "
+                        f"{'yes' if same else 'NO'}")
+        need(same, f"{name}: {label} differs from serial on the card")
+        if lane and label in lane:
+            need(launches == lane[label],
+                 f"{name}: {label} launched {launches}, expected "
+                 f"{lane[label]}: one launch per group for all lanes")
+    return out
+
+
+def policy_cases(torch, np, logits, gumbel) -> list:
+    """The lane launches of phase 9's main path as kernel cases: each
+    wrapper on the lane stack the vmap transport hands it (a strided view
+    of the memory image), against its plain version, with L one-lane
+    launches of the same kernel beside it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ntx_elementwise as ew
+    from repro_torch.kernels import ntx_gemm, ntx_reduce
+    stream_src = "src/repro_torch/kernels/csrc/ntx_stream.cu"
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    # greedy: a lane is a logits row and its slot, VOCAB + 8 apart;
+    # temperature: logits, noise, perturbed row and slot, 3 VOCAB + 8
+    W, W3 = VOCAB + 8, 3 * VOCAB + 8
+    x = torch.zeros(BATCH * W, device=DEVICE).as_strided(
+        (BATCH, VOCAB), (W, 1), 0).copy_(logits)
+    timg = torch.zeros(BATCH * W3, device=DEVICE)
+    tx = timg.as_strided((BATCH, VOCAB), (W3, 1), 0).copy_(logits)
+    noise = timg.as_strided((BATCH, VOCAB), (W3, 1), VOCAB).copy_(
+        torch.as_tensor(gumbel, device=DEVICE))
+    imm = 1 / 0.8
+    cases = [
+        dict(name=f"reduce:argmax_lanes_{BATCH}x{VOCAB}", wrapper="reduce",
+             source=stream_src, replaces="src/repro/kernels/ntx_reduce.py:153",
+             kernel=lambda: ops.reduce("argmax", x),
+             plain=lambda: ntx_reduce.reduce_plain("argmax", x),
+             library=lambda: torch.argmax(x, -1), mode="equal",
+             tol=(0.0, 0.0), bytes=x.numel() * 4 + BATCH * 4,
+             ops=x.numel(), kind="fp32", path=True, phase="policies",
+             singles=(BATCH, lambda: [ops.reduce("argmax", x[i:i + 1])
+                                      for i in range(BATCH)])),
+        dict(name=f"elementwise:copy_lanes_{BATCH}x{VOCAB}",
+             wrapper="elementwise", source=stream_src,
+             replaces="src/repro/kernels/ntx_elementwise.py:61",
+             kernel=lambda: ops.elementwise("copy", x),
+             plain=lambda: ew.elementwise_plain("copy", x),
+             library=lambda: x.clone(), mode="equal", tol=(0.0, 0.0),
+             bytes=2 * x.numel() * 4, ops=x.numel(), kind="fp32", path=True,
+             phase="policies",
+             singles=(BATCH, lambda: [ops.elementwise("copy", x[i:i + 1])
+                                      for i in range(BATCH)])),
+        dict(name=f"chain_reduce:axpy_argmax_lanes_{BATCH}x{VOCAB}",
+             wrapper="chain_reduce", source=stream_src,
+             replaces="src/repro/kernels/ntx_reduce.py:117",
+             kernel=lambda: ops.chain_reduce([("axpy", imm)], "argmax", tx,
+                                             (noise,)),
+             plain=lambda: _chain_reduce_plain(ops, ntx_reduce,
+                                               [("axpy", imm)], tx, (noise,)),
+             library=None, mode="equal", tol=(0.0, 0.0),
+             bytes=tx.numel() * 12 + BATCH * 4, ops=2 * tx.numel(),
+             kind="fp32", path=True, phase="policies",
+             singles=(BATCH, lambda: [ops.chain_reduce(
+                 [("axpy", imm)], "argmax", tx[i:i + 1], (noise[i:i + 1],))
+                 for i in range(BATCH)])),
+    ]
+    # the data-parallel lanes: x, y and t of one lane sit 3 * 2**20 + 8
+    # apart (with the SUM slot), the stack a strided view
+    D = 3 * LANE_N + 8
+    dimg = torch.randn(LANES * D, generator=g, device=DEVICE)
+    dx = dimg.as_strided((LANES, LANE_N), (D, 1), 0)
+    dy = dimg.as_strided((LANES, LANE_N), (D, 1), LANE_N)
+    stages = [("axpy", 0.5), ("relu", 0.0)]
+
+    cases.append(dict(
+        name=f"chain_reduce:axpy_relu_sum_lanes_{LANES}x2^20",
+        wrapper="chain_reduce", source=stream_src,
+        replaces="src/repro/kernels/ntx_reduce.py:117",
+        kernel=lambda: ops.chain_reduce(stages, "sum", dx, (dy,)),
+        plain=lambda: ntx_reduce.chain_reduce_plain(stages, "sum", dx,
+                                                    (dy,)),
+        library=None, mode="lanesum", tol=(1e-5, 0.0),
+        bytes=dx.numel() * 12 + LANES * 4, ops=3 * dx.numel(), kind="fp32",
+        path=True, phase="policies",
+        singles=(LANES, lambda: [ops.chain_reduce(stages, "sum",
+                                                  dx[i:i + 1],
+                                                  (dy[i:i + 1],))
+                                 for i in range(LANES)])))
+    # the GEMM lanes: a, b and c of one lane 3 * 512**2 apart
+    n = GEMM_N
+    G = 3 * n * n
+    gimg = torch.randn(GEMM_LANES * G, generator=g, device=DEVICE)
+    gimg.view(GEMM_LANES, G)[:, n * n:2 * n * n] *= n ** -0.5
+    ga = gimg.as_strided((GEMM_LANES, n, n), (G, n, 1), 0)
+    gb = gimg.as_strided((GEMM_LANES, n, n), (G, n, 1), n * n)
+    ep = [("relu",)]
+    cases.append(dict(
+        name=f"gemm:fp32_relu_lanes_{GEMM_LANES}x{n}^3", wrapper="gemm",
+        source="src/repro_torch/kernels/csrc/ntx_gemm.cu",
+        replaces="src/repro/kernels/ntx_gemm.py:137",
+        kernel=lambda: ops.gemm(ga, gb, epilogue=ep),
+        plain=lambda: ntx_gemm.gemm_plain(ga, gb, torch.float32,
+                                          ops._norm_epilogue(ep)),
+        library=lambda: torch.relu(torch.bmm(ga, gb)), mode="close",
+        tol=(1e-4, 1e-4), bytes=3 * GEMM_LANES * n * n * 4,
+        ops=2.0 * GEMM_LANES * n ** 3, kind="fp32", path=True,
+        phase="policies",
+        singles=(GEMM_LANES, lambda: [ops.gemm(ga[i], gb[i], epilogue=ep)
+                                      for i in range(GEMM_LANES)]),
+        check=lambda got: lanes_equal_singles(torch, got, [
+            ops.gemm(ga[i], gb[i], epilogue=ep) for i in range(GEMM_LANES)])))
+    return cases
+
+
+def lanes_equal_singles(torch, got, singles) -> tuple:
+    same = all(torch.equal(got[i], s) for i, s in enumerate(singles))
+    return same, f"each lane bit-equal to its one-lane launch: {same}"
+
+
+def phase_policies(torch, np) -> tuple:
+    """Every policy and transport on the card over phase 9's programs,
+    bit-equal to serial; the launch counts of that run; the samplers'
+    tokens against torch.argmax; the tiled verdict, the measured race and
+    its cache, shard_map's refusal; then the lane launches checked and
+    timed, and the sampler's step under fused against multistream."""
+    import ntx_torch as ntx
+    from repro_torch.core import clear_measured_policy_cache
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import serve
+
+    card = card_line()
+    progs, logits, gumbel = lane_programs(torch, np, ntx)
+    clear_measured_policy_cache()
+    ops.reset_launches()
+    results = {name: run_policies(torch, ntx, ops, name, prog, inputs, lane)
+               for name, prog, inputs, lane, _ in progs}
+    counts = ops.launches()
+    say("policies", f"launches over every policy run of phase 9 {counts} | "
+                    f"card {card}")
+
+    # the samplers' tokens: torch.argmax of the same logits, and of the
+    # AXPY's two roundings for the temperature chain
+    imm = torch.tensor(1 / 0.8, dtype=torch.float32, device=DEVICE)
+    want_t = torch.argmax(logits * imm + torch.as_tensor(
+        gumbel, device=DEVICE), -1).cpu().numpy()
+    want_g = torch.argmax(logits, -1).cpu().numpy()
+    for name, prog, inputs, _, slots in progs[:3]:
+        res = ntx.Executor(device=DEVICE).run(prog, inputs=inputs)
+        got = np.asarray([res[s][0] for s in slots]).astype(np.int64)
+        want = want_t if "temperature" in name else want_g
+        ok = bool((got == want).all())
+        say("policies", f"{name}: tokens {got.tolist()} torch.argmax "
+                        f"{want.tolist()} {'equal' if ok else 'DIFFER'}")
+        need(ok, f"{name}: tokens differ from torch.argmax")
+    for fn, want in ((serve.greedy_argmax_multistream, want_g),
+                     (serve.greedy_argmax_pipelined, want_g)):
+        need(bool((fn(logits, device=DEVICE) == want).all()),
+             f"{fn.__name__} tokens differ from torch.argmax")
+    need(bool((serve.temperature_sample_multistream(
+        logits, 0.8, gumbel, device=DEVICE) == want_t).all()),
+        "temperature sampler tokens differ")
+
+    # the program larger than the TCDM: auto tiles it
+    _, big, big_in, _, _ = progs[-1]
+    plan = ntx.Executor(device=DEVICE).plan(big)
+    tiled = ntx.Executor(device=DEVICE)
+    before = ops.launches()
+    tiled.run(big, inputs=big_in)
+    st = tiled.stats["scheduler"]
+    per_run = {k: v - before[k] for k, v in ops.launches().items()
+               if v != before[k]}
+    say("policies", f"oversize 2^20 chain: Executor().plan picks "
+                    f"{plan['policy']} (working set "
+                    f"{plan['gains']['tiling']['working_set_bytes']:.0f} B > "
+                    f"TCDM {plan['gains']['tiling']['capacity_bytes']:.0f} B) "
+                    f"| {st['n_tiles']} tiles, {st['n_spill_items']} resident "
+                    f"| launches per run {per_run}")
+    need(plan["policy"] == "tiled", f"auto picked {plan['policy']} for a "
+                                    f"program larger than the TCDM")
+
+    # a fitting program raced twice: the second race is the memo's
+    with ntx.Program() as fit:
+        fin = {}
+        for i in range(4):
+            fx = fit.buffer((1024,), name=f"x{i}")
+            fy = fit.buffer((1024,), name=f"y{i}")
+            ft = fit.axpy(0.5, fx, fy)
+            fit.relu(ft, out=ft)
+            fit.reduce("sum", ft)
+            fin[fx] = torch.randn(1024, device=DEVICE)
+            fin[fy] = torch.randn(1024, device=DEVICE)
+    races = []
+    for _ in range(2):        # two executors, the raw layer: no plan cache
+        ex = ntx.Executor(autotune="measure", device=DEVICE)
+        got = ex.run_descriptors(fit.descriptors, fit.pack(fin, DEVICE))
+        races.append((ex.stats["policy"], ex.stats["gains"]))
+    base = ntx.Executor("serial", device=DEVICE).run(fit, inputs=fin).mem
+    say("policies", f"fitting program raced: pick {races[0][0]} from "
+                    f"{ {k: round(v * 1e3, 3) for k, v in races[0][1]['measured'].items()} } "
+                    f"ms | second race cached "
+                    f"{races[1][1]['measured_cached']} pick {races[1][0]}")
+    need(races[1][1]["measured_cached"] is True and races[0][0] ==
+         races[1][0], "the second measured race did not hit the cache")
+    need(bool(torch.equal(got, base)), "the raced pick differs from serial")
+
+    # shard_map on one device
+    try:
+        ntx.Executor("multistream", device=DEVICE,
+                     transport="shard_map").run(fit, inputs=fin)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    say("policies", f"shard_map on {torch.cuda.device_count()} device(s): "
+                    f"ValueError {raised!r}")
+    if torch.cuda.device_count() < 2:
+        need(raised is not None and "shard_map" in raised,
+             "shard_map on one device did not raise ValueError")
+
+    # the sampler's decode step: fused (the parent's policy) against
+    # multistream (the reference's), in turns
+    prog, _, rows, slots = serve._ARGMAX_PROGRAMS[(BATCH, VOCAB,
+                                                   torch.device(DEVICE))]
+    step = {}
+    for policy in ("fused", "multistream", "multistream", "fused"):
+        ex = ntx.Executor(policy, device=DEVICE)
+        ex.run(prog, inputs=dict(zip(rows, logits)))
+        t0 = time.perf_counter()
+        for _ in range(20):
+            res = ex.run(prog, inputs=dict(zip(rows, logits)))
+            [res[s][0] for s in slots]             # tokens to the host
+        step.setdefault(policy, []).append(
+            (time.perf_counter() - t0) / 20 * 1e3)
+    say("policies", f"greedy sampler per decode step (b {BATCH}, vocab "
+                    f"{VOCAB}, tokens on the host): "
+                    + " | ".join(f"{p} {', '.join(f'{t:.3f}' for t in ts)} ms"
+                                 for p, ts in step.items())
+                    + f" | card {card}")
+
+    rows = check_and_time(torch, policy_cases(torch, np, logits, gumbel),
+                          True, "policies", "policies")
+    torch.cuda.empty_cache()
+    return counts, rows, results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", default="",
                     help="comma-separated case-name prefixes: check and time "
@@ -1678,9 +2093,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         _build.library()
         build_s = time.perf_counter() - t0
-        spills = [ln.strip() for ln in _build.build_log.splitlines()
-                  if "spill" in ln
-                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        spills, fn = [], "?"
+        for ln in _build.build_log.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for")[-1].strip()
+            elif ("spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                  "loads" not in ln):
+                spills.append(f"{fn}: {ln.strip()}")
         say("build", f"{len(_build.sources())} CUDA sources built and "
                      f"loaded in {build_s:.1f} s; ptxas lines with spills: "
                      f"{spills if spills else 'none'}")
@@ -1707,11 +2126,14 @@ def main(argv=None) -> int:
             counts["train"] = phase_train(torch, np)
         if 8 in phases:
             counts["suite"] = phase_suite(torch, np)
+        if 9 in phases:
+            counts["policies"], lane_rows, _ = phase_policies(torch, np)
+            rows += lane_rows
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    if {3, 5, 7, 8} <= phases:
+    if {3, 5, 7, 8, 9} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

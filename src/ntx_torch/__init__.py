@@ -10,13 +10,15 @@
     res[out]                       # named result, no base addresses
 
 A thin alias over ``repro_torch.core``, mirroring ``ntx`` over
-``repro.core``. ``TilePlan`` comes with the tiled policy (ROADMAP slice C).
+``repro.core``: the Program builder, the Executor and its five policies,
+and the tile plan of the ``tiled`` policy.
 """
 from repro_torch.core.descriptor import Agu, Descriptor, Opcode
 from repro_torch.core.executor import ExecutionPolicy, Executor
 from repro_torch.core.memory import NtxMemSpec, PAPER_MEM
 from repro_torch.core.program import BufferHandle, Program, ProgramResult
+from repro_torch.core.tiling import TilePlan
 
 __all__ = ["Agu", "Descriptor", "Opcode", "ExecutionPolicy", "Executor",
            "BufferHandle", "Program", "ProgramResult", "NtxMemSpec",
-           "PAPER_MEM"]
+           "PAPER_MEM", "TilePlan"]

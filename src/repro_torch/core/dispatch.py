@@ -13,6 +13,13 @@ Every such fallback is counted in :data:`engine_fallbacks`.
 Unlike the reference's functional ``dispatch``, the port writes the
 command's stores into ``mem`` in place and returns it: the executor
 hands it a private copy of the memory image.
+
+:func:`dispatch_lanes` runs one descriptor over L lanes at once, an (L,
+W) stack of memory windows (the rows may be strided views of one image):
+a GEMM/GEMV is one lane-batched ``ops.gemm`` launch, a streaming command
+or a reduction one ``ops.elementwise``/``ops.reduce`` launch with rows =
+L. This is the port's form of the reference running ``dispatch`` under
+``jax.vmap``. :func:`dispatch` is the one-lane case.
 """
 from __future__ import annotations
 
@@ -76,48 +83,21 @@ def _matches_reduce(desc: Descriptor) -> bool:
             and desc.init_level == 1 and desc.agu0.strides[0] == 1)
 
 
-def dispatch(desc: Descriptor, mem: torch.Tensor) -> torch.Tensor:
-    """Execute one NTX command on the flat fp32 memory via the kernel
-    suite, storing into ``mem`` in place; returns ``mem``."""
+def lane_gemm(A: torch.Tensor, B: torch.Tensor, epilogue=None):
+    """``ops.gemm`` over lanes: (L, m, k) @ (L, k, n) with (L, ...)
+    epilogue operands, one launch for all L. A single lane runs as the
+    2-D product it is."""
+    if A.shape[0] != 1:
+        return ops.gemm(A, B, epilogue=epilogue)
+    ep = [(st[0],) + tuple(v[0] if torch.is_tensor(v) else v
+                           for v in st[1:]) for st in epilogue or ()]
+    return ops.gemm(A[0], B[0], epilogue=ep)[None]
+
+
+def _engine(desc: Descriptor, mem: torch.Tensor) -> None:
+    """A nest that matches no kernel, on the functional engine of the
+    image's device, storing into the 1-D ``mem`` in place."""
     global engine_fallbacks
-    if desc.num_iters == 0:     # zero-trip nest: no iterations, no stores
-        return mem
-
-    gm = _match_gemm(desc)
-    if gm is not None:
-        m, n, k = gm
-        A = mem[desc.agu0.base:desc.agu0.base + m * k].reshape(m, k)
-        B = mem[desc.agu1.base:desc.agu1.base + k * n].reshape(k, n)
-        C = ops.gemm(A, B)
-        mem[desc.agu2.base:desc.agu2.base + m * n] = C.reshape(-1)
-        return mem
-
-    gv = _match_gemv(desc)
-    if gv is not None:
-        m, n = gv
-        A = mem[desc.agu0.base:desc.agu0.base + m * n].reshape(m, n)
-        x = mem[desc.agu1.base:desc.agu1.base + n]
-        y = ops.gemm(A, x[:, None])[:, 0]
-        mem[desc.agu2.base:desc.agu2.base + m] = y
-        return mem
-
-    if desc.opcode in _EW_OPS and _is_contiguous_1d(desc):
-        n = desc.bounds[0]
-        x = mem[desc.agu0.base:desc.agu0.base + n][None]
-        y = (mem[desc.agu1.base:desc.agu1.base + n][None]
-             if desc.reads_per_iter >= 2 else None)
-        out = ops.elementwise(_EW_OPS[desc.opcode], x, y, imm=desc.imm)
-        mem[desc.agu2.base:desc.agu2.base + n] = out[0]
-        return mem
-
-    if _matches_reduce(desc):
-        n = desc.bounds[0]
-        x = mem[desc.agu0.base:desc.agu0.base + n][None]
-        red = ops.reduce(_RED_OPS[desc.opcode], x)
-        mem[desc.agu2.base] = red[0].to(torch.float32)
-        return mem
-
-    # no kernel for this nest: the functional engine, on the image's device
     if mem.device.type == "cpu":
         out = torch.from_numpy(engine.execute_vectorized(
             desc, mem.detach().numpy()))
@@ -130,14 +110,68 @@ def dispatch(desc: Descriptor, mem: torch.Tensor) -> torch.Tensor:
             f"on-device engine path; run it on a CPU memory image")
     engine_fallbacks += 1
     mem.copy_(out)
+
+
+def dispatch_lanes(desc: Descriptor, stack: torch.Tensor) -> torch.Tensor:
+    """Execute one NTX command on each row of the (L, W) fp32 ``stack``
+    (lane l's memory window in row l, addresses local to the window), as
+    one lane-batched kernel launch, storing in place; returns ``stack``.
+    A nest that matches no kernel runs on the engine one lane at a time
+    (a loop over the rows)."""
+    if desc.num_iters == 0:     # zero-trip nest: no iterations, no stores
+        return stack
+    L = stack.shape[0]
+    a0, a1, a2 = desc.agu0.base, desc.agu1.base, desc.agu2.base
+
+    gm = _match_gemm(desc)
+    if gm is not None:
+        m, n, k = gm
+        A = stack[:, a0:a0 + m * k].unflatten(1, (m, k))
+        B = stack[:, a1:a1 + k * n].unflatten(1, (k, n))
+        stack[:, a2:a2 + m * n] = lane_gemm(A, B).reshape(L, m * n)
+        return stack
+
+    gv = _match_gemv(desc)
+    if gv is not None:
+        m, n = gv
+        A = stack[:, a0:a0 + m * n].unflatten(1, (m, n))
+        x = stack[:, a1:a1 + n].unsqueeze(-1)
+        stack[:, a2:a2 + m] = lane_gemm(A, x)[..., 0]
+        return stack
+
+    if desc.opcode in _EW_OPS and _is_contiguous_1d(desc):
+        n = desc.bounds[0]
+        x = stack[:, a0:a0 + n]
+        y = stack[:, a1:a1 + n] if desc.reads_per_iter >= 2 else None
+        stack[:, a2:a2 + n] = ops.elementwise(_EW_OPS[desc.opcode], x, y,
+                                              imm=desc.imm)
+        return stack
+
+    if _matches_reduce(desc):
+        n = desc.bounds[0]
+        red = ops.reduce(_RED_OPS[desc.opcode], stack[:, a0:a0 + n])
+        stack[:, a2] = red.to(torch.float32)
+        return stack
+
+    for lane in range(L):       # no kernel for this nest: lane by lane
+        _engine(desc, stack[lane])
+    return stack
+
+
+def dispatch(desc: Descriptor, mem: torch.Tensor) -> torch.Tensor:
+    """Execute one NTX command on the flat fp32 memory via the kernel
+    suite, storing into ``mem`` in place; returns ``mem``."""
+    dispatch_lanes(desc, mem[None])
     return mem
 
 
 def traceable_descriptor(desc: Descriptor) -> bool:
     """True iff :func:`dispatch` runs this descriptor through a kernel
     pattern or a plan the torch engine covers (store_level ==
-    init_level) — the requirement the reference places on stacked
-    multi-cluster execution, which the port adds with slice C."""
+    init_level) — the reference's rule for stacked multi-cluster
+    execution (``vmap``/``shard_map``), which the port keeps so that
+    ``plan_mode`` picks the reference's mode. Prefix-store nests
+    (store_level < init_level) are not, and run ``interleave``."""
     return (desc.num_iters == 0
             or _match_gemm(desc) is not None
             or _match_gemv(desc) is not None

@@ -32,6 +32,13 @@ not — a property of dispatch, not of fusion).
 
 Groups store into the memory image in place (``dispatch`` does too):
 ``CommandStream.execute`` updates and returns the image it is given.
+
+Every group also runs over L lanes at once (``run_lanes``): an (L, W)
+stack of memory windows that share one rebased program, the
+multi-cluster scheduler's ``vmap`` transport. A fused chain, a chain
+with a reduction tail, or a single streaming command or reduction is
+then one streaming-kernel launch with rows = L; a fused GEMM one GEMM
+launch of L lanes. ``run`` is the one-lane case.
 """
 from __future__ import annotations
 
@@ -41,8 +48,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from .dispatch import _EW_OPS, _match_gemm
-from .dispatch import dispatch as _dispatch_one
+from .dispatch import _EW_OPS, _match_gemm, dispatch_lanes, lane_gemm
 from .descriptor import Agu, Descriptor, Opcode
 
 _ELEM_BYTES = 4
@@ -199,12 +205,16 @@ class SequentialGroup:
         return sum(dispatch_bytes(d) for d in self.descs)
 
     def run(self, mem: torch.Tensor, stats: dict) -> torch.Tensor:
+        self.run_lanes(mem[None], stats)
+        return mem
+
+    def run_lanes(self, stack: torch.Tensor, stats: dict) -> torch.Tensor:
         for d in self.descs:
-            mem = _dispatch_one(d, mem)
+            dispatch_lanes(d, stack)
             stats["gathers"] += min(1, d.reads_per_iter)
             stats["operand_gathers"] += max(0, d.reads_per_iter - 1)
             stats["scatters"] += 1
-        return mem
+        return stack
 
 
 @dataclasses.dataclass
@@ -223,15 +233,19 @@ class FusedChain:
         return _ELEM_BYTES * self.n * (2 + len(self.y_bases))
 
     def run(self, mem: torch.Tensor, stats: dict) -> torch.Tensor:
+        self.run_lanes(mem[None], stats)
+        return mem
+
+    def run_lanes(self, stack: torch.Tensor, stats: dict) -> torch.Tensor:
         n = self.n
-        x = mem[self.x_base:self.x_base + n][None]
-        ys = tuple(mem[b:b + n][None] for b in self.y_bases)
+        x = stack[:, self.x_base:self.x_base + n]
+        ys = tuple(stack[:, b:b + n] for b in self.y_bases)
         out = ops.elementwise_chain(self.stages, x, ys)
         stats["gathers"] += 1
         stats["operand_gathers"] += len(ys)
         stats["scatters"] += 1
-        mem[self.out_base:self.out_base + n] = out[0]
-        return mem
+        stack[:, self.out_base:self.out_base + n] = out
+        return stack
 
 
 @dataclasses.dataclass
@@ -254,16 +268,20 @@ class FusedChainReduce:
         return _ELEM_BYTES * (self.n * (2 + len(self.y_bases)) + 1)
 
     def run(self, mem: torch.Tensor, stats: dict) -> torch.Tensor:
+        self.run_lanes(mem[None], stats)
+        return mem
+
+    def run_lanes(self, stack: torch.Tensor, stats: dict) -> torch.Tensor:
         n = self.n
-        x = mem[self.x_base:self.x_base + n][None]
-        ys = tuple(mem[b:b + n][None] for b in self.y_bases)
+        x = stack[:, self.x_base:self.x_base + n]
+        ys = tuple(stack[:, b:b + n] for b in self.y_bases)
         out, red = ops.chain_reduce(self.stages, self.red_op, x, ys)
         stats["gathers"] += 1
         stats["operand_gathers"] += len(ys)
         stats["scatters"] += 2
-        mem[self.out_base:self.out_base + n] = out[0]
-        mem[self.red_base] = red[0].to(torch.float32)
-        return mem
+        stack[:, self.out_base:self.out_base + n] = out
+        stack[:, self.red_base] = red.to(torch.float32)
+        return stack
 
 
 @dataclasses.dataclass
@@ -284,27 +302,34 @@ class FusedGemm:
                               + ep_elems + self.m * self.n)
 
     def run(self, mem: torch.Tensor, stats: dict) -> torch.Tensor:
+        self.run_lanes(mem[None], stats)
+        return mem
+
+    def run_lanes(self, stack: torch.Tensor, stats: dict) -> torch.Tensor:
         d0 = self.descs[0]
         m, n, k = self.m, self.n, self.k
-        A = mem[d0.agu0.base:d0.agu0.base + m * k].reshape(m, k)
-        B = mem[d0.agu1.base:d0.agu1.base + k * n].reshape(k, n)
+        a, b = d0.agu0.base, d0.agu1.base
+        A = stack[:, a:a + m * k].unflatten(1, (m, k))
+        B = stack[:, b:b + k * n].unflatten(1, (k, n))
         ep = []
         for kind, imm, base in self.stages:
             if kind == "bias":
-                ep.append(("bias", mem[base:base + n]))
+                ep.append(("bias", stack[:, base:base + n]))
                 stats["operand_gathers"] += 1
             elif kind in _MATRIX_EPILOGUES:
-                ep.append((kind, mem[base:base + m * n].reshape(m, n)))
+                ep.append((kind,
+                           stack[:, base:base + m * n].unflatten(1, (m, n))))
                 stats["operand_gathers"] += 1
             elif kind in ("scale", "thresh"):
                 ep.append((kind, imm))
             else:
                 ep.append((kind,))
-        C = ops.gemm(A, B, epilogue=ep)
+        C = lane_gemm(A, B, epilogue=ep)
         stats["gathers"] += 2
         stats["scatters"] += 1
-        mem[d0.agu2.base:d0.agu2.base + m * n] = C.reshape(-1)
-        return mem
+        c = d0.agu2.base
+        stack[:, c:c + m * n] = C.reshape(stack.shape[0], m * n)
+        return stack
 
 
 # ----------------------------------------------------------------------

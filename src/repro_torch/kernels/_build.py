@@ -41,18 +41,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # (a, b, c, m, n, k, in_bf16, out_bf16, compensated, n_stages, kinds,
-    #  imms, operands, op_bf16, tile, splits, ws, stream)
-    "ntx_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
-                 _I, _P, _P],
+    # (a, b, c, m, n, k, lanes, lda, ldb, in_bf16, out_bf16, compensated,
+    #  n_stages, kinds, imms, operands, op_bf16, op_lane, tile, splits,
+    #  ws, stream)
+    "ntx_gemm": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P, _P,
+                 _P, _P, _P, _I, _I, _P, _P],
     # (q, k, v, o, ws, params (strides, shapes, plan), scale, stream)
     "ntx_flash_attention": [_P, _P, _P, _P, _P, _P, _F, _P],
     # (ws, o, o_strides, b, hq, sq, d, splits, bf16, stream)
     "ntx_flash_merge": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (x, out, rows, n, n_valid, n_stages, ops, imms, ys, tail, red,
-    #  red_int, chunk, counters, part, stream)
-    "ntx_stream": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
-                   _P, _P],
+    # (x, ldx, out, ldo, rows, n, n_valid, n_stages, ops, imms, ys, ldys,
+    #  tail, red, red_int, chunk, counters, part, stream)
+    "ntx_stream": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                   _I, _I, _P, _P, _P],
     # (x, dt, A, B, C, y, S, dec, b, l, h, dh, n, chunk, bf16, lp, np,
     #  dtile, heads, stream)
     "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

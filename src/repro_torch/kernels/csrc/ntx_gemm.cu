@@ -82,6 +82,16 @@
 //    gemm_kahan_plain compensates over the same slabs: the result depends
 //    on the slab width.
 //
+// Lanes (the Executor's multistream/pipeline vmap transport runs one
+// launch for L uniform GEMM lanes, the reference's vmap-batched Pallas
+// call): every kernel takes a lane count and the lanes' strides; grid z
+// walks the lanes (beside the k splits on the tensor-core route), and
+// each lane is cut with the plan (tile, splits) of a one-lane launch of
+// its (m, n, k), its split-k partials in a workspace of its own. Only
+// the addressing changes, so each lane's bits equal a one-lane launch's.
+// The compensated variant takes one lane: moving its pointers per lane
+// cost it 10 % at 4096^3 (chip_smoke, H100), the registers at its limit.
+//
 // Both routes run the ten epilogue stages in the reference order on the
 // fp32 accumulator (tanh GELU; silu as acc * (1 / (1 + exp(-acc)))),
 // reading each array operand in its own dtype (fp32 or bf16), and write
@@ -107,8 +117,9 @@ struct Epilogue {
   int n;
   int kind[kMaxEpilogue];
   float imm[kMaxEpilogue];
-  const void* op[kMaxEpilogue];   // (n,) for bias, else (m, n)
+  const void* op[kMaxEpilogue];   // (n,) for bias, else (m, n), per lane
   int op_bf16[kMaxEpilogue];      // op is bf16 (1) or fp32 (0)
+  long long op_lane[kMaxEpilogue];   // elements from one lane's op to the next
 };
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
@@ -120,9 +131,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Element i of epilogue operand s, widened to fp32 (exact for bf16).
-__device__ __forceinline__ float operand(const Epilogue& ep, int s,
+// Element i of lane `lane`'s epilogue operand s, widened to fp32 (exact
+// for bf16).
+__device__ __forceinline__ float operand(const Epilogue& ep, int s, int lane,
                                          size_t i) {
+  i += (size_t)lane * ep.op_lane[s];
   return ep.op_bf16[s]
              ? load(static_cast<const __nv_bfloat16*>(ep.op[s]) + i)
              : static_cast<const float*>(ep.op[s])[i];
@@ -151,12 +164,13 @@ __device__ __forceinline__ float apply_stage(int kind, float acc, float o,
 }
 
 __device__ __forceinline__ float epilogue(float acc, const Epilogue& ep,
-                                          int r, int c, int n) {
+                                          int lane, int r, int c, int n) {
   const size_t at = (size_t)r * n + c;
   for (int s = 0; s < ep.n; ++s) {
     const int kind = ep.kind[s];
     const float o = kind > K_MASK ? 0.0f
-                                  : operand(ep, s, kind == K_BIAS ? c : at);
+                                  : operand(ep, s, lane,
+                                            kind == K_BIAS ? c : at);
     acc = apply_stage(kind, acc, o, ep.imm[s]);
   }
   return acc;
@@ -171,7 +185,7 @@ __device__ __forceinline__ float epilogue(float acc, const Epilogue& ep,
 // of a 128 x 128 tile cost as much as streaming its k range.
 template <class T>
 __device__ __forceinline__ void tile_epilogue(float* sC, const Epilogue& ep,
-                                              int m0, int n0, int M,
+                                              int lane, int m0, int n0, int M,
                                               int N) {
   constexpr int E = T::BM * T::BN / T::kThreads;
   constexpr int G = E < 16 ? E : 16;
@@ -180,8 +194,10 @@ __device__ __forceinline__ void tile_epilogue(float* sC, const Epilogue& ep,
     const int kind = ep.kind[s];
     const bool array = kind <= K_MASK, bias = kind == K_BIAS;
     const bool bf16 = ep.op_bf16[s] != 0;
-    const float* p32 = static_cast<const float*>(ep.op[s]);
-    const __nv_bfloat16* p16 = static_cast<const __nv_bfloat16*>(ep.op[s]);
+    const size_t lane_at = array ? (size_t)lane * ep.op_lane[s] : 0;
+    const float* p32 = static_cast<const float*>(ep.op[s]) + lane_at;
+    const __nv_bfloat16* p16 =
+        static_cast<const __nv_bfloat16*>(ep.op[s]) + lane_at;
     const float imm = ep.imm[s];
 #pragma unroll 1
     for (int g = 0; g < E; g += G) {
@@ -220,8 +236,17 @@ template <typename TI, typename TO, int BM, int BN, int TM, int TN,
           bool KAHAN>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const TI* __restrict__ A, const TI* __restrict__ B,
-            TO* __restrict__ C, int M, int N, int K, Epilogue ep) {
+            TO* __restrict__ C, int M, int N, int K, long long lda,
+            long long ldb, Epilogue ep) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "thread tile");
+  // grid z walks the lanes (read again at the store: no register held);
+  // the compensated variant takes one lane and keeps the pointers as
+  // launch parameters (no registers at its 255)
+  if (!KAHAN) {
+    A += blockIdx.z * lda;
+    B += blockIdx.z * ldb;
+    C += (size_t)blockIdx.z * M * N;
+  }
   __shared__ float As[BK][BM + 4];      // A tile, transposed: As[kk][i]
   __shared__ float Bs[BK][BN + 4];
   const int tid = threadIdx.x;
@@ -285,25 +310,28 @@ gemm_kernel(const TI* __restrict__ A, const TI* __restrict__ B,
       const float v = KAHAN ? __fadd_rn(sum[i % SM][j % SN],
                                          comp[i % SM][j % SN])
                             : acc[i][j];
-      if (c < N) store(C + (size_t)r * N + c, epilogue(v, ep, r, c, N));
+      if (c < N)
+        store(C + (size_t)r * N + c,
+              epilogue(v, ep, KAHAN ? 0 : blockIdx.z, r, c, N));
     }
   }
 }
 
 template <typename TI, typename TO, bool KAHAN>
 void launch(const void* a, const void* b, void* c, int m, int n, int k,
-            int tile, const Epilogue& ep, cudaStream_t s) {
+            int lanes, long long lda, long long ldb, int tile,
+            const Epilogue& ep, cudaStream_t s) {
   const TI* A = static_cast<const TI*>(a);
   const TI* B = static_cast<const TI*>(b);
   TO* C = static_cast<TO*>(c);
   if (tile == 0) {
-    dim3 grid((n + 127) / 128, (m + 15) / 16);
+    dim3 grid((n + 127) / 128, (m + 15) / 16, lanes);
     gemm_kernel<TI, TO, 16, 128, 2, 4, KAHAN><<<grid, kThreads, 0, s>>>(
-        A, B, C, m, n, k, ep);
+        A, B, C, m, n, k, lda, ldb, ep);
   } else {
-    dim3 grid((n + 63) / 64, (m + 63) / 64);
+    dim3 grid((n + 63) / 64, (m + 63) / 64, lanes);
     gemm_kernel<TI, TO, 64, 64, 4, 4, KAHAN><<<grid, kThreads, 0, s>>>(
-        A, B, C, m, n, k, ep);
+        A, B, C, m, n, k, lda, ldb, ep);
   }
 }
 
@@ -474,24 +502,30 @@ __device__ __forceinline__ void tc_compute(const uint16_t* a_s,
   }
 }
 
-// Grid (m tiles, n tiles, splits); split z takes k tiles
-// [z * kt / splits, (z + 1) * kt / splits) of kt = ceil(K / BK).
-// splits == 1: the epilogue and the store in the output dtype here;
-// otherwise the fp32 partial to ws (splits, M, N) for tc_reduce.
+// Grid (m tiles, n tiles, lanes * splits); block z is split z % splits of
+// lane z / splits, and split z takes k tiles [z * kt / splits, (z + 1) *
+// kt / splits) of kt = ceil(K / BK): every lane is cut as a one-lane
+// launch is. splits == 1: the epilogue and the store in the output dtype
+// here; otherwise the fp32 partial to ws (lanes, splits, M, N) for
+// tc_reduce.
 template <class T, typename TO, bool VEC>
 __global__ void __launch_bounds__(T::kThreads)
 gemm_bf16_tc(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
              TO* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
-             int splits, Epilogue ep) {
+             int splits, long long lda, long long ldb, Epilogue ep) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* sA = reinterpret_cast<uint16_t*>(smem);
   uint16_t* sB = sA + T::STAGES * T::kAStage;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / T::WN, wn = warp % T::WN;
   const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  const int split = blockIdx.z % splits;
+  A += blockIdx.z / splits * lda;
+  B += blockIdx.z / splits * ldb;
+  C += (size_t)(blockIdx.z / splits) * M * N;
   const int k_tiles = (K + T::BK - 1) / T::BK;
-  const int kt0 = (int)((long long)blockIdx.z * k_tiles / splits);
-  const int kt1 = (int)((long long)(blockIdx.z + 1) * k_tiles / splits);
+  const int kt0 = (int)((long long)split * k_tiles / splits);
+  const int kt1 = (int)((long long)(split + 1) * k_tiles / splits);
   const int nkt = kt1 - kt0;
 
   float acc[T::MI][T::NI][4];
@@ -542,7 +576,7 @@ gemm_bf16_tc(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
   __syncthreads();
   // the epilogue, then the store, on elements tid + j * kThreads: each
   // thread reads back only what it wrote, and a warp covers whole rows
-  if (splits == 1) tile_epilogue<T>(sC, ep, m0, n0, M, N);
+  if (splits == 1) tile_epilogue<T>(sC, ep, blockIdx.z, m0, n0, M, N);
   float* part = ws + (size_t)blockIdx.z * M * N;
   for (int e = tid; e < T::BM * T::BN; e += T::kThreads) {
     const int r = m0 + e / T::BN, c = n0 + e % T::BN;
@@ -554,19 +588,23 @@ gemm_bf16_tc(const uint16_t* __restrict__ A, const uint16_t* __restrict__ B,
 }
 
 // The partials of every split added in split order, then the epilogue
-// once on the fp32 sum and one rounding to the output dtype.
+// once on the fp32 sum and one rounding to the output dtype; lanes in
+// turn (ws (lanes, splits, M, N), C (lanes, M, N)).
 template <typename TO>
 __global__ void __launch_bounds__(256)
 tc_reduce(const float* __restrict__ ws, TO* __restrict__ C, int M, int N,
-          int splits, Epilogue ep) {
+          int splits, int lanes, Epilogue ep) {
   const size_t total = (size_t)M * N;
   const size_t step = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += step) {
-    float acc = ws[i];
-    for (int z = 1; z < splits; ++z) acc = acc + ws[(size_t)z * total + i];
+  for (size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       g < total * lanes; g += step) {
+    const int ln = (int)(g / total);
+    const size_t i = g - (size_t)ln * total;
+    const float* w = ws + (size_t)ln * splits * total;
+    float acc = w[i];
+    for (int z = 1; z < splits; ++z) acc = acc + w[(size_t)z * total + i];
     const int r = (int)(i / N), c = (int)(i % N);
-    store(C + i, epilogue(acc, ep, r, c, N));
+    store(C + g, epilogue(acc, ep, ln, r, c, N));
   }
 }
 
@@ -586,41 +624,49 @@ cudaError_t allow_smem() {
   return err;
 }
 
+// Lanes and their strides, passed to every launch of the routes.
+struct Lanes {
+  int n;           // lanes
+  long long a, b;  // elements from one lane's A (B) to the next
+};
+
 template <class T, typename TO, bool VEC>
 cudaError_t launch_tc_tile(const void* a, const void* b, void* c,
                            float* ws, int m, int n, int k, int splits,
-                           const Epilogue& ep, cudaStream_t s) {
+                           const Lanes& ln, const Epilogue& ep,
+                           cudaStream_t s) {
   cudaError_t err = allow_smem<T, TO, VEC>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((m + T::BM - 1) / T::BM, (n + T::BN - 1) / T::BN, splits);
+  const dim3 grid((m + T::BM - 1) / T::BM, (n + T::BN - 1) / T::BN,
+                  ln.n * splits);
   gemm_bf16_tc<T, TO, VEC><<<grid, T::kThreads, T::kSmem, s>>>(
       static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b),
-      static_cast<TO*>(c), ws, m, n, k, splits, ep);
+      static_cast<TO*>(c), ws, m, n, k, splits, ln.a, ln.b, ep);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t total = (size_t)m * n;
+  const size_t total = (size_t)m * n * ln.n;
   const size_t need = (total + 255) / 256;
   const int blocks = (int)(need < 132 * 8 ? need : 132 * 8);
   tc_reduce<TO><<<blocks, 256, 0, s>>>(ws, static_cast<TO*>(c), m, n,
-                                       splits, ep);
+                                       splits, ln.n, ep);
   return cudaGetLastError();
 }
 
 template <typename TO>
 cudaError_t launch_tc(const void* a, const void* b, void* c, float* ws,
                       int m, int n, int k, int tile, int splits, bool vec,
-                      const Epilogue& ep, cudaStream_t s) {
+                      const Lanes& ln, const Epilogue& ep, cudaStream_t s) {
   if (tile == 0 && vec)
     return launch_tc_tile<TileSmall, TO, true>(a, b, c, ws, m, n, k, splits,
-                                               ep, s);
+                                               ln, ep, s);
   if (tile == 0)
     return launch_tc_tile<TileSmall, TO, false>(a, b, c, ws, m, n, k, splits,
-                                                ep, s);
+                                                ln, ep, s);
   if (vec)
     return launch_tc_tile<TileLarge, TO, true>(a, b, c, ws, m, n, k, splits,
-                                               ep, s);
+                                               ln, ep, s);
   return launch_tc_tile<TileLarge, TO, false>(a, b, c, ws, m, n, k, splits,
-                                              ep, s);
+                                              ln, ep, s);
 }
 
 
@@ -747,8 +793,17 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
 template <class T, typename TO, bool KAHAN, bool VEC>
 __global__ void __launch_bounds__(kThreads, KAHAN ? 1 : 2)
 gemm_ffma(const float* __restrict__ A, const float* __restrict__ B,
-          TO* __restrict__ C, int M, int N, int K, Epilogue ep) {
+          TO* __restrict__ C, int M, int N, int K, long long lda,
+          long long ldb, Epilogue ep) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // grid z walks the lanes (read again at the store: no register held);
+  // the compensated variant takes one lane and keeps the pointers as
+  // launch parameters (no registers at its 255)
+  if (!KAHAN) {
+    A += blockIdx.z * lda;
+    B += blockIdx.z * ldb;
+    C += (size_t)blockIdx.z * M * N;
+  }
   float* sA = reinterpret_cast<float*>(smem);
   float* sB = sA + T::STAGES * T::kAStage;
   const int tid = threadIdx.x, tx = tid % T::TX, ty = tid / T::TX;
@@ -846,7 +901,8 @@ gemm_ffma(const float* __restrict__ A, const float* __restrict__ B,
         const int j = 4 * j4 + e;
         v[e] = KAHAN ? __fadd_rn(sum[i % SM][j % SN], comp[i % SM][j % SN])
                      : acc[i][j];
-        if (c + e < N) v[e] = epilogue(v[e], ep, r, c + e, N);
+        if (c + e < N)
+          v[e] = epilogue(v[e], ep, KAHAN ? 0 : blockIdx.z, r, c + e, N);
       }
       TO* out = C + (size_t)r * N + c;
       if (VEC && c + 3 < N) {
@@ -862,8 +918,8 @@ gemm_ffma(const float* __restrict__ A, const float* __restrict__ B,
 
 template <class T, typename TO, bool KAHAN, bool VEC>
 cudaError_t launch_ffma_tile(const void* a, const void* b, void* c, int m,
-                             int n, int k, const Epilogue& ep,
-                             cudaStream_t s) {
+                             int n, int k, const Lanes& ln,
+                             const Epilogue& ep, cudaStream_t s) {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -875,23 +931,27 @@ cudaError_t launch_ffma_tile(const void* a, const void* b, void* c, int m,
     if (err != cudaSuccess) return err;
     if (dev < 64) done[dev] = true;
   }
-  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM);
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, ln.n);
   gemm_ffma<T, TO, KAHAN, VEC><<<grid, kThreads, T::kSmem, s>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<TO*>(c), m, n, k, ep);
+      static_cast<TO*>(c), m, n, k, ln.a, ln.b, ep);
   return cudaGetLastError();
 }
 
 template <typename TO>
 cudaError_t launch_ffma(const void* a, const void* b, void* c, int m, int n,
-                        int k, bool kahan, bool vec, const Epilogue& ep,
-                        cudaStream_t s) {
+                        int k, bool kahan, bool vec, const Lanes& ln,
+                        const Epilogue& ep, cudaStream_t s) {
   using T = FfmaLarge;
   if (kahan)
-    return vec ? launch_ffma_tile<T, TO, true, true>(a, b, c, m, n, k, ep, s)
-               : launch_ffma_tile<T, TO, true, false>(a, b, c, m, n, k, ep, s);
-  return vec ? launch_ffma_tile<T, TO, false, true>(a, b, c, m, n, k, ep, s)
-             : launch_ffma_tile<T, TO, false, false>(a, b, c, m, n, k, ep, s);
+    return vec ? launch_ffma_tile<T, TO, true, true>(a, b, c, m, n, k, ln,
+                                                     ep, s)
+               : launch_ffma_tile<T, TO, true, false>(a, b, c, m, n, k, ln,
+                                                      ep, s);
+  return vec ? launch_ffma_tile<T, TO, false, true>(a, b, c, m, n, k, ln, ep,
+                                                    s)
+             : launch_ffma_tile<T, TO, false, false>(a, b, c, m, n, k, ln, ep,
+                                                     s);
 }
 
 // The FFMA route's tile for a product, as ntx_gemm.ffma_plan picks it:
@@ -910,32 +970,45 @@ int ffma_tile(int m, int n, bool in_bf16) {
 
 extern "C" {
 
-// a (m, k), b (k, n), c (m, n): contiguous row-major on the device, a and
-// b both fp32 (in_bf16 = 0) or both bf16; c fp32 or bf16 (out_bf16);
+// a (m, k), b (k, n), c (m, n): row-major on the device, a and b both
+// fp32 (in_bf16 = 0) or both bf16; c fp32 or bf16 (out_bf16);
 // compensated = 1 takes the Neumaier (Kahan) variant.
-// kinds/imms/operands/op_bf16: host arrays of n_stages epilogue stages;
-// each operand is a device pointer to a contiguous fp32 or bf16 (op_bf16)
-// array ((n,) for bias, (m, n) for residual/mul/sub/mask), or null for
+// lanes >= 1 independent products in one launch: lane l's a starts lda
+// elements after lane l - 1's, its b ldb after (each lane's own matrices
+// contiguous), and c holds the lanes one after the other, (lanes, m, n).
+// Every lane is cut by the tile and splits a one-lane launch of (m, n, k)
+// takes, so each lane's bits equal that launch's. The compensated route
+// refuses lanes > 1 (its register tiles leave no room for lane pointers).
+// kinds/imms/operands/op_bf16/op_lane: host arrays of n_stages epilogue
+// stages; each operand is a device pointer to a contiguous fp32 or bf16
+// (op_bf16) array per lane ((n,) for bias, (m, n) for residual/mul/sub/
+// mask), lane l's op_lane[s] elements after lane l - 1's, or null for
 // the scalar kinds.
 // bf16 and not compensated: the tensor-core route, with tile 0 (16 x
 // 128 x 64) or 1 (128 x 128 x 64) and splits k splits, each at least one
-// k tile; with splits > 1, ws holds splits * m * n fp32 partials. The
-// FFMA routes take splits 1, no ws and the tile ffma_tile gives (0: 16 x
-// 128, 1: 64 x 64, 2: the register-tiled 128-row tile).
+// k tile; with splits > 1, ws holds lanes * splits * m * n fp32
+// partials. The FFMA routes take splits 1, no ws and the tile ffma_tile
+// gives (0: 16 x 128, 1: 64 x 64, 2: the register-tiled 128-row tile).
 int ntx_gemm(const void* a, const void* b, void* c, int m, int n, int k,
-             int in_bf16, int out_bf16, int compensated, int n_stages,
-             const int* kinds, const float* imms,
-             const void* const* operands, const int* op_bf16, int tile,
+             int lanes, long long lda, long long ldb, int in_bf16,
+             int out_bf16, int compensated, int n_stages, const int* kinds,
+             const float* imms, const void* const* operands,
+             const int* op_bf16, const long long* op_lane, int tile,
              int splits, void* ws, void* stream) {
   if (n_stages < 0 || n_stages > kMaxEpilogue || m < 0 || n < 0 || k < 0 ||
-      tile < 0 || tile > 2 || splits < 1)
+      tile < 0 || tile > 2 || splits < 1 || lanes < 1 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
+  if (lanes == 1) lda = ldb = 0;
+  if (lanes > 1 && (compensated || lda < (long long)m * k ||
+                    ldb < (long long)k * n))
+    return (int)cudaErrorInvalidValue;   // the compensated route: one lane
   const bool tc = in_bf16 && !compensated;
   if (tc) {
     if (tile > 1) return (int)cudaErrorInvalidValue;
     const int bk = tile == 0 ? TileSmall::BK : TileLarge::BK;
     const int k_tiles = (k + bk - 1) / bk;
-    if ((splits > 1 && (ws == nullptr || splits > k_tiles)) || splits > 65535)
+    if ((splits > 1 && (ws == nullptr || splits > k_tiles)) ||
+        (long long)splits * lanes > 65535)
       return (int)cudaErrorInvalidValue;
   } else if (splits != 1 || tile != ffma_tile(m, n, in_bf16 != 0)) {
     return (int)cudaErrorInvalidValue;
@@ -948,45 +1021,54 @@ int ntx_gemm(const void* a, const void* b, void* c, int m, int n, int k,
     ep.imm[s] = s < n_stages ? imms[s] : 1.0f;
     ep.op[s] = s < n_stages ? operands[s] : nullptr;
     ep.op_bf16[s] = s < n_stages ? op_bf16[s] : 0;
+    ep.op_lane[s] = s < n_stages && lanes > 1 && op_lane ? op_lane[s] : 0;
   }
+  const Lanes ln{lanes, lda, ldb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+  const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
   if (tc) {
-    const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
-    const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
-    const bool vec = ((pa | pb) & 15u) == 0 && k % 8 == 0 && n % 8 == 0;
+    // 16-byte copies: every lane's a and b on a 16-byte boundary
+    const bool vec = ((pa | pb) & 15u) == 0 && k % 8 == 0 && n % 8 == 0 &&
+                     lda % 8 == 0 && ldb % 8 == 0;
     float* w = static_cast<float*>(ws);
     cudaError_t err =
         out_bf16 ? launch_tc<__nv_bfloat16>(a, b, c, w, m, n, k, tile, splits,
-                                            vec, ep, s)
+                                            vec, ln, ep, s)
                  : launch_tc<float>(a, b, c, w, m, n, k, tile, splits, vec,
-                                    ep, s);
+                                    ln, ep, s);
     return (int)err;
   }
   if (in_bf16) {   // compensated: the tensor-core route took the rest
     if (out_bf16)
-      launch<__nv_bfloat16, __nv_bfloat16, true>(a, b, c, m, n, k, tile, ep,
-                                                 s);
-    else launch<__nv_bfloat16, float, true>(a, b, c, m, n, k, tile, ep, s);
+      launch<__nv_bfloat16, __nv_bfloat16, true>(a, b, c, m, n, k, lanes, lda,
+                                                 ldb, tile, ep, s);
+    else
+      launch<__nv_bfloat16, float, true>(a, b, c, m, n, k, lanes, lda, ldb,
+                                         tile, ep, s);
     return (int)cudaGetLastError();
   }
   const bool kahan = compensated != 0;
   if (tile == 2) {
-    const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
-    const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
-    const bool vec = ((pa | pb) & 15u) == 0 && k % 4 == 0 && n % 4 == 0;
+    const bool vec = ((pa | pb) & 15u) == 0 && k % 4 == 0 && n % 4 == 0 &&
+                     lda % 4 == 0 && ldb % 4 == 0;
     return (int)(out_bf16 ? launch_ffma<__nv_bfloat16>(a, b, c, m, n, k, kahan,
-                                                       vec, ep, s)
+                                                       vec, ln, ep, s)
                           : launch_ffma<float>(a, b, c, m, n, k, kahan, vec,
-                                               ep, s));
+                                               ln, ep, s));
   }
   if (kahan) {
     if (out_bf16)
-      launch<float, __nv_bfloat16, true>(a, b, c, m, n, k, tile, ep, s);
-    else launch<float, float, true>(a, b, c, m, n, k, tile, ep, s);
+      launch<float, __nv_bfloat16, true>(a, b, c, m, n, k, lanes, lda, ldb,
+                                         tile, ep, s);
+    else launch<float, float, true>(a, b, c, m, n, k, lanes, lda, ldb, tile,
+                                    ep, s);
   } else {
     if (out_bf16)
-      launch<float, __nv_bfloat16, false>(a, b, c, m, n, k, tile, ep, s);
-    else launch<float, float, false>(a, b, c, m, n, k, tile, ep, s);
+      launch<float, __nv_bfloat16, false>(a, b, c, m, n, k, lanes, lda, ldb,
+                                          tile, ep, s);
+    else launch<float, float, false>(a, b, c, m, n, k, lanes, lda, ldb, tile,
+                                     ep, s);
   }
   return (int)cudaGetLastError();
 }

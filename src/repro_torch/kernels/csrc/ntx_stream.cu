@@ -25,6 +25,14 @@
 //     aligned, and a scalar instantiation, chosen by the launcher, when
 //     one is not (descriptor programs hand the kernel views of the
 //     memory image at any element offset);
+//   * lane-batched launches (the Executor's multistream/pipeline vmap
+//     transport runs one launch for L uniform lanes): x, out and each
+//     operand carry their own row stride, so the rows are the lanes'
+//     windows in the memory image, read in place with no gather. Where a
+//     stride differs from n the pass indexes (row, column): float4 when
+//     every row start is 16-byte aligned (bases and strides multiples of
+//     4 elements), else scalar. A lane's elements see the same
+//     arithmetic as in a one-row launch;
 //   * reduction tails: one block per (row, kChunk-element chunk). Each
 //     block runs the stages, writes out, reduces its chunk and stores a
 //     partial (value, index) to a scratch array the wrapper keeps; the
@@ -78,7 +86,8 @@ struct Stages {
   int n;
   int op[kMaxStages];
   float imm[kMaxStages];
-  const float* y[kMaxStages];   // row-major (rows, n) operand, or null
+  const float* y[kMaxStages];   // (rows, n) operand, row stride ld, or null
+  long long ld[kMaxStages];     // row stride of y[s], in elements
 };
 
 __device__ __forceinline__ float apply_op(int op, float v, float y,
@@ -215,6 +224,70 @@ stream_flat_vec4(const float* __restrict__ x, float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------
+// No tail, rows with their own strides (lane-batched launches: row r of
+// x, out and each operand starts at r * its stride). One grid-stride
+// pass over the rows * n elements, element i at (i / n, i % n).
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+stream_rows_scalar(const float* __restrict__ x, long long ldx,
+                   float* __restrict__ out, long long ldo, int n,
+                   size_t total, Stages st) {
+  const size_t step = (size_t)gridDim.x * kThreads;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += step) {
+    const size_t r = i / n, c = i - r * n;
+    float v = x ? x[r * ldx + c] : 0.0f;
+#pragma unroll 1
+    for (int s = 0; s < st.n; ++s) {
+      const float y = st.y[s] ? st.y[s][r * st.ld[s] + c] : 0.0f;
+      v = apply_op(st.op[s], v, y, st.imm[s]);
+    }
+    out[r * ldo + c] = v;
+  }
+}
+
+// Every row start 16-byte aligned (bases and strides multiples of 4
+// elements): float4 over the first n / 4 * 4 columns of each row, then
+// the last n % 4 columns of every row one element at a time.
+__global__ void __launch_bounds__(kThreads)
+stream_rows_vec4(const float* __restrict__ x, long long ldx,
+                 float* __restrict__ out, long long ldo, int n, int rows,
+                 Stages st) {
+  const int n4 = n / 4, rem = n - n4 * 4;
+  const size_t vecs = (size_t)rows * n4;
+  const size_t step = (size_t)gridDim.x * kThreads;
+  const size_t tid = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  for (size_t i = tid; i < vecs; i += step) {
+    const size_t r = i / n4, c = (i - r * n4) * 4;
+    float4 v = x ? *reinterpret_cast<const float4*>(x + r * ldx + c)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 1
+    for (int s = 0; s < st.n; ++s) {
+      float4 y = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (st.y[s])
+        y = *reinterpret_cast<const float4*>(st.y[s] + r * st.ld[s] + c);
+      const int op = st.op[s];
+      const float imm = st.imm[s];
+      v.x = apply_op(op, v.x, y.x, imm);
+      v.y = apply_op(op, v.y, y.y, imm);
+      v.z = apply_op(op, v.z, y.z, imm);
+      v.w = apply_op(op, v.w, y.w, imm);
+    }
+    *reinterpret_cast<float4*>(out + r * ldo + c) = v;
+  }
+  for (size_t i = tid; i < (size_t)rows * rem; i += step) {
+    const size_t r = i / rem, c = (size_t)n4 * 4 + (i - r * rem);
+    float v = x ? x[r * ldx + c] : 0.0f;
+#pragma unroll 1
+    for (int s = 0; s < st.n; ++s) {
+      const float y = st.y[s] ? st.y[s][r * st.ld[s] + c] : 0.0f;
+      v = apply_op(st.op[s], v, y, st.imm[s]);
+    }
+    out[r * ldo + c] = v;
+  }
+}
+
+// ---------------------------------------------------------------------
 // Reduction tails: block b reduces chunk (b % chunks) of row
 // (b / chunks). With chunks == 1 it stores the row's result. Otherwise it
 // stores the chunk's partial (value, index; the index counted from the
@@ -226,14 +299,15 @@ stream_flat_vec4(const float* __restrict__ x, float* __restrict__ out,
 // ---------------------------------------------------------------------
 template <int TAIL>
 __global__ void __launch_bounds__(kThreads)
-stream_chunk_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    int n, int n_valid, int chunks, Stages st,
+stream_chunk_kernel(const float* __restrict__ x, long long ldx,
+                    float* __restrict__ out, long long ldo, int n,
+                    int n_valid, int chunks, Stages st,
                     unsigned* __restrict__ counters,
                     float* __restrict__ part_v, int* __restrict__ part_i,
                     void* red, int red_int) {
   const int row = blockIdx.x / chunks;
   const int chunk = blockIdx.x - row * chunks;
-  const size_t base = (size_t)row * n;
+  const size_t xbase = (size_t)row * ldx, obase = (size_t)row * ldo;
   const int c0 = chunk * kChunk;
   float acc = identity<TAIL>();
   int idx = 0;
@@ -241,13 +315,13 @@ stream_chunk_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (int j = 0; j < kPerThread; ++j) {
     const int c = c0 + j * kThreads + threadIdx.x;
     if (c >= n) break;
-    float v = x ? x[base + c] : 0.0f;
+    float v = x ? x[xbase + c] : 0.0f;
 #pragma unroll 1
     for (int s = 0; s < st.n; ++s) {
-      const float y = st.y[s] ? st.y[s][base + c] : 0.0f;
+      const float y = st.y[s] ? st.y[s][(size_t)row * st.ld[s] + c] : 0.0f;
       v = apply_op(st.op[s], v, y, st.imm[s]);
     }
-    if (out) out[base + c] = v;
+    if (out) out[obase + c] = v;
     if (c < n_valid) {
       if (TAIL == TAIL_ARGMAX) { if (v > acc) { acc = v; idx = c; } }
       else if (TAIL == TAIL_ARGMIN) { if (v < acc) { acc = v; idx = c; } }
@@ -282,18 +356,24 @@ stream_chunk_kernel(const float* __restrict__ x, float* __restrict__ out,
 }
 
 template <int TAIL>
-void launch_tail(const float* x, float* out, int rows, int n, int n_valid,
-                 int chunks, const Stages& st, unsigned* counters,
-                 float* part_v, int* part_i, void* red, int red_int,
-                 cudaStream_t s) {
+void launch_tail(const float* x, long long ldx, float* out, long long ldo,
+                 int rows, int n, int n_valid, int chunks, const Stages& st,
+                 unsigned* counters, float* part_v, int* part_i, void* red,
+                 int red_int, cudaStream_t s) {
   const unsigned blocks = (unsigned)((size_t)rows * chunks);
   stream_chunk_kernel<TAIL><<<blocks, kThreads, 0, s>>>(
-      x, out, n, n_valid, chunks, st, counters, part_v, part_i, red,
-      red_int);
+      x, ldx, out, ldo, n, n_valid, chunks, st, counters, part_v, part_i,
+      red, red_int);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Every row of a strided operand starts on a 16-byte boundary (a null
+// operand has no rows to load).
+bool rows_aligned16(const void* p, long long ld) {
+  return p == nullptr || (aligned16(p) && ld % 4 == 0);
 }
 
 int flat_blocks(size_t work) {
@@ -312,18 +392,24 @@ const char* ntx_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x/out/ys: contiguous (rows, n) fp32 on the device; out may be null
-// (a reduction alone), x may be null (read as 0, for SET).
-// ops/imms/ys: host arrays of n_stages entries.
+// x/out/ys: (rows, n) fp32 on the device, row r of each starting r * its
+// row stride (ldx, ldo, ldys[s], in elements; >= n, or anything for one
+// row) after its base: a lane-batched launch gives rows = lanes and the
+// lanes' spacing in the memory image as the strides. Contiguous operands
+// (every stride n) stream as one flat run. out may be null (a reduction
+// alone), x may be null (read as 0, for SET).
+// ops/imms/ys/ldys: host arrays of n_stages entries.
 // tail: 0 none, 1 sum, 2 min, 3 max, 4 argmin, 5 argmax; red holds one
 // result per row, int32 when red_int and the tail is an arg tail, else
 // fp32. chunk must be kChunk. With a tail and chunks = ceil(n / chunk)
 // > 1: counters holds rows uint32 that are 0 (and are 0 again when the
 // launch ends), part 2 * rows * chunks words: the fp32 partial values,
-// then their int32 indices.
-int ntx_stream(const void* x, void* out, int rows, int n, int n_valid,
-               int n_stages, const int* ops, const float* imms,
-               const void* const* ys, int tail, void* red, int red_int,
+// then their int32 indices. The chunks depend on n alone, so a row's
+// bits do not depend on rows or on the strides.
+int ntx_stream(const void* x, long long ldx, void* out, long long ldo,
+               int rows, int n, int n_valid, int n_stages, const int* ops,
+               const float* imms, const void* const* ys,
+               const long long* ldys, int tail, void* red, int red_int,
                int chunk, void* counters, void* part, void* stream) {
   if (n_stages < 0 || n_stages > kMaxStages || rows < 0 || n < 0 ||
       tail < 0 || tail > TAIL_ARGMAX || chunk != kChunk)
@@ -331,26 +417,40 @@ int ntx_stream(const void* x, void* out, int rows, int n, int n_valid,
   if (rows == 0 || (n == 0 && tail == TAIL_NONE))
     return (int)cudaGetLastError();
   if (tail == TAIL_NONE && out == nullptr) return (int)cudaErrorInvalidValue;
+  if (rows == 1) ldx = ldo = n;      // one row: the strides are unused
+  if (ldx < n || ldo < n) return (int)cudaErrorInvalidValue;
   Stages st;
   st.n = n_stages;
+  bool flat = ldx == n && ldo == n;
   bool vec = aligned16(x) && aligned16(out);
+  bool rvec = rows_aligned16(x, ldx) && rows_aligned16(out, ldo);
   for (int s = 0; s < kMaxStages; ++s) {
     st.op[s] = s < n_stages ? ops[s] : OP_COPY;
     st.imm[s] = s < n_stages ? imms[s] : 0.0f;
     st.y[s] = s < n_stages ? static_cast<const float*>(ys[s]) : nullptr;
+    st.ld[s] = st.y[s] ? (rows == 1 ? n : ldys[s]) : n;
+    if (st.ld[s] < n) return (int)cudaErrorInvalidValue;
+    flat = flat && st.ld[s] == n;
     vec = vec && aligned16(st.y[s]);
+    rvec = rvec && rows_aligned16(st.y[s], st.ld[s]);
   }
   const float* xp = static_cast<const float*>(x);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tail == TAIL_NONE) {
     const size_t total = (size_t)rows * n;
-    if (vec)
+    if (flat && vec)
       stream_flat_vec4<<<flat_blocks(total / 4), kThreads, 0, s>>>(
           xp, op, total, st);
-    else
+    else if (flat)
       stream_flat_scalar<<<flat_blocks(total), kThreads, 0, s>>>(
           xp, op, total, st);
+    else if (rvec)
+      stream_rows_vec4<<<flat_blocks(total / 4), kThreads, 0, s>>>(
+          xp, ldx, op, ldo, n, rows, st);
+    else
+      stream_rows_scalar<<<flat_blocks(total), kThreads, 0, s>>>(
+          xp, ldx, op, ldo, n, total, st);
     return (int)cudaGetLastError();
   }
   const int chunks = n > 0 ? (n + kChunk - 1) / kChunk : 1;
@@ -362,24 +462,24 @@ int ntx_stream(const void* x, void* out, int rows, int n, int n_valid,
                 : nullptr;
   switch (tail) {
     case TAIL_SUM:
-      launch_tail<TAIL_SUM>(xp, op, rows, n, n_valid, chunks, st, cnt, pv,
-                            pi, red, red_int, s);
+      launch_tail<TAIL_SUM>(xp, ldx, op, ldo, rows, n, n_valid, chunks, st,
+                            cnt, pv, pi, red, red_int, s);
       break;
     case TAIL_MIN:
-      launch_tail<TAIL_MIN>(xp, op, rows, n, n_valid, chunks, st, cnt, pv,
-                            pi, red, red_int, s);
+      launch_tail<TAIL_MIN>(xp, ldx, op, ldo, rows, n, n_valid, chunks, st,
+                            cnt, pv, pi, red, red_int, s);
       break;
     case TAIL_MAX:
-      launch_tail<TAIL_MAX>(xp, op, rows, n, n_valid, chunks, st, cnt, pv,
-                            pi, red, red_int, s);
+      launch_tail<TAIL_MAX>(xp, ldx, op, ldo, rows, n, n_valid, chunks, st,
+                            cnt, pv, pi, red, red_int, s);
       break;
     case TAIL_ARGMIN:
-      launch_tail<TAIL_ARGMIN>(xp, op, rows, n, n_valid, chunks, st, cnt, pv,
-                               pi, red, red_int, s);
+      launch_tail<TAIL_ARGMIN>(xp, ldx, op, ldo, rows, n, n_valid, chunks,
+                               st, cnt, pv, pi, red, red_int, s);
       break;
     default:
-      launch_tail<TAIL_ARGMAX>(xp, op, rows, n, n_valid, chunks, st, cnt, pv,
-                               pi, red, red_int, s);
+      launch_tail<TAIL_ARGMAX>(xp, ldx, op, ldo, rows, n, n_valid, chunks,
+                               st, cnt, pv, pi, red, red_int, s);
       break;
   }
   return (int)cudaGetLastError();

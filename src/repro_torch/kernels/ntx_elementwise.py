@@ -116,49 +116,72 @@ def _encode(stages: tuple) -> tuple:
     return stages, flags, ops_arr, imm_arr, no_ys
 
 
-def _check_stream_operand(t: torch.Tensor, shape, what: str) -> None:
+def _check_stream_operand(t: torch.Tensor, shape, what: str,
+                          flat: bool) -> int:
+    """Check one operand of a launch and return its row stride in
+    elements: ``flat`` launches take contiguous tensors (stride ``n``);
+    row launches take (rows, n) views whose last axis is contiguous and
+    whose rows do not overlap (a lane stack of the memory image)."""
     if not t.is_cuda or t.dtype != torch.float32:
         raise ValueError(f"{what}: the stream kernel takes fp32 CUDA "
                          f"tensors, got {t.dtype} on {t.device}")
-    if t.shape != shape or not t.is_contiguous():
-        raise ValueError(f"{what}: need a contiguous {tuple(shape)} tensor, "
-                         f"got {tuple(t.shape)}")
+    if t.shape != shape:
+        raise ValueError(f"{what}: need a {tuple(shape)} tensor, got "
+                         f"{tuple(t.shape)}")
+    if flat:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: need a contiguous {tuple(shape)} "
+                             f"tensor")
+        return t.numel()
+    rows, n = shape
+    ld = t.stride(0) if rows > 1 else n
+    if (n > 1 and t.stride(1) != 1) or ld < n:
+        raise ValueError(f"{what}: need a (rows, n) view with contiguous "
+                         f"rows that do not overlap, got strides "
+                         f"{t.stride()}")
+    return ld
 
 
 def stream_cuda(stages, x: torch.Tensor, ys=(), tail=None,
                 n_valid: int | None = None, write_out: bool = True,
                 red_int: bool = False):
     """Launch ``csrc/ntx_stream.cu``: at most ``MAX_STAGES`` (op, imm)
-    stages over a contiguous fp32 CUDA tensor, each two-read stage taking
-    the next of ``ys`` (contiguous, of x's shape), then the optional
-    reduction ``tail`` over the last axis of a (rows, n) ``x``. Without a
-    tail x may have any shape: the kernel streams it as one flat run.
-    Returns ``(out or None, red or None)``; ``red`` has one entry per
-    row, int32 when ``red_int`` and the tail is an arg tail. A tail over
-    rows of more than ``STREAM_CHUNK`` elements uses the stream's
-    scratch of partials (:func:`_tail_scratch`); it is still one launch.
-    Any element offset works: unaligned views take the kernel's scalar
+    stages over an fp32 CUDA tensor, each two-read stage taking the next
+    of ``ys`` (of x's shape), then the optional reduction ``tail`` over
+    the last axis of a (rows, n) ``x``. Contiguous operands without a
+    tail stream as one flat run of any shape. Otherwise x and the ys are
+    (rows, n) views whose rows are contiguous and may sit at any stride
+    (the rows of a lane-batched launch are the lanes' windows in the
+    memory image); ``out`` is a new contiguous tensor. Returns ``(out or
+    None, red or None)``; ``red`` has one entry per row, int32 when
+    ``red_int`` and the tail is an arg tail. A tail over rows of more
+    than ``STREAM_CHUNK`` elements uses the stream's scratch of partials
+    (:func:`_tail_scratch`); it is still one launch. Any element offset
+    and stride work: unaligned rows take the kernel's scalar
     instantiation."""
     stages, flags, ops_arr, imm_arr, no_ys = _encode(tuple(stages))
     shape = x.shape
-    _check_stream_operand(x, shape, "x")
-    for i, y in enumerate(ys):
-        _check_stream_operand(y, shape, f"ys[{i}]")
     if sum(flags) != len(ys):
         raise ValueError(f"{len(ys)} operands for {sum(flags)} two-read "
                          f"stages")
-    if tail is None:
-        rows, n = 1, x.numel()
-    elif x.dim() == 2:
-        rows, n = shape
-    else:
-        raise ValueError(f"a reduction tail takes a (rows, n) tensor, got "
-                         f"{tuple(shape)}")
+    # one flat run of contiguous elements, or (rows, n) rows with strides
+    flat = tail is None and x.is_contiguous() and all(
+        y.is_contiguous() for y in ys)
+    if not flat and x.dim() != 2:
+        raise ValueError(f"a reduction tail or a strided operand takes a "
+                         f"(rows, n) tensor, got {tuple(shape)}")
+    ldx = _check_stream_operand(x, shape, "x", flat)
+    ldys = [_check_stream_operand(y, shape, f"ys[{i}]", flat)
+            for i, y in enumerate(ys)]
+    rows, n = (1, x.numel()) if flat else shape
     if n >= 1 << 31:
         raise ValueError(f"{n} elements per row: the kernel counts in int32")
     n_valid = n if n_valid is None else int(n_valid)
     stream = _build.stream_of(x)
-    out = torch.empty_like(x) if write_out else None
+    out = None
+    if write_out:               # contiguous either way
+        out = (torch.empty_like(x) if x.is_contiguous() else
+               torch.empty(shape, dtype=torch.float32, device=x.device))
     red = counters = part = None
     if tail is not None:
         arg_int = red_int and tail in ("argmin", "argmax")
@@ -167,17 +190,22 @@ def stream_cuda(stages, x: torch.Tensor, ys=(), tail=None,
         chunks = stream_chunks(n)
         if chunks > 1:
             counters, part = _tail_scratch(x, stream, rows, chunks)
+    ld_arr = None                  # a flat run reads no row strides
     if ys:
         yit = iter(ys)
         y_arr = _build.ptr_array(ctypes.c_void_p, [
             next(yit).data_ptr() if two else None for two in flags])
+        if not flat:
+            ldit = iter(ldys)
+            ld_arr = _build.ptr_array(ctypes.c_longlong, [
+                next(ldit) if two else n for two in flags])
     else:
         y_arr = no_ys
     with _build.on_device(x):
         code = _build.library().ntx_stream(
-            x.data_ptr(), out.data_ptr() if out is not None else None,
-            rows, n, n_valid, len(stages), ops_arr, imm_arr, y_arr,
-            _TAIL[tail], red.data_ptr() if red is not None else None,
+            x.data_ptr(), ldx, out.data_ptr() if out is not None else None,
+            n, rows, n, n_valid, len(stages), ops_arr, imm_arr, y_arr,
+            ld_arr, _TAIL[tail], red.data_ptr() if red is not None else None,
             int(bool(red_int)), STREAM_CHUNK,
             counters.data_ptr() if counters is not None else None,
             part.data_ptr() if part is not None else None, stream)

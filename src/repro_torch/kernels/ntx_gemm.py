@@ -45,7 +45,8 @@ def apply_epilogue(acc: torch.Tensor, stages, operands) -> torch.Tensor:
     i = 0
     for kind, imm in stages:
         if kind == "bias":           # + row vector broadcast over rows
-            acc = acc + operands[i].reshape(1, -1).float()
+            acc = acc + operands[i].reshape(
+                *acc.shape[:-2], 1, acc.shape[-1]).float()
             i += 1
         elif kind == "residual":     # + full matrix
             acc = acc + operands[i].float()
@@ -78,7 +79,9 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
                epilogue=()) -> torch.Tensor:
     """Plain version of ``gemm_pallas``: fp32 product, epilogue on the
     fp32 accumulator, one rounding to ``out_dtype``. ``epilogue``: the
-    normalized (kind, imm, operand) triples."""
+    normalized (kind, imm, operand) triples. (L, m, k) @ (L, k, n) with
+    (L, n) / (L, m, n) operands is L lanes, as the reference's vmap runs
+    the Pallas call."""
     acc = a.float() @ b.float()
     stages = tuple((kind, imm) for kind, imm, _ in epilogue)
     operands = [op for kind, _, op in epilogue
@@ -230,6 +233,23 @@ def _encode_epilogue(stages: tuple) -> tuple:
                                             for _, _, dt in stages]))
 
 
+def _lane_operand(t: torch.Tensor, shape, what: str) -> tuple:
+    """``(t, lane stride)`` for an operand of ``lanes`` matrices of
+    ``shape[1:]``: each lane's matrix contiguous, the lanes at any stride
+    that does not overlap them (a lane stack of the memory image is read
+    in place); anything else is copied first."""
+    if tuple(t.shape) != tuple(shape):
+        t = t.reshape(shape)
+    per = 1
+    for d in shape[1:]:
+        per *= d
+    lanes = shape[0]
+    if not (t[0].is_contiguous() if lanes else True) or (
+            lanes > 1 and t.stride(0) < per):
+        t = t.contiguous()
+    return t, (t.stride(0) if lanes > 1 else per)
+
+
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
               epilogue=(), compensated: bool = False,
               splits: int | None = None, tile: int | None = None
@@ -239,37 +259,65 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     tensor-core route, cut by :func:`split_k_plan` (a second launch adds
     the splits' partials); the rest the FFMA route. Array epilogue
     operands are read in their own dtype when fp32 or bf16 (others are
-    cast to fp32), as contiguous (n,) for bias and (m, n) otherwise.
+    cast to fp32), as (n,) for bias and (m, n) otherwise.
     ``compensated`` takes the kernel's Neumaier variant over
-    KAHAN_SLAB-deep slabs. ``splits`` replaces the plan's number of k
-    splits on the tensor-core route (to time the choice; the ``ops``
-    entry points never pass it). ``tile`` replaces :func:`ffma_plan`'s
-    tile on the FFMA route, only to test that the kernel refuses it."""
+    KAHAN_SLAB-deep slabs.
+
+    Lanes: a (L, m, k) @ b (L, k, n) is one launch of L independent
+    products, with (L, n) / (L, m, n) epilogue operands, returning (L, m,
+    n). Each lane's matrices must be contiguous; the lanes may sit at any
+    stride (views of a memory image are read in place). Every lane takes
+    the plan of one (m, n, k) product, so its bits equal a one-lane
+    launch's. The compensated route takes one lane (more raise
+    ``ValueError``).
+
+    ``splits`` replaces the plan's number of k splits on the tensor-core
+    route (to time the choice; the ``ops`` entry points never pass it).
+    ``tile`` replaces :func:`ffma_plan`'s tile on the FFMA route, only to
+    test that the kernel refuses it."""
     if a.dtype != b.dtype or a.dtype not in _GEMM_DTYPES:
         raise ValueError(f"ntx_gemm takes two fp32 or two bf16 operands, "
                          f"got {a.dtype} @ {b.dtype}")
     if out_dtype not in _GEMM_DTYPES:
         raise ValueError(f"ntx_gemm writes fp32 or bf16, not {out_dtype}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    lanes3 = a.dim() == 3
+    if (a.dim() not in (2, 3) or b.dim() != a.dim()
+            or a.shape[-1] != b.shape[-2]
+            or (lanes3 and a.shape[0] != b.shape[0])):
         raise ValueError(f"bad GEMM shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     if len(epilogue) > MAX_EPILOGUE:
         raise ValueError(f"{len(epilogue)} epilogue stages > {MAX_EPILOGUE}")
-    m, k = a.shape
-    n = b.shape[1]
-    a, b = a.contiguous(), b.contiguous()
-    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    operands = []
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    if lanes3:
+        lanes = a.shape[0]
+        if compensated and lanes > 1:
+            raise ValueError("the compensated GEMM takes one lane")
+        a, lda = _lane_operand(a, (lanes, m, k), "a")
+        b, ldb = _lane_operand(b, (lanes, k, n), "b")
+        c = torch.empty((lanes, m, n), dtype=out_dtype, device=a.device)
+    else:                          # one product: no lane bookkeeping
+        lanes, lda, ldb = 1, 0, 0
+        a, b = a.contiguous(), b.contiguous()
+        c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    operands, op_lane = [], []
     for kind, _, operand in epilogue:
         if kind in EPILOGUE_ARRAY_KINDS:
             want = (n,) if kind == "bias" else (m, n)
             if operand.dtype not in _GEMM_DTYPES:
                 operand = operand.to(torch.float32)
-            if operand.shape != want:
-                operand = operand.reshape(want)
-            operands.append(operand.contiguous())
+            if lanes3:
+                operand, ld = _lane_operand(operand, (lanes,) + want, kind)
+                op_lane.append(ld)
+            else:
+                if operand.shape != want:
+                    operand = operand.reshape(want)
+                operand = operand.contiguous()
+            operands.append(operand)
         else:
             operands.append(None)
+            op_lane.append(0)
     kinds, imms, op_bf16 = _encode_epilogue(tuple(
         (kind, imm, None if op is None else op.dtype)
         for (kind, imm, _), op in zip(epilogue, operands)))
@@ -278,7 +326,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
         plan = split_k_plan(m, n, k)
         tile, splits = plan.tile, splits or plan.splits
         if splits > 1:
-            ws = torch.empty(splits * m * n, dtype=torch.float32,
+            ws = torch.empty(lanes * splits * m * n, dtype=torch.float32,
                              device=a.device)
     elif splits not in (None, 1):
         raise ValueError("only the bf16 tensor-core route splits k")
@@ -289,12 +337,15 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
             if tile is None else tile
     ops_arr = _build.ptr_array(ctypes.c_void_p, [
         None if op is None else op.data_ptr() for op in operands])
+    lane_arr = (_build.ptr_array(ctypes.c_longlong, op_lane) if lanes3
+                else None)
     with _build.on_device(a):
         code = _build.library().ntx_gemm(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-            int(a.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            int(compensated), len(epilogue), kinds, imms, ops_arr, op_bf16,
-            tile, splits, ws.data_ptr() if ws is not None else None,
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, lanes, lda,
+            ldb, int(a.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), int(compensated),
+            len(epilogue), kinds, imms, ops_arr, op_bf16, lane_arr, tile,
+            splits, ws.data_ptr() if ws is not None else None,
             _build.stream_of(a))
     _build.check(code, "ntx_gemm")
     return c

@@ -122,7 +122,14 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     ``compensated``: Neumaier-compensated accumulation across
     ``ntx_gemm.KAHAN_SLAB``-deep slabs of k (the reference's
     ``_gemm_kernel_kahan``, which compensates across its k blocks).
+
+    Lanes: (L, m, k) @ (L, k, n) with (L, n) / (L, m, n) epilogue
+    operands is L products in one launch (each lane's bits those of its
+    own call); the compensated GEMM takes one lane.
     """
+    if compensated and a.dim() == 3:
+        raise ValueError("the compensated GEMM takes one (m, k) @ (k, n) "
+                         "product, not lanes")
     epilogue = _norm_epilogue(epilogue)
     if not _on_card(a, b, *(op for _, _, op in epilogue)):
         plain = gemm_kahan_plain if compensated else gemm_plain
@@ -186,20 +193,34 @@ def _chain_cuda(stages, x, ys, counter: str):
     return val
 
 
+def _rows_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the streaming kernel takes it, without a copy where it
+    can: contiguous, or a (rows, n) view whose rows are contiguous and do
+    not overlap — a stack of lanes in a memory image. Anything else is
+    copied."""
+    if t.is_contiguous() or (t.dim() == 2 and (t.shape[1] <= 1
+                                               or t.stride(1) == 1)
+                             and (t.shape[0] <= 1
+                                  or t.stride(0) >= t.shape[1])):
+        return t
+    return t.contiguous()
+
+
 def _like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``y`` as a contiguous tensor of ``x``'s shape (the kernel streams
-    both as one flat run of elements)."""
-    return (y if y.shape == x.shape else y.reshape(x.shape)).contiguous()
+    """``y`` in ``x``'s shape, as the kernel takes it (:func:`_rows_view`)."""
+    return _rows_view(y if y.shape == x.shape else y.reshape(x.shape))
 
 
 def elementwise(op: str, x: torch.Tensor, y: torch.Tensor | None = None,
                 imm: float = 0.0) -> torch.Tensor:
+    """One streaming command over ``x`` (any shape; a (rows, n) lane stack
+    may be a strided view, read in place)."""
     if not _on_card(x, y):
         return elementwise_plain(op, x, y, imm)
     _no_backward("stream", x, y)
     ys = (_like(y, x),) if op in _OPS2 else ()
     LAUNCHES["elementwise"] += 1
-    out, _ = stream_cuda(((op, imm),), x.contiguous(), ys)
+    out, _ = stream_cuda(((op, imm),), _rows_view(x), ys)
     return out
 
 
@@ -218,12 +239,13 @@ def elementwise_chain(stages, x: torch.Tensor, ys=()) -> torch.Tensor:
     if not _on_card(x, *ys):
         return elementwise_chain_plain(stages, x, ys)
     _no_backward("stream", x, *ys)
-    return _chain_cuda(stages, x.contiguous(), tuple(_like(y, x) for y in ys),
-                       "elementwise_chain")
+    return _chain_cuda(stages, _rows_view(x),
+                       tuple(_like(y, x) for y in ys), "elementwise_chain")
 
 
 def chain_reduce(stages, red: str, x: torch.Tensor, ys=()):
-    """Fused chain + reduction tail over the last axis of (rows, n).
+    """Fused chain + reduction tail over the last axis of (rows, n); x
+    and the ys may be strided (rows, n) views (a lane stack).
 
     Returns ``(chain_out (rows, n), reduction (rows,))``: the chain value
     is written once AND reduced in the same pass. The arg tails return the
@@ -236,8 +258,8 @@ def chain_reduce(stages, red: str, x: torch.Tensor, ys=()):
         out, red_v = chain_reduce_plain(stages, red, x, ys)
         return out, _arg_int(red, red_v)
     _no_backward("stream", x, *ys)
-    x2 = x.contiguous()
-    ys2 = tuple(y.contiguous() for y in ys)
+    x2 = _rows_view(x)
+    ys2 = tuple(_like(y, x) for y in ys)
     cut = max(0, len(stages) - MAX_STAGES)
     n_head = sum(1 for op, _ in stages[:cut] if op in _OPS2)
     if cut:
@@ -264,7 +286,7 @@ def reduce(op: str, x: torch.Tensor) -> torch.Tensor:
         return reduce_plain(op, x)
     _no_backward("stream", x)
     two_d = x.dim() == 2
-    x2 = (x if two_d else x.reshape(-1, x.shape[-1])).contiguous()
+    x2 = _rows_view(x if two_d else x.reshape(-1, x.shape[-1]))
     LAUNCHES["reduce"] += 1
     _, red = stream_cuda((), x2, tail=op, write_out=False, red_int=True)
     return red if two_d else red.reshape(x.shape[:-1])

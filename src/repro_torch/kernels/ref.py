@@ -69,9 +69,16 @@ def elementwise(op: str, x: torch.Tensor, y: torch.Tensor | None = None,
 
 def reduce(op: str, x: torch.Tensor) -> torch.Tensor:
     """Reduce over the last axis. x: (rows, n). Arg ops return int32 and
-    resolve ties to the first index, like ``np.argmax``."""
+    resolve ties to the first index, like ``np.argmax``. Each row is summed
+    on its own: torch splits a lone long row across threads, so summing
+    (rows, n) in one call could give a row other bits than summing it
+    alone, and a lane-batched run must give each lane the bits of a
+    one-lane run."""
     if op == "sum":
-        return x.sum(-1)
+        rows = x.reshape(-1, x.shape[-1])
+        if rows.shape[0] <= 1:
+            return x.sum(-1)
+        return torch.stack([r.sum() for r in rows]).reshape(x.shape[:-1])
     if op == "min":
         return x.amin(-1)
     if op == "max":

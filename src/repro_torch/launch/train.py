@@ -5,9 +5,9 @@
 
 Wires the arch registry, the Trainer and checkpointing, with the
 reference launcher's flags. It trains on one device (``--device``, the
-card by default); the mesh (ROADMAP slice G) is not ported, and the
-Trainer runs with ``multistream_plan=False`` (the multistream update
-plan waits for ROADMAP slice C).
+card by default); the mesh (ROADMAP slice G) is not ported. The Trainer
+plans its optimizer update as a multistream descriptor program, as the
+reference's does.
 """
 import argparse
 import os
@@ -16,11 +16,7 @@ import tempfile
 
 
 def _parse(argv=None):
-    ap = argparse.ArgumentParser(
-        description=__doc__.splitlines()[0],
-        epilog="The Trainer runs with multistream_plan=False: the "
-               "multistream optimizer-update plan waits for the multistream "
-               "policy (ROADMAP slice C).")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mamba2-1.3b",
                     help="the ssm family trains on the card; dense training "
                          "on the card waits for GEMM and flash backward "
@@ -72,7 +68,7 @@ def main(argv=None):
         TrainConfig(steps=args.steps, log_every=10,
                     ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt,
                     resume=args.resume, global_batch=args.global_batch,
-                    seq_len=args.seq, multistream_plan=False),
+                    seq_len=args.seq),
         device=args.device)
     r = trainer.run()
     print(f"done: loss {r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}, "

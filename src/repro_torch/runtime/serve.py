@@ -6,19 +6,23 @@ the bf16 KV cache. Sampling runs as NTX descriptor
 :class:`~repro_torch.core.program.Program`\\ s through the
 :class:`~repro_torch.core.executor.Executor`, on the model's device:
 
-* greedy decode: one ARGMAX command per request row;
-* greedy prefill: per request COPY (the head -> sampler handoff) then
-  ARGMAX, which the fused policy runs as one chain-reduce pass;
-* temperature: per request AXPY ``logits/T + gumbel`` -> optional THRESH
-  prune -> ARGMAX tail, one fused pass (Gumbel-max: the ARGMAX of the
-  perturbed logits is an exact draw from ``softmax(logits/T)``).
+* greedy decode (``multistream``): one ARGMAX command per request row;
+  the rows are independent uniform sub-streams, so the ``vmap``
+  transport runs them as ONE lane-batched reduction launch over the
+  rows, read in place from the memory image;
+* greedy prefill (``pipeline``): per request COPY (the head -> sampler
+  handoff) then ARGMAX; the stage schedule level-izes them into a COPY
+  stage and an ARGMAX stage, one lane-batched launch each;
+* temperature (``multistream``): per request AXPY ``logits/T + gumbel``
+  -> optional THRESH prune -> ARGMAX tail, a fused chain-reduce per
+  request, one lane-batched launch for the batch (Gumbel-max: the ARGMAX
+  of the perturbed logits is an exact draw from ``softmax(logits/T)``).
 
-The samplers build the same programs as the reference. The reference
-runs them under its ``multistream``/``pipeline`` policies; here they run
-under ``fused`` until ROADMAP slice C brings those policies. Every
-reference policy is bit-equal to ``serial``, and so is ``fused``, so the
-tokens are the same. The Gumbel noise is drawn with numpy, as in the
-reference, so both packages see the same bytes.
+The samplers build the same programs and run them under the same
+policies as the reference; every policy is bit-equal to ``serial``, so
+the tokens equal ``np.argmax``'s and the reference's. The Gumbel noise is
+drawn with numpy, as in the reference, so both packages see the same
+bytes.
 """
 from __future__ import annotations
 
@@ -64,17 +68,12 @@ _TEMPERATURE_PROGRAMS: Dict[tuple, Any] = {}
 _PRUNE_SHIFT = 1024.0
 
 
-def _policy() -> ExecutionPolicy:
-    # fused until ROADMAP slice C ports multistream/pipeline (bit-equal)
-    return ExecutionPolicy(policy="fused")
-
-
 def _as_logits(logits, device) -> torch.Tensor:
     return torch.as_tensor(logits, dtype=torch.float32, device=device)
 
 
 def _sampler_entry(cache: Dict[tuple, Any], b: int, vocab: int,
-                   staged: bool, device: torch.device):
+                   staged: bool, policy: str, device: torch.device):
     ent = cache.get((b, vocab, device))
     if ent is None:
         prog = Program()
@@ -89,7 +88,8 @@ def _sampler_entry(cache: Dict[tuple, Any], b: int, vocab: int,
             else:
                 slots.append(prog.argmax(row, name=f"slot{i}"))
             rows.append(row)
-        ent = (prog, Executor(_policy(), device=device), rows, slots)
+        ent = (prog, Executor(ExecutionPolicy(policy=policy), device=device),
+               rows, slots)
         cache[(b, vocab, device)] = ent
     return ent
 
@@ -101,35 +101,41 @@ def _run_sampler(ent, logits: torch.Tensor) -> np.ndarray:
 
 
 def greedy_argmax_multistream(logits, device="cuda") -> np.ndarray:
-    """Greedy sampling as a descriptor program: one ARGMAX command per
-    request row, cached per batch shape. Ties resolve to the first
-    maximum, matching ``np.argmax``."""
+    """Greedy sampling as a multi-cluster descriptor program: one ARGMAX
+    command per request row — independent uniform sub-streams the
+    ``multistream`` policy runs as lanes (one lane-batched launch),
+    cached per batch shape. Ties resolve to the first maximum, matching
+    ``np.argmax``."""
     device = torch.device(device)
     logits = _as_logits(logits, device)
     b, vocab = logits.shape
     return _run_sampler(
         _sampler_entry(_ARGMAX_PROGRAMS, b, vocab, staged=False,
-                       device=device), logits)
+                       policy="multistream", device=device), logits)
 
 
 def greedy_argmax_pipelined(logits, device="cuda") -> np.ndarray:
-    """Prefill sampling: per request a dependent COPY -> ARGMAX chain (the
-    head -> sampler handoff, then the reduction); fused into one
-    chain-reduce pass. Bit-equal to ``np.argmax``."""
+    """Prefill sampling as a stage-pipelined descriptor program: per
+    request a dependent COPY -> ARGMAX chain (the head -> sampler
+    handoff, then the reduction). The ``pipeline`` policy level-izes the
+    chains into a COPY stage and an ARGMAX stage, each uniform across
+    requests, so each is one lane-batched launch. Bit-equal to
+    ``np.argmax``."""
     device = torch.device(device)
     logits = _as_logits(logits, device)
     b, vocab = logits.shape
     return _run_sampler(
         _sampler_entry(_PREFILL_PROGRAMS, b, vocab, staged=True,
-                       device=device), logits)
+                       policy="pipeline", device=device), logits)
 
 
 def temperature_sample_multistream(logits, temperature: float, gumbel,
                                    min_logit: Optional[float] = None,
                                    device="cuda") -> np.ndarray:
-    """Batched temperature sampling as a descriptor program.
+    """Batched temperature sampling as a descriptor program on the mesh.
 
-    Per request one fused streaming chain: ``AXPY`` (``logits/T +
+    Per request one fused streaming chain, an independent uniform
+    sub-stream the ``multistream`` policy runs as a lane: ``AXPY`` (``logits/T +
     gumbel``) -> optional ``THRESH`` prune -> ``ARGMAX`` tail. By the
     Gumbel-max identity the ARGMAX of the perturbed logits is an exact
     draw from ``softmax(logits/T)``. ``gumbel`` is the (b, vocab) noise,
@@ -158,7 +164,8 @@ def temperature_sample_multistream(logits, temperature: float, gumbel,
             slots.append(prog.argmax(z, name=f"slot{i}"))
             rows.append(row)
             noises.append(g)
-        ent = (prog, Executor(_policy(), device=device), rows, noises, slots)
+        ent = (prog, Executor(ExecutionPolicy(policy="multistream"),
+                              device=device), rows, noises, slots)
         _TEMPERATURE_PROGRAMS[key] = ent
     prog, executor, rows, noises, slots = ent
     gumbel = torch.as_tensor(np.asarray(gumbel, np.float32), device=device)

@@ -15,10 +15,12 @@ the counterpart of ``repro.runtime.train``.
 
 The step is eager PyTorch: autograd through ``Model.loss`` (each layer
 recomputed in the backward, ``cfg.remat``), fp32 gradients, then
-``apply_updates``. The mesh (ROADMAP slice G) and the multistream update
-plan (slice C) are not ported: ``mesh`` must be None and
-``multistream_plan`` False (the port's default, unlike the reference's);
-the mesh's gradient compression waits with the mesh.
+``apply_updates``. With ``multistream_plan`` (the default, as in the
+reference) the run also plans and prices the optimizer update as a
+multi-cluster descriptor program (:func:`plan_update_multistream`) into
+``stats["multistream"]``; the plan launches nothing. The mesh (ROADMAP
+slice G) is not ported: ``mesh`` must be None; the mesh's gradient
+compression waits with it.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import os
 import signal
 import tempfile
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -53,7 +55,7 @@ class TrainConfig:
     seed: int = 0
     global_batch: int = 8
     seq_len: int = 128
-    multistream_plan: bool = False  # True waits for ROADMAP slice C
+    multistream_plan: bool = True   # schedule the per-tensor update streams
 
 
 def microbatches(batch: Dict[str, torch.Tensor], accum: int):
@@ -110,17 +112,79 @@ def build_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig):
     return step_fn
 
 
+def _leaves(tree):
+    """The leaves of a nested mapping in the reference's order (a JAX
+    pytree flattens a dict by sorted keys), or of a module in
+    ``named_parameters`` order."""
+    if isinstance(tree, torch.nn.Module):
+        return [p for _, p in tree.named_parameters()]
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in _leaves(item)]
+    return [tree]
+
+
+def plan_update_multistream(params, n_clusters: Optional[int] = None,
+                            pipeline: bool = True,
+                            device=None) -> Dict[str, Any]:
+    """Schedule the optimizer update as a multi-cluster descriptor program
+    (the reference's plan, the same numbers for the same leaf shapes).
+
+    Each parameter tensor's update is a dependent two-command chain over
+    its own address range: the grad stream is preconditioned elementwise
+    into a scratch window (MUL with the per-element preconditioner), then
+    folded into the params (AXPY) — a RAW dependency through the scratch
+    buffer. Tensors stay independent of each other, so the cluster
+    scheduler load-balances the per-tensor chains over the mesh and
+    prices the critical path vs. serial execution. With ``pipeline=True``
+    the plan also level-izes the chains into a stage pipeline and reports
+    its projected speedup under ``"pipeline"``.
+
+    ``params``: a tree of arrays or tensors (a mapping, leaves in sorted
+    key order as the reference flattens it; the Trainer passes the
+    reference's layout) or a module. Only shapes are read, so meta
+    tensors do; nothing is launched. ``n_clusters=None`` means one per
+    device of ``device`` (1 for the CPU)."""
+    from repro_torch.core import Program
+    from repro_torch.core.multistream import (ClusterScheduler,
+                                              StageSchedule, device_count)
+    prog = Program()
+    for ti, leaf in enumerate(_leaves(params)):
+        n = int(np.prod(tuple(leaf.shape))) if len(leaf.shape) else 1
+        g = prog.buffer((n,), name=f"grad{ti}")
+        pre = prog.buffer((n,), name=f"precond{ti}")
+        w = prog.buffer((n,), name=f"param{ti}")
+        scratch = prog.mul(g, pre)            # scratch = grad * precond
+        prog.axpy(-1.0, scratch, w, out=w)    # param += -lr * scratch
+    descs = prog.descriptors
+    if n_clusters is None:
+        n_clusters = max(1, device_count(device))
+    sched = ClusterScheduler(descs, n_clusters=n_clusters)
+    plan = {"n_substreams": len(sched.substreams),
+            "n_clusters": sched.n_clusters,
+            "assignment": list(sched.assignment),
+            "critical_path_s": max(sched.cluster_times(), default=0.0),
+            "serial_time_s": sum(sched.costs),
+            "model_speedup": sched.model_speedup()}
+    if pipeline:
+        ss = StageSchedule(sched.graph, n_clusters=n_clusters)
+        plan["pipeline"] = {
+            "n_nodes": len(ss.nodes),
+            "n_stages": len(ss.stages),
+            "handoff_bytes": ss.stats["handoff_bytes"],
+            "handoff_bytes_cross": ss.stats["handoff_bytes_cross"],
+            "pipeline_time_s": ss.model_time(),
+            "model_speedup": ss.model_speedup()}
+    return plan
+
+
 class Trainer:
     def __init__(self, cfg: ArchConfig, opt_cfg: AdamWConfig,
                  tcfg: TrainConfig, mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("training on a mesh is not ported yet "
                                       "(ROADMAP queue 1, slice G)")
-        if tcfg.multistream_plan:
-            raise NotImplementedError(
-                "multistream_plan (the optimizer update as a multistream "
-                "descriptor program) waits for the multistream policy "
-                "(ROADMAP queue 1, slice C); pass multistream_plan=False")
         self.cfg, self.opt_cfg, self.tcfg = cfg, opt_cfg, tcfg
         self.device = torch.device(device)
         self.model = Model(cfg)
@@ -174,6 +238,12 @@ class Trainer:
                                  trainable=True)
         opt_state = init_opt_state(dict(params.named_parameters()))
         start = 0
+        if tcfg.multistream_plan:
+            # the reference's leaf order: its stacked tree, shapes only
+            tree = self._state_tree(params, opt_state, 0,
+                                    device="meta")["params"]
+            self.stats["multistream"] = plan_update_multistream(
+                tree, device=self.device)
         if tcfg.resume == "auto" and self.ckpt.latest() is not None:
             start = self._restore(params, opt_state)
 

@@ -211,14 +211,19 @@ def test_program_layout_matches_reference():
 
 
 def test_executor_defaults_and_unported_policies():
+    """The default is the reference's ``auto`` on the card, and no policy
+    is left unported: every name in POLICIES runs and agrees."""
+    from repro_torch.core.executor import POLICIES
     ex = Executor()
-    assert ex.policy.policy == "fused" and ex.device.type == "cuda"
+    assert ex.policy.policy == "auto" and ex.device.type == "cuda"
     p = Program()
     x = p.buffer((8,), name="x")
     p.relu(x, out=x)
-    for pol in ("auto", "multistream", "pipeline", "tiled"):
-        with pytest.raises(NotImplementedError, match="slice C"):
-            Executor(pol, device="cpu").run(p, inputs={x: np.ones(8)})
+    vals = _mem(8)
+    for pol in POLICIES:
+        res = Executor(pol, device="cpu").run(p, inputs={x: vals})
+        np.testing.assert_array_equal(res[x], np.maximum(vals, 0),
+                                      err_msg=pol)
     with pytest.raises(ValueError):
         ExecutionPolicy(policy="bogus")
 
@@ -322,7 +327,7 @@ def test_sampler_stats_name_each_program():
                                           device="cpu")
     stats = tserve.sampler_stats()
     key = "temperature_b2_v16_T1.2_cpu"
-    assert stats[key]["policy"] == "fused"
+    assert stats[key]["policy"] == "multistream"      # the reference's
     assert stats[key]["n_descriptors"] == 4
 
 

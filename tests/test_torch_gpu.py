@@ -1085,3 +1085,171 @@ def test_ffma_gemm_refuses_a_foreign_tile(cuda, compensated, m, n, tile):
     assert tgemm.ffma_plan(m, n, 64, compensated).tile != tile
     with pytest.raises(RuntimeError, match="ntx_gemm"):
         tgemm.gemm_cuda(a, b, compensated=compensated, tile=tile)
+
+
+# ----------------------------------------------------------------------
+# Lane-batched launches: the Executor's multistream/pipeline vmap
+# transport runs one launch for L uniform lanes
+# ----------------------------------------------------------------------
+def _lanes(dev, lanes, n, spacing, offset):
+    """(lanes, n) rows ``spacing`` elements apart, the first ``offset``
+    elements into a flat buffer: a lane stack of a memory image."""
+    flat = _t((offset + lanes * spacing + n,), dev)
+    return flat.as_strided((lanes, n), (spacing, 1), offset)
+
+
+LANE_LAYOUTS = [
+    (1003, 1008, 0),               # 16-byte rows: the float4 row path
+    (1003, 1009, 1),               # odd stride and base: scalar
+    (4096, 4099, 2),               # one chunk exactly, misaligned
+    (5 * CHUNK + 7, 5 * CHUNK + 16, 4),   # many chunks, ragged last one
+    (128256, 128264, 0),           # the greedy sampler's rows
+]
+
+
+@pytest.mark.parametrize("tail", [None, "sum", "min", "max", "argmin",
+                                  "argmax"])
+@pytest.mark.parametrize("n,spacing,offset", LANE_LAYOUTS)
+def test_stream_lanes_bit_equal_to_single_lane_launches(cuda, n, spacing,
+                                                        offset, tail):
+    """A launch over L strided rows (x and y at different strides) gives
+    each lane the bits of a one-lane launch of the same kernel, and the
+    plain version's (a SUM within 1e-5 of sum |v|)."""
+    lanes = 4
+    x = _lanes(cuda, lanes, n, spacing, offset)
+    y = _lanes(cuda, lanes, n, spacing + 4, offset + 3)
+    stages = [("axpy", 0.75), ("thresh", -0.2)]
+    out, r = tew.stream_cuda(stages, x, (y,), tail=tail)
+    assert out.is_contiguous() and out.shape == (lanes, n)
+    for lane in range(lanes):
+        o1, r1 = tew.stream_cuda(stages, x[lane:lane + 1].clone(),
+                                 (y[lane:lane + 1].clone(),), tail=tail)
+        assert torch.equal(out[lane], o1[0])
+        if tail is not None:
+            assert torch.equal(r[lane], r1[0])
+    if tail is None:
+        assert torch.equal(out, tew.elementwise_chain_plain(stages, x, (y,)))
+        return
+    w_out, w_r = tred.chain_reduce_plain(stages, tail, x, (y,))
+    assert torch.equal(out, w_out)
+    if tail == "sum":
+        scale = w_out.abs().double().sum(-1)
+        assert bool(((r.double() - w_r.double()).abs() <= 1e-5 * scale)
+                    .all())
+    else:
+        assert torch.equal(r, w_r)
+
+
+@pytest.mark.parametrize("op", ["copy", "axpy", "set"])
+def test_ops_take_lane_views_without_a_copy(cuda, op):
+    """``ops.elementwise``/``ops.reduce`` launch once on a strided lane
+    stack, reading it in place: the result equals the plain version's,
+    and equals a launch on a contiguous copy."""
+    x = _lanes(cuda, 4, 1003, 1009, 1)
+    y = _lanes(cuda, 4, 1003, 1012, 0) if op == "axpy" else None
+    ops.reset_launches()
+    got = ops.elementwise(op, x, y, imm=0.5)
+    red = ops.reduce("argmax", x)
+    assert ops.launches()["elementwise"] == 1 and ops.launches()["reduce"] == 1
+    assert torch.equal(got, tew.elementwise_plain(op, x, y, 0.5))
+    assert torch.equal(got, ops.elementwise(
+        op, x.contiguous(), None if y is None else y.contiguous(), imm=0.5))
+    assert torch.equal(red, torch.argmax(x, -1).to(torch.int32))
+
+
+def _gemm_lanes(dev, lanes, m, k, n, dt, pad):
+    """(lanes, m, k) and (lanes, k, n) stacks ``pad`` elements apart."""
+    a = _t((lanes * (m * k + pad),), dev).to(dt).as_strided(
+        (lanes, m, k), (m * k + pad, k, 1))
+    b = _t((lanes * (k * n + pad),), dev, k ** -0.5).to(dt).as_strided(
+        (lanes, k, n), (k * n + pad, n, 1))
+    return a, b
+
+
+GEMM_LANES = [
+    ("bfloat16", 4, 4096, 1024, 8),     # decode tile, split k
+    ("bfloat16", 70, 1007, 1003, 5),    # masked loads, large tile
+    ("bfloat16", 128, 4096, 512, 0),    # large tile, split k
+    ("float32", 512, 512, 512, 0),      # phase 9's lanes
+    ("float32", 16, 40, 72, 3),         # the 16 x 128 tile
+    ("float32", 2048, 256, 1280, 4),    # the register-tiled 128 rows
+]
+
+
+@pytest.mark.parametrize("dtype,m,k,n,pad", GEMM_LANES)
+def test_gemm_lanes_bit_equal_to_single_lane_launches(cuda, dtype, m, k, n,
+                                                      pad):
+    """One ``ntx_gemm`` launch over 3 lanes at a lane stride (bias and
+    residual epilogues per lane, relu) gives each lane the bits of its
+    one-lane launch, whatever route, tile and split the plan takes; and
+    the plain version's result within the route's tolerance."""
+    lanes, dt = 3, getattr(torch, dtype)
+    a, b = _gemm_lanes(cuda, lanes, m, k, n, dt, pad)
+    bias = _lanes(cuda, lanes, n, n + pad, 0)
+    res = _t((lanes, m, n), cuda)
+    ep = ops._norm_epilogue([("bias", bias), ("residual", res), "relu"])
+    got = tgemm.gemm_cuda(a, b, torch.float32, ep)
+    assert got.shape == (lanes, m, n)
+    for lane in range(lanes):
+        ep1 = ops._norm_epilogue([("bias", bias[lane]),
+                                  ("residual", res[lane]), "relu"])
+        one = tgemm.gemm_cuda(a[lane].clone(), b[lane].clone(),
+                              torch.float32, ep1)
+        assert torch.equal(got[lane], one), lane
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(got, tgemm.gemm_plain(a, b, torch.float32, ep),
+                               rtol=tol, atol=tol)
+
+
+def test_compensated_gemm_refuses_lanes(cuda):
+    """The compensated route takes one lane, at the wrapper and in the
+    kernel (no quiet loop over lanes)."""
+    a, b = _gemm_lanes(cuda, 2, 70, 300, 90, torch.float32, 1)
+    with pytest.raises(ValueError, match="one lane"):
+        tgemm.gemm_cuda(a, b, torch.float32, [], compensated=True)
+    with pytest.raises(ValueError, match="compensated"):
+        ops.gemm(a, b, compensated=True)
+
+
+def _lane_program(lanes, n, seed=0):
+    import repro_torch.core as core
+    rng = np.random.default_rng(seed)
+    prog = core.Program()
+    for i in range(lanes):
+        x = prog.buffer((n,), name=f"x{i}",
+                        init=rng.standard_normal(n).astype(np.float32))
+        y = prog.buffer((n,), name=f"y{i}",
+                        init=rng.standard_normal(n).astype(np.float32))
+        t = prog.axpy(0.5, x, y)
+        prog.relu(t, out=t)
+        prog.reduce("sum", t, name=f"s{i}")
+    return prog
+
+
+def test_every_policy_on_the_card_bit_equal_to_serial(cuda):
+    """An 8-lane AXPY -> RELU -> SUM program on a CUDA image under every
+    policy and transport: the serial policy's bits, and under
+    multistream/vmap one chain-reduce launch for the 8 lanes."""
+    import repro_torch.core as core
+    prog = _lane_program(8, 3 * CHUNK + 5)
+    base = core.Executor("serial", device=cuda).run(prog).mem
+    tiny = core.NtxMemSpec(tcdm_bytes=1 << 16)
+    runs = [("fused", {}), ("auto", {}),
+            ("multistream", {"transport": "vmap"}),
+            ("multistream", {"transport": "interleave"}),
+            ("multistream", {"transport": "serial"}),
+            ("pipeline", {"transport": "vmap"}),
+            ("pipeline", {"transport": "interleave"}),
+            ("pipeline", {"transport": "overlap"}),
+            ("tiled", {"mem": tiny, "dma_overlap": True}),
+            ("tiled", {"mem": tiny, "dma_overlap": False})]
+    for pol, kw in runs:
+        ops.reset_launches()
+        got = core.Executor(pol, device=cuda, **kw).run(prog).mem
+        assert torch.equal(got, base), (pol, kw)
+        if (pol, kw.get("transport")) == ("multistream", "vmap"):
+            assert ops.launches()["chain_reduce"] == 1
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="shard_map"):
+            core.Executor("multistream", device=cuda,
+                          transport="shard_map").run(prog)

@@ -393,17 +393,17 @@ def test_straggler_watchdog_counts(tmp_path, monkeypatch):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="slice C"):
-        Trainer(tc, AdamWConfig(), TrainConfig(ckpt_dir=str(tmp_path),
-                                               multistream_plan=True),
-                device="cpu")
     with pytest.raises(NotImplementedError, match="slice G"):
         Trainer(tc, AdamWConfig(), TrainConfig(
             ckpt_dir=str(tmp_path), multistream_plan=False), mesh=object(),
             device="cpu")
-    # the one working value of multistream_plan is the default
-    Trainer(tc, AdamWConfig(), TrainConfig(ckpt_dir=str(tmp_path)),
-            device="cpu")
+    # the multistream update plan is ported: on by default, as in the
+    # reference, and both values construct
+    assert TrainConfig().multistream_plan is True
+    for plan in (True, False):
+        Trainer(tc, AdamWConfig(), TrainConfig(ckpt_dir=str(tmp_path),
+                                               multistream_plan=plan),
+                device="cpu")
 
 
 def test_launch_train_defaults_to_mamba2_on_cpu(tmp_path, capsys):
