@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of the NTX reproduction on one NVIDIA GPU.
 
     python3 chip_smoke.py    # every phase: serve llama3-8b, train
-                             # mamba2-1.3b, run the paper's kernel suite
+                             # mamba2-1.3b and a 4-layer llama3-8b, run
+                             # the paper's kernel suite
     python3 chip_smoke.py --phases 1,3 --only attention:prefill_4096 \
         --src ../parent/src  # one case's check and time, another tree's
                              # kernels on the same card
@@ -13,8 +14,14 @@ Phases, one result line each:
   2. check   — every kernel against its plain PyTorch version on the
                card, at the serving and training paths' shapes (and the
                fused AdamW on odd-length operands off a 16-byte
-               boundary); an AXPY -> RELU -> SUM ntx.Program bit-equal
-               under the serial and fused policies.
+               boundary); the dense training path's: the flash backward
+               (b 4, hq 32, hkv 8, s 2048, bf16; hkv 4; a small fp32
+               shape), the forward's lse, the activation backward at
+               8192 x 14336 (bit-equal) and the MLP backward's GEMMs at
+               m 8192; an AXPY -> RELU -> SUM ntx.Program bit-equal
+               under the serial and fused policies, and a prefix-store
+               program on a CUDA image against the cycle-faithful
+               engine.
   3. time    — each kernel's time (CUDA events) and its host issue time,
                its bound, its plain version's time and one PyTorch
                library call's time (SDPA in its fastest form, with the
@@ -24,7 +31,9 @@ Phases, one result line each:
                a decode step over 4000 keys, the split-kv merge alone,
                the fp32 FFMA GEMM at 4096^3 against torch.matmul (TF32
                off); the SSD call's three kernels under torch.profiler;
-               the PyTorch SSD backward on its own, with its bound.
+               the PyTorch SSD backward on its own, with its bound;
+               the flash backward against SDPA's backward (its forward
+               and backward less its forward).
   4. width   — llama3-8b at full width, depth cut to 2 layers, on the card
                and on the CPU with the same weights: prefill logits and
                4 greedy tokens.
@@ -66,6 +75,14 @@ Phases, one result line each:
                launches checked against their plain versions and timed
                beside L one-lane launches, and the sampler's decode-step
                time under fused against multistream.
+ 10. dense width — llama3-8b at full width, depth cut to 2 layers, one
+               build_step_fn step (batch 1 x 256) on the card and on the
+               CPU from the same weights and batch, fp32 and bf16.
+ 11. dense train — build_step_fn on llama3-8b at full width cut to 4 of
+               32 layers (bf16, remat="full"), 5 steps at batch 4 x
+               2048: step time, tokens/s, peak memory, the model-FLOP
+               share, the launch counts, one step under torch.profiler
+               by kernel family.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -105,7 +122,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
+ALL_PHASES = set(range(1, 12))
+#: phases 10-11: llama3-8b cut to DENSE_LAYERS of 32 layers, batch
+#: DENSE_BATCH x DENSE_SEQ for DENSE_STEPS steps; the width check's
+#: 2 layers at batch 1 x DENSE_WIDTH_SEQ (256, not 512: at 512 its CPU
+#: side took 39 s in fp32 and 61 s in bf16 on the H100's host)
+DENSE_LAYERS, DENSE_BATCH, DENSE_SEQ, DENSE_STEPS = 4, 4, 2048, 5
+DENSE_WIDTH_SEQ = 256
 #: phase 8's shapes: the conv plane, the Laplace grids, the GEMM side
 CONV_HW, CONV_TAPS = 8192, (3, 5, 7)
 LAP_SHAPES = ((1 << 26,), (8192, 8192), (512, 512, 512))
@@ -210,7 +233,7 @@ def kernel_cases(torch):
     stream_src = "src/repro_torch/kernels/csrc/ntx_stream.cu"
 
     def gemm_case(name, m, k, n, dt, out_dt, ep_spec, tol, path=True,
-                  offset=0):
+                  offset=0, phase="serve"):
         """``ep_spec`` entries: (kind,), (kind, imm) or (kind, dtype) for
         the array kinds, whose operand is made in that dtype (the path's
         residual is the bf16 hidden state, its gate the fp32 GEMM).
@@ -245,7 +268,7 @@ def kernel_cases(torch):
             plain=lambda: ntx_gemm.gemm_plain(a, b, out_dt, norm),
             library=library, mode="close", tol=tol, bytes=nbytes,
             ops=2.0 * m * n * k, kind="bf16" if dt == bf else "fp32",
-            path=path)
+            path=path, phase=phase)
         if path and dt == bf:
             # the split choice against two blocks per SM, timed in phase 3
             plan = ntx_gemm.split_k_plan(m, n, k)
@@ -253,8 +276,9 @@ def kernel_cases(torch):
                                                   * plan.n_tiles),
                              plan.k_tiles // ntx_gemm.MIN_SPLIT_K_TILES,
                              ntx_gemm.MAX_SPLITS))
-            case["splits"] = (plan.splits, alt, lambda s: ntx_gemm.gemm_cuda(
-                a, b, out_dt, norm, splits=s))
+            if alt != plan.splits:
+                case["splits"] = (plan.splits, alt, lambda s: ntx_gemm.gemm_cuda(
+                    a, b, out_dt, norm, splits=s))
         cases.append(case)
 
     bf_tol = (1e-2, 1e-2)   # one bf16 ulp (2**-8 rel) + fp32 order noise
@@ -463,6 +487,28 @@ def kernel_cases(torch):
         tol=(0.0, 0.0), bytes=n * 12, ops=2 * n, kind="fp32", path=False))
     cases += train_cases(torch, rn)
     cases += suite_cases(torch, rn)
+    # the dense training path's MLP products at m = 4 x 2048 tokens: the
+    # forward's three (a1 and the gate, and dh = dout w2^T in the
+    # backward, share the first shape), and the backward's dx and weight
+    # gradients (fp32 out; transposed operands are contiguous copies)
+    m_tr = DENSE_BATCH * DENSE_SEQ
+    for name, m, k, n, out_dt, ep in (
+            (f"gemm:train_gate_a1_dh_m{m_tr}_k4096_n14336", m_tr, 4096,
+             14336, f32, []),
+            (f"gemm:train_w1_silu_mul_m{m_tr}", m_tr, 4096, 14336, bf,
+             [("silu",), ("mul", f32)]),
+            (f"gemm:train_w2_residual_m{m_tr}_k14336_n4096", m_tr, 14336,
+             4096, bf, [("residual", bf)]),
+            (f"gemm:train_dx_residual_m{m_tr}_k14336_n4096", m_tr, 14336,
+             4096, bf, [("residual", f32)]),
+            ("gemm:train_dw1_dw3_m4096_k8192_n14336", 4096, m_tr, 14336,
+             f32, []),
+            ("gemm:train_dw2_m14336_k8192_n4096", 14336, m_tr, 4096, f32,
+             [])):
+        if wanted(name):
+            gemm_case(name, m, k, n, bf, out_dt, ep, f_tol if out_dt == f32
+                      else bf_tol, phase="dense")
+    cases += dense_cases(torch, rn, bf_tol)
     return cases
 
 
@@ -488,6 +534,129 @@ def merge_case(torch, rn, fa, flash_src, flash_rep, tol) -> dict:
         ops=3.0 * ws.numel(), kind="fp32", path=True)
     del mk, mv
     return case
+
+
+def dense_cases(torch, rn, bf_tol):
+    """The dense training path's new kernels (``phase="dense"``): the
+    flash backward at phase 11's shape (b 4, hq 32, hkv 8, s 2048, d 128,
+    bf16, causal) against ``ref.mha_blocked``'s VJP by the worst
+    relative L2 of dQ / dK / dV (GRAD_RTOL), its last key tile on its
+    own; off the path, yi's group of 8 (hkv 4) and a ragged fp32 shape;
+    the forward with lse against its plain version (o keeping the bits of
+    the call without lse); the activation backward bit-equal at phase
+    11's 8192 x 14336. The backward's library call is SDPA's backward:
+    its forward and backward, less its forward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ntx_elementwise as ew
+    bf, f32 = torch.bfloat16, torch.float32
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    bwd_rep = "src/repro/kernels/ref.py:250 _mha_blocked_bwd"
+    cases = []
+
+    def qkv(b, hq, hkv, s, dt):
+        # (b, s, h, d) projections viewed as (b, h, s, d), as the model
+        # makes them; dO as autograd hands it (a view of (b, s, h d))
+        q = rn(b, s, hq, 128, dt=dt, std=0.5).transpose(1, 2)
+        k = rn(b, s, hkv, 128, dt=dt, std=0.5).transpose(1, 2)
+        v = rn(b, s, hkv, 128, dt=dt).transpose(1, 2)
+        do = rn(b, s, hq, 128, dt=dt).transpose(1, 2)
+        return q, k, v, do
+
+    def bwd_case(name, b, hq, hkv, s, dt, path):
+        if not wanted(name):
+            return
+        q, k, v, do = qkv(b, hq, hkv, s, dt)
+        plan = fa.flash_plan(b, hq, hkv, s, s, s, 128, dt, True, lse=True)
+        o, lse = fa.flash_attention_cuda(q, k, v, plan=plan, lse=True)
+        lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                                  enable_gqa=True)
+
+        def last_tile(got, want):
+            rel = [float((g[:, :, -64:].float() - w[:, :, -64:].float())
+                         .norm() / w[:, :, -64:].float().norm())
+                   for g, w in zip(got[1:], want[1:])]
+            ok = max(rel) <= GRAD_RTOL[str(dt)[6:]] and all(
+                float(g[:, :, -64:].float().abs().sum()) > 0 for g in got[1:])
+            return ok, (f"last key tile (keys {s - 64}-{s - 1}): dK, dV rel "
+                        f"L2 {rel[0]:.3e}, {rel[1]:.3e}, nonzero")
+        esz = q.element_size()
+        pairs = b * hq * s * (s + 1) / 2
+        cases.append(dict(
+            name=name, wrapper="attention_bwd", source=bwd_src,
+            replaces=bwd_rep,
+            kernel=lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do),
+            plain=lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+            library=lambda: torch.autograd.grad(lib_fwd(), lib_in, do),
+            library_minus=lib_fwd, backend=lib_fwd, check_vs=last_tile,
+            mode="rel_l2", tol=(GRAD_RTOL[str(dt)[6:]], 0.0),
+            bytes=(4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4,
+            ops=5 * 2.0 * 128 * pairs, kind="bf16" if dt == bf else "fp32",
+            path=path, phase="dense"))
+
+    bwd_case(f"attention_bwd:train_b{DENSE_BATCH}_hq32_hkv8_s{DENSE_SEQ}"
+             f"_bf16", DENSE_BATCH, 32, 8, DENSE_SEQ, bf, True)
+    bwd_case(f"attention_bwd:yi_b2_hq32_hkv4_s{DENSE_SEQ}_bf16", 2, 32, 4,
+             DENSE_SEQ, bf, False)
+    bwd_case("attention_bwd:b1_hq8_hkv2_s1000_fp32", 1, 8, 2, 1000, f32,
+             False)
+
+    name = f"attention:train_lse_b{DENSE_BATCH}_s{DENSE_SEQ}_bf16"
+    if wanted(name):
+        q, k, v, _ = qkv(DENSE_BATCH, 32, 8, DENSE_SEQ, bf)
+        plan = fa.flash_plan(DENSE_BATCH, 32, 8, DENSE_SEQ, DENSE_SEQ,
+                             DENSE_SEQ, 128, bf, True, lse=True)
+        o_serve = fa.flash_attention_cuda(q, k, v, plan=plan)
+
+        def lse_check(got, want):
+            err = float((got[1] - want[1]).abs().max())
+            ok = torch.equal(got[0], o_serve) and err <= 1e-4 * (
+                1.0 + float(want[1].abs().max()))
+            return ok, (f"o bit-equal to the call without lse "
+                        f"{torch.equal(got[0], o_serve)} | lse max_abs_err "
+                        f"{err:.3e} (<= 1e-4 (1 + max|lse|))")
+        pairs = DENSE_BATCH * 32 * DENSE_SEQ * (DENSE_SEQ + 1) / 2
+        cases.append(dict(
+            name=name, wrapper="attention", source=flash_src,
+            replaces="src/repro/kernels/flash_attention.py:77",
+            kernel=lambda: fa.flash_attention_cuda(q, k, v, plan=plan,
+                                                   lse=True),
+            plain=lambda: (fa.flash_attention_plain(q, k, v),
+                           fa.flash_lse_plain(q, k)),
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            backend=lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            check_vs=lse_check, mode="close", tol=bf_tol,
+            bytes=(2 * q.numel() + 2 * k.numel()) * 2 + q.numel() // 32,
+            ops=4.0 * 128 * pairs, kind="bf16", path=True, phase="dense"))
+
+    act_src = "src/repro_torch/kernels/csrc/ntx_act_bwd.cu"
+    act_rep = ("none: XLA autodiff of the MLP's epilogue "
+               "(src/repro/kernels/ntx_gemm.py:50 apply_epilogue)")
+    for name, act, (m, n), dt, path in (
+            (f"act_bwd:swiglu_{DENSE_BATCH * DENSE_SEQ}x14336_bf16",
+             "swiglu", (DENSE_BATCH * DENSE_SEQ, 14336), bf, True),
+            ("act_bwd:gelu_4096x4095_fp32", "gelu", (4096, 4095), f32,
+             False)):
+        if not wanted(name):
+            continue
+        dh, a1, gate = rn(m, n), rn(m, n, std=3.0), rn(m, n)
+        g = gate if act == "swiglu" else None
+        n_in, n_out = (3, 3) if act == "swiglu" else (2, 2)
+        cases.append(dict(
+            name=name, wrapper="act_bwd", source=act_src, replaces=act_rep,
+            kernel=lambda a=(act, dh, a1, g, dt): ops.act_bwd(*a),
+            plain=lambda a=(act, dh, a1, g, dt): ew.act_bwd_plain(*a),
+            library=None, mode="equal", tol=(0.0, 0.0),
+            bytes=m * n * (4 * n_in + n_out * (2 if dt == bf else 4)),
+            ops=20.0 * m * n, kind="fp32", path=path, phase="dense"))
+    return cases
 
 
 def ssd_inputs(torch, rn, b, l, dt_x, h=64, dh=64, n=128):
@@ -886,12 +1055,22 @@ def _chain_reduce_plain(ops, ntx_reduce, stages, x, ys):
     return out, ops._arg_int("argmax", red)
 
 
+def digest(torch, t) -> str:
+    """A short hash of a tensor's bytes."""
+    import hashlib
+    return hashlib.sha1(t.detach().contiguous().view(torch.uint8).cpu()
+                        .numpy().tobytes()).hexdigest()[:16]
+
+
 def compare(torch, case, got, want) -> tuple:
     """(ok, max_abs_err, max_rel_err) under the case's mode."""
     gots = got if isinstance(got, tuple) else (got,)
     wants = want if isinstance(want, tuple) else (want,)
-    ok, max_abs, max_rel = True, 0.0, 0.0
+    ok, max_abs, max_rel, worst_l2 = True, 0.0, 0.0, 0.0
     for part, (gg, ww) in enumerate(zip(gots, wants)):
+        if gg is None or ww is None:
+            ok &= gg is None and ww is None
+            continue
         gg = gg.float()
         ww = ww.float()
         if gg.shape != ww.shape:
@@ -908,11 +1087,15 @@ def compare(torch, case, got, want) -> tuple:
             ok &= bool((diff.double() <= case["tol"][0] * scale).all())
         elif case["mode"] == "sum":       # relative to the sum of |x|
             ok &= bool((diff <= case["tol"][0] * case["scale"]).all())
+        elif case["mode"] == "rel_l2":    # a gradient, by its L2 error
+            rel = float(diff.norm() / ww.norm().clamp_min(1e-30))
+            worst_l2 = max(worst_l2, rel)
+            ok &= bool(torch.isfinite(gg).all()) and rel <= case["tol"][0]
         else:
             rtol, atol = case["tol"]
             ok &= bool(torch.isfinite(gg).all()) and bool(
                 (diff <= atol + rtol * ww.abs()).all())
-    return ok, max_abs, max_rel
+    return ok, max_abs, worst_l2 if case["mode"] == "rel_l2" else max_rel
 
 
 def check_policies(torch) -> None:
@@ -956,10 +1139,66 @@ def check_policies(torch) -> None:
     need(ok, "serial and fused SUM programs disagree on the card")
 
 
+def check_prefix_store(torch) -> None:
+    """A prefix-store program on a CUDA image: a dot product over 64 rows
+    of 64, stored after each row as it runs (MAC, store_level 1 <
+    init_level 2), and a running ARGMAX
+    with planted ties (store_level 0 < init_level 1), which no kernel
+    matches, under the serial and fused policies (the torch engine on the
+    card), against the cycle-faithful ``engine.execute`` on the same
+    image: the ARGMAX bit-equal, the sums within 1e-5 of each stored
+    value's sum of |terms|."""
+    import numpy as np
+    import ntx_torch as ntx
+    from repro_torch.core import engine
+    from repro_torch.core.descriptor import Agu, Descriptor, Opcode
+    rows, cols, n = 64, 64, 4096
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    xs = torch.randn(rows * cols, generator=g, device=DEVICE)
+    ys = torch.randn(rows * cols, generator=g, device=DEVICE)
+    zs = torch.randn(n, generator=g, device=DEVICE)
+    zs[[100, 900, 3000]] = zs.max() + 1.0          # ties: the first wins
+    prog = ntx.Program()
+    x, y = prog.buffer((rows * cols,), name="x"), prog.buffer(
+        (rows * cols,), name="y")
+    z = prog.buffer((n,), name="z")
+    dots, best = prog.buffer((rows,), name="dots"), prog.buffer(
+        (n,), name="best")
+    prog.emit(Descriptor(bounds=(cols, rows), opcode=Opcode.MAC,
+                         init_level=2, store_level=1,
+                         agu0=Agu(x.offset, (1, cols)),
+                         agu1=Agu(y.offset, (1, cols)),
+                         agu2=Agu(dots.offset, (0, 1))))
+    prog.emit(Descriptor(bounds=(n,), opcode=Opcode.ARGMAX, init_level=1,
+                         store_level=0, agu0=Agu(z.offset, (1,)),
+                         agu2=Agu(best.offset, (1,))))
+    inputs = {x: xs, y: ys, z: zs}
+    mem = prog.pack(inputs, device="cpu").numpy()
+    for desc in prog.descriptors:
+        mem = engine.execute(desc, mem)
+    want = prog.unpack(torch.from_numpy(mem))
+    scale = np.abs(xs.cpu().numpy().astype(np.float64)
+                   * ys.cpu().numpy()).reshape(rows, cols).sum(1).cumsum()
+    out = []
+    for policy in ("serial", "fused"):
+        res = ntx.Executor(policy, device=DEVICE).run(prog, inputs=inputs)
+        d_err = np.abs(res["dots"].astype(np.float64) - want["dots"])
+        same = np.array_equal(res["best"].view(np.int32),
+                              want["best"].view(np.int32))
+        ok = same and bool((d_err <= 1e-5 * scale).all())
+        out.append(ok)
+        say("check", f"prefix-store program on a CUDA image ({policy}): "
+                     f"running ARGMAX over {n} bit-equal to engine.execute "
+                     f"{same} | running dots max_abs_err {d_err.max():.3e} "
+                     f"{'ok' if ok else 'FAIL'}")
+    need(all(out), "prefix-store program disagrees with engine.execute")
+
+
 def phase_check_and_time(torch, do_time: bool) -> list:
     cases = [case for case in kernel_cases(torch) if wanted(case["name"])]
     rows = check_and_time(torch, cases, do_time, "check", "time")
     check_policies(torch)
+    check_prefix_store(torch)
     return rows
 
 
@@ -977,9 +1216,13 @@ def check_and_time(torch, cases, do_time: bool, check: str,
         tol = ("bit-equal" if case["mode"] == "equal" else
                f"|d| <= {case['tol'][0]:g} * sum|x|"
                if case["mode"] in ("sum", "lanesum")
+               else f"worst rel L2 <= {case['tol'][0]:g}"
+               if case["mode"] == "rel_l2"
                else f"rtol {case['tol'][0]:g} atol {case['tol'][1]:g}")
+        rel_name = ("worst_rel_l2" if case["mode"] == "rel_l2"
+                    else "max_rel_err")
         say(check, f"{case['name']}: max_abs_err {max_abs:.3e} "
-                   f"max_rel_err {max_rel:.3e} ({tol}) "
+                   f"{rel_name} {max_rel:.3e} ({tol}) "
                    f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(case["name"])
@@ -988,6 +1231,16 @@ def check_and_time(torch, cases, do_time: bool, check: str,
             say(check, f"{case['name']}: {msg} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(case["name"])
+        if case.get("check_vs"):
+            ok, msg = case["check_vs"](got, want)
+            say(check, f"{case['name']}: {msg} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(case["name"])
+        if case["wrapper"] == "attention" and torch.is_tensor(got):
+            # the serving forward's bits, to hold against another tree's
+            # (--src) on the same inputs
+            say(check, f"{case['name']}: output digest "
+                       f"{digest(torch, got)}")
         del got, want
         case["max_abs_err"] = max_abs
         rows.append(case)
@@ -998,6 +1251,8 @@ def check_and_time(torch, cases, do_time: bool, check: str,
             case["plain_ms"] = time_ms(case["plain"], torch)
             case["library_ms"] = (time_ms(case["library"], torch)
                                   if case["library"] else None)
+            if case.get("library_minus"):     # a backward: less its forward
+                case["library_ms"] -= time_ms(case["library_minus"], torch)
             b_ms, b_by = bound_ms(case["bytes"], case["ops"], case["kind"])
             case["bound_ms"], case["bound_by"] = b_ms, b_by
             lib = (f"{case['library_ms']:.4f}" if case["library_ms"]
@@ -1037,7 +1292,8 @@ def check_and_time(torch, cases, do_time: bool, check: str,
                     need(same, f"{case['name']}: the plans disagree")
     for case in rows:            # free the inputs the closures hold
         for key in ("kernel", "plain", "library", "scale", "check",
-                    "aside", "splits", "plans", "backend", "singles"):
+                    "aside", "splits", "plans", "backend", "singles",
+                    "check_vs", "library_minus"):
             case.pop(key, None)
     torch.cuda.empty_cache()
     return rows
@@ -1267,25 +1523,37 @@ def phase_train_width(torch, np) -> None:
     to fit the CPU side) on the card and on the CPU, same weights and
     batch."""
     from repro_torch import configs
+    t0 = time.perf_counter()
+    width_step_check(torch, configs.get("mamba2-1.3b").scaled(n_layers=2),
+                     256, "train width")                   # 2 chunks
+    say("train width", f"mamba2-1.3b full width, 2 of 48 layers (depth cut "
+                       f"to fit the CPU side), batch 1 x 256, "
+                       f"{time.perf_counter() - t0:.1f} s ok")
+
+
+def width_step_check(torch, base, seq: int, tag: str) -> None:
+    """One build_step_fn step of ``base`` at batch 1 x ``seq`` on the card
+    and on the CPU from the same weights and batch, in fp32 and bf16:
+    loss, grad norm, every leaf's gradient and the params after the
+    step, each held to its limit (below)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import Model
     from repro_torch.optim import (AdamWConfig, global_norm, init_opt_state,
                                    lr_schedule)
     from repro_torch.runtime import build_step_fn
 
-    t0 = time.perf_counter()
-    base = configs.get("mamba2-1.3b").scaled(n_layers=2)
     opt_cfg = AdamWConfig(warmup_steps=1, total_steps=10)
     lr1 = float(lr_schedule(opt_cfg, 1))
-    batch = SyntheticLM(base, 1, 256, seed=0).batch_at(0)   # 2 chunks
+    batch = SyntheticLM(base, 1, seq, seed=0).batch_at(0)
     # loss, grad norm and per-leaf gradients: about 10x the card-vs-CPU
-    # differences measured on an H100 (loss fp32 1e-7 relative, summation
-    # order; bf16 7.5e-6, and 1.9e-4 on the norm, the compute dtype's
-    # rounding through 2 layers); see PERF.md. The gradients are held
-    # leaf by leaf, by the worst leaf's relative L2 error, since the
-    # first AdamW step moves every element by about +-lr whatever its
-    # gradient. So the params after the step are only held to 2 lr plus
-    # rounding (bf16: one ulp, <= 2**-7 of the value), and to be finite.
+    # differences measured on an H100 on mamba2-1.3b (loss fp32 1e-7
+    # relative, summation order; bf16 7.5e-6, and 1.9e-4 on the norm,
+    # the compute dtype's rounding through 2 layers); see PERF.md. The
+    # gradients are held leaf by leaf, by the worst leaf's relative L2
+    # error, since the first AdamW step moves every element by about
+    # +-lr whatever its gradient. So the params after the step are only
+    # held to 2 lr plus rounding (bf16: one ulp, <= 2**-7 of the value),
+    # and to be finite.
     for dtype, loss_rtol, norm_rtol, grad_rtol, p_rtol in (
             ("float32", 1e-5, 1e-5, GRAD_RTOL["float32"], 1e-5),
             ("bfloat16", 1e-4, 2e-3, GRAD_RTOL["bfloat16"], 2.0 ** -7)):
@@ -1293,8 +1561,9 @@ def phase_train_width(torch, np) -> None:
         model = Model(cfg)
         p_cpu = model.init(0, device="cpu", trainable=True)
         p_gpu = copy.deepcopy(p_cpu).to(DEVICE)
-        out = []
+        out, side_s = [], {}
         for dev, params in ((DEVICE, p_gpu), ("cpu", p_cpu)):
+            t_side = time.perf_counter()
             b = {k: v.to(dev) for k, v in batch.items()}
             named = dict(params.named_parameters())
             loss, _ = model.loss(params, b)
@@ -1304,8 +1573,10 @@ def phase_train_width(torch, np) -> None:
             grads = {n: g.detach().float().cpu() for n, g in grads.items()}
             step_fn = build_step_fn(cfg, opt_cfg)
             _, state, _, _ = step_fn(params, init_opt_state(named), b)
+            del state
             out.append((float(loss.detach()), float(gnorm), grads,
                         {n: p.detach() for n, p in named.items()}))
+            side_s[dev] = time.perf_counter() - t_side
         (lg, ng, gg, pg), (lc, nc, gc, pc) = out
         g_err, g_leaf = 0.0, None
         for n, want in gc.items():
@@ -1324,19 +1595,37 @@ def phase_train_width(torch, np) -> None:
         ok_norm = math.isfinite(ng) and abs(ng - nc) <= norm_rtol * abs(nc)
         ok_grad = math.isfinite(g_err) and g_err <= grad_rtol
         verdict = "ok" if ok and ok_loss and ok_norm and ok_grad else "FAIL"
-        say("train width", f"{dtype}: loss card {lg:.6f} cpu {lc:.6f} "
-                           f"(rtol {loss_rtol:g}) | grad norm card {ng:.6f} "
-                           f"cpu {nc:.6f} (rtol {norm_rtol:g}) | grads worst "
-                           f"leaf rel L2 {g_err:.3e} at {g_leaf} (limit "
-                           f"{grad_rtol:g}) | params after one step "
-                           f"max_abs_err {worst:.3e} (2 lr {2 * lr1:.1e} + "
-                           f"{p_rtol:g} |p|) {verdict}")
+        say(tag, f"{dtype}: loss card {lg:.6f} cpu {lc:.6f} "
+                 f"(rtol {loss_rtol:g}) | grad norm card {ng:.6f} "
+                 f"cpu {nc:.6f} (rtol {norm_rtol:g}) | grads worst "
+                 f"leaf rel L2 {g_err:.3e} at {g_leaf} (limit "
+                 f"{grad_rtol:g}) | params after one step "
+                 f"max_abs_err {worst:.3e} (2 lr {2 * lr1:.1e} + "
+                 f"{p_rtol:g} |p|) | card side {side_s[DEVICE]:.1f} s, "
+                 f"CPU side {side_s['cpu']:.1f} s {verdict}")
         need(ok_loss and ok_norm and ok_grad and ok,
              f"{dtype} full-width training step disagrees card vs CPU")
         del p_cpu, p_gpu, out
+        gc_collect(torch)
+
+
+def gc_collect(torch) -> None:
+    gc.collect()
     torch.cuda.empty_cache()
-    say("train width", f"mamba2-1.3b full width, 2 of 48 layers (depth cut "
-                       f"to fit the CPU side), batch 1 x 256, "
+
+
+def phase_dense_width(torch, np) -> None:
+    """One build_step_fn step of full-width llama3-8b (2 of 32 layers,
+    batch 1 x DENSE_WIDTH_SEQ, to fit the CPU side) on the card (the
+    flash backward, the MLP backward on ntx_gemm and the activation
+    backward) and on the CPU (their plain versions), same weights and
+    batch."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    width_step_check(torch, configs.get("llama3-8b").scaled(n_layers=2),
+                     DENSE_WIDTH_SEQ, "dense width")
+    say("dense width", f"llama3-8b full width, 2 of 32 layers (depth cut to "
+                       f"fit the CPU side), batch 1 x {DENSE_WIDTH_SEQ}, "
                        f"{time.perf_counter() - t0:.1f} s ok")
 
 
@@ -1536,6 +1825,146 @@ def phase_train(torch, np) -> dict:
     # fused update's run for AdamW, never the profiled step or the
     # forward and backward that fed the fused update
     return dict(train_counts, adamw=n_fused)
+
+
+#: the dense training step's kernels by source file, for kernel_split
+DENSE_GROUPS = {
+    "flash_attention_bwd.cu": ("bwd_dkdv_", "bwd_dq_", "flash_bwd_delta"),
+    "flash_attention.cu": ("flash_tc", "flash_f32", "flash_merge"),
+    "ntx_gemm.cu": KERNEL_GROUPS["ntx_gemm.cu"],
+    "ntx_act_bwd.cu": ("act_bwd",),
+    "cuBLAS": CUBLAS_KEYS}
+
+
+def profile_dense_step(torch, cfg, step_fn, params, opt, batch, wall_s):
+    """One more dense training step under torch.profiler: device time by
+    kernel family. The ctypes launches are not attributed to the
+    profiler's ranges, so ntx_gemm.cu is split into forward and backward
+    by a second profile of one forward (``Model.loss`` under no_grad):
+    the step runs the forward twice (remat), the rest is the MLP
+    backward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import Model
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as fp:
+        Model(cfg).loss(params, batch)
+        torch.cuda.synchronize()
+    fwd = kernel_split(fp.key_averages(), DENSE_GROUPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ranges = ("train_step.grads", "train_step.optimizer", "fused_mlp_bwd")
+    evs = prof.key_averages()
+    span = {e.key: e.device_time_total / 1e3 for e in evs
+            if e.key in ranges and e.device_type == DeviceType.CPU}
+    split = kernel_split(evs, DENSE_GROUPS, skip=ranges)
+    if split is None:
+        say("dense train", "profiler saw no device time: breakdown not "
+                           "measured")
+        return params, opt
+    busy, by_group, top = split
+    gemm_ms, gemm_n = by_group["ntx_gemm.cu"]
+    if fwd is None:
+        bwd = "forward / backward split not measured"
+    else:
+        f_ms, f_n = (2 * x for x in fwd[1]["ntx_gemm.cu"])
+        bwd = (f"forward and its recompute {f_ms:.1f} ms x{f_n}, MLP "
+               f"backward {gemm_ms - f_ms:.1f} ms x{gemm_n - f_n}")
+    say("dense train", f"profiled step: wall {wall_ms:.1f} ms (profiler on; "
+                       f"{wall_s * 1e3:.1f} ms off) | device busy {busy:.1f} "
+                       f"ms ({busy / wall_ms:.3f} of wall) | ranges (device "
+                       f"ms of their PyTorch ops; the kernels' ctypes "
+                       f"launches are not attributed) "
+                       f"{ {k: round(v, 1) for k, v in span.items()} } | "
+                       f"card {card_line()}")
+    say("dense train", "kernels by family (device ms, launches): " + " | "
+        .join(f"{k} {v[0]:.1f} x{v[1]}" for k, v in by_group.items())
+        + f" | ntx_gemm.cu: {bwd}")
+    for e in top:
+        say("dense train", f"  {e.self_device_time_total / 1e3:9.2f} ms "
+                           f"x{e.count:5d}  {e.key[:110]}")
+    return params, opt
+
+
+def phase_dense_train(torch, np) -> dict:
+    """build_step_fn on llama3-8b at full width (d_model 4096, 32 / 8
+    heads of 128, d_ff 14336, vocab 128256, bf16, remat="full") cut to
+    DENSE_LAYERS of 32 layers: DENSE_STEPS steps at batch DENSE_BATCH x
+    DENSE_SEQ (the step the Trainer runs; phase 7 covers its
+    checkpoints). Step time, tokens/s, peak memory, the model-FLOP share,
+    the kernel launches of those steps; one more step profiled."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import build_step_fn
+
+    full = configs.get("llama3-8b")
+    cfg = full.scaled(n_layers=DENSE_LAYERS)
+    say("dense train", f"cut: layers {DENSE_LAYERS} of {full.n_layers} (~16 "
+                       f"bytes a parameter: the {full.n_layers}-layer model "
+                       f"needs ~128 GB)")
+    say("dense train", f"cut: batch {DENSE_BATCH} x {DENSE_SEQ} tokens, "
+                       f"{DENSE_STEPS} steps")
+    card = card_line()
+    opt_cfg = AdamWConfig(warmup_steps=max(10, DENSE_STEPS // 10),
+                          total_steps=DENSE_STEPS)
+    params = Model(cfg).init(0, device=DEVICE, trainable=True)
+    opt = init_opt_state(dict(params.named_parameters()))
+    n_params = sum(p.numel() for p in params.parameters())
+    step_fn = build_step_fn(cfg, opt_cfg)
+    data = SyntheticLM(cfg, DENSE_BATCH, DENSE_SEQ, seed=0)
+    batches = [{k: v.to(DEVICE) for k, v in data.batch_at(i).items()}
+               for i in range(DENSE_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    ops.reset_launches()
+    for step in range(DENSE_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss, _ = step_fn(params, opt, batches[step])
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    need(all(math.isfinite(x) for x in losses),
+         f"dense training losses not all finite: {losses}")
+    steady = times[1:]
+    step_s = sum(steady) / len(steady)
+    tokens = DENSE_BATCH * DENSE_SEQ
+    share = 6.0 * n_params * tokens / step_s / PEAK_OPS["bf16"]
+    say("dense train", f"llama3-8b {cfg.n_layers} layers, {n_params / 1e9:.3f} "
+                       f"B params bf16, batch {DENSE_BATCH} x seq "
+                       f"{DENSE_SEQ}: losses {[round(x, 4) for x in losses]} "
+                       f"| card {card}")
+    say("dense train", f"step times {[round(t * 1e3, 1) for t in times]} ms | "
+                       f"step after step 1 {step_s * 1e3:.1f} ms | "
+                       f"{tokens / step_s:.0f} tokens/s | 6 N tokens / step "
+                       f"time = {share:.4f} of the 989 TFLOP/s bf16 peak "
+                       f"(observation) | peak memory {peak / 1e9:.2f} GB | "
+                       f"card {card}")
+    per = {k: counts[k] / DENSE_STEPS for k in ("attention", "attention_bwd",
+                                                "act_bwd", "gemm")}
+    say("dense train", f"kernel launches in {DENSE_STEPS} steps {counts} | "
+                       f"per step {per}")
+    L = cfg.n_layers * DENSE_STEPS
+    want = {"attention": 2 * L, "attention_bwd": L, "act_bwd": L,
+            "gemm": 14 * L, "attention_merge": 0}
+    need(all(counts[k] == v for k, v in want.items()),
+         f"dense launches {counts}, expected {want} (forward and recompute "
+         f"per layer; one backward; 3 + 3 + 8 GEMMs)")
+    params, opt = profile_dense_step(torch, cfg, step_fn, params, opt,
+                                     batches[DENSE_STEPS], step_s)
+    del params, opt, batches
+    gc_collect(torch)
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -2059,7 +2488,7 @@ def phase_policies(torch, np) -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", default="",
                     help="comma-separated case-name prefixes: check and time "
@@ -2089,6 +2518,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
         _build.library()
@@ -2129,11 +2559,17 @@ def main(argv=None) -> int:
         if 9 in phases:
             counts["policies"], lane_rows, _ = phase_policies(torch, np)
             rows += lane_rows
+        if 10 in phases:
+            phase_dense_width(torch, np)
+        if 11 in phases:
+            counts["dense"] = phase_dense_train(torch, np)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    say("done", f"phases {sorted(phases)} passed in "
+                f"{time.perf_counter() - t_start:.1f} s, the build included")
 
-    if {3, 5, 7, 8, 9} <= phases:
+    if {3, 5, 7, 8, 9, 11} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

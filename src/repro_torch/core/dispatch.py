@@ -6,9 +6,9 @@ row reductions) and dispatches to the ``repro_torch.kernels.ops`` entry
 point (the CUDA kernel for a CUDA memory image, the plain version for a
 CPU one). A loop nest with no kernel equivalent runs on the functional
 engine on the image's own device: the numpy engine for a CPU image,
-:func:`engine.execute_torch` for a CUDA one (which covers only
-descriptors with ``store_level == init_level``; the rest raise there).
-Every such fallback is counted in :data:`engine_fallbacks`.
+:func:`engine.execute_torch` for a CUDA one (prefix-store nests too, as
+running reductions). Every such fallback is counted in
+:data:`engine_fallbacks`.
 
 Unlike the reference's functional ``dispatch``, the port writes the
 command's stores into ``mem`` in place and returns it: the executor
@@ -79,8 +79,13 @@ def _match_gemv(desc: Descriptor) -> Optional[tuple]:
 
 
 def _matches_reduce(desc: Descriptor) -> bool:
+    """One reduction over a contiguous row, stored once. Unlike the
+    reference's pattern (which also takes store_level 0), a 1-D
+    prefix-store reduction is not one: the reduce kernel would store only
+    its last value (ROADMAP queue 3, record 5)."""
     return (desc.opcode in _RED_OPS and len(desc.bounds) == 1
-            and desc.init_level == 1 and desc.agu0.strides[0] == 1)
+            and desc.init_level == 1 and desc.store_level == 1
+            and desc.agu0.strides[0] == 1)
 
 
 def lane_gemm(A: torch.Tensor, B: torch.Tensor, epilogue=None):
@@ -101,13 +106,8 @@ def _engine(desc: Descriptor, mem: torch.Tensor) -> None:
     if mem.device.type == "cpu":
         out = torch.from_numpy(engine.execute_vectorized(
             desc, mem.detach().numpy()))
-    elif desc.store_level == desc.init_level:
-        out = engine.execute_torch(desc, mem)
     else:
-        raise NotImplementedError(
-            f"{desc.opcode.name} nest with store_level {desc.store_level} < "
-            f"init_level {desc.init_level} matches no kernel and has no "
-            f"on-device engine path; run it on a CPU memory image")
+        out = engine.execute_torch(desc, mem)
     engine_fallbacks += 1
     mem.copy_(out)
 
@@ -171,7 +171,8 @@ def traceable_descriptor(desc: Descriptor) -> bool:
     init_level) — the reference's rule for stacked multi-cluster
     execution (``vmap``/``shard_map``), which the port keeps so that
     ``plan_mode`` picks the reference's mode. Prefix-store nests
-    (store_level < init_level) are not, and run ``interleave``."""
+    (store_level < init_level) are not, and run ``interleave`` (on a CUDA
+    image through ``engine.execute_torch``'s running reductions)."""
     return (desc.num_iters == 0
             or _match_gemm(desc) is not None
             or _match_gemv(desc) is not None

@@ -10,7 +10,9 @@ Three execution paths, from most-faithful to fastest:
   guaranteed (different summation order); used where tolerance-based
   comparison is appropriate.
 * :func:`execute_torch` — the same plan as torch index tensors on any
-  device (the counterpart of the reference's ``execute_jax``).
+  device (the counterpart of the reference's ``execute_jax``), which
+  also runs prefix-store nests (``store_level < init_level``) as running
+  reductions in the engine's order.
 
 Memory is modelled as a flat 1-D array (the TCDM). All addresses are element
 indices.
@@ -266,16 +268,70 @@ def _shift_agu(desc: Descriptor, n: int):
     return Agu(desc.agu2.base, tuple(desc.agu2.strides[lv:]) + (0,) * lv)
 
 
-def execute_torch(desc: Descriptor, mem: torch.Tensor) -> torch.Tensor:
-    """Gather/reduce plan on a torch memory image (store_level ==
-    init_level only): the AGU addresses become index tensors on the
-    image's device. Returns a new image; ``mem`` is not modified.
+def _running(op: Opcode, rd0: torch.Tensor, rd1, inner: int):
+    """The accumulator after every iteration of a nest whose reduction
+    spans the last ``inner`` elements of each row of the flattened grid
+    (the levels below ``init_level``, level 0 fastest, as the engine
+    walks them): running sums for MAC/SUM (in fp64, as the oracle's wide
+    accumulator; rounded once at the store), running MIN/MAX, and for the
+    arg ops the running index with ties first-wins (rule 3). Returns
+    ``(values (rows, inner), int)`` with the value or index stored at
+    each iteration."""
+    rows = rd0.numel() // max(inner, 1)
+    x = rd0.reshape(rows, inner)
+    if op is Opcode.MAC:
+        return torch.cumsum(x.double() * rd1.reshape(rows, inner).double(),
+                            -1).float()
+    if op is Opcode.VSUM:
+        return torch.cumsum(x.double(), -1).float()
+    # MIN/MAX: the oracle updates on a strict improvement only, so a NaN
+    # never wins and the first of equal values stays; with NaN as the
+    # accumulator's identity the running best of ``x`` is the oracle's
+    lo = op in (Opcode.MIN, Opcode.ARGMIN)
+    x = torch.where(torch.isnan(x), torch.full_like(x, ACC_INIT[op]), x)
+    best = (torch.cummin if lo else torch.cummax)(x, -1).values
+    better = torch.ones_like(x, dtype=torch.bool)
+    better[:, 1:] = best[:, 1:] < best[:, :-1] if lo else \
+        best[:, 1:] > best[:, :-1]
+    pos = torch.arange(inner, device=x.device).expand(rows, inner)
+    idx = torch.cummax(torch.where(better, pos, torch.zeros_like(pos)),
+                       -1).values
+    if op in INDEX_OPS:
+        return idx.float()
+    return torch.gather(x, -1, idx)
 
-    fp32 accumulate (torch's reduction order); validated against the
-    oracle with tolerances.
+
+def _store_prefix(desc: Descriptor, mem: torch.Tensor, val: torch.Tensor,
+                  read_addrs) -> None:
+    """Store the values of a prefix-store nest: one per iteration whose
+    levels below ``store_level`` are at their last trip, at AGU2's address
+    there, in the engine's order (a later store to an address wins)."""
+    s = desc.store_level
+    inner = int(np.prod(desc.bounds[:s], dtype=np.int64)) if s else 1
+    addr = _agu_addresses(desc, desc.agu2, np).reshape(-1, inner)[:, -1]
+    if np.intersect1d(addr, np.concatenate(read_addrs)).size:
+        raise NotImplementedError(
+            "a prefix-store nest that reads an address it stores: its "
+            "reads see earlier stores, which the gather plan does not "
+            "model; run it on a CPU memory image (engine.execute)")
+    _, first_rev = np.unique(addr[::-1], return_index=True)
+    keep = np.sort(addr.size - 1 - first_rev)
+    dev = mem.device
+    mem[torch.as_tensor(addr[keep], dtype=torch.long, device=dev)] = \
+        val.reshape(-1, inner)[:, -1][torch.as_tensor(keep, device=dev)]
+
+
+def execute_torch(desc: Descriptor, mem: torch.Tensor) -> torch.Tensor:
+    """Gather/reduce plan on a torch memory image: the AGU addresses
+    become index tensors on the image's device. Returns a new image;
+    ``mem`` is not modified.
+
+    ``store_level == init_level``: fp32 accumulate (torch's reduction
+    order); validated against the oracle with tolerances. A prefix-store
+    nest (``store_level < init_level``) stores running reductions: fp64
+    running sums (within the SUM tolerance of :func:`execute`) and
+    running MIN/MAX/arg values bit-equal to it (:func:`_running`).
     """
-    if desc.store_level != desc.init_level:
-        raise NotImplementedError("prefix-store descriptors: use execute()")
     n = len(desc.bounds)
     op = desc.opcode
     mem = torch.as_tensor(mem, dtype=torch.float32).clone()
@@ -283,15 +339,20 @@ def execute_torch(desc: Descriptor, mem: torch.Tensor) -> torch.Tensor:
         return mem
     dev = mem.device
     imm = float(np.float32(desc.imm))
+    reads = []
 
     def gather(agu):
-        idx = torch.as_tensor(_agu_addresses(desc, agu, np), dtype=torch.long,
-                              device=dev)
-        return mem[idx]
+        addrs = _agu_addresses(desc, agu, np)
+        reads.append(addrs.reshape(-1))
+        return mem[torch.as_tensor(addrs, dtype=torch.long, device=dev)]
 
     rd0 = gather(desc.agu0) if desc.reads_per_iter >= 1 else None
     rd1 = gather(desc.agu1) if desc.reads_per_iter >= 2 else None
     shape = tuple(desc.bounds[::-1])
+    if desc.store_level < desc.init_level:     # only reductions have one
+        inner = int(np.prod(desc.bounds[:desc.init_level], dtype=np.int64))
+        _store_prefix(desc, mem, _running(op, rd0, rd1, inner), reads)
+        return mem
     red_axes = tuple(range(n - desc.init_level, n)) if desc.init_level else ()
 
     def over(fn, t):            # torch reduces everything over dims ()

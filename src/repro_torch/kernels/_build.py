@@ -46,8 +46,14 @@ _SIGNATURES = {
     #  ws, stream)
     "ntx_gemm": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P, _P,
                  _P, _P, _P, _I, _I, _P, _P],
-    # (q, k, v, o, ws, params (strides, shapes, plan), scale, stream)
-    "ntx_flash_attention": [_P, _P, _P, _P, _P, _P, _F, _P],
+    # (q, k, v, o, ws, lse, params (strides, shapes, plan), scale, stream)
+    "ntx_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _F, _P],
+    # (q, k, v, o, dout, lse, delta, dq, dk, dv, params (strides, shapes,
+    #  plan), scale, stream)
+    "ntx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _F, _P],
+    # (dh, a1, gate, da1, dgate, h, n, act, out_bf16, stream)
+    "ntx_act_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     # (ws, o, o_strides, b, hq, sq, d, splits, bf16, stream)
     "ntx_flash_merge": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (x, ldx, out, ldo, rows, n, n_valid, n_stages, ops, imms, ys, ldys,

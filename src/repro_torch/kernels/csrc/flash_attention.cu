@@ -62,6 +62,11 @@
 //   a workspace the wrapper allocates; flash_merge then combines them in
 //   split order, applies the guard and rounds once. No float atomics: two
 //   calls give the same bits.
+// * lse (training): with an unsplit plan the kernel can also write each
+//   row's natural log-sum-exp of the scaled logits, m ln 2 + log(max(l,
+//   1e-30)) (m in base 2), as the reference's mha_blocked forward saves it
+//   for its backward (csrc/flash_attention_bwd.cu). Only when asked: the
+//   serving path passes no lse and its o is the same either way.
 // Left for later: a register-tiled fp32 route; wgmma with TMA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +85,7 @@ constexpr int kF32Keys = 32;    // keys per tile, fp32 route
 constexpr int kF32Rows = 16;    // rows per block, fp32 route
 constexpr int kPad = 8;         // bf16 elements of row padding
 constexpr float kMasked = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Everything a launch needs; strides are in elements (batch, head, seq).
 struct Args {
@@ -88,6 +94,7 @@ struct Args {
   const void* v;
   void* o;
   float* ws;
+  float* lse;                   // (b, hq, sq) or null
   long long qs[3], ks[3], vs[3], os[3];
   int b, hq, hkv, sq, skv, kv_len, causal;
   float scale2;                 // scale * log2(e)
@@ -162,13 +169,17 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 }
 
 // One finished row element: to o (one split: acc / l, the guard, one
-// rounding) or, with splits, to the workspace as fp32 (m, l, acc).
+// rounding, and the row's lse if asked) or, with splits, to the workspace
+// as fp32 (m, l, acc).
 template <typename T>
 __device__ __forceinline__ void put(const Args& a, int b, int h, int i, int c,
                                    int d, float m, float l, float acc) {
   if (a.splits == 1) {
     T* o = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1] + i * a.os[2];
     store(o + c, acc / (l == 0.0f ? 1.0f : l));
+    if (a.lse != nullptr && c == 0)
+      a.lse[((long long)b * a.hq + h) * a.sq + i] =
+          m * kLn2 + logf(fmaxf(l, 1e-30f));
     return;
   }
   const long long rows = (long long)a.b * a.hq * a.sq;
@@ -604,10 +615,12 @@ extern "C" {
 // else 3; fp32: 1), splits of each block's key tiles, and merge. hq % hkv
 // == 0, d in {64, 128}. With splits > 1, ws holds splits * b * hq * sq *
 // (d + 2) fp32 and merge = 1 adds the merge launch (merge = 0 leaves the
-// partials in ws and o untouched). Anything else is refused.
+// partials in ws and o untouched). lse (b * hq * sq fp32, unsplit plans
+// only) receives each row's log-sum-exp when not null. Anything else is
+// refused.
 int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
-                        float* ws, const long long* p, float scale,
-                        void* stream) {
+                        float* ws, float* lse, const long long* p,
+                        float scale, void* stream) {
   const long long* strides = p;
   const int b = (int)p[12], hq = (int)p[13], hkv = (int)p[14];
   const int sq = (int)p[15], skv = (int)p[16], d = (int)p[17];
@@ -628,7 +641,8 @@ int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
   const size_t smem = bf16 ? tc_smem(d, wr) : f32_smem(d);
   if (smem > (size_t)kMaxSmem || (!bf16 && smem > 48 * 1024))
     return (int)cudaErrorInvalidValue;
-  if (splits < 1 || splits > kMaxSplits || (splits > 1 && ws == nullptr))
+  if (splits < 1 || splits > kMaxSplits || (splits > 1 && ws == nullptr) ||
+      (splits > 1 && lse != nullptr))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return (int)cudaGetLastError();
   const int q_tiles = (sq + qn - 1) / qn;
@@ -641,6 +655,7 @@ int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
   a.v = v;
   a.o = o;
   a.ws = ws;
+  a.lse = lse;
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];
     a.ks[i] = strides[3 + i];

@@ -1,12 +1,17 @@
-"""Flash attention forward: the plain version, the planner and the
-launcher of ``csrc/flash_attention.cu``.
+"""Flash attention: the plain versions, the planners and the launchers of
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(backward).
 
 Counterpart of ``repro.kernels.flash_attention``: online-softmax
 attention as the NTX MAX+MAC streaming reduction, with GQA (``h // g``),
 a runtime ``kv_len`` and the causal query position ``kv_len - sq + i``.
 The CUDA kernel masks ragged sequence edges itself, so unlike the
 Pallas kernel it takes any sq and skv, and it reads q / k / v / o by
-strides (d contiguous), so views are not copied.
+strides (d contiguous), so views are not copied. For training the
+forward also writes each row's log-sum-exp, and the backward kernel
+computes dQ, dK and dV from it: the counterpart of the flash-style VJP
+of the reference's ``ref.mha_blocked`` (``ref.mha_blocked_bwd`` is its
+plain version).
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import functools
 import torch
 
 from . import _build
-from .ref import f32, mha
+from .ref import f32, mha, mha_blocked_bwd
 
 #: head dims the CUDA kernel is instantiated for
 HEAD_DIMS = (64, 128)
@@ -126,7 +131,8 @@ class FlashPlan:
 
 @functools.lru_cache(maxsize=4096)
 def flash_plan(b: int, hq: int, hkv: int, sq: int, skv: int, kv_len: int,
-               d: int, dtype, causal: bool = True) -> FlashPlan:
+               d: int, dtype, causal: bool = True,
+               lse: bool = False) -> FlashPlan:
     """The kernel's plan for q (b, hq, sq, d) against k/v (b, hkv, skv, d),
     a pure function of the shapes, ``kv_len`` and the dtype.
 
@@ -136,8 +142,9 @@ def flash_plan(b: int, hq: int, hkv: int, sq: int, skv: int, kv_len: int,
     block, a long prefill takes 128 queries of one head. bf16 row warps:
     the fewest 16-row warps that hold them. Splits: as many as fill
     ``SMS`` with one block each, with at least ``MIN_SPLIT_TILES`` key
-    tiles a split, at most ``MAX_SPLITS``. Raises for what the kernel
-    cannot run."""
+    tiles a split, at most ``MAX_SPLITS``; ``lse`` (training: the kernel
+    writes each row's log-sum-exp) never splits. Raises for what the
+    kernel cannot run."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -165,7 +172,7 @@ def flash_plan(b: int, hq: int, hkv: int, sq: int, skv: int, kv_len: int,
                      q_tiles=q_tiles, groups=b * hkv, splits=1, smem=smem,
                      workspace=0)
     base = plan.blocks
-    if not base:
+    if not base or lse:
         return plan
     nt = max(-(-plan.keys(t)[0] // bk) for t in range(q_tiles))
     splits = max(1, min(SMS // base, nt // MIN_SPLIT_TILES, MAX_SPLITS))
@@ -183,6 +190,28 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
     eff = k.shape[2] if kv_len is None else kv_len
     return mha(q, k, v, causal=causal, scale=scale,
                q_offset=eff - q.shape[2])
+
+
+def flash_lse_plain(q, k, *, causal: bool = True, scale=None,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """Plain version of the forward's ``lse`` output: each row's natural
+    log-sum-exp of the scaled logits, masked as the kernel masks them
+    (-1e30 for keys at or past ``kv_len`` and above the causal diagonal),
+    ``m + log(l)`` as the reference's ``mha_blocked`` forward computes
+    it. Returns (b, hq, sq) fp32."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kv_len = skv if kv_len is None else kv_len
+    scale = (d ** -0.5) if scale is None else scale
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * f32(scale)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    ok = kpos < kv_len
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (kv_len - sq)
+        ok = ok & (kpos <= qpos)
+    logits = torch.where(ok, logits, torch.full_like(logits, -1e30))
+    return torch.logsumexp(logits, -1).reshape(b, hq, sq)
 
 
 def flash_merge_plain(ws: torch.Tensor, splits: int, b: int, hq: int,
@@ -219,14 +248,16 @@ def _params(strides: tuple, b, hq, hkv, sq, skv, d, kv_len, causal,
 def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
                          kv_len: int | None = None,
                          plan: FlashPlan | None = None,
-                         partials: bool = False):
+                         partials: bool = False, lse: bool = False):
     """Launch ``csrc/flash_attention.cu``. q: (b, hq, sq, d); k/v:
     (b, hkv, skv, d), all fp32 or all bf16, d in ``HEAD_DIMS``, any
     strides with d contiguous (an operand whose d is strided is copied).
     ``plan`` defaults to :func:`flash_plan`; another plan is passed only
     to test that the kernel refuses it. ``partials`` (a split plan only):
     return the splits' workspace and the output, unmerged, to time the
-    merge on its own."""
+    merge on its own. ``lse`` (an unsplit plan): return ``(o, lse)``
+    with each row's fp32 log-sum-exp (b, hq, sq), as
+    :func:`flash_lse_plain`."""
     b, hq, sq, d = q.shape
     _, hkv, skv, dk = k.shape
     if k.shape != v.shape or dk != d or k.shape[0] != b or hq % hkv:
@@ -237,24 +268,31 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     kv_len = skv if kv_len is None else int(kv_len)
     p = plan or flash_plan(b, hq, hkv, sq, skv, kv_len, d, q.dtype,
-                           bool(causal))
+                           bool(causal), lse)
     if partials and p.splits == 1:
         raise ValueError("partials needs a plan with more than one split")
+    if lse and p.splits > 1:
+        raise ValueError("lse needs an unsplit plan")
     scale = (d ** -0.5) if scale is None else scale
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)
     ws = (torch.empty(p.workspace, dtype=torch.float32, device=q.device)
           if p.splits > 1 else None)
+    lse_t = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+             if lse else None)
     params = _params(_strides(q) + _strides(k) + _strides(v) + _strides(o),
                      b, hq, hkv, sq, skv, d, kv_len, bool(causal), p,
                      not partials)
     with _build.on_device(q):
         code = _build.library().ntx_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            ws.data_ptr() if ws is not None else None, params, f32(scale),
+            ws.data_ptr() if ws is not None else None,
+            lse_t.data_ptr() if lse else None, params, f32(scale),
             _build.stream_of(q))
     _build.check(code, "ntx_flash_attention")
-    return (ws, o) if partials else o
+    if partials:
+        return ws, o
+    return (o, lse_t) if lse else o
 
 
 def flash_merge_cuda(ws: torch.Tensor, o: torch.Tensor,
@@ -270,3 +308,127 @@ def flash_merge_cuda(ws: torch.Tensor, o: torch.Tensor,
             int(o.dtype == torch.bfloat16), _build.stream_of(o))
     _build.check(code, "ntx_flash_merge")
     return o
+
+
+# ----------------------------------------------------------------------
+# Backward: csrc/flash_attention_bwd.cu
+# ----------------------------------------------------------------------
+#: the backward's tiles (``kBwdKeys``, ``kBwdRows``; ``kF32BwdKeys``,
+#: ``kF32BwdRows`` in ``csrc/flash_attention_bwd.cu``) and its ring depth
+BWD_KEYS, BWD_ROWS, BWD_STAGES = 64, 64, 2
+F32_BWD_KEYS, F32_BWD_ROWS = 32, 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """How ``csrc/flash_attention_bwd.cu`` cuts one backward: the dK/dV
+    pass takes one block per (batch, kv head, tile of ``bk`` keys) over
+    query tiles of ``bq``; the dQ pass one block per (batch, q head, tile
+    of ``bq`` queries) over key tiles of ``bk``. ``smem_dkdv`` and
+    ``smem_dq`` are the two blocks' shared memory (bytes)."""
+
+    bf16: bool
+    bk: int
+    bq: int
+    dkdv_grid: tuple
+    dq_grid: tuple
+    smem_dkdv: int
+    smem_dq: int
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_bwd_plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
+                   dtype, causal: bool = True) -> FlashBwdPlan:
+    """The backward kernel's plan, a pure function of the shapes: bf16
+    takes 64-key and 64-query tiles on the tensor cores (K, V and a
+    double-buffered ring of Q and dO tiles; or Q, dO and a ring of K and
+    V tiles), fp32 32-key and 16-query tiles on FFMA. Raises for what the
+    kernel cannot run: a head dim outside ``HEAD_DIMS``, a dtype other
+    than fp32 or bf16, causal attention with more queries than keys."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash attention takes fp32 or bf16, not {dtype}")
+    if min(b, sq, skv) < 0 or hq <= 0 or hkv <= 0 or hq % hkv:
+        raise ValueError(f"flash attention shapes b {b} hq {hq} hkv {hkv} "
+                         f"sq {sq} skv {skv}")
+    if causal and sq > skv:
+        raise ValueError(f"the causal backward takes sq <= skv, got sq {sq} "
+                         f"skv {skv} (a query with no key)")
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        bk, bq, ld = BWD_KEYS, BWD_ROWS, 2 * (d + PAD)
+        smem_dkdv = 2 * bk * ld + BWD_STAGES * (2 * bq * ld + 8 * bq)
+        smem_dq = 2 * bq * ld + BWD_STAGES * 2 * bk * ld
+    else:
+        bk, bq, ld = F32_BWD_KEYS, F32_BWD_ROWS, 4 * (d + 1)
+        smem_dkdv = 2 * bk * ld + 2 * bq * ld + 8 * bk * (bq + 1) + 8 * bq
+        smem_dq = 2 * bq * ld + 2 * bk * ld + 4 * bq * (bk + 1) + 8 * bq
+    if max(smem_dkdv, smem_dq) > MAX_SMEM:
+        raise ValueError(f"flash backward: {max(smem_dkdv, smem_dq)} bytes "
+                         f"of shared memory")
+    return FlashBwdPlan(bf16=bf16, bk=bk, bq=bq,
+                        dkdv_grid=(b * hkv, -(-skv // bk)),
+                        dq_grid=(b * hq, -(-sq // bq)),
+                        smem_dkdv=smem_dkdv, smem_dq=smem_dq)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
+                              scale=None):
+    """Plain version of the backward kernel: the reference's flash-style
+    VJP (``ref.mha_blocked_bwd``) with query i at position skv - sq + i.
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    return mha_blocked_bwd(q, k, v, o, lse, dout, causal=causal,
+                           scale=scale, q_offset=k.shape[2] - q.shape[2])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with d contiguous and, for bf16, 16-byte rows the kernel's
+    cp.async can read (a copy only where it is not so)."""
+    if t.stride(-1) != 1 or (t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]))):
+        return t.contiguous()
+    return t
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
+                             scale=None, plan: FlashBwdPlan | None = None):
+    """Launch ``csrc/flash_attention_bwd.cu``: (dq, dk, dv) of attention
+    with output ``o`` and row log-sum-exp ``lse`` (b, hq, sq) fp32 (the
+    forward's, :func:`flash_attention_cuda` with ``lse=True``) for the
+    incoming gradient ``dout``. q, o, dout: (b, hq, sq, d); k, v: (b, hkv,
+    skv, d); all fp32 or all bf16, read by strides; the gradients take
+    their inputs' layouts. ``plan`` defaults to :func:`flash_bwd_plan`;
+    another is passed only to test that the kernel refuses it."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, dk_ = k.shape
+    if (k.shape != v.shape or dk_ != d or o.shape != q.shape
+            or dout.shape != q.shape or hq % hkv):
+        raise ValueError(f"flash backward shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} o "
+                         f"{tuple(o.shape)} dout {tuple(dout.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == o.dtype == dout.dtype):
+        raise ValueError("flash backward takes one dtype for q, k, v, o and "
+                         "dout")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 (b, hq, sq), got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    p = plan or flash_bwd_plan(b, hq, hkv, sq, skv, d, q.dtype,
+                               bool(causal))
+    scale = (d ** -0.5) if scale is None else scale
+    q, k, v, o, dout = (_aligned(t) for t in (q, k, v, o, dout))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    params = _build.ptr_array(ctypes.c_longlong, (
+        *(s for t in (q, k, v, o, dout, dq, dk, dv) for s in _strides(t)),
+        b, hq, hkv, sq, skv, d, int(causal), int(p.bf16), p.bk, p.bq,
+        p.smem_dkdv, p.smem_dq))
+    with _build.on_device(q):
+        code = _build.library().ntx_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), params, f32(scale),
+            _build.stream_of(q))
+    _build.check(code, "ntx_flash_attention_bwd")
+    return dq, dk, dv

@@ -6,7 +6,9 @@ RELU / THRESH / MASK / COPY / SET, one element out per element in, as a
 single command (``elementwise_pallas``) or a fused chain whose carried
 value never leaves registers (``elementwise_chain_pallas``). The same
 CUDA kernel, with a reduction tail, serves ``ntx_reduce``. The fused
-AdamW step (``adamw_pallas``) has its own kernel, ``csrc/ntx_adamw.cu``.
+AdamW step (``adamw_pallas``) has its own kernel, ``csrc/ntx_adamw.cu``,
+and so has the fused MLP's activation backward (``csrc/ntx_act_bwd.cu``,
+no TPU counterpart: the reference differentiates the epilogue with XLA).
 """
 from __future__ import annotations
 
@@ -355,3 +357,78 @@ def adamw_cuda(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
             _build.stream_of(p))
     _build.check(code, "ntx_adamw")
     return po, mo, vo
+
+
+# ----------------------------------------------------------------------
+# The fused MLP's activation backward: csrc/ntx_act_bwd.cu
+# ----------------------------------------------------------------------
+#: activations as ``csrc/ntx_act_bwd.cu`` numbers them
+ACT_BWD = {"swiglu": 0, "gelu": 1}
+#: sqrt(2 / pi), c and 3 c of the tanh GELU, as the kernel's fp32 literals
+_GELU_K0, _GELU_C, _GELU_C3 = f32(0.7978845608028654), f32(0.044715), \
+    f32(0.134145)
+
+
+def act_bwd_plain(act: str, dh: torch.Tensor, a1: torch.Tensor,
+                  gate: torch.Tensor | None, out_dtype=torch.float32):
+    """Plain version of the activation backward: ``(da1, dgate, h)`` in
+    ``out_dtype`` from fp32 ``dh``, ``a1`` and (SwiGLU) ``gate``; GELU is
+    the tanh form and has no gate (``dgate`` None). Each fp32 operation is
+    one rounding, in the kernel's order, so the two are bit-equal on the
+    card; ``h`` is the forward's hidden (the SwiGLU ``h`` has the bits of
+    the GEMM epilogue's)."""
+    if act not in ACT_BWD:
+        raise ValueError(f"activation {act!r}: the backward takes "
+                         f"{sorted(ACT_BWD)}")
+    a = a1.float()
+    dh = dh.float()
+    if act == "swiglu":
+        sig = torch.reciprocal(torch.exp(-a) + 1.0)
+        silu = a * sig
+        h = silu * gate.float()
+        dgate = dh * silu
+        dsilu = sig * ((a * (1.0 - sig)) + 1.0)
+        da1 = (dh * gate.float()) * dsilu
+        return da1.to(out_dtype), dgate.to(out_dtype), h.to(out_dtype)
+    x2 = a * a
+    t = torch.tanh((a + (x2 * a) * _GELU_C) * _GELU_K0)
+    onept = t + 1.0
+    half_a = a * 0.5
+    h = half_a * onept
+    sech2 = 1.0 - t * t
+    dinner = ((x2 * _GELU_C3) + 1.0) * _GELU_K0
+    dg = onept * 0.5 + (half_a * sech2) * dinner
+    return (dh * dg).to(out_dtype), None, h.to(out_dtype)
+
+
+def act_bwd_cuda(act: str, dh: torch.Tensor, a1: torch.Tensor,
+                 gate: torch.Tensor | None, out_dtype=torch.float32):
+    """Launch ``csrc/ntx_act_bwd.cu``: one pass over fp32 ``dh``, ``a1``
+    and (SwiGLU) ``gate`` of one shape (copied if not contiguous), writing
+    ``(da1, dgate, h)`` in ``out_dtype`` (fp32 or bf16; GELU: ``dgate``
+    None)."""
+    if act not in ACT_BWD:
+        raise ValueError(f"activation {act!r}: the backward takes "
+                         f"{sorted(ACT_BWD)}")
+    swiglu = act == "swiglu"
+    ins = (dh, a1, gate) if swiglu else (dh, a1)
+    if any(t.dtype != torch.float32 or t.shape != dh.shape for t in ins):
+        raise ValueError("the activation backward takes fp32 dh, a1 and "
+                         "gate of one shape")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the activation backward writes fp32 or bf16, not "
+                         f"{out_dtype}")
+    dh, a1 = dh.contiguous(), a1.contiguous()
+    gate = gate.contiguous() if swiglu else None
+    da1 = torch.empty(dh.shape, dtype=out_dtype, device=dh.device)
+    h = torch.empty_like(da1)
+    dgate = torch.empty_like(da1) if swiglu else None
+    with _build.on_device(dh):
+        code = _build.library().ntx_act_bwd(
+            dh.data_ptr(), a1.data_ptr(),
+            gate.data_ptr() if swiglu else None, da1.data_ptr(),
+            dgate.data_ptr() if swiglu else None, h.data_ptr(), dh.numel(),
+            ACT_BWD[act], int(out_dtype == torch.bfloat16),
+            _build.stream_of(dh))
+    _build.check(code, "ntx_act_bwd")
+    return da1, dgate, h

@@ -15,13 +15,18 @@ Each wrapper counts the kernel launches it makes in :data:`LAUNCHES`
 (only where it launches a kernel: the plain versions count nothing), so
 a run can show that it went through the kernels.
 
-Gradients: ``ssd`` is a ``torch.autograd.Function`` (its backward is
-PyTorch autograd of the masked chunked form). The other kernels have no
-backward yet (the reference has none for conv, the stencil pass or the
-compensated GEMM either), so their CUDA routes raise under autograd
-rather than return results that no gradient reaches (ROADMAP: GEMM and
-flash backward for dense training); their CPU routes are plain PyTorch
-and differentiate as such.
+Gradients: ``attention``, ``fused_mlp`` and ``ssd`` are
+``torch.autograd.Function``s on both devices. Attention's backward is the
+flash backward kernel (``csrc/flash_attention_bwd.cu``) from the
+forward's row log-sum-exp; the MLP's backward runs every product on the
+``ntx_gemm`` kernel and the activation's derivative on
+``csrc/ntx_act_bwd.cu``; the SSD's is PyTorch autograd of the masked
+chunked form. ``gemm`` called directly, the streaming commands, conv and
+the stencils have no backward (the reference has none for conv, the
+stencil pass or the compensated GEMM either, and no training path calls
+the others), so their CUDA routes raise under autograd rather than
+return results that no gradient reaches; their CPU routes are plain
+PyTorch and differentiate as such.
 """
 from __future__ import annotations
 
@@ -30,9 +35,12 @@ import functools
 import numpy as np
 import torch
 
-from .flash_attention import (flash_attention_cuda, flash_attention_plain,
-                              flash_plan)
-from .ntx_elementwise import (MAX_STAGES, _OPS2, adamw_cuda, adamw_plain,
+from .flash_attention import (flash_attention_bwd_cuda,
+                              flash_attention_bwd_plain,
+                              flash_attention_cuda, flash_attention_plain,
+                              flash_lse_plain, flash_plan)
+from .ntx_elementwise import (MAX_STAGES, _OPS2, act_bwd_cuda, act_bwd_plain,
+                              adamw_cuda, adamw_plain,
                               elementwise_chain_plain, elementwise_plain,
                               normalize_stages, stream_cuda)
 from .ntx_conv import check_shapes, conv2d_cuda, conv2d_plain
@@ -50,9 +58,14 @@ from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 #: not a kernel of this package yet); ``laplace`` counts the fused Laplace
 #: launches (one per ``laplace`` call of 1-3 dimensions), ``stencil`` the
 #: per-axis passes; ``attention_merge`` counts the split-kv merge launched
-#: after an ``attention`` call whose plan splits the keys
+#: after an ``attention`` call whose plan splits the keys;
+#: ``attention_bwd`` counts attention backward calls, each three kernels of
+#: ``csrc/flash_attention_bwd.cu`` (D, dK/dV, dQ); ``act_bwd`` the fused
+#: MLP's activation backward (the MLP backward's products count under
+#: ``gemm``)
 LAUNCHES = {"gemm": 0, "gemm_kahan": 0, "attention": 0,
-            "attention_merge": 0, "elementwise": 0,
+            "attention_merge": 0, "attention_bwd": 0, "act_bwd": 0,
+            "elementwise": 0,
             "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0,
             "ssd": 0, "ssd_bwd": 0, "adamw": 0, "conv2d": 0, "stencil": 0,
             "laplace": 0}
@@ -80,15 +93,23 @@ def _on_card(*tensors) -> bool:
                      f"tensors (plain versions) or CUDA tensors (kernels)")
 
 
+def _tracked(*tensors) -> bool:
+    """True where autograd records the call: grad mode on and an input
+    that requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _no_backward(name: str, *tensors) -> None:
     """Raise where a kernel without a backward would be launched on a
     tensor that autograd tracks: its gradient would silently be lost."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if _tracked(*tensors):
         raise NotImplementedError(
-            f"the {name} kernel has no backward yet (ROADMAP queue 1, GEMM "
-            f"and flash backward for dense training); run it under "
-            f"torch.no_grad() or on CPU tensors")
+            f"the {name} kernel has no backward when called directly (no "
+            f"training path does: dense training differentiates "
+            f"ops.fused_mlp and ops.attention, whose backward kernels run "
+            f"every product on the card; ROADMAP: ops.gemm's direct "
+            f"backward); run it under torch.no_grad() or on CPU tensors")
 
 
 # ----------------------------------------------------------------------
@@ -143,6 +164,73 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
 # ----------------------------------------------------------------------
 # Fused transformer MLP: activations/gate/residual as GEMM epilogues
 # ----------------------------------------------------------------------
+def _mlp(x2, w1, w2, w3, act, residual):
+    """The MLP's three products on (m, d) rows: the gate to fp32, w1 with
+    the activation (and the gate multiply) in its store, w2 with the
+    residual add in its store."""
+    dt = x2.dtype
+    if act == "swiglu":
+        gate = gemm(x2, w3, out_dtype=torch.float32)
+        h = gemm(x2, w1, out_dtype=dt, epilogue=[("silu",), ("mul", gate)])
+    else:
+        h = gemm(x2, w1, out_dtype=dt, epilogue=[("gelu",)])
+    ep = [] if residual is None else [("residual", residual)]
+    return gemm(h, w2, out_dtype=dt, epilogue=ep)
+
+
+def act_bwd(act: str, dh: torch.Tensor, a1: torch.Tensor,
+            gate: torch.Tensor | None, out_dtype=torch.float32):
+    """The MLP activation's backward in one pass: ``(da1, dgate, h)`` in
+    ``out_dtype`` from fp32 ``dh = dout @ w2^T``, ``a1 = x @ w1`` and
+    (SwiGLU) ``gate = x @ w3`` (GELU: tanh form, ``dgate`` None)."""
+    if not _on_card(dh, a1, gate):
+        return act_bwd_plain(act, dh, a1, gate, out_dtype)
+    LAUNCHES["act_bwd"] += 1
+    return act_bwd_cuda(act, dh, a1, gate, out_dtype)
+
+
+class _FusedMLP(torch.autograd.Function):
+    """Forward: the MLP's three ``ntx_gemm`` launches (their plain
+    versions on CPU tensors), with the bits of the untracked call; saves
+    x and the weights. Backward, every product on ``ntx_gemm``: a1 and
+    the gate recomputed in fp32, ``dh = dout w2^T`` (fp32), the
+    activation backward (``da1``, ``dgate`` and ``h`` rounded to the
+    compute dtype), ``dx = da1 w1^T + dgate w3^T`` (the second product
+    takes the first as its residual store), ``dw1 = x^T da1``, ``dw3 =
+    x^T dgate``, ``dw2 = h^T dout`` in fp32 (autograd rounds each once
+    to its weight's dtype), and ``dresidual = dout``. Transposed
+    operands are contiguous copies."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, w2, w3, residual, act):
+        ctx.act, ctx.residual = act, residual is not None
+        ctx.save_for_backward(x2, w1, w2, w3)
+        return _mlp(x2, w1, w2, w3, act, residual)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w1, w2, w3 = ctx.saved_tensors
+        swiglu = ctx.act == "swiglu"
+        with torch.profiler.record_function("fused_mlp_bwd"):
+            dout = dout.contiguous()
+            a1 = gemm(x, w1)
+            gate = gemm(x, w3) if swiglu else None
+            dh = gemm(dout, w2.t().contiguous())
+            da1, dgate, h = act_bwd(ctx.act, dh, a1, gate, x.dtype)
+            del a1, gate, dh
+            if swiglu:
+                dx = gemm(dgate, w3.t().contiguous(), out_dtype=x.dtype,
+                          epilogue=[("residual",
+                                     gemm(da1, w1.t().contiguous()))])
+            else:
+                dx = gemm(da1, w1.t().contiguous(), out_dtype=x.dtype)
+            xt = x.t().contiguous()
+            dw1 = gemm(xt, da1)
+            dw3 = gemm(xt, dgate) if swiglu else None
+            dw2 = gemm(h.t().contiguous(), dout)
+        return (dx, dw1, dw2, dw3, dout if ctx.residual else None, None)
+
+
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
               w3: torch.Tensor | None = None, act: str = "gelu",
               residual: torch.Tensor | None = None) -> torch.Tensor:
@@ -151,19 +239,17 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     The activation, the SwiGLU gate multiply and the residual add run in
     the GEMM store steps (fused epilogues), as on the reference's Pallas
     backends: the gate is kept in fp32, the hidden activation is rounded
-    once to x's dtype."""
-    dt = x.dtype
+    once to x's dtype. Under autograd the call is :class:`_FusedMLP`,
+    whose backward runs on the same kernels."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if act == "swiglu":
-        gate = gemm(x2, w3, out_dtype=torch.float32)
-        h = gemm(x2, w1, out_dtype=dt, epilogue=[("silu",), ("mul", gate)])
+    res = None if residual is None else residual.reshape(-1, w2.shape[-1])
+    if act == "swiglu" and w3 is None:
+        raise ValueError("swiglu needs w3")
+    if _tracked(x2, w1, w2, w3, res):
+        out = _FusedMLP.apply(x2, w1, w2, w3, res, act)
     else:
-        h = gemm(x2, w1, out_dtype=dt, epilogue=[("gelu",)])
-    ep = []
-    if residual is not None:
-        ep.append(("residual", residual.reshape(-1, w2.shape[-1])))
-    out = gemm(h, w2, out_dtype=dt, epilogue=ep)
+        out = _mlp(x2, w1, w2, w3, act, res)
     return out.reshape(*lead, w2.shape[-1])
 
 
@@ -388,15 +474,63 @@ def laplace(x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # Attention
 # ----------------------------------------------------------------------
+class _Attention(torch.autograd.Function):
+    """Attention under autograd, at the training shapes (keys = the whole
+    array, no split). Forward: the flash kernel with each row's
+    log-sum-exp (CPU tensors: the plain attention and
+    :func:`flash_lse_plain`); saves q, k, v, o and lse. Backward: the
+    flash backward kernel (CPU tensors: ``ref.mha_blocked_bwd``, the
+    reference's flash-style VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.causal, ctx.scale = causal, scale
+        if _on_card(q, k, v):
+            b, hq, sq, d = q.shape
+            hkv, skv = k.shape[1], k.shape[2]
+            plan = flash_plan(b, hq, hkv, sq, skv, skv, d, q.dtype, causal,
+                              lse=True)
+            LAUNCHES["attention"] += 1
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                          scale=scale, plan=plan, lse=True)
+        else:
+            o = flash_attention_plain(q, k, v, causal=causal, scale=scale)
+            lse = flash_lse_plain(q, k, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        kw = dict(causal=ctx.causal, scale=ctx.scale)
+        if not _on_card(q, k, v, do):
+            return (*flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                    None, None)
+        LAUNCHES["attention_bwd"] += 1
+        return (*flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw),
+                None, None)
+
+
 def attention(q, k, v, *, causal: bool = True, scale=None,
               kv_len: int | None = None) -> torch.Tensor:
-    """q: (b, hq, sq, d); k/v: (b, hkv, skv, d)."""
+    """q: (b, hq, sq, d); k/v: (b, hkv, skv, d). Under autograd the call
+    is :class:`_Attention` and takes the training shapes: ``kv_len`` None
+    (or skv) and, if causal, sq <= skv; anything else raises."""
+    if _tracked(q, k, v):
+        skv = k.shape[2]
+        if (kv_len is not None and kv_len != skv) or (
+                causal and q.shape[2] > skv):
+            raise NotImplementedError(
+                f"attention under autograd takes the training shapes (keys "
+                f"= the whole array, sq <= skv if causal), got sq "
+                f"{q.shape[2]} skv {skv} kv_len {kv_len}; run decode under "
+                f"torch.no_grad()")
+        return _Attention.apply(q, k, v, bool(causal), scale)
     if not _on_card(q, k, v):
         # the reference's ref branch; its mha_blocked switch for long
         # sequences computes the same forward as mha
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      kv_len=kv_len)
-    _no_backward("flash attention", q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     plan = flash_plan(b, hq, hkv, sq, skv, skv if kv_len is None else

@@ -1,9 +1,10 @@
 """Plain PyTorch oracles for the kernels this package ports.
 
-The counterpart of ``repro.kernels.ref`` for the ported kernels: GEMM,
-the streaming command set, the row reductions, the paper's convolution
-and star stencils, reference attention, the Mamba-2 SSD scan (sequential
-and chunked) and AdamW.
+The counterpart of ``repro.kernels.ref``: GEMM and AXPY, the streaming
+command set, the row reductions, the paper's convolution and star
+stencils, reference attention and the blocked online-softmax attention
+with its flash-style backward, the Mamba-2 SSD scan (sequential and
+chunked) and AdamW.
 Same math, no tiling; the CPU path of every ``ops`` wrapper and the
 yardstick each CUDA kernel is compared with on the card.
 """
@@ -30,6 +31,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     bf16 inputs widen exactly to fp32, so this is the same product the
     reference takes with ``preferred_element_type=float32``."""
     return (a.float() @ b.float()).to(out_dtype)
+
+
+def axpy(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``a * x + y`` as the reference writes it (no pinned rounding: the
+    streaming command's AXPY is ``elementwise("axpy", ...)``)."""
+    return a * x + y
 
 
 def _rounded(v: torch.Tensor) -> torch.Tensor:
@@ -180,6 +187,124 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+def _blocked(t: torch.Tensor, block_k: int) -> torch.Tensor:
+    """(b, hkv, skv, d) as (nk, b, hkv, block_k, d) fp32 key blocks, the
+    last one padded with zeros (its padded keys are masked)."""
+    b, hkv, skv, d = t.shape
+    nk = -(-skv // block_k)
+    t = torch.nn.functional.pad(t.float(), (0, 0, 0, nk * block_k - skv))
+    return t.reshape(b, hkv, nk, block_k, d).permute(2, 0, 1, 3, 4)
+
+
+def _block_logits(qg, kc, ik, block_k, skv, causal, qpos, scale=None):
+    """The logits of one key block (times ``scale`` if given), masked as
+    the reference masks them (-1e30 above the causal diagonal); keys past
+    the array (the ragged last block) are -inf, so they weigh 0."""
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kc)
+    if scale is not None:
+        logits = logits * scale
+    kpos = ik * block_k + torch.arange(block_k, device=qg.device)
+    if causal:
+        logits = torch.where(kpos[None, :] <= qpos[:, None], logits,
+                             torch.full_like(logits, -1e30))
+    return torch.where(kpos < skv, logits, torch.full_like(logits,
+                                                          -float("inf")))
+
+
+def mha_blocked_fwd(q, k, v, causal: bool = True, scale=None,
+                    q_offset: int = 0, block_k: int = 512):
+    """The forward of ``repro.kernels.ref.mha_blocked`` (its
+    ``_mha_blocked_fwd``): a loop over key blocks carrying the running
+    (max, sum, acc) in fp32. Any skv (a ragged last block is masked).
+    Returns ``(out (b, hq, sq, dv) in q.dtype, lse (b, hq, sq) fp32)``,
+    ``lse = m + log(max(l, 1e-30))`` of the scaled logits."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g, dv = hq // hkv, v.shape[-1]
+    scale = (d ** -0.5) if scale is None else scale
+    qg = q.reshape(b, hkv, g, sq, d).float() * f32(scale)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    m = torch.full((b, hkv, g, sq, 1), -1e30, device=q.device)
+    l = torch.zeros((b, hkv, g, sq, 1), device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dv), device=q.device)
+    for ik, (kc, vc) in enumerate(zip(_blocked(k, block_k),
+                                      _blocked(v, block_k))):
+        logits = _block_logits(qg, kc, ik, block_k, skv, causal, qpos)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1, keepdim=True)
+        acc = corr * acc + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
+        m = m_new
+    out = (acc / torch.where(l == 0.0, torch.ones_like(l), l))
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
+    return (out.reshape(b, hq, sq, dv).to(q.dtype),
+            lse.reshape(b, hq, sq))
+
+
+def mha_blocked_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                    scale=None, q_offset: int = 0, block_k: int = 512):
+    """The flash-style backward of ``repro.kernels.ref.mha_blocked`` (its
+    ``_mha_blocked_bwd``): per key block, ``p = exp(logits - lse)`` is
+    recomputed from the forward's ``lse``; ``D = rowsum(dO o O)``,
+    ``dS = p (dP - D) scale``. All in fp32; returns ``(dq, dk, dv)`` in
+    the inputs' dtypes. ``lse``: (b, hq, sq) fp32."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g, dv = hq // hkv, v.shape[-1]
+    scale = f32((d ** -0.5) if scale is None else scale)
+    qg = q.reshape(b, hkv, g, sq, d).float()
+    dog = dout.reshape(b, hkv, g, sq, dv).float()
+    D = (dog * out.reshape(b, hkv, g, sq, dv).float()).sum(-1, keepdim=True)
+    lse = lse.reshape(b, hkv, g, sq, 1).float()
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    dq = torch.zeros((b, hkv, g, sq, d), device=q.device)
+    dks, dvs = [], []
+    for ik, (kc, vc) in enumerate(zip(_blocked(k, block_k),
+                                      _blocked(v, block_k))):
+        logits = _block_logits(qg, kc, ik, block_k, skv, causal, qpos,
+                               scale)
+        p = torch.exp(logits - lse)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p, dog))
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vc)
+        ds = p * (dp - D) * scale
+        dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, kc)
+        dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, qg))
+    dk = torch.cat(dks, 2)[:, :, :skv] if dks else torch.zeros_like(
+        k, dtype=torch.float32)
+    dvv = torch.cat(dvs, 2)[:, :, :skv] if dvs else torch.zeros_like(
+        v, dtype=torch.float32)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
+
+
+class _MhaBlocked(torch.autograd.Function):
+    """``mha_blocked`` with the reference's custom VJP: the backward
+    recomputes ``p`` per key block from the saved ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, block_k):
+        out, lse = mha_blocked_fwd(q, k, v, causal, scale, q_offset,
+                                   block_k)
+        ctx.args = (causal, scale, q_offset, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*mha_blocked_bwd(q, k, v, out, lse, dout, *ctx.args),
+                None, None, None, None)
+
+
+def mha_blocked(q, k, v, causal: bool = True, scale=None, q_offset: int = 0,
+                block_k: int = 512) -> torch.Tensor:
+    """Online-softmax attention over key blocks with a flash-style
+    backward (``repro.kernels.ref.mha_blocked``). q: (b, hq, sq, d); k/v:
+    (b, hkv, skv, d); any skv."""
+    return _MhaBlocked.apply(q, k, v, causal, scale, q_offset, block_k)
 
 
 # ----------------------------------------------------------------------

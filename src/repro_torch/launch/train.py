@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.train --arch mamba2-1.3b --reduced \\
         --device cpu --steps 20
+    python -m repro_torch.launch.train --arch llama3-8b \\
+        --set n_layers=4 --global-batch 4 --seq 2048 --steps 5
 
 Wires the arch registry, the Trainer and checkpointing, with the
 reference launcher's flags. It trains on one device (``--device``, the
@@ -18,9 +20,10 @@ import tempfile
 def _parse(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mamba2-1.3b",
-                    help="the ssm family trains on the card; dense training "
-                         "on the card waits for GEMM and flash backward "
-                         "kernels (ROADMAP)")
+                    help="mamba2-1.3b or a dense GQA config (llama3-8b, "
+                         "yi-9b, phi3-medium-14b, granite-3-8b); a full "
+                         "dense config needs ~16 bytes a parameter, so cut "
+                         "its depth on one card (--set n_layers=4)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=100)

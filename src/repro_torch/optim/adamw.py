@@ -87,7 +87,10 @@ def clip_by_global_norm(grads: Named,
 def apply_updates(cfg: AdamWConfig, params: Named, grads: Named,
                   state: dict, use_fused: bool = False):
     """One AdamW step. Returns ``(new_params, new_state)``: new tensors
-    (params in their storage dtype), nothing updated in place."""
+    (params in their storage dtype), nothing updated in place. Gradients
+    may be in any float dtype; each is clipped (``clip_by_global_norm``'s
+    fp32 ``g * scale``) as its tensor is updated, so no second copy of
+    all the gradients is held."""
     step = int(state["step"]) + 1
     lr = lr_schedule(cfg, step)
     b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay
@@ -96,9 +99,10 @@ def apply_updates(cfg: AdamWConfig, params: Named, grads: Named,
     bc2 = 1.0 - torch.tensor(b2, dtype=_F32) ** stepf
     master, new_m, new_v = {}, {}, {}
     with torch.no_grad():
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp_min(
+            global_norm(grads), 1e-12), max=1.0)
         for n, pm in state["master"].items():
-            g, m, v = grads[n], state["m"][n], state["v"][n]
+            g, m, v = grads[n].float() * scale, state["m"][n], state["v"][n]
             if use_fused and pm.ndim == 2:
                 pm, m, v = ops.adamw_update(pm, g, m, v, step, lr=lr, b1=b1,
                                             b2=b2, eps=eps, wd=wd)

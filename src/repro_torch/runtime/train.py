@@ -14,8 +14,9 @@ the counterpart of ``repro.runtime.train``.
     its docstring), the step's returned params are kept all the same.
 
 The step is eager PyTorch: autograd through ``Model.loss`` (each layer
-recomputed in the backward, ``cfg.remat``), fp32 gradients, then
-``apply_updates``. With ``multistream_plan`` (the default, as in the
+recomputed in the backward, ``cfg.remat``; attention and the MLP are
+autograd Functions whose backward kernels run on the card), gradients
+widened to fp32 and clipped per tensor by ``apply_updates``. With ``multistream_plan`` (the default, as in the
 reference) the run also plans and prices the optimizer update as a
 multi-cluster descriptor program (:func:`plan_update_multistream`) into
 ``stats["multistream"]``; the plan launches nothing. The mesh (ROADMAP
@@ -78,8 +79,8 @@ def build_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig):
         plist = list(named.values())
         if accum == 1:
             loss, metrics = model.loss(params, batch)
-            grads = torch.autograd.grad(loss, plist)
-            grads = {n: g.float() for n, g in zip(named, grads)}
+            # in the params' dtype: apply_updates widens each as it goes
+            grads = dict(zip(named, torch.autograd.grad(loss, plist)))
             loss = loss.detach()
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:

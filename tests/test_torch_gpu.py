@@ -83,7 +83,8 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
 
 def test_dispatch_engine_fallback_stays_on_the_card(cuda):
     """A nest no kernel matches runs on the torch engine on the card and
-    agrees with the numpy engine; a prefix-store nest raises there."""
+    agrees with the numpy engine; so does a prefix-store nest (running
+    sums), against the cycle-faithful engine."""
     import importlib
     from repro_torch.core import descriptor as d
     from repro_torch.core import engine
@@ -99,9 +100,11 @@ def test_dispatch_engine_fallback_stays_on_the_card(cuda):
     running_dot = d.Descriptor(
         bounds=(5,), opcode=d.Opcode.MAC, init_level=1, store_level=0,
         agu0=d.Agu(0, (1,)), agu1=d.Agu(100, (1,)), agu2=d.Agu(1000, (1,)))
-    with pytest.raises(NotImplementedError):
-        dispatch.dispatch(running_dot, mem.to(cuda))
-    assert dispatch.engine_fallbacks == 1
+    got = dispatch.dispatch(running_dot, mem.to(cuda))
+    assert got.is_cuda and dispatch.engine_fallbacks == 2
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               engine.execute(running_dot, mem.numpy()),
+                               rtol=1e-5, atol=1e-5)
 
 
 def _ssd_inputs(dev, b, l, h, dh, n, dtype):
@@ -148,7 +151,8 @@ def test_adamw_kernel(cuda, p_dtype):
 
 def test_kernels_without_backward_raise_under_autograd(cuda):
     """A CUDA route without a backward refuses tensors that autograd
-    tracks, instead of returning a result no gradient reaches."""
+    tracks, instead of returning a result no gradient reaches; attention,
+    which has a backward kernel, gives the plain version's gradient."""
     a = _t((8, 64), cuda).requires_grad_()
     b = _t((64, 16), cuda)
     with pytest.raises(NotImplementedError, match="no backward"):
@@ -158,8 +162,13 @@ def test_kernels_without_backward_raise_under_autograd(cuda):
     with torch.no_grad():
         ops.gemm(a, b)
     q = _t((1, 2, 4, 64), cuda).requires_grad_()
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.attention(q, q.detach(), q.detach())
+    go = _t((1, 2, 4, 64), cuda)
+    got = torch.autograd.grad(ops.attention(q, q.detach(), q.detach()), q,
+                              go)[0]
+    qc = q.detach().cpu().requires_grad_()
+    want = torch.autograd.grad(ops.attention(qc, qc.detach(), qc.detach()),
+                               qc, go.cpu())[0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 def test_ssd_gradient_on_the_card(cuda):
@@ -1253,3 +1262,153 @@ def test_every_policy_on_the_card_bit_equal_to_serial(cuda):
         with pytest.raises(ValueError, match="shard_map"):
             core.Executor("multistream", device=cuda,
                           transport="shard_map").run(prog)
+
+
+# ----------------------------------------------------------------------
+# Dense training: the flash backward, the forward's lse, the activation
+# backward and the fused MLP's backward
+# ----------------------------------------------------------------------
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+#: chip_smoke's GRAD_RTOL: the worst relative L2 error of dQ / dK / dV
+_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,s,causal", [(32, 8, 256, True),
+                                             (32, 4, 256, True),
+                                             (8, 2, 1000, True),
+                                             (8, 8, 130, False)])
+def test_flash_backward_kernel(cuda, dtype, hq, hkv, s, causal):
+    """The backward kernel against its plain version (``ref.mha_blocked``'s
+    VJP) from the kernel forward's o and lse: GQA groups of 4 and 8, a
+    ragged length, non-causal; the last key tile (whose causal bound
+    admits only the last query tile) checked on its own."""
+    dt = getattr(torch, dtype)
+    q = _t((1, s, hq, 128), cuda, 0.5).to(dt).transpose(1, 2)
+    k = _t((1, s, hkv, 128), cuda, 0.5).to(dt).transpose(1, 2)
+    v = _t((1, s, hkv, 128), cuda).to(dt).transpose(1, 2)
+    plan = tfa.flash_plan(1, hq, hkv, s, s, s, 128, dt, causal, lse=True)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, plan=plan,
+                                      lse=True)
+    do = _t((1, hq, s, 128), cuda).to(dt)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        assert _rel_l2(g, w) < _GRAD_RTOL[dtype]
+    assert _rel_l2(got[1][:, :, -32:], want[1][:, :, -32:]) < \
+        _GRAD_RTOL[dtype]
+    assert float(got[1][:, :, -32:].float().abs().sum()) > 0
+
+
+def test_flash_backward_refuses_a_plan_it_did_not_make(cuda):
+    """The launcher recomputes the planner's tiles and shared memory and
+    refuses a plan that differs, as the forward does."""
+    import dataclasses
+    q = _t((1, 64, 8, 128), cuda).bfloat16().transpose(1, 2)
+    k = _t((1, 64, 2, 128), cuda).bfloat16().transpose(1, 2)
+    plan = tfa.flash_plan(1, 8, 2, 64, 64, 64, 128, torch.bfloat16, True,
+                          lse=True)
+    o, lse = tfa.flash_attention_cuda(q, k, k, plan=plan, lse=True)
+    good = tfa.flash_bwd_plan(1, 8, 2, 64, 64, 128, torch.bfloat16)
+    for bad in ({"bk": 32}, {"smem_dq": good.smem_dq + 16}):
+        with pytest.raises(RuntimeError, match="ntx_flash_attention_bwd"):
+            tfa.flash_attention_bwd_cuda(q, k, k, o, lse, q.detach(),
+                                         plan=dataclasses.replace(good, **bad))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_lse(cuda, dtype):
+    """The forward's lse output against ``flash_lse_plain``; the output o
+    keeps the bits of the call without lse."""
+    dt = getattr(torch, dtype)
+    q = _t((2, 100, 8, 128), cuda, 0.5).to(dt).transpose(1, 2)
+    k, v = (_t((2, 100, 2, 128), cuda, 0.5).to(dt).transpose(1, 2)
+            for _ in range(2))
+    plan = tfa.flash_plan(2, 8, 2, 100, 100, 100, 128, dt, True, lse=True)
+    o, lse = tfa.flash_attention_cuda(q, k, v, plan=plan, lse=True)
+    torch.testing.assert_close(lse, tfa.flash_lse_plain(q, k), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(o, tfa.flash_attention_cuda(q, k, v, plan=plan))
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(333, 1001), (64, 2048)])
+def test_act_bwd_kernel_bit_equal(cuda, act, dtype, shape):
+    """The activation backward kernel bit-equal to its plain version on
+    the card (every operation rounded on its own), on a ragged length
+    (scalar loop) and a 16-byte one."""
+    dt = getattr(torch, dtype)
+    dh, gate = _t(shape, cuda), _t(shape, cuda)
+    a1 = _t(shape, cuda, 3.0)
+    g = gate if act == "swiglu" else None
+    got = tew.act_bwd_cuda(act, dh, a1, g, dt)
+    want = tew.act_bwd_plain(act, dh, a1, g, dt)
+    for x, y in zip(got, want):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert x.dtype == dt and torch.equal(x, y)
+
+
+def test_act_bwd_h_is_the_forward_hidden(cuda):
+    """The SwiGLU hidden h that the activation backward writes (for dw2)
+    has the bits of the forward's w1 GEMM with its silu * gate store
+    epilogue, from the same fp32 a1 and gate (the same operations)."""
+    x = _t((96, 512), cuda).bfloat16()
+    w1, w3 = (_t((512, 1536), cuda, 512 ** -0.5).bfloat16() for _ in range(2))
+    gate = ops.gemm(x, w3)
+    h = ops.gemm(x, w1, out_dtype=torch.bfloat16,
+                 epilogue=[("silu",), ("mul", gate)])
+    a1 = ops.gemm(x, w1)
+    _, _, h2 = ops.act_bwd("swiglu", torch.zeros_like(a1), a1, gate,
+                           torch.bfloat16)
+    assert torch.equal(h, h2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_mlp_backward_on_the_card(cuda, dtype):
+    """``ops.fused_mlp`` under autograd on the card (the ``_FusedMLP``
+    backward: 8 ntx_gemm launches and one activation backward) against the
+    same Function's plain backward on the CPU: fp32 1e-4, bf16 GRAD_RTOL
+    by relative L2."""
+    dt = getattr(torch, dtype)
+    d, f, m = 256, 768, 96
+    ins = [_t((m, d), cuda).to(dt), _t((d, f), cuda, d ** -0.5).to(dt),
+           _t((f, d), cuda, f ** -0.5).to(dt),
+           _t((d, f), cuda, d ** -0.5).to(dt), _t((m, d), cuda).to(dt)]
+    go = _t((m, d), cuda).to(dt)
+    outs = []
+    for dev in (cuda, "cpu"):
+        xs = [t.to(dev).requires_grad_() for t in ins]
+        ops.reset_launches()
+        out = ops.fused_mlp(*xs[:4], act="swiglu", residual=xs[4])
+        grads = torch.autograd.grad(out, xs, go.to(dev))
+        outs.append((ops.launches(), [g.cpu() for g in grads]))
+    (counts, got), (_, want) = outs
+    assert counts["gemm"] == 3 + 8 and counts["act_bwd"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            assert _rel_l2(g, w) < _GRAD_RTOL[dtype]
+
+
+def test_attention_backward_counts_and_refuses_decode(cuda):
+    """ops.attention under autograd on the card: one forward launch with
+    lse, one backward call; a kv_len (decode) raises instead of going to
+    a plain version."""
+    q = _t((1, 8, 64, 128), cuda).bfloat16().requires_grad_()
+    k = _t((1, 2, 64, 128), cuda).bfloat16().requires_grad_()
+    ops.reset_launches()
+    out = ops.attention(q, k, k)
+    torch.autograd.grad(out.float().sum(), (q, k))
+    assert (ops.launches()["attention"], ops.launches()["attention_bwd"]) \
+        == (1, 1)
+    with pytest.raises(NotImplementedError, match="training shapes"):
+        ops.attention(q, k, k, kv_len=40)

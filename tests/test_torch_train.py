@@ -154,8 +154,7 @@ def test_loss_and_grads_match_reference(loss_pair):
 
 def test_dense_loss_matches_reference_on_cpu():
     """The same loss_fn takes the dense ``attn_mlp`` kind (on CPU tensors;
-    on the card its kernels raise under autograd until they have a
-    backward)."""
+    tests/test_torch_dense_train.py holds its gradients)."""
     jc, tc = (m.get_reduced("llama3-8b").scaled(
         compute_dtype="float32", param_dtype="float32")
         for m in (jconfigs, tconfigs))
