@@ -16,7 +16,9 @@ Phases, one result line each:
                fused AdamW on odd-length operands off a 16-byte
                boundary); the dense training path's: the flash backward
                (b 4, hq 32, hkv 8, s 2048, bf16; hkv 4; a small fp32
-               shape), the forward's lse, the activation backward at
+               shape; two calls bit-equal; phase 1 fails if its
+               kernels spill or serialise wgmma), the forward's lse,
+               the activation backward at
                8192 x 14336 (bit-equal) and the MLP backward's GEMMs at
                m 8192; an AXPY -> RELU -> SUM ntx.Program bit-equal
                under the serial and fused policies, and a prefix-store
@@ -33,7 +35,8 @@ Phases, one result line each:
                off); the SSD call's three kernels under torch.profiler;
                the PyTorch SSD backward on its own, with its bound;
                the flash backward against SDPA's backward (its forward
-               and backward less its forward).
+               and backward less its forward), with its plan (group
+               splits, ring stages, grids).
   4. width   — llama3-8b at full width, depth cut to 2 layers, on the card
                and on the CPU with the same weights: prefill logits and
                4 greedy tokens.
@@ -581,10 +584,19 @@ def dense_cases(torch, rn, bf_tol):
             rel = [float((g[:, :, -64:].float() - w[:, :, -64:].float())
                          .norm() / w[:, :, -64:].float().norm())
                    for g, w in zip(got[1:], want[1:])]
+            again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             ok = max(rel) <= GRAD_RTOL[str(dt)[6:]] and all(
-                float(g[:, :, -64:].float().abs().sum()) > 0 for g in got[1:])
+                float(g[:, :, -64:].float().abs().sum()) > 0
+                for g in got[1:]) and same
             return ok, (f"last key tile (keys {s - 64}-{s - 1}): dK, dV rel "
-                        f"L2 {rel[0]:.3e}, {rel[1]:.3e}, nonzero")
+                        f"L2 {rel[0]:.3e}, {rel[1]:.3e}, nonzero | a second "
+                        f"call bit-equal {same}")
+        bp = fa.flash_bwd_plan(b, hq, hkv, s, s, 128, dt, True)
+        # (an older tree's plan, under --src, has no group split or ring)
+        note = (f" | plan gs {getattr(bp, 'gs', 1)}, stages "
+                f"{getattr(bp, 'stages', 2)}, dK/dV grid {bp.dkdv_grid}, dQ "
+                f"grid {bp.dq_grid}")
         esz = q.element_size()
         pairs = b * hq * s * (s + 1) / 2
         cases.append(dict(
@@ -594,6 +606,7 @@ def dense_cases(torch, rn, bf_tol):
             plain=lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
             library=lambda: torch.autograd.grad(lib_fwd(), lib_in, do),
             library_minus=lib_fwd, backend=lib_fwd, check_vs=last_tile,
+            note=note,
             mode="rel_l2", tol=(GRAD_RTOL[str(dt)[6:]], 0.0),
             bytes=(4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4,
             ops=5 * 2.0 * 128 * pairs, kind="bf16" if dt == bf else "fp32",
@@ -1262,6 +1275,7 @@ def check_and_time(torch, cases, do_time: bool, check: str,
                      if case.get("aside") else "")
             if case.get("backend"):
                 aside += f" | SDPA backend {sdpa_backend(case['backend'])}"
+            aside += case.get("note", "")
             if case.get("singles"):
                 n_single, singles = case["singles"]
                 aside += (f" | {n_single} one-lane launches "
@@ -1829,7 +1843,8 @@ def phase_train(torch, np) -> dict:
 
 #: the dense training step's kernels by source file, for kernel_split
 DENSE_GROUPS = {
-    "flash_attention_bwd.cu": ("bwd_dkdv_", "bwd_dq_", "flash_bwd_delta"),
+    "flash_attention_bwd.cu": ("flash_bwd_dkdv", "flash_bwd_dq",
+                               "flash_bwd_delta", "flash_bwd_merge"),
     "flash_attention.cu": ("flash_tc", "flash_f32", "flash_merge"),
     "ntx_gemm.cu": KERNEL_GROUPS["ntx_gemm.cu"],
     "ntx_act_bwd.cu": ("act_bwd",),
@@ -2533,6 +2548,13 @@ def main(argv=None) -> int:
         say("build", f"{len(_build.sources())} CUDA sources built and "
                      f"loaded in {build_s:.1f} s; ptxas lines with spills: "
                      f"{spills if spills else 'none'}")
+        # the flash backward's wgmma kernels hand registers to their
+        # consumers so that nothing spills and no product is serialised
+        slow = [ln.strip() for ln in _build.build_log.splitlines()
+                if "flash_bwd" in ln and "serialized" in ln]
+        need(not slow and not any("flash_bwd" in x for x in spills),
+             f"the flash backward's kernels spill or serialise wgmma: "
+             f"{slow + [x for x in spills if 'flash_bwd' in x]}")
         card = card_line()
         say("build", f"device {torch.cuda.get_device_name(0)} x "
                      f"{torch.cuda.device_count()} | torch {torch.__version__}"

@@ -48,10 +48,10 @@ _SIGNATURES = {
                  _P, _P, _P, _I, _I, _P, _P],
     # (q, k, v, o, ws, lse, params (strides, shapes, plan), scale, stream)
     "ntx_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _F, _P],
-    # (q, k, v, o, dout, lse, delta, dq, dk, dv, params (strides, shapes,
-    #  plan), scale, stream)
+    # (q, k, v, o, dout, lse, rows, ws, dq, dk, dv, params (strides,
+    #  shapes, plan), scale, stream)
     "ntx_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _F, _P],
+                                _P, _F, _P],
     # (dh, a1, gate, da1, dgate, h, n, act, out_bf16, stream)
     "ntx_act_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     # (ws, o, o_strides, b, hq, sq, d, splits, bf16, stream)

@@ -2,66 +2,96 @@
 // GQA attention from the forward's saved row log-sum-exp.
 //
 // Replaces the reference's flash-style VJP of its blocked attention,
-// repro/kernels/ref.py:_mha_blocked_bwd (the route its ops.attention takes
-// for training at sq >= 512, skv >= 2048, causal). There is no TPU kernel
-// for it: the reference runs that VJP as XLA over key blocks. Same math:
-// P = exp(S scale - lse) recomputed per key tile from the forward's lse
-// (natural log, of the scaled logits: flash_attention.cu writes it),
-// D = rowsum(dO o O), dS = P o (dP - D), dQ = scale dS K, dK = scale dS^T Q,
-// dV = P^T dO; masked logits are -1e30, which weigh exp(-1e30 - lse) = 0;
-// keys past the array weigh 0. Results are stored in the inputs' dtype.
+// repro/kernels/ref.py:250 _mha_blocked_bwd (the route its ops.attention
+// takes for training at sq >= 512, skv >= 2048, causal). There is no TPU
+// kernel for it: the reference runs that VJP as XLA over key blocks. Same
+// math: P = exp(S scale - lse) recomputed per key tile from the forward's
+// lse (natural log, of the scaled logits: flash_attention.cu writes it),
+// D = rowsum(dO o O), dS = P o (dP - D), dQ = scale dS K, dK = scale dS^T
+// Q, dV = P^T dO; masked logits are -1e30, which weigh exp(-1e30 - lse) =
+// 0; keys past the array weigh 0. Results are stored in the inputs' dtype.
 //
 // Bound on the H100: operations. The five products per unmasked (query,
 // key) pair (S, dP, dV, dK, dQ) at 2 d flop each: b 4, hq 32, s 2048,
 // d 128, causal is 268.6 M pairs x 1280 flop = 0.344 TFLOP, 0.348 ms at
-// 989 TFLOP/s (bf16). This design recomputes S and dP in its dQ pass, 7
-// products a pair.
+// 989 TFLOP/s (bf16). This design keeps dQ in its own pass, which forms S
+// and dP again: 7 products a pair, 0.487 ms at that rate.
 //
-// Design: three launches, deterministic (no atomics: every output element
-// is summed by one thread in a fixed order).
-// 1. flash_bwd_delta: D = rowsum(dO o O) in fp32, one warp a row.
-// 2. dK/dV: one block per (batch, kv head, key tile). It walks the g query
-//    heads of its group and, for each, the query tiles that the causal
-//    bound admits (tile i holds a query at or after the tile's first key),
-//    so the GQA sum over the group stays inside the block, in fp32
-//    registers, rounded once. Blocks of the first key tiles (the longest)
-//    are launched first.
+// Design: deterministic (no atomics: every output element is summed in a
+// fixed order, so two calls give the same bits), launches in this order:
+// 1. flash_bwd_delta: D = rowsum(dO o O) in fp32, one warp a row, written
+//    with lse log2(e) into a padded row table (b hq, 64-query tiles of
+//    [lse2 x 64, D x 64], an even tile count a head) that the kernels read
+//    a whole tile at a time.
+// 2. dK/dV: one block per (batch, kv head, split of the group, key tile).
+//    It walks its g / gs query heads and, for each, the query tiles that
+//    the causal bound admits, so the GQA sum stays in fp32 registers in a
+//    fixed order. The planner (kernels/flash_attention.py:flash_bwd_plan)
+//    picks the split count gs: 1 where the longest block does not bound
+//    the run, else the fewest splits whose longest block fits in the
+//    mean work of a slot (yi's groups of 8, the fp32 route's small grids).
+//    With gs > 1 the blocks write fp32 partials and flash_bwd_merge adds
+//    them in split order. The first key tiles (the longest) launch first.
 // 3. dQ: one block per (batch, q head, query tile), walking the key tiles
 //    up to the causal bound; the last query tiles (the longest) first.
-// * bf16: tensor cores, mma.sync m16n8k16 bf16 -> fp32 (csrc/ntx_mma.cuh)
-//   with the forward's fragment patterns; 4 warps of 16 rows (keys in
-//   the dK/dV pass, queries in the dQ pass), 64-row tiles of Q, dO, K and
-//   V in bf16 rows padded by 16 bytes, double-buffered by 16-byte
-//   cp.async (the launcher copies an operand that is off a 16-byte
-//   boundary). P and dS are rounded to bf16 where they feed a product, as
-//   the forward rounds P; every sum is fp32. dK/dV pass: S^T = K_w Q^T and
-//   dP^T = V_w dO^T per warp, dV += P^T dO, dK += dS^T Q with 128 fp32
-//   accumulators a thread. dQ pass: the block's Q and dO rows stay in
-//   shared memory, S = Q K^T, dP = dO V^T, dQ += dS K. 2 blocks per SM
-//   (~103 KB each).
+// * bf16 (the path), what each point of the sm_80 design this replaces
+//   costs and what this one does:
+//   - products: wgmma.mma_async bf16 -> fp32 (csrc/ntx_wgmma.cuh), two
+//     consumer warpgroups of 64 rows (keys in the dK/dV pass, queries in
+//     the dQ pass) sharing each tile. S^T = K Q^T and dP^T = V dO^T (and
+//     in the dQ pass S = Q K^T, dP = dO V^T) read both operands from
+//     shared memory; dV += P^T dO, dK += dS^T Q and dQ += dS K take P^T /
+//     dS as the register A operand, rounded to bf16 once as the forward
+//     rounds P, and Q, dO or K as the B operand through wgmma's
+//     transpose bit. Every sum is fp32.
+//   - copies: one producer thread keeps TMA loads (cp.async.bulk.tensor,
+//     4-D maps over (d, seq, head, batch) of the strided views, 128-byte
+//     swizzle matching the wgmma descriptors, zero fill past the edge) in
+//     flight into a ring of kStages stages with full and empty mbarriers;
+//     a stage's lse2 / D tile arrives by a 1-D cp.async.bulk in the same
+//     transaction count. The -1e30 / 0 masking stays in registers, and a
+//     tile inside the causal bound and the arrays skips it.
+//   - products a pair: the dK/dV item forms S^T and dP^T (P^T computed
+//     while dP^T runs), then issues dV and dK together with only dK, dV
+//     and the two bf16 operands live; dQ keeps its own pass (7 products a
+//     pair where the bound counts 5), which keeps every sum in one block.
+//   - registers: the producer's warpgroup hands its registers to the
+//     consumers (setmaxnreg 24 / 240), so dK and dV (64 fp32 each a
+//     thread) and the S and dP fragments (the dK/dV consumer needs ~221)
+//     fit without spills. ptxas gives a branch the count of its
+//     setmaxnreg only if no trap is reachable from it, so the barrier
+//     waits spin without a watchdog.
+//   - 384 threads and ~163 KB of shared memory a block, one block an SM.
 // * fp32: IEEE FFMA (never TF32): 32-key / 16-query tiles in shared
-//   memory, each (key, query) logit and dP a 128-deep dot product by one
+//   memory, each (key, query) logit and dP a d-deep dot product by one
 //   thread, P and dS staged in shared memory, then each thread sums its
-//   rows' outputs over the tile's pairs.
-// The launcher recomputes the planner's (kernels/flash_attention.py:
-// flash_bwd_plan) tiles and shared memory and refuses a plan that differs.
-// Left for later: wgmma with TMA, and one pass that atomically adds dQ.
+//   rows' outputs over the tile's pairs; the same group splits.
+// The launcher recomputes the planner's plan (tiles, stages, warpgroups,
+// gs, shared memory, workspace and row-table bytes) and refuses any other.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "ntx_mma.cuh"
+#include "ntx_wgmma.cuh"
 
 namespace {
 
-constexpr int kBwdThreads = 128;
-constexpr int kBwdKeys = 64;       // bf16: keys a dK/dV block, keys a tile
-constexpr int kBwdRows = 64;       // bf16: queries a tile, queries a dQ block
-constexpr int kBwdStages = 2;      // bf16: double-buffered tiles
+constexpr int kBwdThreads = 128;   // fp32 blocks
+constexpr int kWG = 2;             // bf16: consumer warpgroups a block
+constexpr int kWgThreads = 128 * (kWG + 1);   // and the producer's
+constexpr int kBk = 64 * kWG;      // bf16: keys a dK/dV block
+constexpr int kBq = 64;            // bf16: queries a tile of the dK/dV ring
+constexpr int kDqRows = 64 * kWG;  // bf16: queries a dQ block
+constexpr int kDqKeys = 64;        // bf16: keys a tile of the dQ ring
+constexpr int kStages = 3;         // bf16: ring depth
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr int kF32BwdKeys = 32;    // fp32 route
 constexpr int kF32BwdRows = 16;
-constexpr int kPad = 8;            // bf16 elements of row padding
+constexpr int kF32BlocksPerSm = 4;
+constexpr int kSms = 132;
+constexpr int kTile = 64;          // queries a tile of the row table
 constexpr int kMaxSmem = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -72,41 +102,99 @@ struct BwdArgs {
   const void* o;
   const void* dout;
   const float* lse;       // (b, hq, sq), natural log
-  float* delta;           // (b, hq, sq), written by flash_bwd_delta
+  float* rows;            // row table, written by flash_bwd_delta
+  float* ws;              // (2, gs, b, hkv, skv, d) fp32 partials (gs > 1)
   void* dq;
   void* dk;
   void* dv;
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
   int b, hq, hkv, sq, skv, causal, g, q_off;   // q_off = skv - sq
+  int gs, nqt_pad;                              // group splits, row tiles
   float scale, scale2;                          // scale, scale * log2(e)
 };
 
-// Shared memory of the bf16 dK/dV block: K and V of the key tile, then a
-// ring of (Q, dO) tiles with their lse and D rows.
-__host__ __device__ constexpr size_t tc_dkdv_smem(int d) {
-  return (size_t)2 * 2 * kBwdKeys * (d + kPad) +
-         (size_t)kBwdStages * (2 * 2 * kBwdRows * (d + kPad) + 2 * 4 * kBwdRows);
+// The plan; flash_bwd_plan in kernels/flash_attention.py computes the same.
+struct Plan {
+  int bk, bq, dq_rows, dq_keys, stages, wgs, gs;
+  long long smem_dkdv, smem_dq, ws_bytes, rows_bytes;
+};
+
+__host__ __device__ constexpr long long wg_dkdv_smem(int d) {
+  return 1024 + 4LL * kBk * d + kStages * (4LL * kBq * d + 8 * kBq) +
+         8 * (2 * kStages + 1);
 }
-// ... of the bf16 dQ block: its Q and dO rows, then a ring of (K, V) tiles.
-__host__ __device__ constexpr size_t tc_dq_smem(int d) {
-  return (size_t)2 * 2 * kBwdRows * (d + kPad) +
-         (size_t)kBwdStages * 2 * 2 * kBwdKeys * (d + kPad);
+__host__ __device__ constexpr long long wg_dq_smem(int d) {
+  return 1024 + 4LL * kDqRows * d + 8 * kDqRows +
+         kStages * 4LL * kDqKeys * d + 8 * (2 * kStages + 1);
 }
 // ... of the fp32 blocks (rows padded by one float).
-__host__ __device__ constexpr size_t f32_dkdv_smem(int d) {
-  return 4 * ((size_t)2 * kF32BwdKeys * (d + 1) +
-              (size_t)2 * kF32BwdRows * (d + 1) +
-              (size_t)2 * kF32BwdKeys * (kF32BwdRows + 1) + 2 * kF32BwdRows);
+__host__ __device__ constexpr long long f32_dkdv_smem(int d) {
+  return 4 * ((long long)2 * kF32BwdKeys * (d + 1) +
+              (long long)2 * kF32BwdRows * (d + 1) +
+              (long long)2 * kF32BwdKeys * (kF32BwdRows + 1) + 2 * kF32BwdRows);
 }
-__host__ __device__ constexpr size_t f32_dq_smem(int d) {
-  return 4 * ((size_t)2 * kF32BwdRows * (d + 1) +
-              (size_t)2 * kF32BwdKeys * (d + 1) +
-              (size_t)kF32BwdRows * (kF32BwdKeys + 1) + 2 * kF32BwdRows);
+__host__ __device__ constexpr long long f32_dq_smem(int d) {
+  return 4 * ((long long)2 * kF32BwdRows * (d + 1) +
+              (long long)2 * kF32BwdKeys * (d + 1) +
+              (long long)kF32BwdRows * (kF32BwdKeys + 1) + 2 * kF32BwdRows);
 }
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// First query tile (of bq) that key tile t (of bk) meets under the causal
+// bound (a tile holding a query at or after the key tile's first key).
+__host__ __device__ inline int first_q_tile(int t, int bk, int bq, int q_off,
+                                            int causal) {
+  if (!causal) return 0;
+  const int f = (t * bk - q_off) / bq;
+  return f > 0 ? f : 0;
+}
+
+// The fewest group splits gs (a divisor of g) whose longest dK/dV block
+// (its heads times the first key tile's query tiles) is at most the mean
+// work of one of `slots` block slots; g where none is.
+int group_split(int b, int hkv, int g, int sq, int skv, int bk, int bq,
+                int causal, long long slots) {
+  const int nkt = (skv + bk - 1) / bk, nqt = (sq + bq - 1) / bq;
+  long long sum = 0, per0 = 0;
+  for (int t = 0; t < nkt; ++t) {
+    const long long per = nqt - first_q_tile(t, bk, bq, skv - sq, causal);
+    sum += per > 0 ? per : 0;
+    per0 = per > per0 ? per : per0;
+  }
+  const long long total = (long long)b * hkv * g * sum;
+  for (int gs = 1; gs <= g; ++gs)
+    if (g % gs == 0 && (long long)(g / gs) * per0 * slots <= total) return gs;
+  return g;
+}
+
+Plan make_plan(int b, int hq, int hkv, int sq, int skv, int d, int causal,
+               int bf16) {
+  Plan p;
+  const int g = hq / hkv;
+  if (bf16) {
+    p.bk = kBk;
+    p.bq = kBq;
+    p.dq_rows = kDqRows;
+    p.dq_keys = kDqKeys;
+    p.stages = kStages;
+    p.wgs = kWG;
+    p.smem_dkdv = wg_dkdv_smem(d);
+    p.smem_dq = wg_dq_smem(d);
+  } else {
+    p.bk = kF32BwdKeys;
+    p.bq = kF32BwdRows;
+    p.dq_rows = kF32BwdRows;
+    p.dq_keys = kF32BwdKeys;
+    p.stages = 1;
+    p.wgs = 1;
+    p.smem_dkdv = f32_dkdv_smem(d);
+    p.smem_dq = f32_dq_smem(d);
+  }
+  const long long slots = (long long)kSms * (bf16 ? 1 : kF32BlocksPerSm);
+  p.gs = group_split(b, hkv, g, sq, skv, p.bk, p.bq, causal, slots);
+  p.ws_bytes = p.gs > 1 ? 2LL * p.gs * b * hkv * skv * d * 4 : 0;
+  p.rows_bytes = (long long)b * hq * 2 * ((sq + 2 * kTile - 1) / (2 * kTile)) *
+                 2 * kTile * 4;
+  return p;
 }
 
 // Element offset of (batch, head, row) under strides s.
@@ -115,329 +203,462 @@ __device__ __forceinline__ long long at(const long long* s, int b, int h,
   return b * s[0] + h * s[1] + r * s[2];
 }
 
+// The row table's tile of query i of (batch, q head) bh: lse2 at [0, 64),
+// D at [64, 128).
+__device__ __forceinline__ const float* row_tile(const BwdArgs& a, int bh,
+                                                 int tile) {
+  return a.rows + ((long long)bh * a.nqt_pad + tile) * 2 * kTile;
+}
+
+// The dot product of this lane's D / 32 consecutive elements of rows x
+// and y (bf16 rows are 16-byte aligned: the launcher copies one that is
+// not; fp32 rows are read one element a lane at a time).
+template <int D>
+__device__ __forceinline__ float lane_dot(const __nv_bfloat16* x,
+                                          const __nv_bfloat16* y, int lane) {
+  constexpr int V = D / 32;
+  float s = 0.0f;
+  __nv_bfloat162 xv[V / 2], yv[V / 2];
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(xv) = *reinterpret_cast<const uint2*>(x + 4 * lane);
+    *reinterpret_cast<uint2*>(yv) = *reinterpret_cast<const uint2*>(y + 4 * lane);
+  } else {
+    xv[0] = *reinterpret_cast<const __nv_bfloat162*>(x + 2 * lane);
+    yv[0] = *reinterpret_cast<const __nv_bfloat162*>(y + 2 * lane);
+  }
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) {
+    const float2 xf = __bfloat1622float2(xv[i]), yf = __bfloat1622float2(yv[i]);
+    s = fmaf(xf.x, yf.x, s);
+    s = fmaf(xf.y, yf.y, s);
+  }
+  return s;
+}
+template <int D>
+__device__ __forceinline__ float lane_dot(const float* x, const float* y,
+                                          int lane) {
+  float s = 0.0f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) s = fmaf(x[c], y[c], s);
+  return s;
+}
+
 // ---------------------------------------------------------------------
-// 1. D = rowsum(dO o O), fp32, one warp a row
+// 1. D = rowsum(dO o O) and lse log2(e) into the row table, one warp a
+//    row (padding rows get 0, 0)
 // ---------------------------------------------------------------------
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
-flash_bwd_delta(const BwdArgs a, int d) {
-  const long long rows = (long long)a.b * a.hq * a.sq;
+flash_bwd_delta(const BwdArgs a) {
+  const long long per = (long long)a.nqt_pad * kTile;
+  const long long rows = (long long)a.b * a.hq * per;
   const int lane = threadIdx.x & 31;
   for (long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
        r < rows; r += (long long)gridDim.x * blockDim.x / 32) {
-    const int i = (int)(r % a.sq), h = (int)(r / a.sq % a.hq);
-    const int bi = (int)(r / ((long long)a.sq * a.hq));
-    const T* o = static_cast<const T*>(a.o) + at(a.os, bi, h, i);
-    const T* dO = static_cast<const T*>(a.dout) + at(a.dos, bi, h, i);
-    float s = 0.0f;
-    for (int c = lane; c < d; c += 32) s = fmaf(ld(dO + c), ld(o + c), s);
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) a.delta[r] = s;
+    const int i = (int)(r % per), bh = (int)(r / per);
+    const int h = bh % a.hq, bi = bh / a.hq;
+    float s = 0.0f, l2 = 0.0f;
+    if (i < a.sq) {
+      s = lane_dot<D>(static_cast<const T*>(a.dout) + at(a.dos, bi, h, i),
+                      static_cast<const T*>(a.o) + at(a.os, bi, h, i), lane);
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      l2 = a.lse[(long long)bh * a.sq + i] * kLog2e;
+    }
+    if (lane == 0) {
+      float* t = a.rows + ((long long)bh * a.nqt_pad + i / kTile) * 2 * kTile;
+      t[i % kTile] = l2;
+      t[kTile + i % kTile] = s;
+    }
   }
 }
 
 // ---------------------------------------------------------------------
-// bf16 route: tensor cores
+// bf16 route: wgmma fed by TMA, warp-specialised
 // ---------------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(ntx::smem_addr(dst)), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Shared memory of a kernel starts at the dynamic window rounded up to
+// 1024 bytes (the swizzle atom); the plan counts 1024 bytes of slack.
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
+  const uint32_t a = ntx::smem_u32(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
 }
 
-// n rows of D bf16 at src + off(r) into dst (row stride D + kPad) by
-// 16-byte cp.async; a row with off(r) < 0 is zero-filled.
-template <int D, class Off>
-__device__ __forceinline__ void load_rows(uint16_t* dst, const uint16_t* src,
-                                          int n, Off off) {
-  constexpr int LD = D + kPad, CH = D / 8;
-  for (int c = threadIdx.x; c < n * CH; c += kBwdThreads) {
-    const int r = c / CH, col = (c % CH) * 8;
-    const long long o = off(r);
-    cp_async16(dst + r * LD + col, o >= 0 ? src + o + col : src,
-               o >= 0 ? 16 : 0);
-  }
+// Descriptor of k-step kk of a K-major operand: rows row0.. of a tile of
+// R rows at shared address t (panels of 64 columns). The start address is
+// the descriptor's low field, so a step within the tile adds its offset /
+// 16 to the tile's descriptor.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t t, int row0, int kk) {
+  return ntx::desc_sw128(t, 16, 1024) +
+         (uint64_t)(((kk >> 2) * R * 128 + row0 * 128 + (kk & 3) * 32) >> 4);
+}
+// ... of k-step kk (rows 16 kk..) of a tile of R rows read MN-major.
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t t, int kk) {
+  return ntx::desc_sw128(t, R * 128, 1024) + (uint64_t)(kk * 2048 >> 4);
 }
 
-// acc[16 rows of the warp][NT n-tiles of 8] += A (16 x 16 k-steps, rows of
-// a at arow, row-major in shared memory) B^T, with B's rows (n) at brow
-// row-major: the forward's S = Q K^T pattern, K = D / 16 steps.
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
-                                        const uint16_t* a_tile, int a_row0,
-                                        const uint16_t* b_tile) {
-  constexpr int LD = D + kPad;
-  const int lane = threadIdx.x & 31;
-  const uint16_t* arow = a_tile + (a_row0 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const uint16_t* brow = b_tile + ((lane & 7) + ((lane >> 4) << 3)) * LD +
-                         ((lane >> 3) & 1) * 8;
+// A tile of R rows (R / 64 boxes of 64 rows) and D columns (D / 64
+// panels) at rows r0.. of (head, batch) of map into dst, on bar.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const void* map,
+                                          uint64_t* bar, int r0, int h,
+                                          int bi) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ntx::ldsm_x4(af, arow + kk * 16);
+  for (int p = 0; p < D / 64; ++p)
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      ntx::ldsm_x4(bf, brow + np * 16 * LD + kk * 16);
-      ntx::mma_bf16(acc[2 * np], af, bf[0], bf[1]);
-      ntx::mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
+    for (int half = 0; half < R / 64; ++half)
+      ntx::tma_load_4d(dst + p * R * 128 + half * 64 * 128, map, bar, p * 64,
+                       r0 + half * 64, h, bi);
 }
 
-// out[16 rows][D / 8 n-tiles] += P (16 x 64, fp32 fragments p, rounded to
-// bf16) times the 64 x D tile at b_tile (rows k, row-major): the forward's
-// P V pattern.
+// Store a warpgroup's 64 x D fp32 accumulator times f: rows row0 + r of
+// dst (bf16, row stride rs; rows past n skipped), or of the fp32 workspace
+// (row stride D) when ws is set.
 template <int D>
-__device__ __forceinline__ void mma_pb(float (&out)[D / 8][4],
-                                       const float (&p)[8][4],
-                                       const uint16_t* b_tile) {
-  constexpr int LD = D + kPad;
-  const int lane = threadIdx.x & 31;
-  const uint16_t* brow = b_tile + (lane & 15) * LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    uint32_t pa[4];
-    pa[0] = ntx::bits(__floats2bfloat162_rn(p[2 * t][0], p[2 * t][1]));
-    pa[1] = ntx::bits(__floats2bfloat162_rn(p[2 * t][2], p[2 * t][3]));
-    pa[2] = ntx::bits(__floats2bfloat162_rn(p[2 * t + 1][0], p[2 * t + 1][1]));
-    pa[3] = ntx::bits(__floats2bfloat162_rn(p[2 * t + 1][2], p[2 * t + 1][3]));
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      ntx::ldsm_x4_t(bf, brow + t * 16 * LD + dp * 16);
-      ntx::mma_bf16(out[2 * dp], pa, bf[0], bf[1]);
-      ntx::mma_bf16(out[2 * dp + 1], pa, bf[2], bf[3]);
-    }
-  }
-}
-
-// Store a warp's 16 x D fp32 fragments, times f, to rows row0 + r of
-// dst (strides s; rows past n skipped).
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
-                                           float f, __nv_bfloat16* dst,
-                                           long long row_stride, int row0,
-                                           int n) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + (lane >> 2) + 8 * h;
-    if (r >= n) continue;
-    __nv_bfloat16* p = dst + r * row_stride + 2 * (lane & 3);
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      p[c * 8] = __float2bfloat16(acc[c][2 * h] * f);
-      p[c * 8 + 1] = __float2bfloat16(acc[c][2 * h + 1] * f);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-bwd_dkdv_tc(const BwdArgs a) {
-  constexpr int LD = D + kPad, T = kBwdRows * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* sK = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* sV = sK + kBwdKeys * LD;
-  uint16_t* ring = sV + kBwdKeys * LD;          // [stage][Q, dO]
-  float* sLD = reinterpret_cast<float*>(ring + kBwdStages * 2 * T);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int grp = blockIdx.x, bi = grp / a.hkv, kvh = grp % a.hkv;
-  const int k0 = blockIdx.y * kBwdKeys;         // the longest tiles first
-  const int nqt = (a.sq + kBwdRows - 1) / kBwdRows;
-  const int qt0 = a.causal ? max(0, (k0 - a.q_off) / kBwdRows) : 0;
-  const int per = max(0, nqt - qt0), n_it = a.g * per;
-  const uint16_t* kb = static_cast<const uint16_t*>(a.k) + at(a.ks, bi, kvh, 0);
-  const uint16_t* vb = static_cast<const uint16_t*>(a.v) + at(a.vs, bi, kvh, 0);
-
-  auto load_item = [&](int it, int stage) {
-    const int h = kvh * a.g + it / per, q0 = (qt0 + it % per) * kBwdRows;
-    uint16_t* sQ = ring + stage * 2 * T;
-    const uint16_t* qb =
-        static_cast<const uint16_t*>(a.q) + at(a.qs, bi, h, 0);
-    const uint16_t* db =
-        static_cast<const uint16_t*>(a.dout) + at(a.dos, bi, h, 0);
-    load_rows<D>(sQ, qb, kBwdRows, [&](int r) -> long long {
-      return q0 + r < a.sq ? (long long)(q0 + r) * a.qs[2] : -1;
-    });
-    load_rows<D>(sQ + T, db, kBwdRows, [&](int r) -> long long {
-      return q0 + r < a.sq ? (long long)(q0 + r) * a.dos[2] : -1;
-    });
-    float* sl = sLD + stage * 2 * kBwdRows;
-    for (int r = threadIdx.x; r < kBwdRows; r += kBwdThreads) {
-      const bool in = q0 + r < a.sq;
-      const long long row = ((long long)bi * a.hq + h) * a.sq + q0 + r;
-      sl[r] = in ? a.lse[row] * kLog2e : 0.0f;
-      sl[kBwdRows + r] = in ? a.delta[row] : 0.0f;
-    }
-  };
-
-  load_rows<D>(sK, kb, kBwdKeys, [&](int r) -> long long {
-    return k0 + r < a.skv ? (long long)(k0 + r) * a.ks[2] : -1;
-  });
-  load_rows<D>(sV, vb, kBwdKeys, [&](int r) -> long long {
-    return k0 + r < a.skv ? (long long)(k0 + r) * a.vs[2] : -1;
-  });
-  if (n_it > 0) load_item(0, 0);
-  cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
-  // this thread's keys: rows g and g + 8 of its warp's 16
-  const int kp0 = k0 + warp * 16 + (lane >> 2);
-
-  for (int it = 0; it < n_it; ++it) {
-    cp_async_wait_all();
-    __syncthreads();                    // item it landed; it - 1 consumed
-    if (it + 1 < n_it) load_item(it + 1, (it + 1) % kBwdStages);
-    cp_async_commit();
-    const int stage = it % kBwdStages;
-    const uint16_t* sQ = ring + stage * 2 * T;
-    const uint16_t* sdO = sQ + T;
-    const float* sl = sLD + stage * 2 * kBwdRows;
-    const int q0 = (qt0 + it % per) * kBwdRows;
-
-    // P^T = exp2(S^T scale2 - lse2): keys are rows, queries columns
-    float p[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = 0.0f;
-    mma_abt<D, 8>(p, sK, warp * 16, sQ);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = n * 8 + 2 * (lane & 3) + (e & 1);
-        const int kp = kp0 + 8 * (e >> 1), qi = q0 + ql;
-        const bool ok = kp < a.skv && qi < a.sq &&
-                        (!a.causal || kp <= a.q_off + qi);
-        p[n][e] = ok ? exp2f(p[n][e] * a.scale2 - sl[ql]) : 0.0f;
-      }
-    mma_pb<D>(dv, p, sdO);              // dV += P^T dO
-    // dP^T = V_w dO^T, then dS^T = P^T o (dP^T - D)
-    float ds[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[n][e] = 0.0f;
-    mma_abt<D, 8>(ds, sV, warp * 16, sdO);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = n * 8 + 2 * (lane & 3) + (e & 1);
-        ds[n][e] = p[n][e] * (ds[n][e] - sl[kBwdRows + ql]);
-      }
-    mma_pb<D>(dk, ds, sQ);              // dK += dS^T Q
-  }
-  cp_async_wait_all();
-  __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(a.dk) + at(a.dks, bi, kvh, 0);
-  __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(a.dv) + at(a.dvs, bi, kvh, 0);
-  store_rows<D>(dk, a.scale, dkb, a.dks[2], k0 + warp * 16, a.skv);
-  store_rows<D>(dv, 1.0f, dvb, a.dvs[2], k0 + warp * 16, a.skv);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-bwd_dq_tc(const BwdArgs a) {
-  constexpr int LD = D + kPad, T = kBwdKeys * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* sdO = sQ + kBwdRows * LD;
-  uint16_t* ring = sdO + kBwdRows * LD;         // [stage][K, V]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bi = blockIdx.x / a.hq, h = blockIdx.x % a.hq;
-  const int kvh = h / a.g;
-  const int nqt = (a.sq + kBwdRows - 1) / kBwdRows;
-  const int q0 = (nqt - 1 - (int)blockIdx.y) * kBwdRows;   // longest first
-  const int last = a.q_off + min(a.sq - 1, q0 + kBwdRows - 1);
-  const int nkt_all = (a.skv + kBwdKeys - 1) / kBwdKeys;
-  const int nkt = a.causal ? (last < 0 ? 0 : min(nkt_all, last / kBwdKeys + 1))
-                           : nkt_all;
-  const uint16_t* kb = static_cast<const uint16_t*>(a.k) + at(a.ks, bi, kvh, 0);
-  const uint16_t* vb = static_cast<const uint16_t*>(a.v) + at(a.vs, bi, kvh, 0);
-  auto load_kv = [&](int t, int stage) {
-    const int k0 = t * kBwdKeys;
-    uint16_t* sK = ring + stage * 2 * T;
-    load_rows<D>(sK, kb, kBwdKeys, [&](int r) -> long long {
-      return k0 + r < a.skv ? (long long)(k0 + r) * a.ks[2] : -1;
-    });
-    load_rows<D>(sK + T, vb, kBwdKeys, [&](int r) -> long long {
-      return k0 + r < a.skv ? (long long)(k0 + r) * a.vs[2] : -1;
-    });
-  };
-  load_rows<D>(sQ, static_cast<const uint16_t*>(a.q) + at(a.qs, bi, h, 0),
-               kBwdRows, [&](int r) -> long long {
-                 return q0 + r < a.sq ? (long long)(q0 + r) * a.qs[2] : -1;
-               });
-  load_rows<D>(sdO, static_cast<const uint16_t*>(a.dout) + at(a.dos, bi, h, 0),
-               kBwdRows, [&](int r) -> long long {
-                 return q0 + r < a.sq ? (long long)(q0 + r) * a.dos[2] : -1;
-               });
-  if (nkt > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  // this thread's rows g and g + 8 of its warp's 16: lse2 and D
-  const int r0 = warp * 16 + (lane >> 2);
-  float lse2[2], dd[2];
-  int qi[2];
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4],
+                                          float f, __nv_bfloat16* dst,
+                                          long long rs, float* ws, int row0,
+                                          int n) {
+  const int t = threadIdx.x & 127, lane = t & 31;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    qi[hh] = q0 + r0 + 8 * hh;
-    const long long row = ((long long)bi * a.hq + h) * a.sq + qi[hh];
-    lse2[hh] = qi[hh] < a.sq ? a.lse[row] * kLog2e : 0.0f;
-    dd[hh] = qi[hh] < a.sq ? a.delta[row] : 0.0f;
-  }
-  float dq[D / 8][4];
+    const int r = row0 + (t >> 5) * 16 + (lane >> 2) + 8 * hh;
+    if (r >= n) continue;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
-
-  for (int it = 0; it < nkt; ++it) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (it + 1 < nkt) load_kv(it + 1, (it + 1) % kBwdStages);
-    cp_async_commit();
-    const uint16_t* sK = ring + (it % kBwdStages) * 2 * T;
-    const uint16_t* sV = sK + T;
-    const int k0 = it * kBwdKeys;
-    float p[8][4], ds[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.0f;
-    mma_abt<D, 8>(p, sQ, warp * 16, sK);         // S = Q K^T
-    mma_abt<D, 8>(ds, sdO, warp * 16, sV);       // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1;
-        const int kp = k0 + n * 8 + 2 * (lane & 3) + (e & 1);
-        const bool ok = kp < a.skv && (!a.causal || kp <= a.q_off + qi[hh]);
-        const float pv = ok ? exp2f(p[n][e] * a.scale2 - lse2[hh]) : 0.0f;
-        ds[n][e] = pv * (ds[n][e] - dd[hh]);
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      if (ws) {
+        *reinterpret_cast<float2*>(ws + (long long)r * D + c) =
+            make_float2(acc[j][2 * hh] * f, acc[j][2 * hh + 1] * f);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dst + r * rs + c) =
+            __floats2bfloat162_rn(acc[j][2 * hh] * f, acc[j][2 * hh + 1] * f);
       }
-    mma_pb<D>(dq, ds, sK);                       // dQ += dS K
+    }
   }
-  cp_async_wait_all();
-  store_rows<D>(dq, a.scale,
-                static_cast<__nv_bfloat16*>(a.dq) + at(a.dqs, bi, h, 0),
-                a.dqs[2], q0 + warp * 16, a.sq);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&a)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.0f;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const BwdArgs a) {
+  constexpr int TK = kBk * D * 2, TQ = kBq * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = smem_base(smem_raw);
+  unsigned char* sV = sK + TK;
+  unsigned char* ring = sV + TK;                 // [stage][Q, dO]
+  float* sLD = reinterpret_cast<float*>(ring + kStages * 2 * TQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sLD + kStages * 2 * kBq);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  // warpgroups 0..kWG-1 consume, warpgroup kWG produces; the index is
+  // warp-uniform as the compiler sees it
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int grp = blockIdx.x / a.gs, split = blockIdx.x % a.gs;
+  const int bi = grp / a.hkv, kvh = grp % a.hkv;
+  const int k0 = blockIdx.y * kBk;              // the longest tiles first
+  const int nqt = (a.sq + kBq - 1) / kBq;
+  const int qt0 = first_q_tile(blockIdx.y, kBk, kBq, a.q_off, a.causal);
+  const int per = max(0, nqt - qt0), hps = a.g / a.gs;
+  const int n_it = hps * per, h0 = kvh * a.g + split * hps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      ntx::mbar_init(&full[s], 1);
+      ntx::mbar_init(&empty[s], kWG * 128);
+    }
+    ntx::mbar_init(kvbar, 1);
+    ntx::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kWG) {
+    // producer: one thread issues every copy
+    ntx::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kWG * 128) {
+      ntx::mbar_expect_tx(kvbar, 2 * TK);
+      load_tile<D, kBk>(sK, &tk, kvbar, k0, kvh, bi);
+      load_tile<D, kBk>(sV, &tv, kvbar, k0, kvh, bi);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        ntx::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        const int h = h0 + it / per, qt = qt0 + it % per;
+        unsigned char* sQ = ring + s * 2 * TQ;
+        ntx::mbar_expect_tx(&full[s], 2 * TQ + 8 * kBq);
+        load_tile<D, kBq>(sQ, &tq, &full[s], qt * kBq, h, bi);
+        load_tile<D, kBq>(sQ + TQ, &tdo, &full[s], qt * kBq, h, bi);
+        ntx::bulk_load(sLD + s * 2 * kBq, row_tile(a, bi * a.hq + h, qt),
+                       8 * kBq, &full[s]);
+      }
+    }
+  } else {
+    ntx::setmaxnreg_inc<kConsumerRegs>();
+    const int t = threadIdx.x & 127, lane = t & 31;
+    const int kw0 = k0 + wg * 64;                 // this warpgroup's keys
+    const int kp0 = kw0 + (t >> 5) * 16 + (lane >> 2);   // its rows, + 8
+    const uint32_t uK = ntx::smem_u32(sK), uV = ntx::smem_u32(sV);
+    float dk[D / 8][4], dv[D / 8][4];
+    zero(dk);
+    zero(dv);
+    ntx::mbar_wait(kvbar, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int q0 = (qt0 + it % per) * kBq;
+      ntx::mbar_wait(&full[s], (it / kStages) & 1);
+      const bool live = kw0 < a.skv && (!a.causal ||
+                        a.q_off + min(q0 + kBq, a.sq) - 1 >= kw0);
+      if (live) {
+        const uint32_t uQ = ntx::smem_u32(ring + s * 2 * TQ);
+        const uint32_t udO = uQ + TQ;
+        const float* sl = sLD + s * 2 * kBq;
+        float p[8][4], dp[8][4];
+        zero(p);
+        zero(dp);
+        ntx::fence_regs(p);
+        ntx::fence_regs(dp);
+        ntx::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)       // S^T = K_w Q^T
+          ntx::wgmma_m64n64k16_ss(p, kmajor<kBk>(uK, wg * 64, kk),
+                                  kmajor<kBq>(uQ, 0, kk), 1);
+        ntx::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)       // dP^T = V_w dO^T
+          ntx::wgmma_m64n64k16_ss(dp, kmajor<kBk>(uV, wg * 64, kk),
+                                  kmajor<kBq>(udO, 0, kk), 1);
+        ntx::wgmma_commit();
+        ntx::wgmma_wait<1>();
+        ntx::fence_regs(p);
+        // P^T = exp2(S^T scale2 - lse2), while dP^T runs: keys are rows,
+        // queries columns; a tile inside the causal bound and the arrays
+        // is not masked
+        const bool inside = kw0 + 64 <= a.skv && q0 + kBq <= a.sq &&
+                            (!a.causal || kw0 + 63 <= a.q_off + q0);
+        if (inside) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int ql = 8 * j + 2 * (lane & 3) + (e & 1);
+              p[j][e] = exp2f(p[j][e] * a.scale2 - sl[ql]);
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int ql = 8 * j + 2 * (lane & 3) + (e & 1);
+              const int kp = kp0 + 8 * (e >> 1), qi = q0 + ql;
+              const bool ok = kp < a.skv && qi < a.sq &&
+                              (!a.causal || kp <= a.q_off + qi);
+              p[j][e] = ok ? exp2f(p[j][e] * a.scale2 - sl[ql]) : 0.0f;
+            }
+        }
+        uint32_t pa[4][4], da[4][4];
+        ntx::pack_a<8>(pa, p);
+        ntx::wgmma_wait<0>();
+        ntx::fence_regs(dp);
+        // dS^T = P^T o (dP^T - D)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ql = 8 * j + 2 * (lane & 3) + (e & 1);
+            dp[j][e] = p[j][e] * (dp[j][e] - sl[kBq + ql]);
+          }
+        ntx::pack_a<8>(da, dp);
+        // only dK, dV and the two bf16 operands are live from here
+        ntx::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBq / 16; ++kk)     // dV += P^T dO
+          ntx::wgmma_rs_t<D>(dv, pa[kk], mnmajor<kBq>(udO, kk));
+#pragma unroll
+        for (int kk = 0; kk < kBq / 16; ++kk)     // dK += dS^T Q
+          ntx::wgmma_rs_t<D>(dk, da[kk], mnmajor<kBq>(uQ, kk));
+        ntx::wgmma_commit();
+        ntx::wgmma_wait<0>();
+        ntx::fence_regs(pa);
+        ntx::fence_regs(da);
+        ntx::fence_regs(dv);
+        ntx::fence_regs(dk);
+      }
+      ntx::mbar_arrive(&empty[s]);
+    }
+    if (a.gs > 1) {
+      const long long n = (long long)a.b * a.hkv * a.skv * D;
+      const long long part =
+          ((long long)split * a.b * a.hkv + grp) * a.skv * D;
+      store_acc<D>(dk, 1.0f, nullptr, 0, a.ws + part, kw0, a.skv);
+      store_acc<D>(dv, 1.0f, nullptr, 0, a.ws + a.gs * n + part, kw0, a.skv);
+    } else {
+      store_acc<D>(dk, a.scale,
+                   static_cast<__nv_bfloat16*>(a.dk) + at(a.dks, bi, kvh, 0),
+                   a.dks[2], nullptr, kw0, a.skv);
+      store_acc<D>(dv, 1.0f,
+                   static_cast<__nv_bfloat16*>(a.dv) + at(a.dvs, bi, kvh, 0),
+                   a.dvs[2], nullptr, kw0, a.skv);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const BwdArgs a) {
+  constexpr int TQ = kDqRows * D * 2, TK = kDqKeys * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_base(smem_raw);
+  unsigned char* sdO = sQ + TQ;
+  unsigned char* ring = sdO + TQ;                // [stage][K, V]
+  float* sLD = reinterpret_cast<float*>(ring + kStages * 2 * TK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sLD + 2 * kDqRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int bh = blockIdx.x, bi = bh / a.hq, h = bh % a.hq;
+  const int kvh = h / a.g;
+  const int nqb = (a.sq + kDqRows - 1) / kDqRows;
+  const int qb = nqb - 1 - (int)blockIdx.y;      // the longest first
+  const int q0 = qb * kDqRows;
+  const int last = a.q_off + min(a.sq - 1, q0 + kDqRows - 1);
+  const int nkt_all = (a.skv + kDqKeys - 1) / kDqKeys;
+  const int nkt = a.causal ? min(nkt_all, last / kDqKeys + 1) : nkt_all;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      ntx::mbar_init(&full[s], 1);
+      ntx::mbar_init(&empty[s], kWG * 128);
+    }
+    ntx::mbar_init(qbar, 1);
+    ntx::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kWG) {
+    ntx::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kWG * 128) {
+      ntx::mbar_expect_tx(qbar, 2 * TQ + 8 * kDqRows);
+      load_tile<D, kDqRows>(sQ, &tq, qbar, q0, h, bi);
+      load_tile<D, kDqRows>(sdO, &tdo, qbar, q0, h, bi);
+      ntx::bulk_load(sLD, row_tile(a, bh, q0 / kTile), 8 * kDqRows, qbar);
+      for (int it = 0; it < nkt; ++it) {
+        const int s = it % kStages;
+        ntx::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        unsigned char* sK = ring + s * 2 * TK;
+        ntx::mbar_expect_tx(&full[s], 2 * TK);
+        load_tile<D, kDqKeys>(sK, &tk, &full[s], it * kDqKeys, kvh, bi);
+        load_tile<D, kDqKeys>(sK + TK, &tv, &full[s], it * kDqKeys, kvh, bi);
+      }
+    }
+  } else {
+    ntx::setmaxnreg_inc<kConsumerRegs>();
+    const int t = threadIdx.x & 127, lane = t & 31;
+    const int qw0 = q0 + wg * 64;                 // this warpgroup's queries
+    const int r0 = (t >> 5) * 16 + (lane >> 2);   // its rows r0, r0 + 8
+    const int nkt_w =
+        qw0 >= a.sq ? 0
+        : a.causal
+            ? min(nkt_all, (a.q_off + min(a.sq - 1, qw0 + 63)) / kDqKeys + 1)
+            : nkt_all;
+    const uint32_t uQ = ntx::smem_u32(sQ), udO = ntx::smem_u32(sdO);
+    ntx::mbar_wait(qbar, 0);
+    float lse2[2], dd[2];
+    int qi[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      qi[hh] = qw0 + r0 + 8 * hh;
+      lse2[hh] = sLD[wg * 2 * kTile + r0 + 8 * hh];
+      dd[hh] = sLD[wg * 2 * kTile + kTile + r0 + 8 * hh];
+    }
+    float dq[D / 8][4];
+    zero(dq);
+    for (int it = 0; it < nkt; ++it) {
+      const int s = it % kStages;
+      ntx::mbar_wait(&full[s], (it / kStages) & 1);
+      if (it < nkt_w) {
+        const uint32_t uK = ntx::smem_u32(ring + s * 2 * TK), uV = uK + TK;
+        const int k0 = it * kDqKeys;
+        float p[8][4], dp[8][4];
+        zero(p);
+        zero(dp);
+        ntx::fence_regs(p);
+        ntx::fence_regs(dp);
+        ntx::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)       // S = Q_w K^T
+          ntx::wgmma_m64n64k16_ss(p, kmajor<kDqRows>(uQ, wg * 64, kk),
+                                  kmajor<kDqKeys>(uK, 0, kk), 1);
+        ntx::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)       // dP = dO_w V^T
+          ntx::wgmma_m64n64k16_ss(dp, kmajor<kDqRows>(udO, wg * 64, kk),
+                                  kmajor<kDqKeys>(uV, 0, kk), 1);
+        ntx::wgmma_commit();
+        ntx::wgmma_wait<1>();
+        ntx::fence_regs(p);
+        // P, while dP runs; a tile inside the causal bound and the
+        // arrays is not masked
+        const bool inside = k0 + kDqKeys <= a.skv && qw0 + 64 <= a.sq &&
+                            (!a.causal || k0 + kDqKeys - 1 <= a.q_off + qw0);
+        if (inside) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[j][e] = exp2f(p[j][e] * a.scale2 - lse2[e >> 1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hh = e >> 1;
+              const int kp = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+              const bool ok =
+                  kp < a.skv && (!a.causal || kp <= a.q_off + qi[hh]);
+              p[j][e] = ok ? exp2f(p[j][e] * a.scale2 - lse2[hh]) : 0.0f;
+            }
+        }
+        ntx::wgmma_wait<0>();
+        ntx::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = p[j][e] * (dp[j][e] - dd[e >> 1]);
+        uint32_t da[4][4];
+        ntx::pack_a<8>(da, dp);
+        ntx::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDqKeys / 16; ++kk)   // dQ += dS K
+          ntx::wgmma_rs_t<D>(dq, da[kk], mnmajor<kDqKeys>(uK, kk));
+        ntx::wgmma_commit();
+        ntx::wgmma_wait<0>();
+        ntx::fence_regs(da);
+        ntx::fence_regs(dq);
+      }
+      ntx::mbar_arrive(&empty[s]);
+    }
+    store_acc<D>(dq, a.scale,
+                 static_cast<__nv_bfloat16*>(a.dq) + at(a.dqs, bi, h, 0),
+                 a.dqs[2], nullptr, qw0, a.sq);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -454,9 +675,20 @@ __device__ __forceinline__ void load_f32(float* dst, const float* src,
   }
 }
 
+// lse2 and D of rows q0..q0+n-1 (n <= 16, within one row-table tile) of
+// (batch, q head) bh into Ls, Ds.
+__device__ __forceinline__ void load_ld(const BwdArgs& a, int bh, int q0,
+                                        int n, float* Ls, float* Ds) {
+  const float* t = row_tile(a, bh, q0 / kTile) + q0 % kTile;
+  for (int r = threadIdx.x; r < n; r += kBwdThreads) {
+    Ls[r] = t[r];
+    Ds[r] = t[kTile + r];
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-bwd_dkdv_f32(const BwdArgs a) {
+flash_bwd_dkdv_f32(const BwdArgs a) {
   constexpr int NC = D / 32, KR = kF32BwdKeys / 4, QR = kF32BwdRows;
   constexpr int LD = D + 1, LP = QR + 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -469,11 +701,13 @@ bwd_dkdv_f32(const BwdArgs a) {
   float* Ls = dSs + kF32BwdKeys * LP;
   float* Ds = Ls + QR;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bi = blockIdx.x / a.hkv, kvh = blockIdx.x % a.hkv;
+  const int grp = blockIdx.x / a.gs, split = blockIdx.x % a.gs;
+  const int bi = grp / a.hkv, kvh = grp % a.hkv;
   const int k0 = blockIdx.y * kF32BwdKeys;
   const int nk = min(kF32BwdKeys, a.skv - k0);
   const int nqt = (a.sq + QR - 1) / QR;
-  const int qt0 = a.causal ? max(0, (k0 - a.q_off) / QR) : 0;
+  const int qt0 = first_q_tile(blockIdx.y, kF32BwdKeys, QR, a.q_off, a.causal);
+  const int hps = a.g / a.gs, h0 = kvh * a.g + split * hps;
   load_f32<D>(Ks, static_cast<const float*>(a.k) + at(a.ks, bi, kvh, k0),
               a.ks[2], kF32BwdKeys, nk);
   load_f32<D>(Vs, static_cast<const float*>(a.v) + at(a.vs, bi, kvh, k0),
@@ -483,8 +717,8 @@ bwd_dkdv_f32(const BwdArgs a) {
   for (int r = 0; r < KR; ++r)
 #pragma unroll
     for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.0f;
-  for (int j = 0; j < a.g; ++j) {
-    const int h = kvh * a.g + j;
+  for (int j = 0; j < hps; ++j) {
+    const int h = h0 + j;
     for (int qt = qt0; qt < nqt; ++qt) {
       const int q0 = qt * QR, nq = min(QR, a.sq - q0);
       __syncthreads();                  // the previous tile is consumed
@@ -493,11 +727,7 @@ bwd_dkdv_f32(const BwdArgs a) {
       load_f32<D>(dOs,
                   static_cast<const float*>(a.dout) + at(a.dos, bi, h, q0),
                   a.dos[2], QR, nq);
-      for (int r = threadIdx.x; r < QR; r += kBwdThreads) {
-        const long long row = ((long long)bi * a.hq + h) * a.sq + q0 + r;
-        Ls[r] = r < nq ? a.lse[row] * kLog2e : 0.0f;
-        Ds[r] = r < nq ? a.delta[row] : 0.0f;
-      }
+      load_ld(a, bi * a.hq + h, q0, QR, Ls, Ds);
       __syncthreads();
       for (int e = threadIdx.x; e < kF32BwdKeys * QR; e += kBwdThreads) {
         const int kj = e / QR, qq = e % QR;
@@ -529,23 +759,30 @@ bwd_dkdv_f32(const BwdArgs a) {
       }
     }
   }
-  float* dkb = static_cast<float*>(a.dk) + at(a.dks, bi, kvh, k0);
-  float* dvb = static_cast<float*>(a.dv) + at(a.dvs, bi, kvh, k0);
+  const bool part = a.gs > 1;
+  const long long n = (long long)a.b * a.hkv * a.skv * D;
+  float* pk = a.ws + ((long long)split * a.b * a.hkv + grp) * a.skv * D;
+  float* dkb = part ? pk + (long long)k0 * D
+                    : static_cast<float*>(a.dk) + at(a.dks, bi, kvh, k0);
+  float* dvb = part ? pk + a.gs * n + (long long)k0 * D
+                    : static_cast<float*>(a.dv) + at(a.dvs, bi, kvh, k0);
+  const long long rk = part ? D : a.dks[2], rv = part ? D : a.dvs[2];
+  const float f = part ? 1.0f : a.scale;
 #pragma unroll
   for (int r = 0; r < KR; ++r) {
     const int kj = warp * KR + r;
     if (kj >= nk) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dkb[kj * a.dks[2] + lane + 32 * c] = dk[r][c] * a.scale;
-      dvb[kj * a.dvs[2] + lane + 32 * c] = dv[r][c];
+      dkb[kj * rk + lane + 32 * c] = dk[r][c] * f;
+      dvb[kj * rv + lane + 32 * c] = dv[r][c];
     }
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-bwd_dq_f32(const BwdArgs a) {
+flash_bwd_dq_f32(const BwdArgs a) {
   constexpr int NC = D / 32, QR = kF32BwdRows / 4, KT = kF32BwdKeys;
   constexpr int LD = D + 1, LS = KT + 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -569,11 +806,7 @@ bwd_dq_f32(const BwdArgs a) {
               a.qs[2], kF32BwdRows, nq);
   load_f32<D>(dOs, static_cast<const float*>(a.dout) + at(a.dos, bi, h, q0),
               a.dos[2], kF32BwdRows, nq);
-  for (int r = threadIdx.x; r < kF32BwdRows; r += kBwdThreads) {
-    const long long row = ((long long)bi * a.hq + h) * a.sq + q0 + r;
-    Ls[r] = r < nq ? a.lse[row] * kLog2e : 0.0f;
-    Ds[r] = r < nq ? a.delta[row] : 0.0f;
-  }
+  load_ld(a, blockIdx.x, q0, kF32BwdRows, Ls, Ds);
   float dq[QR][NC];
 #pragma unroll
   for (int r = 0; r < QR; ++r)
@@ -624,6 +857,41 @@ bwd_dq_f32(const BwdArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------
+// The group splits' partials of dK (times scale) and dV, added in split
+// order into the outputs
+// ---------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_merge(const BwdArgs a, int d) {
+  const long long n = (long long)a.b * a.hkv * a.skv * d;
+  for (long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+       i < 2 * n; i += 4LL * gridDim.x * blockDim.x) {
+    const int which = (int)(i / n);
+    const long long e = i % n;                  // 4 columns of one row
+    const int c = (int)(e % d);
+    const long long row = e / d;
+    const int key = (int)(row % a.skv), bh = (int)(row / a.skv);
+    const int kvh = bh % a.hkv, bi = bh / a.hkv;
+    const float* src = a.ws + (long long)which * a.gs * n + e;
+    float4 s = *reinterpret_cast<const float4*>(src);
+    for (int j = 1; j < a.gs; ++j) {
+      const float4 t = *reinterpret_cast<const float4*>(src + j * n);
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    const float f = which == 0 ? a.scale : 1.0f;
+    T* dst = static_cast<T*>(which == 0 ? a.dk : a.dv) +
+             at(which == 0 ? a.dks : a.dvs, bi, kvh, key) + c;
+    dst[0] = T(s.x * f);
+    dst[1] = T(s.y * f);
+    dst[2] = T(s.z * f);
+    dst[3] = T(s.w * f);
+  }
+}
+
 // Opt a kernel into its dynamic shared memory once per device.
 template <class K>
 cudaError_t opt_in(K kernel, size_t smem, bool* done) {
@@ -637,31 +905,99 @@ cudaError_t opt_in(K kernel, size_t smem, bool* done) {
   return err;
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime (the library links
+// no libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn) return fn;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+  if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+    fn = reinterpret_cast<EncodeTiled>(p);
+  return fn;
+}
+
+// A 4-D map (d, seq, head, batch) over a bf16 operand with element
+// strides st (batch, head, seq), d contiguous: 64 x 64 boxes, 128-byte
+// swizzle, zeros past the edge.
+bool encode(CUtensorMap* map, const void* base, const long long* st, int b,
+            int h, int s, int d) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1}, unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-cudaError_t launch_passes(const BwdArgs& a, bool bf16, cudaStream_t s) {
+cudaError_t launch_passes(const BwdArgs& a, const Plan& p, bool bf16,
+                          cudaStream_t s) {
   static bool done[4][64] = {};
-  const unsigned groups = (unsigned)(a.b * a.hkv), heads = (unsigned)(a.b * a.hq);
+  const unsigned groups = (unsigned)(a.b * a.hkv * p.gs);
+  const unsigned heads = (unsigned)(a.b * a.hq);
+  const dim3 g2(groups, (a.skv + p.bk - 1) / p.bk);
+  const dim3 g3(heads, (a.sq + p.dq_rows - 1) / p.dq_rows);
   cudaError_t err;
   if (bf16) {
-    const size_t s2 = tc_dkdv_smem(D), s3 = tc_dq_smem(D);
-    if ((err = opt_in(bwd_dkdv_tc<D>, s2, done[0])) != cudaSuccess) return err;
-    if ((err = opt_in(bwd_dq_tc<D>, s3, done[1])) != cudaSuccess) return err;
-    const dim3 g2(groups, (a.skv + kBwdKeys - 1) / kBwdKeys);
-    const dim3 g3(heads, (a.sq + kBwdRows - 1) / kBwdRows);
-    if (g2.y > 0) bwd_dkdv_tc<D><<<g2, kBwdThreads, s2, s>>>(a);
+    CUtensorMap tq, tdo, tk, tv;
+    if (!encode(&tq, a.q, a.qs, a.b, a.hq, a.sq, D) ||
+        !encode(&tdo, a.dout, a.dos, a.b, a.hq, a.sq, D) ||
+        !encode(&tk, a.k, a.ks, a.b, a.hkv, a.skv, D) ||
+        !encode(&tv, a.v, a.vs, a.b, a.hkv, a.skv, D))
+      return cudaErrorInvalidValue;
+    if ((err = opt_in(flash_bwd_dkdv_wgmma<D>, p.smem_dkdv, done[0])) !=
+        cudaSuccess)
+      return err;
+    if ((err = opt_in(flash_bwd_dq_wgmma<D>, p.smem_dq, done[1])) !=
+        cudaSuccess)
+      return err;
+    flash_bwd_dkdv_wgmma<D><<<g2, kWgThreads, p.smem_dkdv, s>>>(tq, tdo, tk,
+                                                                tv, a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if (g3.y > 0) bwd_dq_tc<D><<<g3, kBwdThreads, s3, s>>>(a);
-    return cudaGetLastError();
+    flash_bwd_dq_wgmma<D><<<g3, kWgThreads, p.smem_dq, s>>>(tq, tdo, tk, tv,
+                                                            a);
+  } else {
+    if ((err = opt_in(flash_bwd_dkdv_f32<D>, p.smem_dkdv, done[2])) !=
+        cudaSuccess)
+      return err;
+    if ((err = opt_in(flash_bwd_dq_f32<D>, p.smem_dq, done[3])) != cudaSuccess)
+      return err;
+    flash_bwd_dkdv_f32<D><<<g2, kBwdThreads, p.smem_dkdv, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    flash_bwd_dq_f32<D><<<g3, kBwdThreads, p.smem_dq, s>>>(a);
   }
-  const size_t s2 = f32_dkdv_smem(D), s3 = f32_dq_smem(D);
-  if ((err = opt_in(bwd_dkdv_f32<D>, s2, done[2])) != cudaSuccess) return err;
-  if ((err = opt_in(bwd_dq_f32<D>, s3, done[3])) != cudaSuccess) return err;
-  const dim3 g2(groups, (a.skv + kF32BwdKeys - 1) / kF32BwdKeys);
-  const dim3 g3(heads, (a.sq + kF32BwdRows - 1) / kF32BwdRows);
-  if (g2.y > 0) bwd_dkdv_f32<D><<<g2, kBwdThreads, s2, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (g3.y > 0) bwd_dq_f32<D><<<g3, kBwdThreads, s3, s>>>(a);
-  return cudaGetLastError();
+  if (p.gs > 1) {
+    const long long n = 2LL * a.b * a.hkv * a.skv * D / 4;
+    const long long need = (n + 255) / 256;
+    const int blocks = (int)(need < kSms * 16 ? need : kSms * 16);
+    if (bf16)
+      flash_bwd_merge<__nv_bfloat16><<<blocks, 256, 0, s>>>(a, D);
+    else
+      flash_bwd_merge<float><<<blocks, 256, 0, s>>>(a, D);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 bool aligned16(const void* p, const long long* st) {
@@ -675,37 +1011,43 @@ extern "C" {
 
 // q, o, dout, dq (b, hq, sq, d); k, v, dk, dv (b, hkv, skv, d), on the
 // device, all fp32 or all bf16, each with d contiguous (bf16: q, k, v and
-// dout 16-byte aligned with strides in multiples of 8 elements); lse
-// (b * hq * sq fp32, the forward's); delta (b * hq * sq fp32 scratch). p
-// (host, 36 values): the element strides (batch, head, seq) of q, k, v,
-// o, dout, dq, dk and dv in p[0..23], then b, hq, hkv, sq, skv, d,
-// causal, bf16, and the plan (kernels/flash_attention.py:flash_bwd_plan):
-// keys a tile, queries a tile, the dK/dV and the dQ blocks' shared
-// memory. Causal attention needs sq <= skv (query i at position skv - sq
-// + i). Three launches: D, dK/dV, dQ. Anything else is refused.
+// dout 16-byte aligned with strides in multiples of 8 elements, which the
+// tensor maps need); lse (b * hq * sq fp32, the forward's); rows (the
+// row table, rows_bytes of scratch); ws (ws_bytes of scratch, or null
+// when gs is 1). p (host, 43 values): the element strides (batch, head,
+// seq) of q, k, v, o, dout, dq, dk and dv in p[0..23], then b, hq, hkv,
+// sq, skv, d, causal, bf16, and the plan (kernels/flash_attention.py:
+// flash_bwd_plan): keys a dK/dV block, queries a tile it walks, queries a
+// dQ block, keys a tile it walks, ring stages, consumer warpgroups, group
+// splits gs, the dK/dV and the dQ blocks' shared memory, the workspace's
+// and the row table's bytes. Causal attention needs sq <= skv (query i at
+// position skv - sq + i); sq and skv are at least 1. Launches: the delta,
+// dK/dV, dQ, and with gs > 1 the merge. Anything else is refused.
 int ntx_flash_attention_bwd(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
-                            const float* lse, float* delta, void* dq,
-                            void* dk, void* dv, const long long* p,
+                            const float* lse, float* rows, float* ws,
+                            void* dq, void* dk, void* dv, const long long* p,
                             float scale, void* stream) {
   const int b = (int)p[24], hq = (int)p[25], hkv = (int)p[26];
   const int sq = (int)p[27], skv = (int)p[28], d = (int)p[29];
   const int causal = (int)p[30], bf16 = (int)p[31];
-  if (b < 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq < 0 || skv < 0 ||
+  if (b < 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 ||
       (d != 64 && d != 128) || (causal && sq > skv))
     return (int)cudaErrorInvalidValue;
-  const int bk = bf16 ? kBwdKeys : kF32BwdKeys;
-  const int bq = bf16 ? kBwdRows : kF32BwdRows;
-  const size_t s2 = bf16 ? tc_dkdv_smem(d) : f32_dkdv_smem(d);
-  const size_t s3 = bf16 ? tc_dq_smem(d) : f32_dq_smem(d);
-  if (p[32] != bk || p[33] != bq || (size_t)p[34] != s2 ||
-      (size_t)p[35] != s3 || s2 > (size_t)kMaxSmem || s3 > (size_t)kMaxSmem)
+  const Plan pl = make_plan(b, hq, hkv, sq, skv, d, causal, bf16);
+  if (p[32] != pl.bk || p[33] != pl.bq || p[34] != pl.dq_rows ||
+      p[35] != pl.dq_keys || p[36] != pl.stages || p[37] != pl.wgs ||
+      p[38] != pl.gs || p[39] != pl.smem_dkdv || p[40] != pl.smem_dq ||
+      p[41] != pl.ws_bytes || p[42] != pl.rows_bytes ||
+      pl.smem_dkdv > kMaxSmem || pl.smem_dq > kMaxSmem ||
+      (pl.gs > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if (bf16 && !(aligned16(q, p) && aligned16(k, p + 3) &&
                 aligned16(v, p + 6) && aligned16(dout, p + 12)))
     return (int)cudaErrorInvalidValue;
-  if ((long long)b * hkv > 0x7fffffffLL || (long long)b * hq > 0x7fffffffLL ||
-      (skv + bk - 1) / bk > 65535 || (sq + bq - 1) / bq > 65535)
+  if ((long long)b * hkv * pl.gs > 0x7fffffffLL ||
+      (long long)b * hq > 0x7fffffffLL || (skv + pl.bk - 1) / pl.bk > 65535 ||
+      (sq + pl.dq_rows - 1) / pl.dq_rows > 65535)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return (int)cudaGetLastError();
   BwdArgs a;
@@ -715,7 +1057,8 @@ int ntx_flash_attention_bwd(const void* q, const void* k, const void* v,
   a.o = o;
   a.dout = dout;
   a.lse = lse;
-  a.delta = delta;
+  a.rows = rows;
+  a.ws = ws;
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
@@ -737,22 +1080,26 @@ int ntx_flash_attention_bwd(const void* q, const void* k, const void* v,
   a.causal = causal;
   a.g = hq / hkv;
   a.q_off = skv - sq;
+  a.gs = pl.gs;
+  a.nqt_pad = 2 * ((sq + 2 * kTile - 1) / (2 * kTile));
   a.scale = scale;
   a.scale2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)b * hq * sq;
-  if (rows > 0) {
-    const long long need = (rows * 32 + 255) / 256;
-    const int blocks = (int)(need < 132 * 16 ? need : 132 * 16);
-    if (bf16)
-      flash_bwd_delta<__nv_bfloat16><<<blocks, 256, 0, s>>>(a, d);
-    else
-      flash_bwd_delta<float><<<blocks, 256, 0, s>>>(a, d);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)(d == 64 ? launch_passes<64>(a, bf16, s)
-                       : launch_passes<128>(a, bf16, s));
+  const long long n_rows = (long long)b * hq * a.nqt_pad * kTile;
+  const long long need = (n_rows * 32 + 255) / 256;
+  const int blocks = (int)(need < kSms * 16 ? need : kSms * 16);
+  if (bf16 && d == 64)
+    flash_bwd_delta<__nv_bfloat16, 64><<<blocks, 256, 0, s>>>(a);
+  else if (bf16)
+    flash_bwd_delta<__nv_bfloat16, 128><<<blocks, 256, 0, s>>>(a);
+  else if (d == 64)
+    flash_bwd_delta<float, 64><<<blocks, 256, 0, s>>>(a);
+  else
+    flash_bwd_delta<float, 128><<<blocks, 256, 0, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)(d == 64 ? launch_passes<64>(a, pl, bf16, s)
+                       : launch_passes<128>(a, pl, bf16, s));
 }
 
 }  // extern "C"

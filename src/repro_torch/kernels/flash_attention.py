@@ -313,64 +313,155 @@ def flash_merge_cuda(ws: torch.Tensor, o: torch.Tensor,
 # ----------------------------------------------------------------------
 # Backward: csrc/flash_attention_bwd.cu
 # ----------------------------------------------------------------------
-#: the backward's tiles (``kBwdKeys``, ``kBwdRows``; ``kF32BwdKeys``,
-#: ``kF32BwdRows`` in ``csrc/flash_attention_bwd.cu``) and its ring depth
-BWD_KEYS, BWD_ROWS, BWD_STAGES = 64, 64, 2
-F32_BWD_KEYS, F32_BWD_ROWS = 32, 16
+#: the bf16 route's consumer warpgroups a block (``kWG``), keys of a dK/dV
+#: block (64 a warpgroup), queries of the tiles it walks, queries of a dQ
+#: block, keys of the tiles it walks, and the ring depth (``kBk``,
+#: ``kBq``, ``kDqRows``, ``kDqKeys``, ``kStages``)
+BWD_WARPGROUPS = 2
+BWD_KEYS, BWD_ROWS = 64 * BWD_WARPGROUPS, 64
+BWD_DQ_ROWS, BWD_DQ_KEYS, BWD_STAGES = 64 * BWD_WARPGROUPS, 64, 3
+#: the fp32 route's tiles (``kF32BwdKeys``, ``kF32BwdRows``) and the blocks
+#: of it an SM holds (``kF32BlocksPerSm``; the bf16 route holds one)
+F32_BWD_KEYS, F32_BWD_ROWS, F32_BWD_BLOCKS_PER_SM = 32, 16, 4
+#: queries a tile of the row table (lse log2 e and D; ``kTile``)
+BWD_ROW_TILE = 64
 
 
 @dataclasses.dataclass(frozen=True)
 class FlashBwdPlan:
-    """How ``csrc/flash_attention_bwd.cu`` cuts one backward: the dK/dV
-    pass takes one block per (batch, kv head, tile of ``bk`` keys) over
-    query tiles of ``bq``; the dQ pass one block per (batch, q head, tile
-    of ``bq`` queries) over key tiles of ``bk``. ``smem_dkdv`` and
-    ``smem_dq`` are the two blocks' shared memory (bytes)."""
+    """How ``csrc/flash_attention_bwd.cu`` cuts one backward. The dK/dV
+    pass takes one block per (batch, kv head, split of the group, tile of
+    ``bk`` keys); each block walks ``g // gs`` query heads and, for each,
+    its tiles of ``bq`` queries through a ring of ``stages`` (bf16:
+    ``warpgroups`` consumer warpgroups of 64 keys and a producer). The dQ
+    pass takes one block per (batch, q head, tile of ``dq_rows`` queries)
+    over tiles of ``dq_keys`` keys. ``gs`` > 1 adds the fp32 partials of
+    the splits in ``ws_bytes`` of workspace, in split order, in a merge
+    launch. ``smem_dkdv`` / ``smem_dq``: the blocks' shared memory;
+    ``rows_bytes``: the row table (lse log2 e and D a query, tiles of 64,
+    an even tile count a head)."""
 
     bf16: bool
     bk: int
     bq: int
+    dq_rows: int
+    dq_keys: int
+    stages: int
+    warpgroups: int
+    gs: int
     dkdv_grid: tuple
     dq_grid: tuple
     smem_dkdv: int
     smem_dq: int
+    ws_bytes: int
+    rows_bytes: int
+    b: int
+    hq: int
+    hkv: int
+    sq: int
+    skv: int
+    causal: bool
+
+    def dkdv_block(self, x: int, y: int) -> tuple:
+        """The dK/dV block at grid (x, y) as the kernel maps it: (batch,
+        kv head, split, its query heads in walking order, its keys, the
+        query tiles it walks for each head)."""
+        g = self.hq // self.hkv
+        hps = g // self.gs
+        grp, split = divmod(x, self.gs)
+        bi, kvh = divmod(grp, self.hkv)
+        h0 = kvh * g + split * hps
+        k0 = y * self.bk
+        qt0 = first_q_tile(y, self.bk, self.bq, self.skv - self.sq,
+                           self.causal)
+        return (bi, kvh, split, range(h0, h0 + hps),
+                range(k0, min(k0 + self.bk, self.skv)),
+                range(qt0, -(-self.sq // self.bq)))
+
+    def params(self) -> tuple:
+        """The plan's values as the C entry takes them."""
+        return (self.bk, self.bq, self.dq_rows, self.dq_keys, self.stages,
+                self.warpgroups, self.gs, self.smem_dkdv, self.smem_dq,
+                self.ws_bytes, self.rows_bytes)
+
+
+def first_q_tile(t: int, bk: int, bq: int, q_off: int, causal: bool) -> int:
+    """The first query tile (of ``bq``) that key tile ``t`` (of ``bk``)
+    meets under the causal bound (query i at position q_off + i)."""
+    if not causal:
+        return 0
+    return max(0, (t * bk - q_off) // bq)
+
+
+def group_split(b: int, hkv: int, g: int, sq: int, skv: int, bk: int,
+                bq: int, causal: bool, slots: int) -> int:
+    """The fewest splits ``gs`` of a GQA group (a divisor of g) whose
+    longest dK/dV block (g // gs heads times the first key tile's query
+    tiles) is at most the mean work of one of ``slots`` block slots, so
+    the longest block does not bound the run; g where none is. Then the
+    grid holds at least ``slots`` blocks wherever b hkv g key tiles do."""
+    nkt, nqt = -(-skv // bk), -(-sq // bq)
+    per = [nqt - first_q_tile(t, bk, bq, skv - sq, causal)
+           for t in range(nkt)]
+    total = b * hkv * g * sum(max(0, n) for n in per)
+    longest = max(per, default=0)
+    for gs in range(1, g + 1):
+        if g % gs == 0 and (g // gs) * longest * slots <= total:
+            return gs
+    return g
 
 
 @functools.lru_cache(maxsize=1024)
 def flash_bwd_plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
                    dtype, causal: bool = True) -> FlashBwdPlan:
-    """The backward kernel's plan, a pure function of the shapes: bf16
-    takes 64-key and 64-query tiles on the tensor cores (K, V and a
-    double-buffered ring of Q and dO tiles; or Q, dO and a ring of K and
-    V tiles), fp32 32-key and 16-query tiles on FFMA. Raises for what the
-    kernel cannot run: a head dim outside ``HEAD_DIMS``, a dtype other
-    than fp32 or bf16, causal attention with more queries than keys."""
+    """The backward kernel's plan, a pure function of the shapes. bf16:
+    wgmma with two consumer warpgroups, 128-key dK/dV blocks over 64-query
+    tiles, 128-query dQ blocks over 64-key tiles, a ring of 3 TMA stages,
+    one block an SM. fp32: FFMA, 32-key and 16-query tiles, 4 blocks an
+    SM. The group split fills the block slots (:func:`group_split`).
+    Raises for what the kernel cannot run: a head dim outside
+    ``HEAD_DIMS``, a dtype other than fp32 or bf16, empty sequences,
+    causal attention with more queries than keys."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash attention takes fp32 or bf16, not {dtype}")
-    if min(b, sq, skv) < 0 or hq <= 0 or hkv <= 0 or hq % hkv:
-        raise ValueError(f"flash attention shapes b {b} hq {hq} hkv {hkv} "
+    if b < 0 or min(sq, skv) <= 0 or hq <= 0 or hkv <= 0 or hq % hkv:
+        raise ValueError(f"flash backward shapes b {b} hq {hq} hkv {hkv} "
                          f"sq {sq} skv {skv}")
     if causal and sq > skv:
         raise ValueError(f"the causal backward takes sq <= skv, got sq {sq} "
                          f"skv {skv} (a query with no key)")
     bf16 = dtype == torch.bfloat16
     if bf16:
-        bk, bq, ld = BWD_KEYS, BWD_ROWS, 2 * (d + PAD)
-        smem_dkdv = 2 * bk * ld + BWD_STAGES * (2 * bq * ld + 8 * bq)
-        smem_dq = 2 * bq * ld + BWD_STAGES * 2 * bk * ld
+        bk, bq, dq_rows, dq_keys = BWD_KEYS, BWD_ROWS, BWD_DQ_ROWS, BWD_DQ_KEYS
+        stages, wgs, slots = BWD_STAGES, BWD_WARPGROUPS, SMS
+        bars = 8 * (2 * stages + 1)
+        smem_dkdv = 1024 + 4 * bk * d + stages * (4 * bq * d + 8 * bq) + bars
+        smem_dq = (1024 + 4 * dq_rows * d + 8 * dq_rows
+                   + stages * 4 * dq_keys * d + bars)
     else:
-        bk, bq, ld = F32_BWD_KEYS, F32_BWD_ROWS, 4 * (d + 1)
+        bk, bq = F32_BWD_KEYS, F32_BWD_ROWS
+        dq_rows, dq_keys, stages, wgs = bq, bk, 1, 1
+        slots = SMS * F32_BWD_BLOCKS_PER_SM
+        ld = 4 * (d + 1)
         smem_dkdv = 2 * bk * ld + 2 * bq * ld + 8 * bk * (bq + 1) + 8 * bq
         smem_dq = 2 * bq * ld + 2 * bk * ld + 4 * bq * (bk + 1) + 8 * bq
     if max(smem_dkdv, smem_dq) > MAX_SMEM:
         raise ValueError(f"flash backward: {max(smem_dkdv, smem_dq)} bytes "
                          f"of shared memory")
-    return FlashBwdPlan(bf16=bf16, bk=bk, bq=bq,
-                        dkdv_grid=(b * hkv, -(-skv // bk)),
-                        dq_grid=(b * hq, -(-sq // bq)),
-                        smem_dkdv=smem_dkdv, smem_dq=smem_dq)
+    g = hq // hkv
+    gs = group_split(b, hkv, g, sq, skv, bk, bq, causal, slots)
+    row_tiles = 2 * -(-sq // (2 * BWD_ROW_TILE))
+    return FlashBwdPlan(
+        bf16=bf16, bk=bk, bq=bq, dq_rows=dq_rows, dq_keys=dq_keys,
+        stages=stages, warpgroups=wgs, gs=gs,
+        dkdv_grid=(b * hkv * gs, -(-skv // bk)),
+        dq_grid=(b * hq, -(-sq // dq_rows)),
+        smem_dkdv=smem_dkdv, smem_dq=smem_dq,
+        ws_bytes=2 * gs * b * hkv * skv * d * 4 if gs > 1 else 0,
+        rows_bytes=b * hq * row_tiles * 2 * BWD_ROW_TILE * 4,
+        b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, causal=bool(causal))
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
@@ -383,11 +474,15 @@ def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with d contiguous and, for bf16, 16-byte rows the kernel's
-    cp.async can read (a copy only where it is not so)."""
+    """``t`` with d contiguous and, for bf16, what the kernel's tensor
+    maps read: a 16-byte aligned base and positive strides in multiples of
+    8 elements (a copy only where it is not so: a fresh allocation, since
+    ``contiguous`` returns a contiguous view off a 16-byte boundary as it
+    is)."""
     if t.stride(-1) != 1 or (t.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]))):
-        return t.contiguous()
+            t.data_ptr() % 16 or any(s % 8 or s <= 0
+                                     for s in t.stride()[:3]))):
+        return t.clone(memory_format=torch.contiguous_format)
     return t
 
 
@@ -397,7 +492,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
     with output ``o`` and row log-sum-exp ``lse`` (b, hq, sq) fp32 (the
     forward's, :func:`flash_attention_cuda` with ``lse=True``) for the
     incoming gradient ``dout``. q, o, dout: (b, hq, sq, d); k, v: (b, hkv,
-    skv, d); all fp32 or all bf16, read by strides; the gradients take
+    skv, d); all fp32 or all bf16, read by strides (bf16 through tensor
+    maps; an operand they cannot read is copied); the gradients take
     their inputs' layouts. ``plan`` defaults to :func:`flash_bwd_plan`;
     another is passed only to test that the kernel refuses it."""
     b, hq, sq, d = q.shape
@@ -419,15 +515,18 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
     q, k, v, o, dout = (_aligned(t) for t in (q, k, v, o, dout))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    rows = torch.empty(p.rows_bytes // 4, dtype=torch.float32,
+                       device=q.device)
+    ws = (torch.empty(p.ws_bytes // 4, dtype=torch.float32, device=q.device)
+          if p.ws_bytes else None)
     params = _build.ptr_array(ctypes.c_longlong, (
         *(s for t in (q, k, v, o, dout, dq, dk, dv) for s in _strides(t)),
-        b, hq, hkv, sq, skv, d, int(causal), int(p.bf16), p.bk, p.bq,
-        p.smem_dkdv, p.smem_dq))
+        b, hq, hkv, sq, skv, d, int(causal), int(p.bf16), *p.params()))
     with _build.on_device(q):
         code = _build.library().ntx_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+            ws.data_ptr() if ws is not None else None, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), params, f32(scale),
             _build.stream_of(q))
     _build.check(code, "ntx_flash_attention_bwd")

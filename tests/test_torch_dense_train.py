@@ -155,16 +155,20 @@ def test_attention_under_autograd_takes_training_shapes_only():
 
 
 def test_flash_bwd_plan():
-    """The backward planner: bf16 64 x 64 tiles in two ~103 KB blocks at
-    d 128 (two blocks an SM), fp32 32 x 16 FFMA tiles; the grids at the
-    training shape; causal with sq > skv refused."""
+    """The backward planner: bf16 wgmma blocks of two consumer warpgroups
+    (128 keys over 64-query tiles; 128 queries over 64-key tiles) in a
+    3-stage ring, ~163 KB each at d 128 (one block an SM), whole groups
+    at the training shape; fp32 32 x 16 FFMA tiles with the group split
+    in four; causal with sq > skv refused."""
     p = tfa.flash_bwd_plan(4, 32, 8, 2048, 2048, 128, torch.bfloat16)
-    assert (p.bk, p.bq, p.dkdv_grid, p.dq_grid) == (64, 64, (32, 32),
-                                                    (128, 32))
-    assert (p.smem_dkdv, p.smem_dq) == (105472, 104448)
-    assert 2 * max(p.smem_dkdv, p.smem_dq) <= tfa.MAX_SMEM
+    assert (p.bk, p.bq, p.gs, p.dkdv_grid, p.dq_grid) == (128, 64, 1,
+                                                          (32, 16),
+                                                          (128, 16))
+    assert (p.smem_dkdv, p.smem_dq) == (166456, 165944)
+    assert max(p.smem_dkdv, p.smem_dq) <= tfa.MAX_SMEM
     f = tfa.flash_bwd_plan(1, 8, 2, 1000, 1000, 128, torch.float32)
-    assert (f.bk, f.bq, f.smem_dkdv, f.smem_dq) == (32, 16, 54016, 51776)
+    assert (f.bk, f.bq, f.gs, f.smem_dkdv, f.smem_dq) == (32, 16, 4, 54016,
+                                                          51776)
     with pytest.raises(ValueError, match="sq <= skv"):
         tfa.flash_bwd_plan(1, 8, 2, 10, 5, 128, torch.bfloat16)
     shape = (1, 8, 2, 1024, 1024, 1024, 128, torch.bfloat16)

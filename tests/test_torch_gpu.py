@@ -1306,8 +1306,9 @@ def test_flash_backward_kernel(cuda, dtype, hq, hkv, s, causal):
 
 
 def test_flash_backward_refuses_a_plan_it_did_not_make(cuda):
-    """The launcher recomputes the planner's tiles and shared memory and
-    refuses a plan that differs, as the forward does."""
+    """The launcher recomputes the planner's plan (tiles, ring stages,
+    group splits, shared memory) and refuses a plan that differs, as the
+    forward does."""
     import dataclasses
     q = _t((1, 64, 8, 128), cuda).bfloat16().transpose(1, 2)
     k = _t((1, 64, 2, 128), cuda).bfloat16().transpose(1, 2)
@@ -1315,10 +1316,97 @@ def test_flash_backward_refuses_a_plan_it_did_not_make(cuda):
                           lse=True)
     o, lse = tfa.flash_attention_cuda(q, k, k, plan=plan, lse=True)
     good = tfa.flash_bwd_plan(1, 8, 2, 64, 64, 128, torch.bfloat16)
-    for bad in ({"bk": 32}, {"smem_dq": good.smem_dq + 16}):
+    for bad in ({"bk": 32}, {"smem_dq": good.smem_dq + 16},
+                {"smem_dkdv": good.smem_dkdv - 1024},
+                {"stages": good.stages - 1}, {"gs": good.gs // 2},
+                {"warpgroups": 1}):
         with pytest.raises(RuntimeError, match="ntx_flash_attention_bwd"):
             tfa.flash_attention_bwd_cuda(q, k, k, o, lse, q.detach(),
                                          plan=dataclasses.replace(good, **bad))
+
+
+def _bwd_inputs(cuda, b, hq, hkv, s, d, dt, causal, views=True):
+    """q, k, v, dO as the model hands them ((b, s, h, d) viewed as (b, h,
+    s, d); dO a view too), o and lse from the kernel forward."""
+    def make(h, scale):
+        t = _t((b, s, h, d), cuda, scale).to(dt)
+        return t.transpose(1, 2) if views else t.transpose(1, 2).contiguous()
+    q, k, v, do = make(hq, 0.5), make(hkv, 0.5), make(hkv, 1.0), make(hq, 1.0)
+    plan = tfa.flash_plan(b, hq, hkv, s, s, s, d, dt, causal, lse=True)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, plan=plan,
+                                      lse=True)
+    return q, k, v, o, lse, do
+
+
+def _check_bwd(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel_l2(g, w) < _GRAD_RTOL[dtype]
+    assert _rel_l2(got[1][:, :, -32:], want[1][:, :, -32:]) < \
+        _GRAD_RTOL[dtype]
+    assert float(got[1][:, :, -32:].float().abs().sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,s,causal", [(8, 2, 200, True),
+                                             (8, 8, 130, False)])
+def test_flash_backward_kernel_d64(cuda, dtype, hq, hkv, s, causal):
+    """Head dim 64 (one 64-column panel a tile on the bf16 route)."""
+    dt = getattr(torch, dtype)
+    args = _bwd_inputs(cuda, 2, hq, hkv, s, 64, dt, causal)
+    got = tfa.flash_attention_bwd_cuda(*args, causal=causal)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(*args, causal=causal),
+               dtype)
+
+
+@pytest.mark.parametrize("b,hkv,gs_more_than_one", [(2, 4, True),
+                                                    (4, 8, False)])
+def test_flash_backward_training_shapes(cuda, b, hkv, gs_more_than_one):
+    """yi's group of 8 at b 2, s 2048, whose plan splits the group (the
+    fp32 partials added in split order by the merge launch), and the path
+    shape (b 4, hkv 8, s 2048), whose plan keeps whole groups."""
+    plan = tfa.flash_bwd_plan(b, 32, hkv, 2048, 2048, 128, torch.bfloat16)
+    assert (plan.gs > 1) == gs_more_than_one
+    args = _bwd_inputs(cuda, b, 32, hkv, 2048, 128, torch.bfloat16, True)
+    got = tfa.flash_attention_bwd_cuda(*args)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(*args), "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_strided_and_misaligned(cuda, dtype):
+    """Operands as strided views give the bits of their contiguous copies;
+    one that starts off a 16-byte boundary (the tensor maps cannot read
+    it, so the launcher copies it) gives them too."""
+    dt = getattr(torch, dtype)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 1, 8, 2, 300, 128, dt, True)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    cont = tfa.flash_attention_bwd_cuda(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), o, lse,
+                                        do.contiguous())
+    buf = torch.empty(do.numel() + 1, dtype=dt, device=cuda)
+    off = buf[1:].view(do.shape).copy_(do)
+    assert off.data_ptr() % 16
+    shifted = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, off)
+    for g, c, sh in zip(got, cont, shifted):
+        assert torch.equal(g, c) and torch.equal(g, sh)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,s", [(32, 8, 256), (8, 2, 1000),
+                                      (32, 4, 640)])
+def test_flash_backward_two_calls_bit_equal(cuda, dtype, hq, hkv, s):
+    """Deterministic: every output element is summed in a fixed order (no
+    atomics; the group splits' partials added in split order), so two
+    calls on the same inputs give the same bits."""
+    dt = getattr(torch, dtype)
+    args = _bwd_inputs(cuda, 1, hq, hkv, s, 128, dt, True)
+    first = tfa.flash_attention_bwd_cuda(*args)
+    second = tfa.flash_attention_bwd_cuda(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
