@@ -86,6 +86,15 @@ Phases, one result line each:
                2048: step time, tokens/s, peak memory, the model-FLOP
                share, the launch counts, one step under torch.profiler
                by kernel family.
+ 12. deepseek — deepseek-v2-lite-16b (MLA and MoE): the width check of
+               phase 4 at 2 of 27 layers, then Server.generate on the
+               full 27-layer model (bf16, Model.init(0), ~32.4 GB) at
+               phase 5's sizes and one 2048-token prompt, launch counts
+               (MLA's flash route at q/k 192, v 128, its split merge, the
+               samplers), peak memory, the long prefill and one decode
+               step under torch.profiler beside the decode step's
+               expert-weight bytes bound. Phases 2/3 hold the (192, 128)
+               forward at its shapes (and its backward, off the path).
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -125,7 +134,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = set(range(1, 12))
+ALL_PHASES = set(range(1, 13))
+#: phase 12's model (MLA and MoE)
+DEEPSEEK = "deepseek-v2-lite-16b"
 #: phases 10-11: llama3-8b cut to DENSE_LAYERS of 32 layers, batch
 #: DENSE_BATCH x DENSE_SEQ for DENSE_STEPS steps; the width check's
 #: 2 layers at batch 1 x DENSE_WIDTH_SEQ (256, not 512: at 512 its CPU
@@ -313,14 +324,25 @@ def kernel_cases(torch):
     gemm_case("gemm:fp32_4096^3", 4096, 4096, 4096, f32, f32, [], f_tol,
               path=False)
 
-    def flash_case(name, b, hq, hkv, sq, skv, kv_len, dt, tol, path=True):
-        d = 128
-        # prefill q/k/v are (b, s, h, d) projections viewed as (b, h, s, d)
-        # as models/attention.py makes them; decode reads the cache
-        q = rn(b, sq, hq, d, dt=dt).transpose(1, 2)
-        kv = (lambda: rn(b, skv, hkv, d, dt=dt).transpose(1, 2)) \
-            if kv_len is None else (lambda: rn(b, hkv, skv, d, dt=dt))
-        k, v = kv(), kv()
+    def flash_case(name, b, hq, hkv, sq, skv, kv_len, dt, tol, path=True,
+                   d=128, dv=128, phase="serve"):
+        if not wanted(name):
+            return
+        if d == dv:
+            # prefill q/k/v are (b, s, h, d) projections viewed as (b, h,
+            # s, d) as models/attention.py makes them; decode reads the
+            # cache
+            q = rn(b, sq, hq, d, dt=dt).transpose(1, 2)
+            kv = (lambda: rn(b, skv, hkv, d, dt=dt).transpose(1, 2)) \
+                if kv_len is None else (lambda: rn(b, hkv, skv, d, dt=dt))
+            k, v = kv(), kv()
+        else:
+            # MLA: q and k are concatenations of the nope and rope parts
+            # (contiguous), v the latent's up-projection viewed as (b, h,
+            # s, dv), the whole cache expanded at decode
+            q = rn(b, hq, sq, d, dt=dt)
+            k = rn(b, hkv, skv, d, dt=dt)
+            v = rn(b, skv, hkv, dv, dt=dt).transpose(1, 2)
         kw = dict(causal=True, kv_len=kv_len)
         n_kv = skv if kv_len is None else kv_len
         # the library gets its fastest form of the same function: SDPA's
@@ -341,9 +363,10 @@ def kernel_cases(torch):
             return F.scaled_dot_product_attention(q, lk, lv, enable_gqa=True,
                                                   **lib_kw)
         esz = q.element_size()
-        nbytes = (q.numel() + 2 * b * hkv * n_kv * d + q.numel()) * esz
+        nbytes = (q.numel() + b * hkv * n_kv * (d + dv)
+                  + b * hq * sq * dv) * esz
         # operations over the unmasked (query, key) pairs only: query i
-        # takes min(n_kv, n_kv - sq + i + 1) keys
+        # takes min(n_kv, n_kv - sq + i + 1) keys; S over d, P V over dv
         pairs = sum(max(0, min(n_kv, n_kv - sq + i + 1)) for i in range(sq))
         case = dict(
             name=name, wrapper="attention", source=flash_src,
@@ -351,8 +374,11 @@ def kernel_cases(torch):
             kernel=lambda: ops.attention(q, k, v, **kw),
             plain=lambda: fa.flash_attention_plain(q, k, v, **kw),
             library=library, backend=library, mode="close", tol=tol,
-            bytes=nbytes, ops=4.0 * b * hq * d * pairs,
-            kind="bf16" if dt == bf else "fp32", path=path)
+            bytes=nbytes, ops=2.0 * b * hq * (d + dv) * pairs,
+            kind="bf16" if dt == bf else "fp32", path=path, phase=phase)
+        if d != dv:
+            cases.append(case)
+            return
         plan = fa.flash_plan(b, hq, hkv, sq, skv, n_kv, d, dt)
         if plan.wr == 8:
             # the plan's 128-row blocks against 64-row ones (each K/V
@@ -376,6 +402,23 @@ def kernel_cases(torch):
                bf_tol, path=False)
     flash_case("attention:decode_4096", 4, 32, 8, 1, 4096, 4000, bf, bf_tol,
                path=False)
+    # MLA's (q/k 192, v 128) route at phase 12's deepseek-v2-lite-16b
+    # shapes (16 heads, one kv head each): a prefill chunk (the config's
+    # prefill_microbatch 2 cuts the 4 prompts into chunks of 2), the
+    # 2048-token prompt, a decode step over the 56-slot cache and the long
+    # prompt's decode (split, with its merge); an fp32 case off the path
+    mla = dict(d=192, dv=128, phase="deepseek")
+    flash_case(f"attention:mla_prefill_b{BATCH // 2}_h16_s{PROMPT_LEN}",
+               BATCH // 2, 16, 16, PROMPT_LEN, PROMPT_LEN, None, bf, bf_tol,
+               **mla)
+    flash_case(f"attention:mla_prefill_b1_s{LONG_PROMPT}", 1, 16, 16,
+               LONG_PROMPT, LONG_PROMPT, None, bf, bf_tol, **mla)
+    flash_case(f"attention:mla_decode_b{BATCH}_kv40_of_{MAX_SEQ}", BATCH, 16,
+               16, 1, MAX_SEQ, 40, bf, bf_tol, **mla)
+    flash_case(f"attention:mla_decode_b1_kv{LONG_PROMPT + 1}_of_{LONG_SEQ}",
+               1, 16, 16, 1, LONG_SEQ, LONG_PROMPT + 1, bf, bf_tol, **mla)
+    flash_case("attention:mla_prefill_b1_s300_fp32", 1, 16, 16, 300, 300,
+               None, f32, f_tol, path=False, **mla)
 
     # the split-kv merge alone, at the decode step of phase 5's long
     # prompt (b 1, kv_len 2049 of 2064: the plan splits the keys), on the
@@ -559,20 +602,26 @@ def dense_cases(torch, rn, bf_tol):
     bwd_rep = "src/repro/kernels/ref.py:250 _mha_blocked_bwd"
     cases = []
 
-    def qkv(b, hq, hkv, s, dt):
+    def qkv(b, hq, hkv, s, dt, d=128, dv=128):
         # (b, s, h, d) projections viewed as (b, h, s, d), as the model
-        # makes them; dO as autograd hands it (a view of (b, s, h d))
-        q = rn(b, s, hq, 128, dt=dt, std=0.5).transpose(1, 2)
-        k = rn(b, s, hkv, 128, dt=dt, std=0.5).transpose(1, 2)
-        v = rn(b, s, hkv, 128, dt=dt).transpose(1, 2)
-        do = rn(b, s, hq, 128, dt=dt).transpose(1, 2)
+        # makes them (MLA's q and k: contiguous concatenations); dO as
+        # autograd hands it (a view of (b, s, h dv))
+        if d == dv:
+            q = rn(b, s, hq, d, dt=dt, std=0.5).transpose(1, 2)
+            k = rn(b, s, hkv, d, dt=dt, std=0.5).transpose(1, 2)
+        else:
+            q = rn(b, hq, s, d, dt=dt, std=0.5)
+            k = rn(b, hkv, s, d, dt=dt, std=0.5)
+        v = rn(b, s, hkv, dv, dt=dt).transpose(1, 2)
+        do = rn(b, s, hq, dv, dt=dt).transpose(1, 2)
         return q, k, v, do
 
-    def bwd_case(name, b, hq, hkv, s, dt, path):
+    def bwd_case(name, b, hq, hkv, s, dt, path, d=128, dv=128):
         if not wanted(name):
             return
-        q, k, v, do = qkv(b, hq, hkv, s, dt)
-        plan = fa.flash_plan(b, hq, hkv, s, s, s, 128, dt, True, lse=True)
+        q, k, v, do = qkv(b, hq, hkv, s, dt, d, dv)
+        plan = fa.flash_plan(b, hq, hkv, s, s, s, d, dt, True, lse=True,
+                             **({} if d == dv else {"dv": dv}))
         o, lse = fa.flash_attention_cuda(q, k, v, plan=plan, lse=True)
         lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
 
@@ -592,13 +641,16 @@ def dense_cases(torch, rn, bf_tol):
             return ok, (f"last key tile (keys {s - 64}-{s - 1}): dK, dV rel "
                         f"L2 {rel[0]:.3e}, {rel[1]:.3e}, nonzero | a second "
                         f"call bit-equal {same}")
-        bp = fa.flash_bwd_plan(b, hq, hkv, s, s, 128, dt, True)
+        bp = fa.flash_bwd_plan(b, hq, hkv, s, s, d, dt, True,
+                               *(() if d == dv else (dv,)))
         # (an older tree's plan, under --src, has no group split or ring)
         note = (f" | plan gs {getattr(bp, 'gs', 1)}, stages "
                 f"{getattr(bp, 'stages', 2)}, dK/dV grid {bp.dkdv_grid}, dQ "
                 f"grid {bp.dq_grid}")
         esz = q.element_size()
         pairs = b * hq * s * (s + 1) / 2
+        # q, dq at d and o, dO at dv a query; k, dk at d and v, dv at dv a
+        # key; five products a pair: S, dK, dQ over d, dP, dV over dv
         cases.append(dict(
             name=name, wrapper="attention_bwd", source=bwd_src,
             replaces=bwd_rep,
@@ -608,9 +660,10 @@ def dense_cases(torch, rn, bf_tol):
             library_minus=lib_fwd, backend=lib_fwd, check_vs=last_tile,
             note=note,
             mode="rel_l2", tol=(GRAD_RTOL[str(dt)[6:]], 0.0),
-            bytes=(4 * q.numel() + 4 * k.numel()) * esz + lse.numel() * 4,
-            ops=5 * 2.0 * 128 * pairs, kind="bf16" if dt == bf else "fp32",
-            path=path, phase="dense"))
+            bytes=(b * (hq + hkv) * s * 2 * (d + dv)) * esz
+            + lse.numel() * 4,
+            ops=2.0 * (3 * d + 2 * dv) * pairs,
+            kind="bf16" if dt == bf else "fp32", path=path, phase="dense"))
 
     bwd_case(f"attention_bwd:train_b{DENSE_BATCH}_hq32_hkv8_s{DENSE_SEQ}"
              f"_bf16", DENSE_BATCH, 32, 8, DENSE_SEQ, bf, True)
@@ -618,6 +671,13 @@ def dense_cases(torch, rn, bf_tol):
              DENSE_SEQ, bf, False)
     bwd_case("attention_bwd:b1_hq8_hkv2_s1000_fp32", 1, 8, 2, 1000, f32,
              False)
+    # MLA's (q/k 192, v 128) backward, at deepseek's 16 heads and a
+    # 2048-token sequence, and a small fp32 case (training deepseek comes
+    # with a later slice: off every path here)
+    bwd_case(f"attention_bwd:mla_b1_h16_s{DENSE_SEQ}_bf16", 1, 16, 16,
+             DENSE_SEQ, bf, False, d=192, dv=128)
+    bwd_case("attention_bwd:mla_b1_h4_s300_fp32", 1, 4, 4, 300, f32, False,
+             d=192, dv=128)
 
     name = f"attention:train_lse_b{DENSE_BATCH}_s{DENSE_SEQ}_bf16"
     if wanted(name):
@@ -1321,12 +1381,69 @@ def prompts_for(cfg, np):
     return [rng.integers(0, cfg.vocab, PROMPT_LEN) for _ in range(BATCH)]
 
 
-def phase_width(torch, np) -> None:
+#: a near-tie of the MoE router that bf16 rounding can flip: the two
+#: experts' CPU probabilities within 5 % of each other (bf16 logits carry
+#: 2**-8 relative rounding, and card and CPU inputs to the router differ
+#: by bf16 roundings of the layers before it)
+ROUTER_TIE = 0.05
+
+
+def routed_prefill(torch, model, params, tokens, replay=None):
+    """``model.prefill`` with each MoE call's routing recorded in call
+    order on the host: (last-position logits, [(probs, experts)]). With
+    ``replay`` (another run's record) each call takes that run's experts,
+    weighted by its own probabilities, so two devices' runs route alike
+    and the rest of their arithmetic can be compared."""
+    from repro_torch.models import moe
+    calls, route = [], moe.route
+
+    def recording(cfg, p, x):
+        probs, gate, expert = route(cfg, p, x)
+        calls.append((probs.float().cpu(), expert.cpu()))
+        if replay is not None:
+            expert = replay[len(calls) - 1][1].to(expert.device)
+            gate = torch.take_along_dim(probs, expert, -1)
+            gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+        return probs, gate, expert
+    moe.route = recording
+    try:
+        logits, _, _ = model.prefill(params, {"tokens": tokens},
+                                     cache_len=MAX_SEQ)
+    finally:
+        moe.route = route
+    return logits, calls
+
+
+def routing_gaps(card, cpu) -> list:
+    """Each (call, row, token) whose expert set the CPU's own router picks
+    differently from the card's, as the gap ln(p_a / p_b) between the
+    CPU's probabilities of the experts only it picked and those only the
+    card picked (0 at an exact tie)."""
+    gaps = []
+    for (_, eg), (pc, ec) in zip(card, cpu):
+        eg, ec = eg.sort(-1).values, ec.sort(-1).values
+        for r, t in (eg != ec).any(-1).nonzero().tolist():
+            gs, cs = set(eg[r, t].tolist()), set(ec[r, t].tolist())
+            p = pc[r, t]
+            gaps.append(math.log(max(float(p[j]) for j in cs - gs)
+                                 / min(float(p[j]) for j in gs - cs)))
+    return gaps
+
+
+def phase_width(torch, np, arch: str = "llama3-8b",
+                tag: str = "width") -> None:
+    """``arch`` at full width, depth cut to 2 layers, on the card and on
+    the CPU with the same weights: prefill logits and 4 greedy tokens.
+    With MoE layers the CPU replays the card's expert choices: in fp32
+    its own router must pick the same; in bf16 it may differ only at
+    near-ties (``ROUTER_TIE``), and the logits are compared under the
+    card's routing."""
     from repro_torch import configs
     from repro_torch.models import Model
     from repro_torch.runtime import ServeConfig, Server
 
-    base = configs.get("llama3-8b").scaled(n_layers=2)
+    full = configs.get(arch)
+    base = full.scaled(n_layers=2)
     t0 = time.perf_counter()
     params = Model(base).init(0, device=DEVICE)
     params_cpu = copy.deepcopy(params).to("cpu")
@@ -1338,25 +1455,35 @@ def phase_width(torch, np) -> None:
                               ("bfloat16", 2e-2, 6e-2)):
         cfg = base.scaled(compute_dtype=dtype)
         with torch.inference_mode():
-            lg_gpu, _, _ = Model(cfg).prefill(
-                params, {"tokens": tokens.to(DEVICE)}, cache_len=MAX_SEQ)
-            lg_cpu, _, _ = Model(cfg).prefill(
-                params_cpu, {"tokens": tokens}, cache_len=MAX_SEQ)
+            lg_gpu, r_gpu = routed_prefill(torch, Model(cfg), params,
+                                           tokens.to(DEVICE))
+            lg_cpu, r_cpu = routed_prefill(torch, Model(cfg), params_cpu,
+                                           tokens, replay=r_gpu)
         lg_gpu, lg_cpu = lg_gpu.float().cpu(), lg_cpu.float()
+        if cfg.moe:
+            gaps = routing_gaps(r_gpu, r_cpu)
+            n_tok = sum(e.shape[0] * e.shape[1] for _, e in r_gpu)
+            say(tag, f"{dtype} MoE routing: {len(gaps)} of {n_tok} token "
+                     f"routings differ card vs CPU, largest CPU probability "
+                     f"gap ln p_a/p_b {max(gaps, default=0.0):.3e} (near-tie "
+                     f"<= {ROUTER_TIE:g} in bf16, none in fp32)")
+            need(not gaps if dtype == "float32" else
+                 max(gaps, default=0.0) <= ROUTER_TIE,
+                 f"{dtype} MoE routing differs card vs CPU past a near-tie")
         diff = (lg_gpu - lg_cpu).abs()
         ok = bool(torch.isfinite(lg_gpu).all()) and bool(
             (diff <= atol + rtol * lg_cpu.abs()).all())
-        say("width", f"{dtype} prefill logits {tuple(lg_gpu.shape)}: card vs "
-                     f"CPU max_abs_err {float(diff.max()):.3e} mean "
-                     f"{float(diff.mean()):.3e} (rtol {rtol:g} atol {atol:g})"
-                     f" {'ok' if ok else 'FAIL'}")
+        say(tag, f"{dtype} prefill logits {tuple(lg_gpu.shape)}: card vs "
+                 f"CPU max_abs_err {float(diff.max()):.3e} mean "
+                 f"{float(diff.mean()):.3e} (rtol {rtol:g} atol {atol:g})"
+                 f" {'ok' if ok else 'FAIL'}")
         need(ok, f"{dtype} full-width prefill logits disagree")
         scfg = ServeConfig(max_seq=MAX_SEQ, max_new_tokens=4, eos_token=-1)
         gpu = Server(cfg, params, scfg).generate(prompts)["completions"]
         cpu = Server(cfg, params_cpu, scfg).generate(prompts)["completions"]
         same = gpu == cpu
-        say("width", f"{dtype} greedy tokens card {gpu} cpu {cpu} "
-                     f"{'equal' if same else 'DIFFER'}")
+        say(tag, f"{dtype} greedy tokens card {gpu} cpu {cpu} "
+                 f"{'equal' if same else 'DIFFER'}")
         if dtype == "float32":
             need(same, "fp32 full-width greedy tokens differ card vs CPU")
         elif not same:
@@ -1368,8 +1495,8 @@ def phase_width(torch, np) -> None:
             pick = lg_cpu[torch.arange(BATCH), torch.as_tensor(first)]
             need(bool(((top - pick) <= atol + rtol * top.abs()).all()),
                  "bf16 card token is not a near-argmax of the CPU logits")
-    say("width", f"llama3-8b full width, 2 of 32 layers (depth cut to fit "
-                 f"the CPU side), {time.perf_counter() - t0:.1f} s ok")
+    say(tag, f"{arch} full width, 2 of {full.n_layers} layers (depth cut to "
+             f"fit the CPU side), {time.perf_counter() - t0:.1f} s ok")
     del params, params_cpu
     torch.cuda.empty_cache()
 
@@ -1452,17 +1579,17 @@ def phase_serve(torch, np) -> dict:
     return counts
 
 
-def profile_long_prefill(torch, cfg, params, srv, prompt, out) -> None:
+def profile_long_prefill(torch, cfg, params, srv, prompt, out,
+                         tag: str = "serve") -> None:
     """An observation, no limit: the long-prompt request's prefill and
     decode times (the run counted above), then its prefill once more
     under torch.profiler, device ms of flash_attention.cu and ntx_gemm.cu
     (their launches here are not counted)."""
     from torch.profiler import ProfilerActivity, profile
     card = card_line()
-    say("serve", f"long prompt {LONG_PROMPT} + {LONG_NEW} new tokens (batch 1,"
-                 f" max_seq {LONG_SEQ}): prefill {out['prefill_s'] * 1e3:.2f} "
-                 f"ms | decode {out['decode_tok_per_s']:.2f} tok/s | card "
-                 f"{card}")
+    say(tag, f"long prompt {LONG_PROMPT} + {LONG_NEW} new tokens (batch 1, "
+             f"max_seq {LONG_SEQ}): prefill {out['prefill_s'] * 1e3:.2f} ms "
+             f"| decode {out['decode_tok_per_s']:.2f} tok/s | card {card}")
     tokens = torch.as_tensor(prompt[None], device=DEVICE)
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -1474,16 +1601,17 @@ def profile_long_prefill(torch, cfg, params, srv, prompt, out) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
     split = kernel_split(prof.key_averages(), KERNEL_GROUPS)
     if split is None:
-        say("serve", "profiler saw no device time: long prefill not measured")
+        say(tag, "profiler saw no device time: long prefill not measured")
         return
     busy, by_group, _ = split
     groups = {k: (round(v[0], 3), v[1]) for k, v in by_group.items()}
-    say("serve", f"profiled long prefill: wall {wall_ms:.2f} ms (profiler on)"
-                 f" | device busy {busy:.2f} ms | kernels by group (ms, "
-                 f"launches) {groups} | card {card}")
+    say(tag, f"profiled long prefill: wall {wall_ms:.2f} ms (profiler on) | "
+             f"device busy {busy:.2f} ms | kernels by group (ms, launches) "
+             f"{groups} | card {card}")
 
 
-def profile_decode_step(torch, np, cfg, params, prompts) -> None:
+def profile_decode_step(torch, np, cfg, params, prompts,
+                        tag: str = "serve") -> None:
     """One greedy decode step of the batch (Model.decode, then the
     per-request ARGMAX programs) under torch.profiler, after one
     unprofiled step: device time by kernel family, and the host's share
@@ -1515,18 +1643,101 @@ def profile_decode_step(torch, np, cfg, params, prompts) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
     split = kernel_split(prof.key_averages(), KERNEL_GROUPS)
     if split is None:
-        say("serve", "profiler saw no device time: decode split not measured")
+        say(tag, "profiler saw no device time: decode split not measured")
         return
     busy, by_group, top = split
-    say("serve", f"profiled decode step (batch {len(prompts)}): wall "
-                 f"{wall_ms:.2f} ms (profiler on) | device busy {busy:.2f} ms"
-                 f" ({busy / wall_ms:.3f} of wall) | host gap "
-                 f"{wall_ms - busy:.2f} ms | kernels by group (ms, launches) "
-                 f"{ {k: (round(v[0], 3), v[1]) for k, v in by_group.items()} }"
-                 f" | card {card_line()}")
+    say(tag, f"profiled decode step (batch {len(prompts)}): wall "
+             f"{wall_ms:.2f} ms (profiler on) | device busy {busy:.2f} ms "
+             f"({busy / wall_ms:.3f} of wall) | host gap "
+             f"{wall_ms - busy:.2f} ms | kernels by group (ms, launches) "
+             f"{ {k: (round(v[0], 3), v[1]) for k, v in by_group.items()} }"
+             f" | card {card_line()}")
     for e in top:
-        say("serve", f"  {e.self_device_time_total / 1e3:9.3f} ms "
-                     f"x{e.count:5d}  {e.key[:110]}")
+        say(tag, f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                 f"x{e.count:5d}  {e.key[:110]}")
+
+
+# ----------------------------------------------------------------------
+# phase 12: serving deepseek-v2-lite-16b (MLA and MoE)
+# ----------------------------------------------------------------------
+def phase_deepseek(torch, np) -> dict:
+    """deepseek-v2-lite-16b: first the 2-layer width check card vs CPU
+    (as phase 4), then Server.generate on the full 27-layer model (bf16,
+    random weights from Model.init(0), ~32.4 GB) at phase 5's sizes:
+    4 requests of 32 tokens, 16 new, greedy and at temperature 0.8 (the
+    config's prefill_microbatch 2 prefills them in chunks of 2), and one
+    2048-token prompt, with the launch counts of that run; then the long
+    prefill and one decode step under torch.profiler. A decode step reads
+    every expert's weights (the reference's static capacity gives each of
+    the 64 experts top_k slots at s 1), the bytes bound it is printed
+    beside."""
+    import importlib
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, moe
+    from repro_torch.runtime import ServeConfig, Server
+    dispatch = importlib.import_module("repro_torch.core.dispatch")
+
+    gc_collect(torch)                      # phase 5's llama and the rest
+    phase_width(torch, np, DEEPSEEK, "deepseek width")
+    gc_collect(torch)
+    cfg = configs.get(DEEPSEEK)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("deepseek", f"{DEEPSEEK} {cfg.n_layers} layers, "
+                    f"{n_params / 1e9:.3f} B params bf16 "
+                    f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), init "
+                    f"{time.perf_counter() - t0:.1f} s")
+    prompts = prompts_for(cfg, np)
+    card = card_line()
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    dispatch.reset_engine_fallbacks()
+    for name, temp in (("greedy", 0.0), ("temperature", 0.8)):
+        runs[name] = Server(cfg, params, ServeConfig(
+            max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS, eos_token=-1,
+            temperature=temp)).generate(prompts)
+    long_prompt = np.random.default_rng(1).integers(0, cfg.vocab,
+                                                    LONG_PROMPT)
+    long_srv = Server(cfg, params, ServeConfig(
+        max_seq=LONG_SEQ, max_new_tokens=LONG_NEW, eos_token=-1))
+    long_out = long_srv.generate([long_prompt])
+    counts = ops.launches()
+    fallbacks = dispatch.engine_fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    for name, out in list(runs.items()) + [("long", long_out)]:
+        comp = out["completions"]
+        n_req, n_new = (1, LONG_NEW) if name == "long" else (BATCH,
+                                                             NEW_TOKENS)
+        need(len(comp) == n_req and all(
+            len(c) == n_new and all(0 <= t < cfg.padded_vocab for t in c)
+            for c in comp), f"deepseek {name}: completions malformed")
+        if name != "long":
+            say("deepseek", f"{name}: prefill {out['prefill_s'] * 1e3:.2f} "
+                            f"ms | decode {out['decode_tok_per_s']:.2f} "
+                            f"tok/s | req0 {comp[0]} | card {card}")
+    say("deepseek", f"peak memory {peak / 1e9:.2f} GB | kernel launches "
+                    f"{counts} | engine_fallbacks {fallbacks} | card {card}")
+    for wrapper in ("attention", "attention_merge", "reduce",
+                    "chain_reduce"):
+        need(counts[wrapper] > 0, f"deepseek: {wrapper} kernel never "
+                                  f"launched")
+    need(fallbacks == 0, f"{fallbacks} descriptors fell back to the engine")
+    expert_bytes = (cfg.n_layers * cfg.n_experts * 3 * cfg.d_model
+                    * cfg.d_ff_expert * 2)
+    say("deepseek", f"a decode step reads every expert's weights "
+                    f"({moe._capacity(cfg, 1)} slots an expert at s 1): "
+                    f"{expert_bytes / 1e9:.2f} GB, bound "
+                    f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)")
+    profile_long_prefill(torch, cfg, params, long_srv, long_prompt,
+                         long_out, "deepseek")
+    profile_decode_step(torch, np, cfg, params, prompts, "deepseek")
+    del params
+    gc_collect(torch)
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -2503,7 +2714,7 @@ def phase_policies(torch, np) -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", default="",
                     help="comma-separated case-name prefixes: check and time "
@@ -2585,13 +2796,15 @@ def main(argv=None) -> int:
             phase_dense_width(torch, np)
         if 11 in phases:
             counts["dense"] = phase_dense_train(torch, np)
+        if 12 in phases:
+            counts["deepseek"] = phase_deepseek(torch, np)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     say("done", f"phases {sorted(phases)} passed in "
                 f"{time.perf_counter() - t_start:.1f} s, the build included")
 
-    if {3, 5, 7, 8, 9, 11} <= phases:
+    if {3, 5, 7, 8, 9, 11, 12} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

@@ -56,6 +56,12 @@
 //   32-key tile for each of its warp's 4 rows, row max and sum by warp
 //   shuffles, D / 32 output columns per lane in registers. It takes the
 //   same rows, key bound, strides and splits.
+// * Head dims. q/k rows of d and v rows of dv, instantiated for the pairs
+//   (64, 64), (128, 128) and MLA's (192, 128) (deepseek-v2: 128 nope + 64
+//   rope dims against v of 128): S = Q K^T runs over d (12 mma k-steps at
+//   192), P V, the accumulator, the merge and the output over dv. At
+//   (192, 128) the 8-row-warp block's Q, K ring and V ring take ~180 KB;
+//   the fp32 route's 53 KB opt in past the 48 KiB static limit.
 // * Split-kv. When the blocks do not fill the card (decode: b * hkv = 32
 //   groups), the planner splits each block's key tiles into contiguous
 //   ranges (one wave over 132 SMs). Each split writes fp32 (m, l, acc) to
@@ -101,23 +107,33 @@ struct Args {
   int g, gh, qn, q_tiles, head_blocks, splits;
 };
 
-// Shared memory of a tensor-core block (flash_attention.tc_smem): Q rows,
-// the K/V ring, or the fp32 staging of the merge, whichever is larger.
+// Shared memory of a tensor-core block (flash_attention.tc_smem) for q/k
+// rows of dqk and v rows of dv: Q rows and the K ring at dqk, the V ring at
+// dv, or the fp32 staging of the merge (dv wide), whichever is larger.
 // A block of wr row warps has max(4, wr) warps: wr = 1, 2, 4 split each
 // key tile over 4 / wr key warps, wr = 8 (long prefills) takes 128 rows.
 __host__ __device__ constexpr int tc_warps(int wr) { return wr > 4 ? wr : 4; }
 __host__ __device__ constexpr int tc_stages(int wr) { return wr == 4 ? 2 : 3; }
-__host__ __device__ constexpr size_t tc_smem(int d, int wr) {
-  const size_t ring = 2 * ((size_t)16 * wr * (d + kPad) +
-                           (size_t)tc_stages(wr) * 2 * kTcKeys * (d + kPad));
+__host__ __device__ constexpr size_t tc_smem(int dqk, int dv, int wr) {
+  const size_t ring =
+      2 * ((size_t)16 * wr * (dqk + kPad) +
+           (size_t)tc_stages(wr) * kTcKeys * (dqk + kPad + dv + kPad));
   const size_t rows = (size_t)16 * tc_warps(wr);   // key warps x rows
-  const size_t out = 4 * (rows * (d + 4) + 2 * rows);
+  const size_t out = 4 * (rows * (dv + 4) + 2 * rows);
   return ring > out ? ring : out;
 }
-// The fp32 route's static shared memory (flash_attention.f32_smem).
-__host__ __device__ constexpr size_t f32_smem(int d) {
-  return 4 * ((size_t)kF32Rows * d + (size_t)kF32Keys * (d + 1) +
-              (size_t)kF32Keys * d);
+// The fp32 route's shared memory (flash_attention.f32_smem): Q rows, a K
+// tile (rows padded by one) at dqk and a V tile at dv; above 48 KiB (dqk
+// 192) the launch opts in.
+__host__ __device__ constexpr size_t f32_smem(int dqk, int dv) {
+  return 4 * ((size_t)kF32Rows * dqk + (size_t)kF32Keys * (dqk + 1) +
+              (size_t)kF32Keys * dv);
+}
+// The (q/k, v) head-dim pairs the kernels are instantiated for: equal dims
+// of the GQA models, and MLA's 192 (128 nope + 64 rope) against v of 128.
+__host__ __device__ constexpr bool head_pair(int dqk, int dv) {
+  return (dqk == 64 && dv == 64) || (dqk == 128 && dv == 128) ||
+         (dqk == 192 && dv == 128);
 }
 
 // Where a block sits and which keys it takes.
@@ -229,18 +245,21 @@ __device__ __forceinline__ void load_rows(uint16_t* dst, const uint16_t* src,
   }
 }
 
-template <int D, int WR, bool VEC>
+template <int D, int DV, int WR, bool VEC>
 __global__ void __launch_bounds__(32 * tc_warps(WR), 1)
 flash_tc(const Args a) {
+  // D: the q/k head dim (S = Q K^T runs over it); DV: v's (P V and the
+  // output accumulator run over it)
   constexpr int NT = 32 * tc_warps(WR), WK = tc_warps(WR) / WR;
   constexpr int R = 16 * WR, KW = kTcKeys / WK, NS = KW / 8;
-  constexpr int ST = tc_stages(WR), LD = D + kPad, LDO = D + 4;
-  constexpr int QT = R * LD, KVT = kTcKeys * LD;
+  constexpr int ST = tc_stages(WR), LD = D + kPad, LDV = DV + kPad;
+  constexpr int LDO = DV + 4;
+  constexpr int QT = R * LD, KT = kTcKeys * LD, VTL = kTcKeys * LDV;
   static_assert(NS % 2 == 0 && KW % 16 == 0, "whole mma tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(smem);
   uint16_t* sK = sQ + QT;
-  uint16_t* sV = sK + ST * KVT;
+  uint16_t* sV = sK + ST * KT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wr = warp / WK, wk = warp % WK;
   const Geo geo = geometry(a, kTcKeys);
@@ -259,10 +278,11 @@ flash_tc(const Args a) {
   };
   auto load_kv = [&](int t, int st) {
     const int k0 = t * kTcKeys;
-    load_rows<D, VEC, NT>(sK + st * KVT, kb, kTcKeys, [&](int r) -> long long {
+    load_rows<D, VEC, NT>(sK + st * KT, kb, kTcKeys, [&](int r) -> long long {
       return k0 + r < a.skv ? (long long)(k0 + r) * a.ks[2] : -1;
     });
-    load_rows<D, VEC, NT>(sV + st * KVT, vb, kTcKeys, [&](int r) -> long long {
+    load_rows<DV, VEC, NT>(sV + st * VTL, vb, kTcKeys,
+                           [&](int r) -> long long {
       return k0 + r < a.skv ? (long long)(k0 + r) * a.vs[2] : -1;
     });
   };
@@ -271,9 +291,9 @@ flash_tc(const Args a) {
   const int r0 = wr * 16 + (lane >> 2);
   const int qpos[2] = {geo.qlo + r0 % a.qn, geo.qlo + (r0 + 8) % a.qn};
   float m[2] = {kMasked, kMasked}, l[2] = {0.0f, 0.0f};
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   uint32_t qf[D / 16][4];
@@ -299,8 +319,8 @@ flash_tc(const Args a) {
     const int nxt = it + ST - 1;
     if (nxt < nkt) load_kv(geo.t0 + nxt, nxt % ST);
     cp_async_commit();
-    const uint16_t* kt = sK + (it % ST) * KVT;
-    const uint16_t* vt = sV + (it % ST) * KVT;
+    const uint16_t* kt = sK + (it % ST) * KT;
+    const uint16_t* vt = sV + (it % ST) * VTL;
     const int t = geo.t0 + it;
 
     // S = Q K^T for the warp's 16 rows and KW keys. Each k step's K
@@ -370,7 +390,7 @@ flash_tc(const Args a) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = corr[h] * l[h] + ps[h];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       acc[n][0] *= corr[0];
       acc[n][1] *= corr[0];
       acc[n][2] *= corr[1];
@@ -378,17 +398,18 @@ flash_tc(const Args a) {
     }
     // acc += P V: P's fragments are S's, rounded to bf16; V's fragments
     // come two (key step, d pair) steps ahead of their mma
-    constexpr int DP = D / 16, VT = KW / 16 * DP;
-    const uint16_t* vrow = vt + (wk * KW + (lane & 15)) * LD + (lane >> 4) * 8;
+    constexpr int DP = DV / 16, VT = KW / 16 * DP;
+    const uint16_t* vrow =
+        vt + (wk * KW + (lane & 15)) * LDV + (lane >> 4) * 8;
     uint32_t vf[3][4];
     ntx::ldsm_x4_t(vf[0], vrow);
-    ntx::ldsm_x4_t(vf[1], vrow + (1 / DP) * 16 * LD + (1 % DP) * 16);
+    ntx::ldsm_x4_t(vf[1], vrow + (1 / DP) * 16 * LDV + (1 % DP) * 16);
     uint32_t pa[4];
 #pragma unroll
     for (int st = 0; st < VT; ++st) {
       const int t2 = st / DP, dp = st % DP;
       if (st + 2 < VT)
-        ntx::ldsm_x4_t(vf[(st + 2) % 3], vrow + ((st + 2) / DP) * 16 * LD +
+        ntx::ldsm_x4_t(vf[(st + 2) % 3], vrow + ((st + 2) / DP) * 16 * LDV +
                                              ((st + 2) % DP) * 16);
       if (dp == 0) {
         pa[0] = ntx::bits(__floats2bfloat162_rn(s[2 * t2][0], s[2 * t2][1]));
@@ -420,14 +441,14 @@ flash_tc(const Args a) {
     }
   }
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       so[(wk * R + r0 + 8 * (e >> 1)) * LDO + n * 8 + 2 * (lane & 3) +
          (e & 1)] = acc[n][e];
   __syncthreads();
-  for (int e = tid; e < R * D; e += NT) {
-    const int r = e / D, c = e % D;
+  for (int e = tid; e < R * DV; e += NT) {
+    const int r = e / DV, c = e % DV;
     const int i = geo.q0 + r % a.qn;
     if (r >= nrow || i >= a.sq) continue;
     float mm = sm[r];
@@ -440,20 +461,22 @@ flash_tc(const Args a) {
       ll += sl[w * R + r] * f;
       aa += so[(w * R + r) * LDO + c] * f;
     }
-    put<__nv_bfloat16>(a, geo.b, h0 + r / a.qn, i, c, D, mm, ll, aa);
+    put<__nv_bfloat16>(a, geo.b, h0 + r / a.qn, i, c, DV, mm, ll, aa);
   }
 }
 
 // ---------------------------------------------------------------------
-// fp32 route: IEEE FFMA, 16 rows a block, 4 a warp, 32-key tiles.
+// fp32 route: IEEE FFMA, 16 rows a block, 4 a warp, 32-key tiles; q/k rows
+// of D, v rows of DV, in dynamic shared memory.
 // ---------------------------------------------------------------------
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_f32(const Args a) {
-  constexpr int NC = D / 32, RW = kF32Rows / 4;
-  __shared__ float Qs[kF32Rows][D];
-  __shared__ float Ks[kF32Keys][D + 1];
-  __shared__ float Vs[kF32Keys][D];
+  constexpr int NC = DV / 32, RW = kF32Rows / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float (*Qs)[D] = reinterpret_cast<float (*)[D]>(smem);
+  float (*Ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(Qs + kF32Rows);
+  float (*Vs)[DV] = reinterpret_cast<float (*)[DV]>(Ks + kF32Keys);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Geo geo = geometry(a, kF32Keys);
   const int nrow = a.gh * a.qn, h0 = geo.kvh * a.g + geo.j0;
@@ -482,9 +505,11 @@ flash_f32(const Args a) {
     __syncthreads();                    // the previous tile is consumed
     for (int e = tid; e < kF32Keys * D; e += kThreads) {
       const int j = e / D, c = e % D;
-      const bool in = k0 + j < a.skv;
-      Ks[j][c] = in ? kb[(long long)(k0 + j) * a.ks[2] + c] : 0.0f;
-      Vs[j][c] = in ? vb[(long long)(k0 + j) * a.vs[2] + c] : 0.0f;
+      Ks[j][c] = k0 + j < a.skv ? kb[(long long)(k0 + j) * a.ks[2] + c] : 0.0f;
+    }
+    for (int e = tid; e < kF32Keys * DV; e += kThreads) {
+      const int j = e / DV, c = e % DV;
+      Vs[j][c] = k0 + j < a.skv ? vb[(long long)(k0 + j) * a.vs[2] + c] : 0.0f;
     }
     __syncthreads();
     const bool masked = (t + 1) * kF32Keys > geo.full;
@@ -523,7 +548,7 @@ flash_f32(const Args a) {
     if (r >= nrow || i >= a.sq) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      put<float>(a, geo.b, h0 + r / a.qn, i, lane + 32 * c, D, m[w], l[w],
+      put<float>(a, geo.b, h0 + r / a.qn, i, lane + 32 * c, DV, m[w], l[w],
                  acc[w][c]);
   }
 }
@@ -570,30 +595,50 @@ cudaError_t launch_merge(const float* ws, void* o, const long long* os, int b,
   return cudaGetLastError();
 }
 
-template <int D, int WR, bool VEC>
-cudaError_t launch_tc(const Args& a, dim3 grid, cudaStream_t s) {
-  static bool done[64] = {};
-  const size_t smem = tc_smem(D, WR);
+// Opt a kernel into `smem` bytes of dynamic shared memory once per device.
+template <class K>
+cudaError_t opt_in(K kernel, size_t smem, bool* done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !done[dev]) {
-    err = cudaFuncSetAttribute(flash_tc<D, WR, VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) done[dev] = true;
-  }
-  flash_tc<D, WR, VEC><<<grid, 32 * tc_warps(WR), smem, s>>>(a);
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+template <int D, int DV, int WR, bool VEC>
+cudaError_t launch_tc(const Args& a, dim3 grid, cudaStream_t s) {
+  static bool done[64] = {};
+  const size_t smem = tc_smem(D, DV, WR);
+  const cudaError_t err = opt_in(flash_tc<D, DV, WR, VEC>, smem, done);
+  if (err != cudaSuccess) return err;
+  flash_tc<D, DV, WR, VEC><<<grid, 32 * tc_warps(WR), smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, bool VEC>
-cudaError_t launch_tc_wr(const Args& a, int wr, dim3 grid, cudaStream_t s) {
-  if (wr == 1) return launch_tc<D, 1, VEC>(a, grid, s);
-  if (wr == 2) return launch_tc<D, 2, VEC>(a, grid, s);
-  if (wr == 4) return launch_tc<D, 4, VEC>(a, grid, s);
-  return launch_tc<D, 8, VEC>(a, grid, s);
+template <int D, int DV>
+cudaError_t launch_pair(const Args& a, bool bf16, bool vec, int wr, dim3 grid,
+                        cudaStream_t s) {
+  if (!bf16) {
+    static bool done[64] = {};
+    const size_t smem = f32_smem(D, DV);
+    const cudaError_t err = opt_in(flash_f32<D, DV>, smem, done);
+    if (err != cudaSuccess) return err;
+    flash_f32<D, DV><<<grid, kThreads, smem, s>>>(a);
+    return cudaGetLastError();
+  }
+  if (vec) {
+    if (wr == 1) return launch_tc<D, DV, 1, true>(a, grid, s);
+    if (wr == 2) return launch_tc<D, DV, 2, true>(a, grid, s);
+    if (wr == 4) return launch_tc<D, DV, 4, true>(a, grid, s);
+    return launch_tc<D, DV, 8, true>(a, grid, s);
+  }
+  if (wr == 1) return launch_tc<D, DV, 1, false>(a, grid, s);
+  if (wr == 2) return launch_tc<D, DV, 2, false>(a, grid, s);
+  if (wr == 4) return launch_tc<D, DV, 4, false>(a, grid, s);
+  return launch_tc<D, DV, 8, false>(a, grid, s);
 }
 
 bool aligned16(const void* p, const long long* st) {
@@ -605,19 +650,20 @@ bool aligned16(const void* p, const long long* st) {
 
 extern "C" {
 
-// q (b, hq, sq, d), k/v (b, hkv, skv, d), o like q, on the device, all
-// fp32 or all bf16, each with d contiguous. p (host, 27 values, built once
-// per call shape by the wrapper): the element strides (batch, head, seq)
-// of q, k, v and o in p[0..11], then b, hq, hkv, sq, skv, d, kv_len,
-// causal, bf16, and the plan (kernels/flash_attention.py:flash_plan): gh
-// query heads of a group times qn queries a block, wr row warps (bf16: 16
-// wr rows a block; fp32: wr = 1, 16 rows), stages (bf16: 2 for wr = 4,
-// else 3; fp32: 1), splits of each block's key tiles, and merge. hq % hkv
-// == 0, d in {64, 128}. With splits > 1, ws holds splits * b * hq * sq *
-// (d + 2) fp32 and merge = 1 adds the merge launch (merge = 0 leaves the
-// partials in ws and o untouched). lse (b * hq * sq fp32, unsplit plans
-// only) receives each row's log-sum-exp when not null. Anything else is
-// refused.
+// q (b, hq, sq, d), k (b, hkv, skv, d), v (b, hkv, skv, dv), o (b, hq, sq,
+// dv), on the device, all fp32 or all bf16, each with its last dim
+// contiguous. p (host, 28 values, built once per call shape by the
+// wrapper): the element strides (batch, head, seq) of q, k, v and o in
+// p[0..11], then b, hq, hkv, sq, skv, d, kv_len, causal, bf16, and the plan
+// (kernels/flash_attention.py:flash_plan): gh query heads of a group times
+// qn queries a block, wr row warps (bf16: 16 wr rows a block; fp32: wr =
+// 1, 16 rows), stages (bf16: 2 for wr = 4, else 3; fp32: 1), splits of
+// each block's key tiles, and merge; then dv. hq % hkv == 0, (d, dv) one
+// of (64, 64), (128, 128), (192, 128). With splits > 1, ws holds splits *
+// b * hq * sq * (dv + 2) fp32 and merge = 1 adds the merge launch (merge =
+// 0 leaves the partials in ws and o untouched). lse (b * hq * sq fp32,
+// unsplit plans only) receives each row's log-sum-exp when not null.
+// Anything else is refused.
 int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
                         float* ws, float* lse, const long long* p,
                         float scale, void* stream) {
@@ -627,8 +673,9 @@ int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
   const int kv_len = (int)p[18], causal = (int)p[19], bf16 = (int)p[20];
   const int gh = (int)p[21], qn = (int)p[22], wr = (int)p[23];
   const int stages = (int)p[24], splits = (int)p[25], merge = (int)p[26];
+  const int dv = (int)p[27];
   if (b < 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq < 0 || skv < 0 ||
-      (d != 64 && d != 128))
+      !head_pair(d, dv))
     return (int)cudaErrorInvalidValue;
   const int g = hq / hkv;
   const int rows = bf16 ? 16 * wr : kF32Rows;
@@ -638,9 +685,8 @@ int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
                  stages != tc_stages(wr)
            : wr != 1 || stages != 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = bf16 ? tc_smem(d, wr) : f32_smem(d);
-  if (smem > (size_t)kMaxSmem || (!bf16 && smem > 48 * 1024))
-    return (int)cudaErrorInvalidValue;
+  const size_t smem = bf16 ? tc_smem(d, dv, wr) : f32_smem(d, dv);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > kMaxSplits || (splits > 1 && ws == nullptr) ||
       (splits > 1 && lse != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -678,30 +724,22 @@ int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
   a.splits = splits;
   const dim3 grid((unsigned)xblocks, q_tiles, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bf16) {
-    const bool vec = aligned16(q, strides) && aligned16(k, strides + 3) &&
-                     aligned16(v, strides + 6);
-    if (d == 64)
-      err = vec ? launch_tc_wr<64, true>(a, wr, grid, s)
-                : launch_tc_wr<64, false>(a, wr, grid, s);
-    else
-      err = vec ? launch_tc_wr<128, true>(a, wr, grid, s)
-                : launch_tc_wr<128, false>(a, wr, grid, s);
-  } else {
-    if (d == 64) flash_f32<64><<<grid, kThreads, 0, s>>>(a);
-    else flash_f32<128><<<grid, kThreads, 0, s>>>(a);
-    err = cudaGetLastError();
-  }
+  const bool vec = bf16 && aligned16(q, strides) &&
+                   aligned16(k, strides + 3) && aligned16(v, strides + 6);
+  const cudaError_t err =
+      d == 64    ? launch_pair<64, 64>(a, bf16, vec, wr, grid, s)
+      : d == 128 ? launch_pair<128, 128>(a, bf16, vec, wr, grid, s)
+                 : launch_pair<192, 128>(a, bf16, vec, wr, grid, s);
   if (err != cudaSuccess || splits == 1 || !merge) return (int)err;
   return (int)(bf16 ? launch_merge<__nv_bfloat16>(ws, o, strides + 9, b, hq,
-                                                  sq, d, splits, s)
-                    : launch_merge<float>(ws, o, strides + 9, b, hq, sq, d,
+                                                  sq, dv, splits, s)
+                    : launch_merge<float>(ws, o, strides + 9, b, hq, sq, dv,
                                           splits, s));
 }
 
 // The merge alone, on partials ntx_flash_attention left in ws (merge = 0):
-// o (b, hq, sq, d) at element strides os[0..2], fp32 or bf16.
+// o (b, hq, sq, d) at element strides os[0..2], fp32 or bf16 (d: v's head
+// dim).
 int ntx_flash_merge(const float* ws, void* o, const long long* os, int b,
                     int hq, int sq, int d, int splits, int bf16,
                     void* stream) {

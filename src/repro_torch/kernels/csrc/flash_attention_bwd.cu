@@ -61,11 +61,20 @@
 //     fit without spills. ptxas gives a branch the count of its
 //     setmaxnreg only if no trap is reachable from it, so the barrier
 //     waits spin without a watchdog.
-//   - 384 threads and ~163 KB of shared memory a block, one block an SM.
+//   - 384 threads and ~163 KB of shared memory a block (~203 KB at
+//     (192, 128)), one block an SM.
 // * fp32: IEEE FFMA (never TF32): 32-key / 16-query tiles in shared
 //   memory, each (key, query) logit and dP a d-deep dot product by one
 //   thread, P and dS staged in shared memory, then each thread sums its
 //   rows' outputs over the tile's pairs; the same group splits.
+// * Head dims: q/k rows of d and v rows of dv, instantiated for (64, 64),
+//   (128, 128) and MLA's (192, 128) (deepseek-v2: 128 nope + 64 rope dims
+//   against v of 128). S and dQ, dK run over d; dP, dV and D over dv. At
+//   d 192 the dK/dV consumer holds dK (96 fp32 a thread) and dV (64), so
+//   it forms S^T and dP^T of each 64-query tile in two halves of 32
+//   queries (m64n32 products over the same ring tile) to keep their
+//   fragments at 16 registers each; dK += dS^T Q and dQ += dS K are
+//   m64n192 products over the tile's three 64-column panels.
 // The launcher recomputes the planner's plan (tiles, stages, warpgroups,
 // gs, shared memory, workspace and row-table bytes) and refuses any other.
 #include <cuda.h>
@@ -103,7 +112,8 @@ struct BwdArgs {
   const void* dout;
   const float* lse;       // (b, hq, sq), natural log
   float* rows;            // row table, written by flash_bwd_delta
-  float* ws;              // (2, gs, b, hkv, skv, d) fp32 partials (gs > 1)
+  float* ws;              // fp32 partials (gs > 1): dK (gs, b, hkv, skv, d),
+                          // then dV (gs, b, hkv, skv, dv)
   void* dq;
   void* dk;
   void* dv;
@@ -119,24 +129,33 @@ struct Plan {
   long long smem_dkdv, smem_dq, ws_bytes, rows_bytes;
 };
 
-__host__ __device__ constexpr long long wg_dkdv_smem(int d) {
-  return 1024 + 4LL * kBk * d + kStages * (4LL * kBq * d + 8 * kBq) +
-         8 * (2 * kStages + 1);
+// Shared memory of the bf16 blocks for q/k rows of d and v rows of dv:
+// dK/dV: K and V of the key tile, then a ring of (Q, dO) tiles with their
+// row-table tiles, and the barriers; dQ: its Q and dO rows and row-table
+// tile, then a ring of (K, V) tiles.
+__host__ __device__ constexpr long long wg_dkdv_smem(int d, int dv) {
+  return 1024 + 2LL * kBk * (d + dv) +
+         kStages * (2LL * kBq * (d + dv) + 8 * kBq) + 8 * (2 * kStages + 1);
 }
-__host__ __device__ constexpr long long wg_dq_smem(int d) {
-  return 1024 + 4LL * kDqRows * d + 8 * kDqRows +
-         kStages * 4LL * kDqKeys * d + 8 * (2 * kStages + 1);
+__host__ __device__ constexpr long long wg_dq_smem(int d, int dv) {
+  return 1024 + 2LL * kDqRows * (d + dv) + 8 * kDqRows +
+         kStages * 2LL * kDqKeys * (d + dv) + 8 * (2 * kStages + 1);
 }
 // ... of the fp32 blocks (rows padded by one float).
-__host__ __device__ constexpr long long f32_dkdv_smem(int d) {
-  return 4 * ((long long)2 * kF32BwdKeys * (d + 1) +
-              (long long)2 * kF32BwdRows * (d + 1) +
+__host__ __device__ constexpr long long f32_dkdv_smem(int d, int dv) {
+  return 4 * ((long long)kF32BwdKeys * (d + 1 + dv + 1) +
+              (long long)kF32BwdRows * (d + 1 + dv + 1) +
               (long long)2 * kF32BwdKeys * (kF32BwdRows + 1) + 2 * kF32BwdRows);
 }
-__host__ __device__ constexpr long long f32_dq_smem(int d) {
-  return 4 * ((long long)2 * kF32BwdRows * (d + 1) +
-              (long long)2 * kF32BwdKeys * (d + 1) +
+__host__ __device__ constexpr long long f32_dq_smem(int d, int dv) {
+  return 4 * ((long long)kF32BwdRows * (d + 1 + dv + 1) +
+              (long long)kF32BwdKeys * (d + 1 + dv + 1) +
               (long long)kF32BwdRows * (kF32BwdKeys + 1) + 2 * kF32BwdRows);
+}
+// The (q/k, v) head-dim pairs the kernels are instantiated for.
+__host__ __device__ constexpr bool head_pair(int d, int dv) {
+  return (d == 64 && dv == 64) || (d == 128 && dv == 128) ||
+         (d == 192 && dv == 128);
 }
 
 // First query tile (of bq) that key tile t (of bk) meets under the causal
@@ -166,8 +185,8 @@ int group_split(int b, int hkv, int g, int sq, int skv, int bk, int bq,
   return g;
 }
 
-Plan make_plan(int b, int hq, int hkv, int sq, int skv, int d, int causal,
-               int bf16) {
+Plan make_plan(int b, int hq, int hkv, int sq, int skv, int d, int dv,
+               int causal, int bf16) {
   Plan p;
   const int g = hq / hkv;
   if (bf16) {
@@ -177,8 +196,8 @@ Plan make_plan(int b, int hq, int hkv, int sq, int skv, int d, int causal,
     p.dq_keys = kDqKeys;
     p.stages = kStages;
     p.wgs = kWG;
-    p.smem_dkdv = wg_dkdv_smem(d);
-    p.smem_dq = wg_dq_smem(d);
+    p.smem_dkdv = wg_dkdv_smem(d, dv);
+    p.smem_dq = wg_dq_smem(d, dv);
   } else {
     p.bk = kF32BwdKeys;
     p.bq = kF32BwdRows;
@@ -186,12 +205,12 @@ Plan make_plan(int b, int hq, int hkv, int sq, int skv, int d, int causal,
     p.dq_keys = kF32BwdKeys;
     p.stages = 1;
     p.wgs = 1;
-    p.smem_dkdv = f32_dkdv_smem(d);
-    p.smem_dq = f32_dq_smem(d);
+    p.smem_dkdv = f32_dkdv_smem(d, dv);
+    p.smem_dq = f32_dq_smem(d, dv);
   }
   const long long slots = (long long)kSms * (bf16 ? 1 : kF32BlocksPerSm);
   p.gs = group_split(b, hkv, g, sq, skv, p.bk, p.bq, causal, slots);
-  p.ws_bytes = p.gs > 1 ? 2LL * p.gs * b * hkv * skv * d * 4 : 0;
+  p.ws_bytes = p.gs > 1 ? (long long)p.gs * b * hkv * skv * (d + dv) * 4 : 0;
   p.rows_bytes = (long long)b * hq * 2 * ((sq + 2 * kTile - 1) / (2 * kTile)) *
                  2 * kTile * 4;
   return p;
@@ -347,19 +366,22 @@ __device__ __forceinline__ void zero(float (&a)[NT][4]) {
     for (int e = 0; e < 4; ++e) a[j][e] = 0.0f;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const BwdArgs a) {
-  constexpr int TK = kBk * D * 2, TQ = kBq * D * 2;
+  constexpr int TK = kBk * D * 2, TV = kBk * DV * 2;
+  constexpr int TQ = kBq * D * 2, TO = kBq * DV * 2;
+  // queries a product round takes: the whole tile, or two halves at d 192
+  constexpr int QH = D > 128 ? 32 : kBq;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sK = smem_base(smem_raw);
   unsigned char* sV = sK + TK;
-  unsigned char* ring = sV + TK;                 // [stage][Q, dO]
-  float* sLD = reinterpret_cast<float*>(ring + kStages * 2 * TQ);
+  unsigned char* ring = sV + TV;                 // [stage][Q, dO]
+  float* sLD = reinterpret_cast<float*>(ring + kStages * (TQ + TO));
   uint64_t* full = reinterpret_cast<uint64_t*>(sLD + kStages * 2 * kBq);
   uint64_t* empty = full + kStages;
   uint64_t* kvbar = empty + kStages;
@@ -389,17 +411,17 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     // producer: one thread issues every copy
     ntx::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kWG * 128) {
-      ntx::mbar_expect_tx(kvbar, 2 * TK);
+      ntx::mbar_expect_tx(kvbar, TK + TV);
       load_tile<D, kBk>(sK, &tk, kvbar, k0, kvh, bi);
-      load_tile<D, kBk>(sV, &tv, kvbar, k0, kvh, bi);
+      load_tile<DV, kBk>(sV, &tv, kvbar, k0, kvh, bi);
       for (int it = 0; it < n_it; ++it) {
         const int s = it % kStages;
         ntx::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         const int h = h0 + it / per, qt = qt0 + it % per;
-        unsigned char* sQ = ring + s * 2 * TQ;
-        ntx::mbar_expect_tx(&full[s], 2 * TQ + 8 * kBq);
+        unsigned char* sQ = ring + s * (TQ + TO);
+        ntx::mbar_expect_tx(&full[s], TQ + TO + 8 * kBq);
         load_tile<D, kBq>(sQ, &tq, &full[s], qt * kBq, h, bi);
-        load_tile<D, kBq>(sQ + TQ, &tdo, &full[s], qt * kBq, h, bi);
+        load_tile<DV, kBq>(sQ + TQ, &tdo, &full[s], qt * kBq, h, bi);
         ntx::bulk_load(sLD + s * 2 * kBq, row_tile(a, bi * a.hq + h, qt),
                        8 * kBq, &full[s]);
       }
@@ -410,7 +432,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     const int kw0 = k0 + wg * 64;                 // this warpgroup's keys
     const int kp0 = kw0 + (t >> 5) * 16 + (lane >> 2);   // its rows, + 8
     const uint32_t uK = ntx::smem_u32(sK), uV = ntx::smem_u32(sV);
-    float dk[D / 8][4], dv[D / 8][4];
+    float dk[D / 8][4], dv[DV / 8][4];
     zero(dk);
     zero(dv);
     ntx::mbar_wait(kvbar, 0);
@@ -418,13 +440,16 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       const int s = it % kStages;
       const int q0 = (qt0 + it % per) * kBq;
       ntx::mbar_wait(&full[s], (it / kStages) & 1);
-      const bool live = kw0 < a.skv && (!a.causal ||
-                        a.q_off + min(q0 + kBq, a.sq) - 1 >= kw0);
-      if (live) {
-        const uint32_t uQ = ntx::smem_u32(ring + s * 2 * TQ);
-        const uint32_t udO = uQ + TQ;
-        const float* sl = sLD + s * 2 * kBq;
-        float p[8][4], dp[8][4];
+      const uint32_t uQ = ntx::smem_u32(ring + s * (TQ + TO));
+      const uint32_t udO = uQ + TQ;
+      const float* sl = sLD + s * 2 * kBq;
+#pragma unroll
+      for (int hh = 0; hh < kBq / QH; ++hh) {
+        const int qh0 = q0 + hh * QH;             // this round's queries
+        const bool live = kw0 < a.skv && qh0 < a.sq && (!a.causal ||
+                          a.q_off + min(qh0 + QH, a.sq) - 1 >= kw0);
+        if (!live) continue;
+        float p[QH / 8][4], dp[QH / 8][4];
         zero(p);
         zero(dp);
         ntx::fence_regs(p);
@@ -432,62 +457,63 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
         ntx::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)       // S^T = K_w Q^T
-          ntx::wgmma_m64n64k16_ss(p, kmajor<kBk>(uK, wg * 64, kk),
-                                  kmajor<kBq>(uQ, 0, kk), 1);
+          ntx::wgmma_ss<QH>(p, kmajor<kBk>(uK, wg * 64, kk),
+                            kmajor<kBq>(uQ, hh * QH, kk), 1);
         ntx::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)       // dP^T = V_w dO^T
-          ntx::wgmma_m64n64k16_ss(dp, kmajor<kBk>(uV, wg * 64, kk),
-                                  kmajor<kBq>(udO, 0, kk), 1);
+        for (int kk = 0; kk < DV / 16; ++kk)      // dP^T = V_w dO^T
+          ntx::wgmma_ss<QH>(dp, kmajor<kBk>(uV, wg * 64, kk),
+                            kmajor<kBq>(udO, hh * QH, kk), 1);
         ntx::wgmma_commit();
         ntx::wgmma_wait<1>();
         ntx::fence_regs(p);
         // P^T = exp2(S^T scale2 - lse2), while dP^T runs: keys are rows,
         // queries columns; a tile inside the causal bound and the arrays
         // is not masked
-        const bool inside = kw0 + 64 <= a.skv && q0 + kBq <= a.sq &&
-                            (!a.causal || kw0 + 63 <= a.q_off + q0);
+        const bool inside = kw0 + 64 <= a.skv && qh0 + QH <= a.sq &&
+                            (!a.causal || kw0 + 63 <= a.q_off + qh0);
         if (inside) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < QH / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const int ql = 8 * j + 2 * (lane & 3) + (e & 1);
+              const int ql = hh * QH + 8 * j + 2 * (lane & 3) + (e & 1);
               p[j][e] = exp2f(p[j][e] * a.scale2 - sl[ql]);
             }
         } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < QH / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const int ql = 8 * j + 2 * (lane & 3) + (e & 1);
+              const int ql = hh * QH + 8 * j + 2 * (lane & 3) + (e & 1);
               const int kp = kp0 + 8 * (e >> 1), qi = q0 + ql;
               const bool ok = kp < a.skv && qi < a.sq &&
                               (!a.causal || kp <= a.q_off + qi);
               p[j][e] = ok ? exp2f(p[j][e] * a.scale2 - sl[ql]) : 0.0f;
             }
         }
-        uint32_t pa[4][4], da[4][4];
-        ntx::pack_a<8>(pa, p);
+        uint32_t pa[QH / 16][4], da[QH / 16][4];
+        ntx::pack_a<QH / 8>(pa, p);
         ntx::wgmma_wait<0>();
         ntx::fence_regs(dp);
         // dS^T = P^T o (dP^T - D)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < QH / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int ql = 8 * j + 2 * (lane & 3) + (e & 1);
+            const int ql = hh * QH + 8 * j + 2 * (lane & 3) + (e & 1);
             dp[j][e] = p[j][e] * (dp[j][e] - sl[kBq + ql]);
           }
-        ntx::pack_a<8>(da, dp);
+        ntx::pack_a<QH / 8>(da, dp);
         // only dK, dV and the two bf16 operands are live from here
         ntx::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kBq / 16; ++kk)     // dV += P^T dO
-          ntx::wgmma_rs_t<D>(dv, pa[kk], mnmajor<kBq>(udO, kk));
+        for (int kk = 0; kk < QH / 16; ++kk)      // dV += P^T dO
+          ntx::wgmma_rs_t<DV>(dv, pa[kk],
+                              mnmajor<kBq>(udO, hh * QH / 16 + kk));
 #pragma unroll
-        for (int kk = 0; kk < kBq / 16; ++kk)     // dK += dS^T Q
-          ntx::wgmma_rs_t<D>(dk, da[kk], mnmajor<kBq>(uQ, kk));
+        for (int kk = 0; kk < QH / 16; ++kk)      // dK += dS^T Q
+          ntx::wgmma_rs_t<D>(dk, da[kk], mnmajor<kBq>(uQ, hh * QH / 16 + kk));
         ntx::wgmma_commit();
         ntx::wgmma_wait<0>();
         ntx::fence_regs(pa);
@@ -498,35 +524,36 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       ntx::mbar_arrive(&empty[s]);
     }
     if (a.gs > 1) {
-      const long long n = (long long)a.b * a.hkv * a.skv * D;
-      const long long part =
-          ((long long)split * a.b * a.hkv + grp) * a.skv * D;
-      store_acc<D>(dk, 1.0f, nullptr, 0, a.ws + part, kw0, a.skv);
-      store_acc<D>(dv, 1.0f, nullptr, 0, a.ws + a.gs * n + part, kw0, a.skv);
+      const long long nk = (long long)a.b * a.hkv * a.skv * D;
+      const long long part = ((long long)split * a.b * a.hkv + grp) * a.skv;
+      store_acc<D>(dk, 1.0f, nullptr, 0, a.ws + part * D, kw0, a.skv);
+      store_acc<DV>(dv, 1.0f, nullptr, 0, a.ws + a.gs * nk + part * DV, kw0,
+                    a.skv);
     } else {
       store_acc<D>(dk, a.scale,
                    static_cast<__nv_bfloat16*>(a.dk) + at(a.dks, bi, kvh, 0),
                    a.dks[2], nullptr, kw0, a.skv);
-      store_acc<D>(dv, 1.0f,
-                   static_cast<__nv_bfloat16*>(a.dv) + at(a.dvs, bi, kvh, 0),
-                   a.dvs[2], nullptr, kw0, a.skv);
+      store_acc<DV>(dv, 1.0f,
+                    static_cast<__nv_bfloat16*>(a.dv) + at(a.dvs, bi, kvh, 0),
+                    a.dvs[2], nullptr, kw0, a.skv);
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const BwdArgs a) {
-  constexpr int TQ = kDqRows * D * 2, TK = kDqKeys * D * 2;
+  constexpr int TQ = kDqRows * D * 2, TO = kDqRows * DV * 2;
+  constexpr int TK = kDqKeys * D * 2, TV = kDqKeys * DV * 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = smem_base(smem_raw);
   unsigned char* sdO = sQ + TQ;
-  unsigned char* ring = sdO + TQ;                // [stage][K, V]
-  float* sLD = reinterpret_cast<float*>(ring + kStages * 2 * TK);
+  unsigned char* ring = sdO + TO;                // [stage][K, V]
+  float* sLD = reinterpret_cast<float*>(ring + kStages * (TK + TV));
   uint64_t* full = reinterpret_cast<uint64_t*>(sLD + 2 * kDqRows);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
@@ -554,17 +581,17 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   if (wg == kWG) {
     ntx::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kWG * 128) {
-      ntx::mbar_expect_tx(qbar, 2 * TQ + 8 * kDqRows);
+      ntx::mbar_expect_tx(qbar, TQ + TO + 8 * kDqRows);
       load_tile<D, kDqRows>(sQ, &tq, qbar, q0, h, bi);
-      load_tile<D, kDqRows>(sdO, &tdo, qbar, q0, h, bi);
+      load_tile<DV, kDqRows>(sdO, &tdo, qbar, q0, h, bi);
       ntx::bulk_load(sLD, row_tile(a, bh, q0 / kTile), 8 * kDqRows, qbar);
       for (int it = 0; it < nkt; ++it) {
         const int s = it % kStages;
         ntx::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-        unsigned char* sK = ring + s * 2 * TK;
-        ntx::mbar_expect_tx(&full[s], 2 * TK);
+        unsigned char* sK = ring + s * (TK + TV);
+        ntx::mbar_expect_tx(&full[s], TK + TV);
         load_tile<D, kDqKeys>(sK, &tk, &full[s], it * kDqKeys, kvh, bi);
-        load_tile<D, kDqKeys>(sK + TK, &tv, &full[s], it * kDqKeys, kvh, bi);
+        load_tile<DV, kDqKeys>(sK + TK, &tv, &full[s], it * kDqKeys, kvh, bi);
       }
     }
   } else {
@@ -593,7 +620,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       const int s = it % kStages;
       ntx::mbar_wait(&full[s], (it / kStages) & 1);
       if (it < nkt_w) {
-        const uint32_t uK = ntx::smem_u32(ring + s * 2 * TK), uV = uK + TK;
+        const uint32_t uK = ntx::smem_u32(ring + s * (TK + TV)), uV = uK + TK;
         const int k0 = it * kDqKeys;
         float p[8][4], dp[8][4];
         zero(p);
@@ -607,7 +634,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                                   kmajor<kDqKeys>(uK, 0, kk), 1);
         ntx::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)       // dP = dO_w V^T
+        for (int kk = 0; kk < DV / 16; ++kk)      // dP = dO_w V^T
           ntx::wgmma_m64n64k16_ss(dp, kmajor<kDqRows>(udO, wg * 64, kk),
                                   kmajor<kDqKeys>(uV, 0, kk), 1);
         ntx::wgmma_commit();
@@ -686,17 +713,17 @@ __device__ __forceinline__ void load_ld(const BwdArgs& a, int bh, int q0,
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dkdv_f32(const BwdArgs a) {
-  constexpr int NC = D / 32, KR = kF32BwdKeys / 4, QR = kF32BwdRows;
-  constexpr int LD = D + 1, LP = QR + 1;
+  constexpr int NC = D / 32, NV = DV / 32, KR = kF32BwdKeys / 4;
+  constexpr int QR = kF32BwdRows, LD = D + 1, LDV = DV + 1, LP = QR + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + kF32BwdKeys * LD;
-  float* Qs = Vs + kF32BwdKeys * LD;
+  float* Qs = Vs + kF32BwdKeys * LDV;
   float* dOs = Qs + QR * LD;
-  float* Ps = dOs + QR * LD;
+  float* Ps = dOs + QR * LDV;
   float* dSs = Ps + kF32BwdKeys * LP;
   float* Ls = dSs + kF32BwdKeys * LP;
   float* Ds = Ls + QR;
@@ -710,13 +737,16 @@ flash_bwd_dkdv_f32(const BwdArgs a) {
   const int hps = a.g / a.gs, h0 = kvh * a.g + split * hps;
   load_f32<D>(Ks, static_cast<const float*>(a.k) + at(a.ks, bi, kvh, k0),
               a.ks[2], kF32BwdKeys, nk);
-  load_f32<D>(Vs, static_cast<const float*>(a.v) + at(a.vs, bi, kvh, k0),
-              a.vs[2], kF32BwdKeys, nk);
-  float dk[KR][NC], dv[KR][NC];
+  load_f32<DV>(Vs, static_cast<const float*>(a.v) + at(a.vs, bi, kvh, k0),
+               a.vs[2], kF32BwdKeys, nk);
+  float dk[KR][NC], dv[KR][NV];
 #pragma unroll
-  for (int r = 0; r < KR; ++r)
+  for (int r = 0; r < KR; ++r) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.0f;
+    for (int c = 0; c < NC; ++c) dk[r][c] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) dv[r][c] = 0.0f;
+  }
   for (int j = 0; j < hps; ++j) {
     const int h = h0 + j;
     for (int qt = qt0; qt < nqt; ++qt) {
@@ -724,19 +754,19 @@ flash_bwd_dkdv_f32(const BwdArgs a) {
       __syncthreads();                  // the previous tile is consumed
       load_f32<D>(Qs, static_cast<const float*>(a.q) + at(a.qs, bi, h, q0),
                   a.qs[2], QR, nq);
-      load_f32<D>(dOs,
-                  static_cast<const float*>(a.dout) + at(a.dos, bi, h, q0),
-                  a.dos[2], QR, nq);
+      load_f32<DV>(dOs,
+                   static_cast<const float*>(a.dout) + at(a.dos, bi, h, q0),
+                   a.dos[2], QR, nq);
       load_ld(a, bi * a.hq + h, q0, QR, Ls, Ds);
       __syncthreads();
       for (int e = threadIdx.x; e < kF32BwdKeys * QR; e += kBwdThreads) {
         const int kj = e / QR, qq = e % QR;
         float s = 0.0f, dp = 0.0f;
 #pragma unroll 8
-        for (int c = 0; c < D; ++c) {
-          s = fmaf(Ks[kj * LD + c], Qs[qq * LD + c], s);
-          dp = fmaf(Vs[kj * LD + c], dOs[qq * LD + c], dp);
-        }
+        for (int c = 0; c < D; ++c) s = fmaf(Ks[kj * LD + c], Qs[qq * LD + c], s);
+#pragma unroll 8
+        for (int c = 0; c < DV; ++c)
+          dp = fmaf(Vs[kj * LDV + c], dOs[qq * LDV + c], dp);
         const int kp = k0 + kj, qi = q0 + qq;
         const bool ok = kp < a.skv && qi < a.sq &&
                         (!a.causal || kp <= a.q_off + qi);
@@ -751,46 +781,47 @@ flash_bwd_dkdv_f32(const BwdArgs a) {
         for (int qq = 0; qq < QR; ++qq) {
           const float pv = Ps[kj * LP + qq], dsv = dSs[kj * LP + qq];
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv[r][c] = fmaf(pv, dOs[qq * LD + lane + 32 * c], dv[r][c]);
+          for (int c = 0; c < NV; ++c)
+            dv[r][c] = fmaf(pv, dOs[qq * LDV + lane + 32 * c], dv[r][c]);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
             dk[r][c] = fmaf(dsv, Qs[qq * LD + lane + 32 * c], dk[r][c]);
-          }
         }
       }
     }
   }
   const bool part = a.gs > 1;
-  const long long n = (long long)a.b * a.hkv * a.skv * D;
-  float* pk = a.ws + ((long long)split * a.b * a.hkv + grp) * a.skv * D;
-  float* dkb = part ? pk + (long long)k0 * D
+  const long long nkd = (long long)a.b * a.hkv * a.skv * D;
+  const long long row0 =
+      ((long long)split * a.b * a.hkv + grp) * a.skv + k0;   // partial row
+  float* dkb = part ? a.ws + row0 * D
                     : static_cast<float*>(a.dk) + at(a.dks, bi, kvh, k0);
-  float* dvb = part ? pk + a.gs * n + (long long)k0 * D
+  float* dvb = part ? a.ws + a.gs * nkd + row0 * DV
                     : static_cast<float*>(a.dv) + at(a.dvs, bi, kvh, k0);
-  const long long rk = part ? D : a.dks[2], rv = part ? D : a.dvs[2];
+  const long long rk = part ? D : a.dks[2], rv = part ? DV : a.dvs[2];
   const float f = part ? 1.0f : a.scale;
 #pragma unroll
   for (int r = 0; r < KR; ++r) {
     const int kj = warp * KR + r;
     if (kj >= nk) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dkb[kj * rk + lane + 32 * c] = dk[r][c] * f;
-      dvb[kj * rv + lane + 32 * c] = dv[r][c];
-    }
+    for (int c = 0; c < NC; ++c) dkb[kj * rk + lane + 32 * c] = dk[r][c] * f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) dvb[kj * rv + lane + 32 * c] = dv[r][c];
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dq_f32(const BwdArgs a) {
   constexpr int NC = D / 32, QR = kF32BwdRows / 4, KT = kF32BwdKeys;
-  constexpr int LD = D + 1, LS = KT + 1;
+  constexpr int LD = D + 1, LDV = DV + 1, LS = KT + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* dOs = Qs + kF32BwdRows * LD;
-  float* Ks = dOs + kF32BwdRows * LD;
+  float* Ks = dOs + kF32BwdRows * LDV;
   float* Vs = Ks + KT * LD;
-  float* dSs = Vs + KT * LD;
+  float* dSs = Vs + KT * LDV;
   float* Ls = dSs + kF32BwdRows * LS;
   float* Ds = Ls + kF32BwdRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -804,8 +835,8 @@ flash_bwd_dq_f32(const BwdArgs a) {
                            : nkt_all;
   load_f32<D>(Qs, static_cast<const float*>(a.q) + at(a.qs, bi, h, q0),
               a.qs[2], kF32BwdRows, nq);
-  load_f32<D>(dOs, static_cast<const float*>(a.dout) + at(a.dos, bi, h, q0),
-              a.dos[2], kF32BwdRows, nq);
+  load_f32<DV>(dOs, static_cast<const float*>(a.dout) + at(a.dos, bi, h, q0),
+               a.dos[2], kF32BwdRows, nq);
   load_ld(a, blockIdx.x, q0, kF32BwdRows, Ls, Ds);
   float dq[QR][NC];
 #pragma unroll
@@ -817,17 +848,17 @@ flash_bwd_dq_f32(const BwdArgs a) {
     __syncthreads();                    // the previous tile is consumed
     load_f32<D>(Ks, static_cast<const float*>(a.k) + at(a.ks, bi, kvh, k0),
                 a.ks[2], KT, nk);
-    load_f32<D>(Vs, static_cast<const float*>(a.v) + at(a.vs, bi, kvh, k0),
-                a.vs[2], KT, nk);
+    load_f32<DV>(Vs, static_cast<const float*>(a.v) + at(a.vs, bi, kvh, k0),
+                 a.vs[2], KT, nk);
     __syncthreads();
     for (int e = threadIdx.x; e < kF32BwdRows * KT; e += kBwdThreads) {
       const int qq = e / KT, kj = e % KT;
       float s = 0.0f, dp = 0.0f;
 #pragma unroll 8
-      for (int c = 0; c < D; ++c) {
-        s = fmaf(Qs[qq * LD + c], Ks[kj * LD + c], s);
-        dp = fmaf(dOs[qq * LD + c], Vs[kj * LD + c], dp);
-      }
+      for (int c = 0; c < D; ++c) s = fmaf(Qs[qq * LD + c], Ks[kj * LD + c], s);
+#pragma unroll 8
+      for (int c = 0; c < DV; ++c)
+        dp = fmaf(dOs[qq * LDV + c], Vs[kj * LDV + c], dp);
       const int kp = k0 + kj, qi = q0 + qq;
       const bool ok = kp < a.skv && qi < a.sq &&
                       (!a.causal || kp <= a.q_off + qi);
@@ -835,14 +866,19 @@ flash_bwd_dq_f32(const BwdArgs a) {
       dSs[qq * LS + kj] = pv * (dp - Ds[qq]);
     }
     __syncthreads();
+    // keys outer: each K element is loaded once for the warp's rows (with
+    // the rows outer, the compiler keeps a tile's K values live across
+    // them and spills at d 192); every dq element still sums its keys in
+    // order
+    for (int kj = 0; kj < KT; ++kj) {
+      float kv[NC];
 #pragma unroll
-    for (int r = 0; r < QR; ++r) {
-      const int qq = warp * QR + r;
-      for (int kj = 0; kj < KT; ++kj) {
-        const float dsv = dSs[qq * LS + kj];
+      for (int c = 0; c < NC; ++c) kv[c] = Ks[kj * LD + lane + 32 * c];
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          dq[r][c] = fmaf(dsv, Ks[kj * LD + lane + 32 * c], dq[r][c]);
+      for (int r = 0; r < QR; ++r) {
+        const float dsv = dSs[(warp * QR + r) * LS + kj];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) dq[r][c] = fmaf(dsv, kv[c], dq[r][c]);
       }
     }
   }
@@ -859,21 +895,24 @@ flash_bwd_dq_f32(const BwdArgs a) {
 
 // ---------------------------------------------------------------------
 // The group splits' partials of dK (times scale) and dV, added in split
-// order into the outputs
+// order into the outputs (dK rows of d, dV rows of dv)
 // ---------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_merge(const BwdArgs a, int d) {
-  const long long n = (long long)a.b * a.hkv * a.skv * d;
+flash_bwd_merge(const BwdArgs a, int d, int dv) {
+  const long long rows = (long long)a.b * a.hkv * a.skv;
+  const long long nk = rows * d, nv = rows * dv;
   for (long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
-       i < 2 * n; i += 4LL * gridDim.x * blockDim.x) {
-    const int which = (int)(i / n);
-    const long long e = i % n;                  // 4 columns of one row
-    const int c = (int)(e % d);
-    const long long row = e / d;
+       i < nk + nv; i += 4LL * gridDim.x * blockDim.x) {
+    const int which = i >= nk;
+    const long long e = which ? i - nk : i;     // 4 columns of one row
+    const int w = which ? dv : d;
+    const long long n = which ? nv : nk;
+    const int c = (int)(e % w);
+    const long long row = e / w;
     const int key = (int)(row % a.skv), bh = (int)(row / a.skv);
     const int kvh = bh % a.hkv, bi = bh / a.hkv;
-    const float* src = a.ws + (long long)which * a.gs * n + e;
+    const float* src = a.ws + (which ? a.gs * nk : 0) + e;
     float4 s = *reinterpret_cast<const float4*>(src);
     for (int j = 1; j < a.gs; ++j) {
       const float4 t = *reinterpret_cast<const float4*>(src + j * n);
@@ -949,7 +988,7 @@ bool encode(CUtensorMap* map, const void* base, const long long* st, int b,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_passes(const BwdArgs& a, const Plan& p, bool bf16,
                           cudaStream_t s) {
   static bool done[4][64] = {};
@@ -961,40 +1000,40 @@ cudaError_t launch_passes(const BwdArgs& a, const Plan& p, bool bf16,
   if (bf16) {
     CUtensorMap tq, tdo, tk, tv;
     if (!encode(&tq, a.q, a.qs, a.b, a.hq, a.sq, D) ||
-        !encode(&tdo, a.dout, a.dos, a.b, a.hq, a.sq, D) ||
+        !encode(&tdo, a.dout, a.dos, a.b, a.hq, a.sq, DV) ||
         !encode(&tk, a.k, a.ks, a.b, a.hkv, a.skv, D) ||
-        !encode(&tv, a.v, a.vs, a.b, a.hkv, a.skv, D))
+        !encode(&tv, a.v, a.vs, a.b, a.hkv, a.skv, DV))
       return cudaErrorInvalidValue;
-    if ((err = opt_in(flash_bwd_dkdv_wgmma<D>, p.smem_dkdv, done[0])) !=
+    if ((err = opt_in(flash_bwd_dkdv_wgmma<D, DV>, p.smem_dkdv, done[0])) !=
         cudaSuccess)
       return err;
-    if ((err = opt_in(flash_bwd_dq_wgmma<D>, p.smem_dq, done[1])) !=
+    if ((err = opt_in(flash_bwd_dq_wgmma<D, DV>, p.smem_dq, done[1])) !=
         cudaSuccess)
       return err;
-    flash_bwd_dkdv_wgmma<D><<<g2, kWgThreads, p.smem_dkdv, s>>>(tq, tdo, tk,
+    flash_bwd_dkdv_wgmma<D, DV><<<g2, kWgThreads, p.smem_dkdv, s>>>(tq, tdo, tk,
                                                                 tv, a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    flash_bwd_dq_wgmma<D><<<g3, kWgThreads, p.smem_dq, s>>>(tq, tdo, tk, tv,
+    flash_bwd_dq_wgmma<D, DV><<<g3, kWgThreads, p.smem_dq, s>>>(tq, tdo, tk, tv,
                                                             a);
   } else {
-    if ((err = opt_in(flash_bwd_dkdv_f32<D>, p.smem_dkdv, done[2])) !=
+    if ((err = opt_in(flash_bwd_dkdv_f32<D, DV>, p.smem_dkdv, done[2])) !=
         cudaSuccess)
       return err;
-    if ((err = opt_in(flash_bwd_dq_f32<D>, p.smem_dq, done[3])) != cudaSuccess)
+    if ((err = opt_in(flash_bwd_dq_f32<D, DV>, p.smem_dq, done[3])) != cudaSuccess)
       return err;
-    flash_bwd_dkdv_f32<D><<<g2, kBwdThreads, p.smem_dkdv, s>>>(a);
+    flash_bwd_dkdv_f32<D, DV><<<g2, kBwdThreads, p.smem_dkdv, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    flash_bwd_dq_f32<D><<<g3, kBwdThreads, p.smem_dq, s>>>(a);
+    flash_bwd_dq_f32<D, DV><<<g3, kBwdThreads, p.smem_dq, s>>>(a);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (p.gs > 1) {
-    const long long n = 2LL * a.b * a.hkv * a.skv * D / 4;
+    const long long n = (long long)a.b * a.hkv * a.skv * (D + DV) / 4;
     const long long need = (n + 255) / 256;
     const int blocks = (int)(need < kSms * 16 ? need : kSms * 16);
     if (bf16)
-      flash_bwd_merge<__nv_bfloat16><<<blocks, 256, 0, s>>>(a, D);
+      flash_bwd_merge<__nv_bfloat16><<<blocks, 256, 0, s>>>(a, D, DV);
     else
-      flash_bwd_merge<float><<<blocks, 256, 0, s>>>(a, D);
+      flash_bwd_merge<float><<<blocks, 256, 0, s>>>(a, D, DV);
     err = cudaGetLastError();
   }
   return err;
@@ -1009,20 +1048,22 @@ bool aligned16(const void* p, const long long* st) {
 
 extern "C" {
 
-// q, o, dout, dq (b, hq, sq, d); k, v, dk, dv (b, hkv, skv, d), on the
-// device, all fp32 or all bf16, each with d contiguous (bf16: q, k, v and
-// dout 16-byte aligned with strides in multiples of 8 elements, which the
-// tensor maps need); lse (b * hq * sq fp32, the forward's); rows (the
-// row table, rows_bytes of scratch); ws (ws_bytes of scratch, or null
-// when gs is 1). p (host, 43 values): the element strides (batch, head,
-// seq) of q, k, v, o, dout, dq, dk and dv in p[0..23], then b, hq, hkv,
-// sq, skv, d, causal, bf16, and the plan (kernels/flash_attention.py:
-// flash_bwd_plan): keys a dK/dV block, queries a tile it walks, queries a
-// dQ block, keys a tile it walks, ring stages, consumer warpgroups, group
-// splits gs, the dK/dV and the dQ blocks' shared memory, the workspace's
-// and the row table's bytes. Causal attention needs sq <= skv (query i at
-// position skv - sq + i); sq and skv are at least 1. Launches: the delta,
-// dK/dV, dQ, and with gs > 1 the merge. Anything else is refused.
+// q, dq (b, hq, sq, d); o, dout (b, hq, sq, dv); k, dk (b, hkv, skv, d);
+// v, dv (b, hkv, skv, dv), on the device, all fp32 or all bf16, each with
+// its last dim contiguous (bf16: q, k, v and dout 16-byte aligned with
+// strides in multiples of 8 elements, which the tensor maps need); lse
+// (b * hq * sq fp32, the forward's); rows (the row table, rows_bytes of
+// scratch); ws (ws_bytes of scratch, or null when gs is 1). p (host, 44
+// values): the element strides (batch, head, seq) of q, k, v, o, dout,
+// dq, dk and dv in p[0..23], then b, hq, hkv, sq, skv, d, causal, bf16,
+// and the plan (kernels/flash_attention.py:flash_bwd_plan): keys a dK/dV
+// block, queries a tile it walks, queries a dQ block, keys a tile it
+// walks, ring stages, consumer warpgroups, group splits gs, the dK/dV and
+// the dQ blocks' shared memory, the workspace's and the row table's
+// bytes; then dv. (d, dv) is one of (64, 64), (128, 128), (192, 128).
+// Causal attention needs sq <= skv (query i at position skv - sq + i); sq
+// and skv are at least 1. Launches: the delta, dK/dV, dQ, and with gs > 1
+// the merge. Anything else is refused.
 int ntx_flash_attention_bwd(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
                             const float* lse, float* rows, float* ws,
@@ -1031,10 +1072,11 @@ int ntx_flash_attention_bwd(const void* q, const void* k, const void* v,
   const int b = (int)p[24], hq = (int)p[25], hkv = (int)p[26];
   const int sq = (int)p[27], skv = (int)p[28], d = (int)p[29];
   const int causal = (int)p[30], bf16 = (int)p[31];
+  const int d_v = (int)p[43];                   // v's head dim
   if (b < 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || skv <= 0 ||
-      (d != 64 && d != 128) || (causal && sq > skv))
+      !head_pair(d, d_v) || (causal && sq > skv))
     return (int)cudaErrorInvalidValue;
-  const Plan pl = make_plan(b, hq, hkv, sq, skv, d, causal, bf16);
+  const Plan pl = make_plan(b, hq, hkv, sq, skv, d, d_v, causal, bf16);
   if (p[32] != pl.bk || p[33] != pl.bq || p[34] != pl.dq_rows ||
       p[35] != pl.dq_keys || p[36] != pl.stages || p[37] != pl.wgs ||
       p[38] != pl.gs || p[39] != pl.smem_dkdv || p[40] != pl.smem_dq ||
@@ -1088,18 +1130,20 @@ int ntx_flash_attention_bwd(const void* q, const void* k, const void* v,
   const long long n_rows = (long long)b * hq * a.nqt_pad * kTile;
   const long long need = (n_rows * 32 + 255) / 256;
   const int blocks = (int)(need < kSms * 16 ? need : kSms * 16);
-  if (bf16 && d == 64)
+  // D = rowsum(dO o O) runs over v's head dim
+  if (bf16 && d_v == 64)
     flash_bwd_delta<__nv_bfloat16, 64><<<blocks, 256, 0, s>>>(a);
   else if (bf16)
     flash_bwd_delta<__nv_bfloat16, 128><<<blocks, 256, 0, s>>>(a);
-  else if (d == 64)
+  else if (d_v == 64)
     flash_bwd_delta<float, 64><<<blocks, 256, 0, s>>>(a);
   else
     flash_bwd_delta<float, 128><<<blocks, 256, 0, s>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)(d == 64 ? launch_passes<64>(a, pl, bf16, s)
-                       : launch_passes<128>(a, pl, bf16, s));
+  return (int)(d == 64    ? launch_passes<64, 64>(a, pl, bf16, s)
+               : d == 128 ? launch_passes<128, 128>(a, pl, bf16, s)
+                          : launch_passes<192, 128>(a, pl, bf16, s));
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@
 // hand-over between warpgroups (setmaxnreg), and the shared-memory matrix
 // descriptors of tiles that TMA wrote with the 128-byte swizzle.
 //
-// Tiles. A tile of R rows of D bf16 (D = 64 or 128) is stored as D / 64
+// Tiles. A tile of R rows of D bf16 (D = 64, 128 or 192) is stored as D / 64
 // panels, panel p holding columns 64p..64p+63 of every row, 128 bytes a
 // row, so panel p starts at p * R * 128 bytes. TMA writes each panel with
 // CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands at chunk
@@ -172,13 +172,12 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NT / 2][4],
 
 #define NTX_ACC4(a, j) \
   "+f"(a[j][0]), "+f"(a[j][1]), "+f"(a[j][2]), "+f"(a[j][3])
-#define NTX_ACC32(a)                                                  \
-  NTX_ACC4(a, 0), NTX_ACC4(a, 1), NTX_ACC4(a, 2), NTX_ACC4(a, 3),     \
-      NTX_ACC4(a, 4), NTX_ACC4(a, 5), NTX_ACC4(a, 6), NTX_ACC4(a, 7)
-#define NTX_ACC64(a)                                                  \
-  NTX_ACC32(a), NTX_ACC4(a, 8), NTX_ACC4(a, 9), NTX_ACC4(a, 10),      \
-      NTX_ACC4(a, 11), NTX_ACC4(a, 12), NTX_ACC4(a, 13),              \
-      NTX_ACC4(a, 14), NTX_ACC4(a, 15)
+#define NTX_ACC32_AT(a, j)                                            \
+  NTX_ACC4(a, j), NTX_ACC4(a, j + 1), NTX_ACC4(a, j + 2),             \
+      NTX_ACC4(a, j + 3), NTX_ACC4(a, j + 4), NTX_ACC4(a, j + 5),     \
+      NTX_ACC4(a, j + 6), NTX_ACC4(a, j + 7)
+#define NTX_ACC32(a) NTX_ACC32_AT(a, 0)
+#define NTX_ACC64(a) NTX_ACC32_AT(a, 0), NTX_ACC32_AT(a, 8)
 
 // acc (64 x 64) (+)= A B^T for one k-step of 16: A (64 x 16) and B
 // (64 x 16) both K-major in shared memory. scale_d 0 overwrites acc.
@@ -193,6 +192,28 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&acc)[8][4],
       "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : NTX_ACC32(acc)
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ... the same with N = 32 (32 columns of B: half a 64-row tile).
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&acc)[4][4],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : NTX_ACC4(acc, 0), NTX_ACC4(acc, 1), NTX_ACC4(acc, 2), NTX_ACC4(acc, 3)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// S (64 x N) (+)= A B^T over one k-step for N = 32 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&acc)[N / 8][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 32)
+    wgmma_m64n32k16_ss(acc, da, db, scale_d);
+  else
+    wgmma_m64n64k16_ss(acc, da, db, scale_d);
 }
 
 // acc (64 x N) += A B for one k-step of 16: A (64 x 16) from registers,
@@ -224,19 +245,41 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_t(float (&acc)[16][4],
       : NTX_ACC64(acc)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-// The product of width D (64 or 128) of the above.
+__device__ __forceinline__ void wgmma_m64n192k16_rs_t(float (&acc)[24][4],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
+      "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+      "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "
+      "%91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : NTX_ACC64(acc), NTX_ACC32_AT(acc, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// The product of width D (64, 128 or 192: B spans D / 64 panels, the
+// descriptor's lbo apart) of the above.
 template <int D>
 __device__ __forceinline__ void wgmma_rs_t(float (&acc)[D / 8][4],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
   if constexpr (D == 64)
     wgmma_m64n64k16_rs_t(acc, a, db);
-  else
+  else if constexpr (D == 128)
     wgmma_m64n128k16_rs_t(acc, a, db);
+  else
+    wgmma_m64n192k16_rs_t(acc, a, db);
 }
 
 #undef NTX_ACC64
 #undef NTX_ACC32
+#undef NTX_ACC32_AT
 #undef NTX_ACC4
 
 }  // namespace ntx

@@ -11,7 +11,10 @@ strides (d contiguous), so views are not copied. For training the
 forward also writes each row's log-sum-exp, and the backward kernel
 computes dQ, dK and dV from it: the counterpart of the flash-style VJP
 of the reference's ``ref.mha_blocked`` (``ref.mha_blocked_bwd`` is its
-plain version).
+plain version). Both kernels take q/k rows of d and v rows of dv for the
+pairs in ``HEAD_PAIRS``: the GQA models' equal dims, and MLA's q/k of 192
+(128 nope + 64 rope) against v of 128, which the reference sends to its
+``ref.mha`` / ``ref.mha_blocked`` on every backend.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ import torch
 from . import _build
 from .ref import f32, mha, mha_blocked_bwd
 
-#: head dims the CUDA kernel is instantiated for
-HEAD_DIMS = (64, 128)
+#: (q/k, v) head-dim pairs the CUDA kernels are instantiated for
+HEAD_PAIRS = ((64, 64), (128, 128), (192, 128))
 #: SMs of an H100 SXM: the planner splits the keys until the grid holds
 #: about one block per SM
 SMS = 132
@@ -34,7 +37,8 @@ SMS = 132
 TC_KEYS, F32_KEYS, F32_ROWS = 64, 32, 16
 #: bf16 rows padded by 8 elements (16 bytes) for ldmatrix
 PAD = 8
-#: shared memory one block may use on the H100, and without opting in
+#: shared memory one block may use on the H100, and without opting in (the
+#: fp32 route opts in above it: 53 KB at (192, 128))
 MAX_SMEM, STATIC_SMEM = 232448, 48 * 1024
 #: fewest key tiles a split takes, and most splits
 MIN_SPLIT_TILES = 4
@@ -53,20 +57,30 @@ def tc_stages(wr: int) -> int:
     return 2 if wr == 4 else 3
 
 
-def tc_smem(d: int, wr: int) -> int:
+def tc_smem(d: int, wr: int, dv: int | None = None) -> int:
     """Shared memory of a tensor-core block, as ``tc_smem`` in the kernel:
-    the Q rows and the K/V ring in bf16, or the fp32 staging of the key
-    warps' merge (16 rows a warp of d + 4, and m, l), whichever is
-    larger."""
-    ring = 2 * (16 * wr * (d + PAD) + tc_stages(wr) * 2 * TC_KEYS * (d + PAD))
+    the Q rows and the K ring at d and the V ring at dv (default d) in
+    bf16, or the fp32 staging of the key warps' merge (16 rows a warp of
+    dv + 4, and m, l), whichever is larger."""
+    dv = d if dv is None else dv
+    ring = 2 * (16 * wr * (d + PAD)
+                + tc_stages(wr) * TC_KEYS * (d + PAD + dv + PAD))
     rows = 16 * tc_warps(wr)
-    return max(ring, 4 * (rows * (d + 4) + 2 * rows))
+    return max(ring, 4 * (rows * (dv + 4) + 2 * rows))
 
 
-def f32_smem(d: int) -> int:
-    """The fp32 route's static shared memory: Q rows, a K tile (rows
-    padded by one) and a V tile, in fp32."""
-    return 4 * (F32_ROWS * d + F32_KEYS * (d + 1) + F32_KEYS * d)
+def f32_smem(d: int, dv: int | None = None) -> int:
+    """The fp32 route's shared memory: Q rows and a K tile (rows padded by
+    one) at d, a V tile at dv (default d), in fp32."""
+    dv = d if dv is None else dv
+    return 4 * (F32_ROWS * d + F32_KEYS * (d + 1) + F32_KEYS * dv)
+
+
+def check_head_dims(d: int, dv: int) -> None:
+    """Raise ``ValueError`` for a (q/k, v) head-dim pair the kernels are
+    not instantiated for."""
+    if (d, dv) not in HEAD_PAIRS:
+        raise ValueError(f"head dims (q/k {d}, v {dv}) not in {HEAD_PAIRS}")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -82,6 +96,7 @@ class FlashPlan:
 
     bf16: bool
     d: int
+    dv: int
     sq: int
     skv: int
     kv_len: int
@@ -131,10 +146,12 @@ class FlashPlan:
 
 @functools.lru_cache(maxsize=4096)
 def flash_plan(b: int, hq: int, hkv: int, sq: int, skv: int, kv_len: int,
-               d: int, dtype, causal: bool = True,
-               lse: bool = False) -> FlashPlan:
-    """The kernel's plan for q (b, hq, sq, d) against k/v (b, hkv, skv, d),
-    a pure function of the shapes, ``kv_len`` and the dtype.
+               d: int, dtype, causal: bool = True, lse: bool = False,
+               dv: int | None = None) -> FlashPlan:
+    """The kernel's plan for q (b, hq, sq, d) against k (b, hkv, skv, d) and
+    v (b, hkv, skv, dv) (dv defaults to d; the pair must be in
+    ``HEAD_PAIRS``), a pure function of the shapes, ``kv_len`` and the
+    dtype.
 
     Rows: ``qn = min(sq, rows)`` queries of the largest ``gh`` dividing g
     with ``gh * qn`` within a block (bf16: 128 rows for sq >= 128, else
@@ -143,10 +160,11 @@ def flash_plan(b: int, hq: int, hkv: int, sq: int, skv: int, kv_len: int,
     the fewest 16-row warps that hold them. Splits: as many as fill
     ``SMS`` with one block each, with at least ``MIN_SPLIT_TILES`` key
     tiles a split, at most ``MAX_SPLITS``; ``lse`` (training: the kernel
-    writes each row's log-sum-exp) never splits. Raises for what the
-    kernel cannot run."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    writes each row's log-sum-exp) never splits. The workspace holds each
+    split's fp32 (m, l) and dv-wide accumulator a row. Raises for what
+    the kernel cannot run."""
+    dv = d if dv is None else dv
+    check_head_dims(d, dv)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash attention takes fp32 or bf16, not {dtype}")
     if min(b, sq, skv) < 0 or hq <= 0 or hkv <= 0 or hq % hkv:
@@ -160,13 +178,14 @@ def flash_plan(b: int, hq: int, hkv: int, sq: int, skv: int, kv_len: int,
     if bf16:
         wr = next(w for w in (1, 2, 4, 8) if 16 * w >= gh * qn)
         rows, bk, stages = 16 * wr, TC_KEYS, tc_stages(wr)
-        smem = tc_smem(d, wr)
+        smem = tc_smem(d, wr, dv)
     else:
-        wr, rows, bk, stages, smem = 1, F32_ROWS, F32_KEYS, 1, f32_smem(d)
-    if smem > (MAX_SMEM if bf16 else STATIC_SMEM):
+        wr, rows, bk, stages = 1, F32_ROWS, F32_KEYS, 1
+        smem = f32_smem(d, dv)
+    if smem > MAX_SMEM:
         raise ValueError(f"flash attention: {smem} bytes of shared memory")
     q_tiles = -(-sq // qn) if sq else 0
-    plan = FlashPlan(bf16=bf16, d=d, sq=sq, skv=skv, kv_len=kv_len,
+    plan = FlashPlan(bf16=bf16, d=d, dv=dv, sq=sq, skv=skv, kv_len=kv_len,
                      causal=bool(causal), g=g, gh=gh, qn=qn, rows=rows,
                      wr=wr, bk=bk, stages=stages, head_blocks=g // gh,
                      q_tiles=q_tiles, groups=b * hkv, splits=1, smem=smem,
@@ -179,7 +198,7 @@ def flash_plan(b: int, hq: int, hkv: int, sq: int, skv: int, kv_len: int,
     if splits == 1:
         return plan
     return dataclasses.replace(plan, splits=splits,
-                               workspace=splits * b * hq * sq * (d + 2))
+                               workspace=splits * b * hq * sq * (dv + 2))
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
@@ -217,8 +236,9 @@ def flash_lse_plain(q, k, *, causal: bool = True, scale=None,
 def flash_merge_plain(ws: torch.Tensor, splits: int, b: int, hq: int,
                       sq: int, d: int, dtype=torch.float32) -> torch.Tensor:
     """Plain version of ``flash_merge``: the splits' fp32 partials (m in
-    base 2, l, acc) combined in split order, the guard, one rounding.
-    Returns (b, hq, sq, d) in ``dtype``."""
+    base 2, l, acc) combined in split order, the guard, one rounding; d is
+    v's head dim (the accumulator's width). Returns (b, hq, sq, d) in
+    ``dtype``."""
     rows = b * hq * sq
     ml = ws[:2 * splits * rows].view(splits, rows, 2)
     acc = ws[2 * splits * rows:splits * rows * (d + 2)].view(splits, rows, d)
@@ -236,22 +256,23 @@ def _strides(t: torch.Tensor) -> tuple:
 
 @functools.lru_cache(maxsize=1024)
 def _params(strides: tuple, b, hq, hkv, sq, skv, d, kv_len, causal,
-            plan: FlashPlan, merge: bool):
+            plan: FlashPlan, merge: bool, dv: int):
     """The kernel's integer arguments as one host array, made once per
     call shape: a decode step issues the same one at every layer."""
     return _build.ptr_array(ctypes.c_longlong, (
         *strides, b, hq, hkv, sq, skv, d, kv_len, int(causal),
         int(plan.bf16), plan.gh, plan.qn, plan.wr, plan.stages, plan.splits,
-        int(merge)))
+        int(merge), dv))
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
                          kv_len: int | None = None,
                          plan: FlashPlan | None = None,
                          partials: bool = False, lse: bool = False):
-    """Launch ``csrc/flash_attention.cu``. q: (b, hq, sq, d); k/v:
-    (b, hkv, skv, d), all fp32 or all bf16, d in ``HEAD_DIMS``, any
-    strides with d contiguous (an operand whose d is strided is copied).
+    """Launch ``csrc/flash_attention.cu``. q: (b, hq, sq, d); k: (b, hkv,
+    skv, d); v: (b, hkv, skv, dv), all fp32 or all bf16, (d, dv) in
+    ``HEAD_PAIRS``, any strides with the last dim contiguous (an operand
+    whose last dim is strided is copied); o: (b, hq, sq, dv).
     ``plan`` defaults to :func:`flash_plan`; another plan is passed only
     to test that the kernel refuses it. ``partials`` (a split plan only):
     return the splits' workspace and the output, unmerged, to time the
@@ -260,29 +281,32 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
     :func:`flash_lse_plain`."""
     b, hq, sq, d = q.shape
     _, hkv, skv, dk = k.shape
-    if k.shape != v.shape or dk != d or k.shape[0] != b or hq % hkv:
+    dv = v.shape[-1]
+    if (k.shape[:-1] != v.shape[:-1] or dk != d or k.shape[0] != b
+            or hq % hkv):
         raise ValueError(f"flash attention shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    check_head_dims(d, dv)
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash attention takes one dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     kv_len = skv if kv_len is None else int(kv_len)
     p = plan or flash_plan(b, hq, hkv, sq, skv, kv_len, d, q.dtype,
-                           bool(causal), lse)
+                           bool(causal), lse, dv)
     if partials and p.splits == 1:
         raise ValueError("partials needs a plan with more than one split")
     if lse and p.splits > 1:
         raise ValueError("lse needs an unsplit plan")
     scale = (d ** -0.5) if scale is None else scale
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    o = torch.empty_like(q)
+    o = torch.empty_like(q) if dv == d else q.new_empty((b, hq, sq, dv))
     ws = (torch.empty(p.workspace, dtype=torch.float32, device=q.device)
           if p.splits > 1 else None)
     lse_t = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
              if lse else None)
     params = _params(_strides(q) + _strides(k) + _strides(v) + _strides(o),
                      b, hq, hkv, sq, skv, d, kv_len, bool(causal), p,
-                     not partials)
+                     not partials, dv)
     with _build.on_device(q):
         code = _build.library().ntx_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -299,7 +323,7 @@ def flash_merge_cuda(ws: torch.Tensor, o: torch.Tensor,
                      splits: int) -> torch.Tensor:
     """Launch ``flash_merge`` alone: the partials of ``splits`` splits in
     ``ws`` (as ``flash_attention_cuda(partials=True)`` leaves them) into
-    ``o`` (b, hq, sq, d), fp32 or bf16, d contiguous."""
+    ``o`` (b, hq, sq, dv), fp32 or bf16, dv contiguous."""
     b, hq, sq, d = o.shape
     os_ = _build.ptr_array(ctypes.c_longlong, _strides(o))
     with _build.on_device(o):
@@ -337,9 +361,9 @@ class FlashBwdPlan:
     pass takes one block per (batch, q head, tile of ``dq_rows`` queries)
     over tiles of ``dq_keys`` keys. ``gs`` > 1 adds the fp32 partials of
     the splits in ``ws_bytes`` of workspace, in split order, in a merge
-    launch. ``smem_dkdv`` / ``smem_dq``: the blocks' shared memory;
-    ``rows_bytes``: the row table (lse log2 e and D a query, tiles of 64,
-    an even tile count a head)."""
+    launch (dK's partials of d columns, then dV's of dv). ``smem_dkdv`` /
+    ``smem_dq``: the blocks' shared memory; ``rows_bytes``: the row table
+    (lse log2 e and D a query, tiles of 64, an even tile count a head)."""
 
     bf16: bool
     bk: int
@@ -361,6 +385,8 @@ class FlashBwdPlan:
     sq: int
     skv: int
     causal: bool
+    d: int
+    dv: int
 
     def dkdv_block(self, x: int, y: int) -> tuple:
         """The dK/dV block at grid (x, y) as the kernel maps it: (batch,
@@ -413,17 +439,19 @@ def group_split(b: int, hkv: int, g: int, sq: int, skv: int, bk: int,
 
 @functools.lru_cache(maxsize=1024)
 def flash_bwd_plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
-                   dtype, causal: bool = True) -> FlashBwdPlan:
+                   dtype, causal: bool = True,
+                   dv: int | None = None) -> FlashBwdPlan:
     """The backward kernel's plan, a pure function of the shapes. bf16:
     wgmma with two consumer warpgroups, 128-key dK/dV blocks over 64-query
     tiles, 128-query dQ blocks over 64-key tiles, a ring of 3 TMA stages,
     one block an SM. fp32: FFMA, 32-key and 16-query tiles, 4 blocks an
     SM. The group split fills the block slots (:func:`group_split`).
-    Raises for what the kernel cannot run: a head dim outside
-    ``HEAD_DIMS``, a dtype other than fp32 or bf16, empty sequences,
-    causal attention with more queries than keys."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    q/k rows of d, v rows of dv (default d). Raises for what the kernel
+    cannot run: a head-dim pair outside ``HEAD_PAIRS``, a dtype other
+    than fp32 or bf16, empty sequences, causal attention with more
+    queries than keys."""
+    dv = d if dv is None else dv
+    check_head_dims(d, dv)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash attention takes fp32 or bf16, not {dtype}")
     if b < 0 or min(sq, skv) <= 0 or hq <= 0 or hkv <= 0 or hq % hkv:
@@ -437,16 +465,17 @@ def flash_bwd_plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
         bk, bq, dq_rows, dq_keys = BWD_KEYS, BWD_ROWS, BWD_DQ_ROWS, BWD_DQ_KEYS
         stages, wgs, slots = BWD_STAGES, BWD_WARPGROUPS, SMS
         bars = 8 * (2 * stages + 1)
-        smem_dkdv = 1024 + 4 * bk * d + stages * (4 * bq * d + 8 * bq) + bars
-        smem_dq = (1024 + 4 * dq_rows * d + 8 * dq_rows
-                   + stages * 4 * dq_keys * d + bars)
+        smem_dkdv = (1024 + 2 * bk * (d + dv)
+                     + stages * (2 * bq * (d + dv) + 8 * bq) + bars)
+        smem_dq = (1024 + 2 * dq_rows * (d + dv) + 8 * dq_rows
+                   + stages * 2 * dq_keys * (d + dv) + bars)
     else:
         bk, bq = F32_BWD_KEYS, F32_BWD_ROWS
         dq_rows, dq_keys, stages, wgs = bq, bk, 1, 1
         slots = SMS * F32_BWD_BLOCKS_PER_SM
-        ld = 4 * (d + 1)
-        smem_dkdv = 2 * bk * ld + 2 * bq * ld + 8 * bk * (bq + 1) + 8 * bq
-        smem_dq = 2 * bq * ld + 2 * bk * ld + 4 * bq * (bk + 1) + 8 * bq
+        ld = 4 * (d + 1 + dv + 1)          # a row of K and V (Q and dO)
+        smem_dkdv = bk * ld + bq * ld + 8 * bk * (bq + 1) + 8 * bq
+        smem_dq = bq * ld + bk * ld + 4 * bq * (bk + 1) + 8 * bq
     if max(smem_dkdv, smem_dq) > MAX_SMEM:
         raise ValueError(f"flash backward: {max(smem_dkdv, smem_dq)} bytes "
                          f"of shared memory")
@@ -459,9 +488,10 @@ def flash_bwd_plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
         dkdv_grid=(b * hkv * gs, -(-skv // bk)),
         dq_grid=(b * hq, -(-sq // dq_rows)),
         smem_dkdv=smem_dkdv, smem_dq=smem_dq,
-        ws_bytes=2 * gs * b * hkv * skv * d * 4 if gs > 1 else 0,
+        ws_bytes=gs * b * hkv * skv * (d + dv) * 4 if gs > 1 else 0,
         rows_bytes=b * hq * row_tiles * 2 * BWD_ROW_TILE * 4,
-        b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, causal=bool(causal))
+        b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, causal=bool(causal), d=d,
+        dv=dv)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
@@ -491,15 +521,18 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
     """Launch ``csrc/flash_attention_bwd.cu``: (dq, dk, dv) of attention
     with output ``o`` and row log-sum-exp ``lse`` (b, hq, sq) fp32 (the
     forward's, :func:`flash_attention_cuda` with ``lse=True``) for the
-    incoming gradient ``dout``. q, o, dout: (b, hq, sq, d); k, v: (b, hkv,
-    skv, d); all fp32 or all bf16, read by strides (bf16 through tensor
-    maps; an operand they cannot read is copied); the gradients take
-    their inputs' layouts. ``plan`` defaults to :func:`flash_bwd_plan`;
+    incoming gradient ``dout``. q: (b, hq, sq, d); o, dout: (b, hq, sq,
+    dv); k: (b, hkv, skv, d); v: (b, hkv, skv, dv); (d, dv) in
+    ``HEAD_PAIRS``; all fp32 or all bf16, read by strides (bf16 through
+    tensor maps; an operand they cannot read is copied); the gradients
+    take their inputs' layouts. ``plan`` defaults to :func:`flash_bwd_plan`;
     another is passed only to test that the kernel refuses it."""
     b, hq, sq, d = q.shape
     _, hkv, skv, dk_ = k.shape
-    if (k.shape != v.shape or dk_ != d or o.shape != q.shape
-            or dout.shape != q.shape or hq % hkv):
+    d_v = v.shape[-1]
+    if (k.shape[:-1] != v.shape[:-1] or dk_ != d
+            or o.shape != (b, hq, sq, d_v) or dout.shape != o.shape
+            or hq % hkv):
         raise ValueError(f"flash backward shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} o "
                          f"{tuple(o.shape)} dout {tuple(dout.shape)}")
@@ -509,8 +542,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 (b, hq, sq), got "
                          f"{lse.dtype} {tuple(lse.shape)}")
+    check_head_dims(d, d_v)
     p = plan or flash_bwd_plan(b, hq, hkv, sq, skv, d, q.dtype,
-                               bool(causal))
+                               bool(causal), d_v)
     scale = (d ** -0.5) if scale is None else scale
     q, k, v, o, dout = (_aligned(t) for t in (q, k, v, o, dout))
     lse = lse.contiguous()
@@ -521,7 +555,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
           if p.ws_bytes else None)
     params = _build.ptr_array(ctypes.c_longlong, (
         *(s for t in (q, k, v, o, dout, dq, dk, dv) for s in _strides(t)),
-        b, hq, hkv, sq, skv, d, int(causal), int(p.bf16), *p.params()))
+        b, hq, hkv, sq, skv, d, int(causal), int(p.bf16), *p.params(), d_v))
     with _build.on_device(q):
         code = _build.library().ntx_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -489,7 +489,7 @@ class _Attention(torch.autograd.Function):
             b, hq, sq, d = q.shape
             hkv, skv = k.shape[1], k.shape[2]
             plan = flash_plan(b, hq, hkv, sq, skv, skv, d, q.dtype, causal,
-                              lse=True)
+                              lse=True, dv=v.shape[-1])
             LAUNCHES["attention"] += 1
             o, lse = flash_attention_cuda(q, k, v, causal=causal,
                                           scale=scale, plan=plan, lse=True)
@@ -513,9 +513,13 @@ class _Attention(torch.autograd.Function):
 
 def attention(q, k, v, *, causal: bool = True, scale=None,
               kv_len: int | None = None) -> torch.Tensor:
-    """q: (b, hq, sq, d); k/v: (b, hkv, skv, d). Under autograd the call
-    is :class:`_Attention` and takes the training shapes: ``kv_len`` None
-    (or skv) and, if causal, sq <= skv; anything else raises."""
+    """q: (b, hq, sq, d); k: (b, hkv, skv, d); v: (b, hkv, skv, dv), dv
+    equal to d or, for MLA, (d, dv) = (192, 128) on the card
+    (``flash_attention.HEAD_PAIRS``; another pair raises ``ValueError``
+    there, as the reference computes any pair with its plain attention on
+    every backend). Under autograd the call is :class:`_Attention` and
+    takes the training shapes: ``kv_len`` None (or skv) and, if causal,
+    sq <= skv; anything else raises."""
     if _tracked(q, k, v):
         skv = k.shape[2]
         if (kv_len is not None and kv_len != skv) or (
@@ -534,7 +538,8 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     plan = flash_plan(b, hq, hkv, sq, skv, skv if kv_len is None else
-                      int(kv_len), d, q.dtype, bool(causal))
+                      int(kv_len), d, q.dtype, bool(causal),
+                      dv=v.shape[-1])
     LAUNCHES["attention"] += 1
     if plan.splits > 1:
         LAUNCHES["attention_merge"] += 1

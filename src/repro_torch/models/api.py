@@ -1,5 +1,5 @@
-"""Unified model API for the ported families (dense decoders and the
-Mamba-2 stack), the counterpart of ``repro.models.api``:
+"""Unified model API for the ported families (dense decoders, MLA / MoE
+decoders and the Mamba-2 stack), the counterpart of ``repro.models.api``:
 
     model = Model(cfg)
     params = model.init(seed, device="cuda", trainable=True)
@@ -8,8 +8,8 @@ Mamba-2 stack), the counterpart of ``repro.models.api``:
     cache = model.init_cache(batch_size, seq_len)
     logits, cache = model.decode(params, tokens, cache, fill)
 
-Work runs on the device the parameters and tokens are on. Serving is
-dense-only for now (SSM serving: ROADMAP queue 1, item 14).
+Work runs on the device the parameters and tokens are on. Serving takes
+the attention families (SSM serving: ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -44,5 +44,7 @@ class Model:
                 cache_len: int | None = None):
         return transformer.prefill(self.cfg, params, batch, cache_len)
 
-    def decode(self, params, tokens, cache, fill: int):
-        return transformer.decode_step(self.cfg, params, tokens, cache, fill)
+    def decode(self, params, tokens, cache, fill: int,
+               absorbed_mla: bool = False):
+        return transformer.decode_step(self.cfg, params, tokens, cache, fill,
+                                       absorbed_mla=absorbed_mla)

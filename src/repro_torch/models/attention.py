@@ -1,9 +1,13 @@
-"""GQA attention (llama-class): parameters, full-sequence forward and
-single-step decode against a pre-allocated KV cache.
+"""Attention blocks: GQA (llama-class) and MLA (deepseek-v2 class):
+parameters, full-sequence forward and decode against a pre-allocated
+cache.
 
-Counterpart of ``repro.models.attention`` (GQA only). The attention math
-runs through ``repro_torch.kernels.ops.attention`` — the NTX MAX+MAC
-streaming reduction (the CUDA flash kernel on the card).
+Counterpart of ``repro.models.attention``. The attention math runs
+through ``repro_torch.kernels.ops.attention`` — the NTX MAX+MAC streaming
+reduction (the CUDA flash kernel on the card; MLA's q/k of nope + rope
+dims against v of ``v_head_dim`` takes its (192, 128) route). MLA's
+absorbed decode form is einsums and a softmax in the reference and stays
+plain PyTorch here.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
-from .common import ArchConfig, _param, apply_rope, dense_init
+from .common import ArchConfig, _param, apply_rope, dense_init, rmsnorm
 
 
 class GQA(nn.Module):
@@ -100,3 +104,129 @@ def gqa_decode(cfg: ArchConfig, p: GQA, x: torch.Tensor, pos,
                       kv_len=fill + s)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     return o @ p.wo.to(dt), cache
+
+
+# ----------------------------------------------------------------------
+# MLA — multi-head latent attention (deepseek-v2)
+# ----------------------------------------------------------------------
+class MLA(nn.Module):
+    """wq (d, h (dn + dr)); the joint KV compression and shared rope key
+    wdkv (d, r + dr); the up-projections wuk (r, h dn) and wuv (r, h dv);
+    wo (h dv, d); the latent's norm kv_norm (r,)."""
+
+    NAMES = ("wq", "wdkv", "wuk", "wuv", "wo", "kv_norm")
+
+    def __init__(self, wq, wdkv, wuk, wuv, wo, kv_norm):
+        super().__init__()
+        self.wq, self.wdkv, self.wuk, self.wuv, self.wo = (
+            _param(wq), _param(wdkv), _param(wuk), _param(wuv), _param(wo))
+        self.kv_norm = _param(kv_norm)
+
+
+def mla_params(cfg: ArchConfig, gen: torch.Generator) -> MLA:
+    d, r, h = cfg.d_model, cfg.kv_lora_rank, cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    init = lambda shape: dense_init(shape, gen, 0, cfg.pdtype)
+    return MLA(init((d, h * (dn + dr))), init((d, r + dr)), init((r, h * dn)),
+               init((r, h * dv)), init((h * dv, d)),
+               torch.ones(r, dtype=cfg.pdtype, device=gen.device))
+
+
+def _mla_qkv(cfg: ArchConfig, p: MLA, x: torch.Tensor, pos):
+    """(q_nope (b, h, s, dn), q_rope (b, h, s, dr), c_kv (b, s, r) normed,
+    k_rope (b, 1, s, dr)), the rope parts rotated at ``pos``."""
+    dt = cfg.cdtype
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+    q = (x @ p.wq.to(dt)).reshape(b, s, h, dn + dr).transpose(1, 2)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    ckv = x @ p.wdkv.to(dt)                                # (b, s, r + dr)
+    c_kv, k_rope = ckv[..., :r], ckv[..., r:]
+    c_kv = rmsnorm(c_kv, p.kv_norm)
+    k_rope = apply_rope(k_rope[:, None], pos, cfg.rope_theta)  # (b,1,s,dr)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(cfg: ArchConfig, p: MLA, q_nope, q_rope, c_kv, k_rope,
+                kv_len=None):
+    """Expanded-form MLA attention: the latent up-projected to per-head
+    keys (nope + the broadcast rope key) and values, then
+    ``ops.attention`` at scale (dn + dr)^-0.5."""
+    dt = cfg.cdtype
+    b, s = q_nope.shape[0], q_nope.shape[2]
+    skv = c_kv.shape[1]
+    h = cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    k_nope = (c_kv @ p.wuk.to(dt)).reshape(b, skv, h, dn).transpose(1, 2)
+    v = (c_kv @ p.wuv.to(dt)).reshape(b, skv, h, dv).transpose(1, 2)
+    k_rope_b = k_rope.expand(b, h, skv, dr)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope_b], -1)
+    o = ops.attention(q, k, v, causal=True, scale=(dn + dr) ** -0.5,
+                      kv_len=kv_len)
+    o = o.transpose(1, 2).reshape(b, s, h * dv)
+    return o @ p.wo.to(dt)
+
+
+def mla_forward(cfg: ArchConfig, p: MLA, x: torch.Tensor, pos,
+                causal: bool = True):
+    """Returns (out, (c_kv, k_rope)), the latent cache entries of x."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, pos)
+    return _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope), (c_kv, k_rope)
+
+
+def mla_init_cache(cfg: ArchConfig, batch: int, seq: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    return {"c_kv": torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, 1, seq, cfg.rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(cfg: ArchConfig, p: MLA, x: torch.Tensor, pos,
+               cache: Dict[str, torch.Tensor], fill: int,
+               absorbed: bool = False):
+    """x: (b, s_new, d); cache c_kv (b, S, r) and k_rope (b, 1, S, dr),
+    written in place at ``fill`` (the reference returns an updated copy)
+    and returned. ``absorbed``: attend in the latent space
+    (:func:`_mla_attend_absorbed`) instead of expanding the cache."""
+    dt = cfg.cdtype
+    s = x.shape[1]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(cfg, p, x, pos)
+    cache["c_kv"][:, fill:fill + s] = c_kv_new.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, :, fill:fill + s] = k_rope_new.to(
+        cache["k_rope"].dtype)
+    attend = _mla_attend_absorbed if absorbed else _mla_attend
+    out = attend(cfg, p, q_nope, q_rope, cache["c_kv"].to(dt),
+                 cache["k_rope"].to(dt), kv_len=fill + s)
+    return out, cache
+
+
+def _mla_attend_absorbed(cfg: ArchConfig, p: MLA, q_nope, q_rope, c_kv,
+                         k_rope, kv_len):
+    """Absorbed-matmul MLA decode: W_uk folded into the query and W_uv into
+    the output, so attention runs in the r-dim latent space over the
+    latent cache and the shared rope key (einsums and a softmax, as in
+    the reference)."""
+    dt = cfg.cdtype
+    b, h, s, dn = q_nope.shape
+    r, dr, dv = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
+    skv = c_kv.shape[1]
+    wuk = p.wuk.to(dt).reshape(r, h, dn)
+    q_lat = torch.einsum("bhsd,rhd->bhsr", q_nope, wuk)
+    scale = (dn + dr) ** -0.5
+    logits = (torch.einsum("bhsr,bkr->bhsk", q_lat, c_kv)
+              + torch.einsum("bhsd,bkd->bhsk", q_rope, k_rope[:, 0])) * scale
+    kpos = torch.arange(skv, device=c_kv.device)[None, None, None, :]
+    qpos = kv_len - s + torch.arange(s, device=c_kv.device)[None, None, :,
+                                                             None]
+    logits = torch.where(kpos <= qpos, logits.float(),
+                         torch.full((), float("-inf"), device=c_kv.device))
+    pr = torch.softmax(logits, -1).to(dt)
+    o_lat = torch.einsum("bhsk,bkr->bhsr", pr, c_kv)
+    wuv = p.wuv.to(dt).reshape(r, h, dv)
+    o = torch.einsum("bhsr,rhd->bhsd", o_lat, wuv)
+    o = o.transpose(1, 2).reshape(b, s, h * dv)
+    return o @ p.wo.to(dt)

@@ -1,6 +1,6 @@
-"""Shared model components of the ported families (the dense decoder and
-Mamba-2): config, RMSNorm, RoPE, the MLP, the embeddings, the
-cross-entropy and activation recomputation.
+"""Shared model components of the ported families (the dense decoder,
+MLA / MoE and Mamba-2): config, RMSNorm, RoPE, the MLP, the embeddings,
+the cross-entropy and activation recomputation.
 
 Counterpart of ``repro.models.common`` (those parts only). Parameters
 are ``nn.Module``s whose tensors keep the reference's layouts
@@ -135,12 +135,11 @@ class ArchConfig:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """This package runs the dense GQA decoder and the attention-free
-    Mamba-2 stack (``family == "ssm"``); ROADMAP slice D brings the other
-    families (hybrid, MoE, MLA, enc-dec, VLM)."""
+    """This package runs the dense GQA decoder, the attention-free Mamba-2
+    stack (``family == "ssm"``) and MLA / MoE decoders (deepseek-v2);
+    ROADMAP slice D brings the other families (hybrid, enc-dec, VLM)."""
     ssm_family = cfg.family == "ssm"
     unsupported = [name for name, on in (
-        ("moe", cfg.moe), ("mla", cfg.mla),
         ("ssm outside the ssm family", cfg.ssm and not ssm_family),
         ("ssm family without ssm layers", ssm_family and not cfg.ssm),
         ("hybrid", bool(cfg.attn_period)), ("mrope", cfg.mrope),

@@ -19,8 +19,9 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .attention import GQA
+from .attention import GQA, MLA
 from .common import MLP, ArchConfig, Embed, Norm, check_ported
+from .moe import MoE
 from .ssm import SSM
 from .transformer import Block, Transformer, layer_schedule
 
@@ -45,14 +46,22 @@ def from_reference(params, cfg: ArchConfig, device="cuda") -> Transformer:
             layers.append(Block(norm1, SSM(**{k: get(mx, k)
                                               for k in SSM.NAMES})))
             continue
-        bias = {k: get(mx, k) for k in ("bq", "bk", "bv") if k in mx}
+        if cfg.mla:
+            mixer = MLA(*(get(mx, w) for w in MLA.NAMES))
+        else:
+            bias = {k: get(mx, k) for k in ("bq", "bk", "bv") if k in mx}
+            mixer = GQA(*(get(mx, w) for w in ("wq", "wk", "wv", "wo")),
+                        **bias)
         ffn = stack["ffn"]
-        layers.append(Block(
-            norm1, GQA(*(get(mx, w) for w in ("wq", "wk", "wv", "wo")),
-                       **bias),
-            Norm(get(stack["norm2"], "scale")),
-            MLP(get(ffn, "w1"), get(ffn, "w2"),
-                get(ffn, "w3") if "w3" in ffn else None)))
+        mlp = lambda tree: MLP(get(tree, "w1"), get(tree, "w2"),
+                               get(tree, "w3") if "w3" in tree else None)
+        if kind == "attn_moe":
+            ffn_mod = MoE(*(get(ffn, w) for w in ("router", "w1", "w2", "w3")),
+                          mlp(ffn["shared"]) if "shared" in ffn else None)
+        else:
+            ffn_mod = mlp(ffn)
+        layers.append(Block(norm1, mixer, Norm(get(stack["norm2"], "scale")),
+                            ffn_mod))
     emb = params["embed"]
     return Transformer(Embed(_t(emb["embed"], cfg, device),
                              _t(emb["unembed"], cfg, device)),

@@ -7,7 +7,7 @@ on the CPU. As in the reference, the projections z, x, B, C and dt are
 separate, a width-``d_conv`` depthwise causal conv runs over x, B and C,
 A is a scalar decay per head and the output is RMSNorm-gated. The
 serving half (``return_state``, the recurrent cache, single-token
-decode) comes with the SSM serving slice (ROADMAP queue 1, item 14).
+decode) comes with the SSM serving slice (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -96,7 +96,7 @@ def ssm_forward(cfg: ArchConfig, p: SSM, u: torch.Tensor,
     if return_state:
         raise NotImplementedError(
             "SSM prefill with a recurrent cache comes with SSM serving "
-            "(ROADMAP queue 1, item 14)")
+            "(ROADMAP queue 1, item 10)")
     cdt = cfg.cdtype
     bsz, l, _ = u.shape
     di, nh, dh = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
@@ -116,9 +116,9 @@ def ssm_forward(cfg: ArchConfig, p: SSM, u: torch.Tensor,
 
 def ssm_init_cache(cfg: ArchConfig, batch: int, dtype, device="cuda"):
     raise NotImplementedError("the SSM decode cache comes with SSM serving "
-                              "(ROADMAP queue 1, item 14)")
+                              "(ROADMAP queue 1, item 10)")
 
 
 def ssm_decode(cfg: ArchConfig, p: SSM, u: torch.Tensor, cache):
     raise NotImplementedError("SSM single-token decode comes with SSM "
-                              "serving (ROADMAP queue 1, item 14)")
+                              "serving (ROADMAP queue 1, item 10)")

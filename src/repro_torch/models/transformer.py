@@ -1,13 +1,14 @@
 """The decoder-only LM of the ported families: parameters, the training
-loss, and (dense only) prefill and KV-cache decode.
+loss, and (attention families) prefill and cache decode.
 
-Counterpart of ``repro.models.transformer`` for two layer kinds:
-``attn_mlp`` (dense GQA with an MLP) and ``ssm_none`` (a Mamba-2 mixer
-alone). The reference scans over layer stacks stored per kind; here the
-layers are a Python loop over per-layer modules, each wrapped by
-``remat_wrap``. The KV cache is a list of per-layer bf16 ``{"k", "v"}``
-tensors (bf16 whatever the compute dtype, as the reference keeps it),
-filled in place.
+Counterpart of ``repro.models.transformer`` for three layer kinds:
+``attn_mlp`` (dense GQA with an MLP), ``attn_moe`` (MLA or GQA with the
+MoE FFN; deepseek-v2) and ``ssm_none`` (a Mamba-2 mixer alone). The
+reference scans over layer stacks stored per kind; here the layers are a
+Python loop over per-layer modules, each wrapped by ``remat_wrap``. The
+cache is a list of per-layer bf16 dicts (bf16 whatever the compute
+dtype, as the reference keeps it), filled in place: ``{"k", "v"}`` for
+GQA, the latent ``{"c_kv", "k_rope"}`` for MLA.
 """
 from __future__ import annotations
 
@@ -16,10 +17,11 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from .common import (ArchConfig, Embed, MLP, Norm, apply_mlp, apply_norm,
+from .common import (ArchConfig, Embed, Norm, apply_mlp, apply_norm,
                      check_ported, chunked_xent, embed_params, embed_tokens,
                      mlp_params, norm_params, remat_wrap, unembed)
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -53,12 +55,13 @@ def layer_schedule(cfg: ArchConfig):
 
 
 class Block(nn.Module):
-    """One layer: norm1 and the mixer (GQA or Mamba-2), then, for kinds
-    with an FFN (``attn_mlp``), norm2 and the MLP. An ``ssm_none`` layer
-    has no norm2 or ffn (both None)."""
+    """One layer: norm1 and the mixer (GQA, MLA or Mamba-2), then, for
+    kinds with an FFN (``attn_mlp``, ``attn_moe``), norm2 and the MLP or
+    the MoE. An ``ssm_none`` layer has no norm2 or ffn (both None)."""
 
     def __init__(self, norm1: Norm, mixer: nn.Module,
-                 norm2: Optional[Norm] = None, ffn: Optional[MLP] = None):
+                 norm2: Optional[Norm] = None,
+                 ffn: Optional[nn.Module] = None):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.ffn = norm1, mixer, norm2, ffn
 
@@ -87,46 +90,66 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
         norm1 = norm_params(cfg, cfg.d_model, device)
         if kind == "ssm_none":
             layers.append(Block(norm1, ssm_mod.ssm_params(cfg, gen)))
-        else:
-            layers.append(Block(norm1, attn.gqa_params(cfg, gen),
-                                norm_params(cfg, cfg.d_model, device),
-                                mlp_params(cfg, gen, cfg.d_model, cfg.d_ff)))
+            continue
+        mixer = (attn.mla_params(cfg, gen) if cfg.mla
+                 else attn.gqa_params(cfg, gen))
+        ffn = (moe_mod.moe_params(cfg, gen) if kind == "attn_moe"
+               else mlp_params(cfg, gen, cfg.d_model, cfg.d_ff))
+        layers.append(Block(norm1, mixer,
+                            norm_params(cfg, cfg.d_model, device), ffn))
     params = Transformer(embed, layers, norm_params(cfg, cfg.d_model, device))
     return params.requires_grad_(trainable)
 
 
-def _require_dense(cfg: ArchConfig, what: str) -> None:
+def _require_attention(cfg: ArchConfig, what: str) -> None:
     if cfg.ssm:
         raise NotImplementedError(
             f"{what} for the ssm family comes with SSM serving (ROADMAP "
-            f"queue 1, item 14)")
+            f"queue 1, item 10)")
 
 
 # ----------------------------------------------------------------------
 # Forward (training)
 # ----------------------------------------------------------------------
-def _apply_layer(cfg: ArchConfig, layer: Block, x: torch.Tensor, pos):
+def _mixer_forward(cfg: ArchConfig, mixer: nn.Module, h: torch.Tensor, pos):
+    """A full-sequence attention mixer: (out, cache entries)."""
+    if isinstance(mixer, attn.MLA):
+        return attn.mla_forward(cfg, mixer, h, pos)
+    return attn.gqa_forward(cfg, mixer, h, pos)
+
+
+def _apply_ffn(cfg: ArchConfig, layer: Block, x: torch.Tensor, aux):
+    """norm2 and the FFN with its residual: (x, aux + the MoE aux loss;
+    aux None counts from the first MoE layer's)."""
+    h = apply_norm(cfg, layer.norm2, x)
+    if isinstance(layer.ffn, moe_mod.MoE):
+        o, a = moe_mod.apply_moe(cfg, layer.ffn, h)
+        return x + o, a if aux is None else aux + a
+    # residual add fused into the MLP's second-GEMM store epilogue
+    return apply_mlp(cfg, layer.ffn, h, residual=x), aux
+
+
+def _apply_layer(cfg: ArchConfig, layer: Block, x: torch.Tensor, pos, aux):
     h = apply_norm(cfg, layer.norm1, x)
     if isinstance(layer.mixer, ssm_mod.SSM):
         o = ssm_mod.ssm_forward(cfg, layer.mixer, h)
     else:
-        o, _ = attn.gqa_forward(cfg, layer.mixer, h, pos)
+        o, _ = _mixer_forward(cfg, layer.mixer, h, pos)
     x = x + o
     if layer.ffn is None:
-        return x
-    h = apply_norm(cfg, layer.norm2, x)
-    # residual add fused into the MLP's second-GEMM store epilogue
-    return apply_mlp(cfg, layer.ffn, h, residual=x)
+        return x, aux
+    return _apply_ffn(cfg, layer, x, aux)
 
 
 def backbone(cfg: ArchConfig, params: Transformer, x: torch.Tensor, pos):
     """Embedded inputs -> (final hidden states, MoE aux loss). A loop over
     the layers, each wrapped by ``remat_wrap`` (the reference's remat
-    around its scan body); the aux loss is 0 without MoE layers."""
-    for layer in params.layers:
-        x = remat_wrap(cfg, lambda xx, ll=layer: _apply_layer(
-            cfg, ll, xx, pos))(x)
+    around its scan body); the aux loss, fp32, sums the MoE layers' (0
+    without them)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in params.layers:
+        x, aux = remat_wrap(cfg, lambda xx, aa, ll=layer: _apply_layer(
+            cfg, ll, xx, pos, aa))(x, aux)
     return apply_norm(cfg, params.final_norm, x), aux
 
 
@@ -149,8 +172,9 @@ def loss_fn(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any]):
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int,
                dtype=torch.bfloat16, device="cuda") -> Cache:
-    _require_dense(cfg, "the decode cache")
-    return [attn.gqa_init_cache(cfg, batch, seq, dtype, device)
+    _require_attention(cfg, "the decode cache")
+    make = attn.mla_init_cache if cfg.mla else attn.gqa_init_cache
+    return [make(cfg, batch, seq, dtype, device)
             for _ in range(cfg.n_layers)]
 
 
@@ -160,42 +184,78 @@ def positions(cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
 
 
 def decode_step(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
-                cache: Cache, fill: int):
+                cache: Cache, fill: int, absorbed_mla: bool = False):
     """tokens: (b, s_new) -> (logits (b, s_new, vocab), cache). The new
-    keys/values are written into ``cache`` in place at ``fill``."""
-    _require_dense(cfg, "decode")
+    cache entries are written into ``cache`` in place at ``fill``.
+    ``absorbed_mla``: MLA layers attend in the latent space instead of
+    expanding the cache (the reference's default is the expanded form)."""
+    _require_attention(cfg, "decode")
     b, s = tokens.shape
     x = embed_tokens(cfg, params.embed, tokens)
     pos = (fill + torch.arange(s, device=tokens.device))[None].expand(b, s)
+    aux = None
     for layer, c in zip(params.layers, cache):
         h = apply_norm(cfg, layer.norm1, x)
-        o, _ = attn.gqa_decode(cfg, layer.mixer, h, pos, c, fill)
-        x = x + o
-        h = apply_norm(cfg, layer.norm2, x)
-        x = apply_mlp(cfg, layer.ffn, h, residual=x)
+        if isinstance(layer.mixer, attn.MLA):
+            o, _ = attn.mla_decode(cfg, layer.mixer, h, pos, c, fill,
+                                   absorbed=absorbed_mla)
+        else:
+            o, _ = attn.gqa_decode(cfg, layer.mixer, h, pos, c, fill)
+        x, aux = _apply_ffn(cfg, layer, x + o, aux)
     h = apply_norm(cfg, params.final_norm, x)
     return unembed(cfg, params.embed, h), cache
+
+
+def _write_cache(c: Dict[str, torch.Tensor], entries, s: int) -> None:
+    """A prefilled layer's cache entries into its first s slots, in bf16:
+    (k, v) (b, hkv, s, hd) for GQA, (c_kv (b, s, r), k_rope (b, 1, s,
+    dr)) for MLA."""
+    if "c_kv" in c:
+        c_kv, k_rope = entries
+        c["c_kv"][:, :s] = c_kv.to(torch.bfloat16)
+        c["k_rope"][:, :, :s] = k_rope.to(torch.bfloat16)
+    else:
+        k, v = entries
+        c["k"][:, :, :s] = k.to(torch.bfloat16)
+        c["v"][:, :, :s] = v.to(torch.bfloat16)
 
 
 def prefill(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any],
             cache_len: Optional[int] = None):
     """Full-sequence forward that also fills a new cache of ``cache_len``
-    slots. Returns (last-position logits, cache, fill)."""
-    _require_dense(cfg, "prefill")
+    slots. Returns (last-position logits, cache, fill). With
+    ``cfg.prefill_microbatch`` mb > 1 dividing the batch, the requests are
+    prefilled in mb sequential chunks and the caches joined along the
+    batch, as the reference's chunked prefill does (each batch row is its
+    own MoE routing group, so the chunks compute what one batch would)."""
+    _require_attention(cfg, "prefill")
+    mb = max(1, cfg.prefill_microbatch)
+    b = batch["tokens"].shape[0]
+    if mb == 1 or b % mb:
+        return _prefill_impl(cfg, params, batch, cache_len)
+    parts = [_prefill_impl(cfg, params, {k: v.chunk(mb)[i]
+                                         for k, v in batch.items()},
+                           cache_len) for i in range(mb)]
+    logits = torch.cat([p[0] for p in parts])
+    cache = [{k: torch.cat([p[1][i][k] for p in parts]) for k in c}
+             for i, c in enumerate(parts[0][1])]
+    return logits, cache, parts[0][2]
+
+
+def _prefill_impl(cfg: ArchConfig, params: Transformer,
+                  batch: Dict[str, Any], cache_len: Optional[int] = None):
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache_len = cache_len or s
     x = embed_tokens(cfg, params.embed, tokens)
     pos = positions(cfg, batch)
     cache = init_cache(cfg, b, cache_len, torch.bfloat16, tokens.device)
+    aux = None
     for layer, c in zip(params.layers, cache):
         h = apply_norm(cfg, layer.norm1, x)
-        o, (k, v) = attn.gqa_forward(cfg, layer.mixer, h, pos)
-        c["k"][:, :, :s] = k.to(torch.bfloat16)
-        c["v"][:, :, :s] = v.to(torch.bfloat16)
-        x = x + o
-        h = apply_norm(cfg, layer.norm2, x)
-        x = apply_mlp(cfg, layer.ffn, h, residual=x)
+        o, entries = _mixer_forward(cfg, layer.mixer, h, pos)
+        _write_cache(c, entries, s)
+        x, aux = _apply_ffn(cfg, layer, x + o, aux)
     h = apply_norm(cfg, params.final_norm, x)
     logits = unembed(cfg, params.embed, h[:, -1:])
     return logits[:, 0], cache, s

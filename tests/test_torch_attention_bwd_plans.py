@@ -146,12 +146,13 @@ def _emulate_dkdv(q, k, v, o, lse, do, plan, scale):
     """dK and dV as the kernel's blocks form them, in plain PyTorch (fp32):
     each block's partial over its heads and query tiles (P = 2^(S scale
     log2 e - lse log2 e) under the causal mask and the ragged edges, dS =
-    P (dP - D)), written per split into the workspace's layout (2, gs, b,
-    hkv, skv, d) and added in split order, dK times scale, as the merge
-    launch adds them."""
+    P (dP - D)), written per split into the workspace's layout (gs, b,
+    hkv, skv, d) for dK and (gs, b, hkv, skv, dv) for dV, and added in
+    split order, dK times scale, as the merge launch adds them."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    ws = torch.zeros(2, plan.gs, b, hkv, skv, d)
+    ws_k = torch.zeros(plan.gs, b, hkv, skv, d)
+    ws_v = torch.zeros(plan.gs, b, hkv, skv, v.shape[-1])
     delta = (do * o).sum(-1)
     lse2 = lse * math.log2(math.e)
     scale2 = scale * math.log2(math.e)
@@ -169,11 +170,11 @@ def _emulate_dkdv(q, k, v, o, lse, do, plan, scale):
                              torch.zeros(()))
             dpt = vb @ do[bi, h, q0:].T
             dst = pt * (dpt - delta[bi, h, q0:])
-            ws[0, split, bi, kvh, keys.start:keys.stop] += dst @ q[bi, h, q0:]
-            ws[1, split, bi, kvh, keys.start:keys.stop] += pt @ do[bi, h, q0:]
-    dk, dv = ws[0, 0].clone(), ws[1, 0].clone()
+            ws_k[split, bi, kvh, keys.start:keys.stop] += dst @ q[bi, h, q0:]
+            ws_v[split, bi, kvh, keys.start:keys.stop] += pt @ do[bi, h, q0:]
+    dk, dv = ws_k[0].clone(), ws_v[0].clone()
     for z in range(1, plan.gs):
-        dk, dv = dk + ws[0, z], dv + ws[1, z]
+        dk, dv = dk + ws_k[z], dv + ws_v[z]
     return dk * scale, dv
 
 
@@ -200,5 +201,70 @@ def test_group_split_partials_summed_in_split_order_equal_the_plain_version(
     dk, dv = _emulate_dkdv(q, k, v, o, lse, do, plan, d ** -0.5)
     _, want_k, want_v = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                       causal=causal)
+    torch.testing.assert_close(dk, want_k, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dv, want_v, rtol=1e-5, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# MLA's (q/k 192, v 128) route
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("shape,s,dtype,causal", list(itertools.product(
+    [(1, 16, 16), (4, 16, 16), (2, 16, 2)], [2048, 300],
+    [torch.float32, torch.bfloat16], [True, False])))
+def test_mla_bwd_plan_sizes_by_v_head_dim(shape, s, dtype, causal):
+    """At (192, 128): the bf16 blocks hold K / Q tiles at 192 and V / dO
+    tiles at 128 (dK/dV 207 416 bytes, dQ 206 904, within 227 KB), the
+    fp32 blocks rows of 193 and 129 floats; the workspace holds dK's
+    partials at 192 and dV's at 128; the blocks cover every (batch, kv
+    head, key tile, query head) once."""
+    b, hq, hkv = shape
+    p = tfa.flash_bwd_plan(b, hq, hkv, s, s, 192, dtype, causal, 128)
+    assert (p.d, p.dv) == (192, 128)
+    if p.bf16:
+        assert (p.smem_dkdv, p.smem_dq) == (207416, 206904)
+    else:
+        assert p.smem_dkdv == 4 * (32 * 322 + 16 * 322) + 8 * 32 * 17 + 128
+        assert p.smem_dq == 4 * (16 * 322 + 32 * 322) + 4 * 16 * 33 + 128
+    assert max(p.smem_dkdv, p.smem_dq) <= tfa.MAX_SMEM
+    assert p.ws_bytes == (p.gs * b * hkv * s * 320 * 4 if p.gs > 1 else 0)
+    g = hq // hkv
+    seen = set()
+    for _, y, (bi, kvh, _, heads, _, _) in _blocks(p):
+        for h in heads:
+            assert (bi, kvh, y, h) not in seen
+            seen.add((bi, kvh, y, h))
+    assert len(seen) == b * hkv * g * -(-s // p.bk)
+
+
+def test_mla_bwd_plan_at_the_path_shape():
+    """deepseek's backward at b 1, 16 heads, s 2048 (bf16): whole groups
+    (MHA: g 1), 16 x 16 dK/dV blocks, no workspace."""
+    p = tfa.flash_bwd_plan(1, 16, 16, 2048, 2048, 192, torch.bfloat16, True,
+                           128)
+    assert (p.gs, p.dkdv_grid, p.dq_grid, p.ws_bytes) == (1, (16, 16),
+                                                          (16, 16), 0)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,dtype,causal", [
+    (1, 8, 2, 130, torch.float32, True),
+    (1, 8, 2, 300, torch.bfloat16, True),
+    (1, 8, 2, 130, torch.bfloat16, False)])
+def test_mla_group_split_partials_equal_the_plain_version(b, hq, hkv, s,
+                                                          dtype, causal):
+    """The group splits' partials at (192, 128), emulated as the plan's
+    blocks form them and added in split order, equal the plain version's
+    dK (192 wide) and dV (128 wide) within 1e-5."""
+    plan = tfa.flash_bwd_plan(b, hq, hkv, s, s, 192, dtype, causal, 128)
+    assert plan.gs > 1
+    q = torch.from_numpy(_np((b, hq, s, 192), 0.4))
+    k = torch.from_numpy(_np((b, hkv, s, 192), 0.4))
+    v = torch.from_numpy(_np((b, hkv, s, 128)))
+    do = torch.from_numpy(_np((b, hq, s, 128)))
+    o = tfa.flash_attention_plain(q, k, v, causal=causal)
+    lse = tfa.flash_lse_plain(q, k, causal=causal)
+    dk, dv = _emulate_dkdv(q, k, v, o, lse, do, plan, 192 ** -0.5)
+    _, want_k, want_v = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                      causal=causal)
+    assert dk.shape[-1] == 192 and dv.shape[-1] == 128
     torch.testing.assert_close(dk, want_k, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(dv, want_v, rtol=1e-5, atol=1e-5)

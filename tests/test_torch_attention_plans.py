@@ -118,16 +118,17 @@ def test_flash_constants_match_the_kernel_source():
 
 def _emulate_splits(q, k, v, kv_len, plan):
     """The kernel's split-kv partials in plain PyTorch (fp32): for every
-    block and split, the base-2 online-softmax state (m, l, acc) of its
-    key range under the reference's masks (-1e30; keys past the array
-    excluded), laid out in the workspace as the kernel writes it."""
+    block and split, the base-2 online-softmax state (m, l, acc; acc as
+    wide as v's head dim) of its key range under the reference's masks
+    (-1e30; keys past the array excluded), laid out in the workspace as
+    the kernel writes it."""
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     rows = b * hq * sq
-    ws = torch.zeros(plan.splits * rows * (d + 2))
+    ws = torch.zeros(plan.splits * rows * (dv + 2))
     ml = ws[:2 * plan.splits * rows].view(plan.splits, rows, 2)
-    acc = ws[2 * plan.splits * rows:].view(plan.splits, rows, d)
+    acc = ws[2 * plan.splits * rows:].view(plan.splits, rows, dv)
     scale2 = d ** -0.5 * math.log2(math.e)
     for t in range(plan.q_tiles):
         for z, (k0, k1) in enumerate(plan.split_ranges(t)):
@@ -252,3 +253,121 @@ def test_strided_views_against_the_reference(hq, hkv, sq, skv, kv_len):
                          kv_len=kv_len)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
                                atol=2e-3)
+
+
+
+# ----------------------------------------------------------------------
+# MLA's (q/k 192, v 128) route
+# ----------------------------------------------------------------------
+MLA_GRID = list(itertools.product(
+    [1, 4],                                   # b
+    [(16, 16), (16, 4)],                      # deepseek's MHA; a GQA group
+    [(32, 32, 32), (1, 56, 40), (1, 2064, 2049), (2048, 2048, 2048),
+     (65, 130, 40)],
+    [torch.float32, torch.bfloat16]))
+
+
+@pytest.mark.parametrize("b,heads,seq,dtype", MLA_GRID)
+def test_mla_plan_sizes_by_v_head_dim(b, heads, seq, dtype):
+    """Shared memory: the Q rows and K ring at 192 and the V ring and the
+    merge staging at 128 (bf16, within a block's 227 KB), the fp32
+    route's 53 KB (past the 48 KiB static limit: the launch opts in); the
+    split workspace holds (m, l) and a 128-wide accumulator a row; the
+    split ranges cover every key the rows take, as at equal dims."""
+    hq, hkv = heads
+    sq, skv, kv_len = seq
+    p = tfa.flash_plan(b, hq, hkv, sq, skv, kv_len, 192, dtype, dv=128)
+    assert (p.d, p.dv) == (192, 128)
+    if p.bf16:
+        ring = 2 * (16 * p.wr * 200 + p.stages * 64 * (200 + 136))
+        stage = 4 * (16 * tfa.tc_warps(p.wr) * 132 + 2 * 16 *
+                     tfa.tc_warps(p.wr))
+        assert p.smem == max(ring, stage) <= tfa.MAX_SMEM
+    else:
+        assert p.smem == 4 * (16 * 192 + 32 * 193 + 32 * 128) == 53376
+        assert p.smem > tfa.STATIC_SMEM
+    assert p.workspace == (p.splits * b * hq * sq * 130 if p.splits > 1
+                           else 0)
+    for t in range(p.q_tiles):
+        visit, _ = p.keys(t)
+        ranges = p.split_ranges(t)
+        assert ranges[0][0] == 0 and ranges[-1][1] == visit
+        assert all(a[1] == c[0] for a, c in zip(ranges, ranges[1:]))
+
+
+def test_mla_plans_at_the_path_shapes():
+    """deepseek's served shapes (bf16, 16 heads of one group each): the
+    prefill chunk of 2 x 32 tokens, the 2048-token prompt (128-row
+    blocks, 180 KB), a decode step over 56 slots and the long prompt's
+    decode, whose 16 blocks split 8 ways."""
+    bf = torch.bfloat16
+    pre = tfa.flash_plan(2, 16, 16, 32, 32, 32, 192, bf, dv=128)
+    assert (pre.gh, pre.qn, pre.wr, pre.splits) == (1, 32, 2, 1)
+    long = tfa.flash_plan(1, 16, 16, 2048, 2048, 2048, 192, bf, dv=128)
+    assert (long.qn, long.wr, long.splits, long.smem) == (128, 8, 1, 180224)
+    dec = tfa.flash_plan(4, 16, 16, 1, 56, 40, 192, bf, dv=128)
+    assert (dec.gh, dec.qn, dec.splits) == (1, 1, 1)
+    ldec = tfa.flash_plan(1, 16, 16, 1, 2064, 2049, 192, bf, dv=128)
+    assert ldec.splits == 8 and ldec.blocks <= tfa.SMS
+
+
+@pytest.mark.parametrize("d,dv", [(192, 64), (128, 64), (64, 128),
+                                  (192, 192), (48, 32), (96, 96)])
+def test_other_head_pairs_are_refused(d, dv):
+    """Only the instantiated pairs plan; any other raises ValueError (the
+    card never sends a pair to the plain version)."""
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_plan(1, 4, 4, 8, 8, 8, d, torch.bfloat16, dv=dv)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_bwd_plan(1, 4, 4, 8, 8, d, torch.bfloat16, True, dv)
+
+
+def test_head_pairs_match_the_kernel_source():
+    """``HEAD_PAIRS`` is the kernels' ``head_pair`` in both sources."""
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        src = (_build.CSRC / name).read_text()
+        body = re.search(r"constexpr bool head_pair\(int \w+, int \w+\) "
+                         r"\{(.*?)\}", src, re.S).group(1)
+        pairs = {(int(a), int(b)) for a, b in re.findall(
+            r"\(\w+ == (\d+) && \w+ == (\d+)\)", body)}
+        assert pairs == set(tfa.HEAD_PAIRS), name
+
+
+@pytest.mark.parametrize("sq,skv,kv_len", [(1, 700, 650), (2, 500, 480)])
+def test_mla_split_partials_merged_in_order(sq, skv, kv_len):
+    """At (192, 128): the split partials, emulated as the kernel forms
+    them (128-wide accumulators), merged by ``flash_merge_plain`` at dv
+    128 in split order, equal ``flash_attention_plain`` within 1e-6."""
+    b, hq, hkv = 1, 4, 4
+    q = torch.from_numpy(_np((b, hq, sq, 192), 0.3))
+    k = torch.from_numpy(_np((b, hkv, skv, 192), 0.3))
+    v = torch.from_numpy(_np((b, hkv, skv, 128)))
+    plan = tfa.flash_plan(b, hq, hkv, sq, skv, kv_len, 192, torch.float32,
+                          dv=128)
+    assert plan.splits > 1
+    ws = _emulate_splits(q, k, v, kv_len, plan)
+    assert ws.numel() == plan.workspace
+    got = tfa.flash_merge_plain(ws, plan.splits, b, hq, sq, 128)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+    assert got.shape == (b, hq, sq, 128)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("sq,skv,kv_len", [(32, 32, None), (1, 30, 17)])
+def test_mla_shapes_against_the_reference(sq, skv, kv_len):
+    """MLA's call, q / k of 192 and v of 128 as a strided view, through the
+    port's ``ops.attention`` against the reference's (its plain ``ref.mha``
+    on every backend for unequal dims) at its tolerance."""
+    b, h = 2, 4
+    q = _np((b, h, sq, 192), 0.2)
+    k = _np((b, h, skv, 192), 0.2)
+    v = _np((b, skv, h, 128))
+    with jops.backend("pallas_interpret"):
+        want = jops.attention(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v.transpose(0, 2, 1, 3)),
+                              causal=True, scale=192 ** -0.5, kv_len=kv_len)
+    got = tops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                         torch.from_numpy(v).transpose(1, 2), causal=True,
+                         scale=192 ** -0.5, kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

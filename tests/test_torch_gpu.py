@@ -1500,3 +1500,146 @@ def test_attention_backward_counts_and_refuses_decode(cuda):
         == (1, 1)
     with pytest.raises(NotImplementedError, match="training shapes"):
         ops.attention(q, k, k, kv_len=40)
+
+
+# ----------------------------------------------------------------------
+# MLA's head dims: q/k 192 (128 nope + 64 rope), v 128
+# ----------------------------------------------------------------------
+def _mla_qkv(cuda, b, h, sq, skv, dt, hkv=None):
+    """q and k as MLA makes them (concatenations of the nope and rope
+    parts: contiguous (b, h, s, 192)), v the latent's up-projection viewed
+    as (b, h, s, 128)."""
+    hkv = hkv or h
+    q = _t((b, h, sq, 192), cuda, 0.5).to(dt)
+    k = _t((b, hkv, skv, 192), cuda, 0.5).to(dt)
+    v = _t((b, skv, hkv, 128), cuda).to(dt).transpose(1, 2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,kv_len,hkv", [
+    (32, 32, 32, 16), (300, 300, 300, 16), (1, 56, 40, 16),
+    (1, 2064, 2049, 16), (65, 130, 40, 16), (37, 77, 60, 4),
+    (1, 4099, 4000, 2)])
+def test_flash_mla_forward(cuda, dtype, sq, skv, kv_len, hkv):
+    """The (192, 128) route against the plain version at phase 2's
+    tolerances: prefill (causal, ragged), decode with kv_len, the long
+    decode whose plan splits the keys (and its merge at dv 128), rows with
+    no valid key, GQA groups; o is (b, hq, sq, 128); two calls, the same
+    bits; ops.attention launches it (and counts the merge)."""
+    dt = getattr(torch, dtype)
+    q, k, v = _mla_qkv(cuda, 2, 16, sq, skv, dt, hkv)
+    got = tfa.flash_attention_cuda(q, k, v, causal=True, kv_len=kv_len)
+    assert got.shape == (2, 16, sq, 128) and got.dtype == dt
+    assert torch.equal(got, tfa.flash_attention_cuda(q, k, v, causal=True,
+                                                     kv_len=kv_len))
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), _attention_want(q, k, v, kv_len),
+                               rtol=tol, atol=tol)
+    plan = tfa.flash_plan(2, 16, hkv, sq, skv, kv_len, 192, dt, dv=128)
+    ops.reset_launches()
+    via_ops = ops.attention(q, k, v, causal=True, kv_len=kv_len,
+                            scale=192 ** -0.5)
+    assert ops.launches()["attention"] == 1
+    assert ops.launches()["attention_merge"] == int(plan.splits > 1)
+    assert torch.equal(via_ops, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_mla_forward_not_causal_and_split_merge(cuda, dtype):
+    """Non-causal attention at (192, 128); the long decode's split
+    partials merged alone (flash_merge_cuda at dv 128) give the bits of
+    the merged call and agree with ``flash_merge_plain``."""
+    dt = getattr(torch, dtype)
+    q, k, v = _mla_qkv(cuda, 1, 16, 70, 70, dt)
+    got = tfa.flash_attention_cuda(q, k, v, causal=False)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(
+        got.float(), tfa.flash_attention_plain(q, k, v, causal=False).float(),
+        rtol=tol, atol=tol)
+    q, k, v = _mla_qkv(cuda, 1, 16, 1, 2064, dt)
+    plan = tfa.flash_plan(1, 16, 16, 1, 2064, 2049, 192, dt, dv=128)
+    assert plan.splits > 1 and plan.workspace == plan.splits * 16 * 130
+    whole = tfa.flash_attention_cuda(q, k, v, kv_len=2049)
+    ws, o = tfa.flash_attention_cuda(q, k, v, kv_len=2049, partials=True)
+    merged = tfa.flash_merge_cuda(ws, o, plan.splits)
+    assert torch.equal(merged, whole)
+    torch.testing.assert_close(
+        merged.float(), tfa.flash_merge_plain(ws, plan.splits, 1, 16, 1, 128
+                                              ).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dq,dv", [(192, 64), (128, 64), (64, 128),
+                                   (96, 96)])
+def test_flash_refuses_other_head_pairs(cuda, dq, dv):
+    """Any other (q/k, v) pair raises ValueError on the card; nothing goes
+    to the plain version."""
+    q, k = (_t((1, 4, 8, dq), cuda).bfloat16() for _ in range(2))
+    v = _t((1, 4, 8, dv), cuda).bfloat16()
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention(q, k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("dtype,b,h,hkv,s,causal", [
+    (dt, *shape) for dt in ("float32", "bfloat16")
+    for shape in ((1, 16, 16, 256, True), (2, 8, 2, 300, True),
+                  (1, 4, 4, 130, False))] + [
+    ("bfloat16", 1, 16, 16, 2048, True)])
+def test_flash_mla_backward(cuda, dtype, b, h, hkv, s, causal):
+    """The (192, 128) backward against its plain version (the reference's
+    flash-style VJP) at chip_smoke's gradient limits (5e-2 bf16, 1e-4
+    fp32 relative L2); dq and dk are 192 wide, dv 128; the last key tile
+    on its own; two calls, the same bits."""
+    dt = getattr(torch, dtype)
+    q, k, v = _mla_qkv(cuda, b, h, s, s, dt, hkv)
+    plan = tfa.flash_plan(b, h, hkv, s, s, s, 192, dt, causal, lse=True,
+                          dv=128)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, plan=plan,
+                                      lse=True)
+    do = _t((b, s, h, 128), cuda).to(dt).transpose(1, 2)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    assert [g.shape[-1] for g in got] == [192, 192, 128]
+    _check_bwd(got, want, dtype)
+    again = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_mla_backward_group_split(cuda):
+    """A plan that splits the GQA group (fp32 partials of dK at 192 and dV
+    at 128, added in split order by the merge launch)."""
+    plan = tfa.flash_bwd_plan(1, 16, 2, 512, 512, 192, torch.bfloat16,
+                              True, 128)
+    assert plan.gs > 1 and plan.ws_bytes == plan.gs * 2 * 512 * 320 * 4
+    q, k, v = _mla_qkv(cuda, 1, 16, 512, 512, torch.bfloat16, 2)
+    plan_f = tfa.flash_plan(1, 16, 2, 512, 512, 512, 192, torch.bfloat16,
+                            True, lse=True, dv=128)
+    o, lse = tfa.flash_attention_cuda(q, k, v, plan=plan_f, lse=True)
+    do = _t((1, 16, 512, 128), cuda).bfloat16()
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+               "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_mla_autograd_on_the_card(cuda, dtype):
+    """ops.attention at (192, 128) under autograd: the forward with lse and
+    the backward kernel, one launch each, gradients against the CPU's
+    plain route."""
+    dt = getattr(torch, dtype)
+    q, k, v = _mla_qkv(cuda, 1, 4, 100, 100, dt)
+    go = _t((1, 4, 100, 128), cuda).to(dt)
+    outs = []
+    for dev in (cuda, "cpu"):
+        xs = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        ops.reset_launches()
+        out = ops.attention(*xs, scale=192 ** -0.5)
+        grads = torch.autograd.grad(out, xs, go.to(dev))
+        outs.append((ops.launches(), [g.cpu() for g in grads]))
+    (counts, got), (_, want) = outs
+    assert (counts["attention"], counts["attention_bwd"]) == (1, 1)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        assert _rel_l2(g, w) < _GRAD_RTOL[dtype]
