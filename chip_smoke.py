@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the NTX reproduction on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # every phase: serve llama3-8b, train
-                             # mamba2-1.3b and a 4-layer llama3-8b, run
-                             # the paper's kernel suite
+    python3 chip_smoke.py    # every phase: serve llama3-8b,
+                             # deepseek-v2-lite-16b and phi3.5-moe-42b,
+                             # train mamba2-1.3b, a 4-layer llama3-8b and
+                             # the two MoE models cut in depth, run the
+                             # paper's kernel suite
+    python3 chip_smoke.py --phases 1,13   # one phase alone
     python3 chip_smoke.py --phases 1,3 --only attention:prefill_4096 \
         --src ../parent/src  # one case's check and time, another tree's
                              # kernels on the same card
@@ -78,7 +81,7 @@ Phases, one result line each:
                launches checked against their plain versions and timed
                beside L one-lane launches, and the sampler's decode-step
                time under fused against multistream.
- 10. dense width — llama3-8b at full width, depth cut to 2 layers, one
+ 10. dense width — llama3-8b at full width, depth cut to 1 layer, one
                build_step_fn step (batch 1 x 256) on the card and on the
                CPU from the same weights and batch, fp32 and bf16.
  11. dense train — build_step_fn on llama3-8b at full width cut to 4 of
@@ -94,7 +97,22 @@ Phases, one result line each:
                samplers), peak memory, the long prefill and one decode
                step under torch.profiler beside the decode step's
                expert-weight bytes bound. Phases 2/3 hold the (192, 128)
-               forward at its shapes (and its backward, off the path).
+               forward at its shapes and, for phase 13, its forward with
+               lse and its backward at one 2048-token row.
+ 13. deepseek train — a 2-layer full-width build_step_fn step card vs
+               CPU at 1 x 256 (fp32: the same MoE routing on both; bf16:
+               the CPU replays the card's experts; every remat recompute
+               routes as its forward), then 3 of 27 layers (bf16,
+               remat="full") for 5 steps at 4 x 2048 in the config's
+               grad_accum 4: step time, tokens/s, peak memory (at least 5
+               GB free), the (192, 128) forward-with-lse and backward
+               launches, one step profiled by kernel family (the MoE's
+               scatters and gathers apart).
+ 14. phi3.5-moe — phi3.5-moe-42b: the 2-layer serving width check, then
+               Server.generate at 28 of 32 layers (~73 GB bf16) at phase
+               5's sizes with a profiled decode step, a 1-layer
+               full-width training step card vs CPU, and 5 steps at 1 of
+               32 layers, 8 x 2048 in grad_accum 8 (as phase 13).
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -134,13 +152,27 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = set(range(1, 13))
-#: phase 12's model (MLA and MoE)
+ALL_PHASES = set(range(1, 15))
+#: phase 12's model (MLA and MoE); phase 13 trains it at full width cut
+#: to DEEPSEEK_TRAIN_LAYERS of 27 layers (~30 bytes a parameter with the
+#: plain AdamW: 16.2 B parameters need ~490 GB), batch DENSE_BATCH x
+#: DENSE_SEQ in the config's grad_accum 4 microbatches
 DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_TRAIN_LAYERS = 3
+#: phase 14's model (GQA and MoE): served at full width cut to
+#: PHI35_SERVE_LAYERS of 32 layers (41.9 B parameters are 83.7 GB in
+#: bf16), trained at PHI35_TRAIN_LAYERS, batch PHI35_BATCH x DENSE_SEQ in
+#: the config's grad_accum 8 microbatches, for PHI35_STEPS steps
+PHI35 = "phi3.5-moe-42b-a6.6b"
+PHI35_VOCAB = 32064
+PHI35_SERVE_LAYERS, PHI35_TRAIN_LAYERS = 28, 1
+PHI35_BATCH, PHI35_STEPS = 8, 5
+#: every depth cut leaves at least this much of the card's memory free
+HEADROOM_BYTES = 5e9
 #: phases 10-11: llama3-8b cut to DENSE_LAYERS of 32 layers, batch
 #: DENSE_BATCH x DENSE_SEQ for DENSE_STEPS steps; the width check's
-#: 2 layers at batch 1 x DENSE_WIDTH_SEQ (256, not 512: at 512 its CPU
-#: side took 39 s in fp32 and 61 s in bf16 on the H100's host)
+#: 1 layer at batch 1 x DENSE_WIDTH_SEQ (256, not 512: at 512 its CPU
+#: side took 39 s in fp32 and 61 s in bf16 on the H100's host, 2 layers)
 DENSE_LAYERS, DENSE_BATCH, DENSE_SEQ, DENSE_STEPS = 4, 4, 2048, 5
 DENSE_WIDTH_SEQ = 256
 #: phase 8's shapes: the conv plane, the Laplace grids, the GEMM side
@@ -394,6 +426,12 @@ def kernel_cases(torch):
 
     flash_case("attention:prefill", 4, 32, 8, 32, 32, None, bf, bf_tol)
     flash_case("attention:decode", 4, 32, 8, 1, MAX_SEQ, 40, bf, bf_tol)
+    # phase 14 serves phi3.5-moe at the same head counts and sizes (32 / 8
+    # heads of 128): its launches counted apart
+    flash_case("attention:phi35_prefill", 4, 32, 8, 32, 32, None, bf,
+               bf_tol, phase="phi35")
+    flash_case("attention:phi35_decode", 4, 32, 8, 1, MAX_SEQ, 40, bf,
+               bf_tol, phase="phi35")
     flash_case("attention:decode_fp32", 4, 32, 8, 1, MAX_SEQ, 40, f32,
                f_tol, path=False)
     # a real prompt length, and a decode step over a long cache: the
@@ -432,29 +470,33 @@ def kernel_cases(torch):
 
     def with_ties(x):
         top, bot = x.max() + 1.0, x.min() - 1.0
+        at = lambda i: i * x.shape[1] // vocab       # llama's row: i
         for r in range(x.shape[0]):          # planted ties across threads
-            x[r, 1000 + r] = x[r, 90000 - r] = top
-            x[r, 2000 + r] = x[r, 120000 - r] = bot
+            x[r, at(1000) + r] = x[r, at(90000) - r] = top
+            x[r, at(2000) + r] = x[r, at(120000) - r] = bot
         return x
 
-    def reduce_case(op, x, path):
+    def reduce_case(op, x, path, phase="serve"):
         lib = {"sum": torch.sum, "min": torch.amin, "max": torch.amax,
                "argmin": torch.argmin, "argmax": torch.argmax}[op]
         cases.append(dict(
-            name=f"reduce:{op}_{x.shape[0]}x{vocab}", wrapper="reduce",
+            name=f"reduce:{op}_{x.shape[0]}x{x.shape[1]}", wrapper="reduce",
             source=stream_src, replaces=red_rep,
             kernel=lambda: ops.reduce(op, x),
             plain=lambda: ntx_reduce.reduce_plain(op, x),
             library=lambda: lib(x, -1), mode="sum" if op == "sum" else
             "equal", tol=(1e-5, 0.0), scale=x.abs().sum(-1),
             bytes=x.numel() * 4 + x.shape[0] * 4, ops=x.numel(),
-            kind="fp32", path=path))
+            kind="fp32", path=path, phase=phase))
 
     x4 = with_ties(rn(4, vocab))
     for op in ntx_reduce.REDUCE_OPS:
         reduce_case(op, x4, path=False)
-    # greedy decode reduces each request's logits row on its own
+    # greedy decode reduces each request's logits row on its own (phase
+    # 14: phi3.5-moe's 32064-wide rows)
     reduce_case("argmax", with_ties(rn(1, vocab)), path=True)
+    reduce_case("argmax", with_ties(rn(1, PHI35_VOCAB)), path=True,
+                phase="phi35")
 
     row = rn(1, vocab, std=3.0)
     gum = -torch.log(-torch.log(torch.rand(1, vocab, generator=g,
@@ -462,14 +504,17 @@ def kernel_cases(torch):
     row[0, 77] = row[0, 99999] = row.max() + 5.0     # tie for COPY->ARGMAX
     chains = [
         ("chain_reduce:copy_argmax_1x128256", [("copy", 0.0)], row, (),
-         True),
+         True, "serve"),
         ("chain_reduce:axpy_argmax_1x128256", [("axpy", 1 / 0.8)], row,
-         (gum,), True),
+         (gum,), True, "serve"),
         ("chain_reduce:axpy_thresh_argmax_1x128256",
          [("axpy", 1 / 0.8), ("thresh", 1024.0 + 2.0)], row,
-         (gum + 1024.0,), False),
+         (gum + 1024.0,), False, "serve"),
+        (f"chain_reduce:phi35_axpy_argmax_1x{PHI35_VOCAB}",
+         [("axpy", 1 / 0.8)], row[:, :PHI35_VOCAB].contiguous(),
+         (gum[:, :PHI35_VOCAB].contiguous(),), True, "phi35"),
     ]
-    for name, stages, xx, ys, path in chains:
+    for name, stages, xx, ys, path, phase in chains:
         # COPY->ARGMAX is one torch.argmax; the AXPY chains have no one call
         lib = (lambda xx=xx: torch.argmax(xx, -1)) \
             if stages == [("copy", 0.0)] else None
@@ -482,7 +527,8 @@ def kernel_cases(torch):
                 ops, ntx_reduce, s, xx, ys),
             library=lib, mode="equal", tol=(0.0, 0.0),
             bytes=xx.numel() * 4 * (2 + len(ys)) + 4,
-            ops=xx.numel() * (len(stages) + 1), kind="fp32", path=path))
+            ops=xx.numel() * (len(stages) + 1), kind="fp32", path=path,
+            phase=phase))
 
     ew_rep = "src/repro/kernels/ntx_elementwise.py:61"
     chain_rep = "src/repro/kernels/ntx_elementwise.py:109"
@@ -616,7 +662,8 @@ def dense_cases(torch, rn, bf_tol):
         do = rn(b, s, hq, dv, dt=dt).transpose(1, 2)
         return q, k, v, do
 
-    def bwd_case(name, b, hq, hkv, s, dt, path, d=128, dv=128):
+    def bwd_case(name, b, hq, hkv, s, dt, path, d=128, dv=128,
+                 phase="dense"):
         if not wanted(name):
             return
         q, k, v, do = qkv(b, hq, hkv, s, dt, d, dv)
@@ -663,7 +710,7 @@ def dense_cases(torch, rn, bf_tol):
             bytes=(b * (hq + hkv) * s * 2 * (d + dv)) * esz
             + lse.numel() * 4,
             ops=2.0 * (3 * d + 2 * dv) * pairs,
-            kind="bf16" if dt == bf else "fp32", path=path, phase="dense"))
+            kind="bf16" if dt == bf else "fp32", path=path, phase=phase))
 
     bwd_case(f"attention_bwd:train_b{DENSE_BATCH}_hq32_hkv8_s{DENSE_SEQ}"
              f"_bf16", DENSE_BATCH, 32, 8, DENSE_SEQ, bf, True)
@@ -671,19 +718,23 @@ def dense_cases(torch, rn, bf_tol):
              DENSE_SEQ, bf, False)
     bwd_case("attention_bwd:b1_hq8_hkv2_s1000_fp32", 1, 8, 2, 1000, f32,
              False)
-    # MLA's (q/k 192, v 128) backward, at deepseek's 16 heads and a
-    # 2048-token sequence, and a small fp32 case (training deepseek comes
-    # with a later slice: off every path here)
+    # MLA's (q/k 192, v 128) backward at phase 13's microbatch (deepseek's
+    # 16 heads, one 2048-token row: the 4 x 2048 batch in grad_accum 4),
+    # and a small fp32 case; phi3.5-moe's GQA backward at phase 14's
+    # microbatch (8 x 2048 in grad_accum 8)
     bwd_case(f"attention_bwd:mla_b1_h16_s{DENSE_SEQ}_bf16", 1, 16, 16,
-             DENSE_SEQ, bf, False, d=192, dv=128)
+             DENSE_SEQ, bf, True, d=192, dv=128, phase="deepseek_train")
     bwd_case("attention_bwd:mla_b1_h4_s300_fp32", 1, 4, 4, 300, f32, False,
              d=192, dv=128)
+    bwd_case(f"attention_bwd:phi35_b1_hq32_hkv8_s{DENSE_SEQ}_bf16", 1, 32,
+             8, DENSE_SEQ, bf, True, phase="phi35_train")
 
-    name = f"attention:train_lse_b{DENSE_BATCH}_s{DENSE_SEQ}_bf16"
-    if wanted(name):
-        q, k, v, _ = qkv(DENSE_BATCH, 32, 8, DENSE_SEQ, bf)
-        plan = fa.flash_plan(DENSE_BATCH, 32, 8, DENSE_SEQ, DENSE_SEQ,
-                             DENSE_SEQ, 128, bf, True, lse=True)
+    def lse_case(name, b, hq, hkv, s, phase, d=128, dv=128):
+        if not wanted(name):
+            return
+        q, k, v, _ = qkv(b, hq, hkv, s, bf, d, dv)
+        plan = fa.flash_plan(b, hq, hkv, s, s, s, d, bf, True, lse=True,
+                             dv=dv)
         o_serve = fa.flash_attention_cuda(q, k, v, plan=plan)
 
         def lse_check(got, want):
@@ -693,7 +744,8 @@ def dense_cases(torch, rn, bf_tol):
             return ok, (f"o bit-equal to the call without lse "
                         f"{torch.equal(got[0], o_serve)} | lse max_abs_err "
                         f"{err:.3e} (<= 1e-4 (1 + max|lse|))")
-        pairs = DENSE_BATCH * 32 * DENSE_SEQ * (DENSE_SEQ + 1) / 2
+        pairs = b * hq * s * (s + 1) / 2
+        scale = d ** -0.5            # MLA's (dn + dr) ** -0.5 at 192
         cases.append(dict(
             name=name, wrapper="attention", source=flash_src,
             replaces="src/repro/kernels/flash_attention.py:77",
@@ -702,12 +754,21 @@ def dense_cases(torch, rn, bf_tol):
             plain=lambda: (fa.flash_attention_plain(q, k, v),
                            fa.flash_lse_plain(q, k)),
             library=lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True),
+                q, k, v, is_causal=True, enable_gqa=True, scale=scale),
             backend=lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True),
+                q, k, v, is_causal=True, enable_gqa=True, scale=scale),
             check_vs=lse_check, mode="close", tol=bf_tol,
-            bytes=(2 * q.numel() + 2 * k.numel()) * 2 + q.numel() // 32,
-            ops=4.0 * 128 * pairs, kind="bf16", path=True, phase="dense"))
+            bytes=(q.numel() + k.numel() + v.numel() + b * hq * s * dv) * 2
+            + b * hq * s * 4,
+            ops=2.0 * (d + dv) * pairs, kind="bf16", path=True,
+            phase=phase))
+
+    lse_case(f"attention:train_lse_b{DENSE_BATCH}_s{DENSE_SEQ}_bf16",
+             DENSE_BATCH, 32, 8, DENSE_SEQ, "dense")
+    lse_case(f"attention:mla_train_lse_b1_h16_s{DENSE_SEQ}_bf16", 1, 16, 16,
+             DENSE_SEQ, "deepseek_train", d=192, dv=128)
+    lse_case(f"attention:phi35_train_lse_b1_hq32_hkv8_s{DENSE_SEQ}_bf16", 1,
+             32, 8, DENSE_SEQ, "phi35_train")
 
     act_src = "src/repro_torch/kernels/csrc/ntx_act_bwd.cu"
     act_rep = ("none: XLA autodiff of the MLP's epilogue "
@@ -1388,39 +1449,73 @@ def prompts_for(cfg, np):
 ROUTER_TIE = 0.05
 
 
-def routed_prefill(torch, model, params, tokens, replay=None):
-    """``model.prefill`` with each MoE call's routing recorded in call
-    order on the host: (last-position logits, [(probs, experts)]). With
-    ``replay`` (another run's record) each call takes that run's experts,
-    weighted by its own probabilities, so two devices' runs route alike
-    and the rest of their arithmetic can be compared."""
-    from repro_torch.models import moe
-    calls, route = [], moe.route
+class RouteLog:
+    """Records every MoE routing (``moe.route``) of ``params``' layers on
+    the host, keyed by (layer, that layer's call count): a forward routes
+    each layer once, a remat recompute once more, a chunked prefill once a
+    chunk. With ``replay`` (another run's log) each call takes that run's
+    experts for the same key, weighted by its own probabilities (the
+    gate's gradient flows through them as through the top-k values), so
+    two devices' runs route alike and the rest of their arithmetic can be
+    compared."""
 
-    def recording(cfg, p, x):
-        probs, gate, expert = route(cfg, p, x)
-        calls.append((probs.float().cpu(), expert.cpu()))
-        if replay is not None:
-            expert = replay[len(calls) - 1][1].to(expert.device)
-            gate = torch.take_along_dim(probs, expert, -1)
-            gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
-        return probs, gate, expert
-    moe.route = recording
-    try:
+    def __init__(self, torch, params, replay=None):
+        self.torch, self.replay = torch, replay
+        self.layer = {id(l.ffn): i for i, l in enumerate(params.layers)}
+        self.calls = {}
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe.route
+        torch = self.torch
+
+        def recording(cfg, p, x):
+            probs, gate, expert = self.route(cfg, p, x)
+            key = (self.layer[id(p)], sum(1 for k in self.calls
+                                          if k[0] == self.layer[id(p)]))
+            self.calls[key] = (probs.detach().float().cpu(), expert.cpu())
+            if self.replay is not None:
+                expert = self.replay.calls[key][1].to(expert.device)
+                gate = torch.take_along_dim(probs, expert, -1)
+                gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True),
+                                              1e-9)
+            return probs, gate, expert
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def pairs(self) -> list:
+        """(probs, experts) of every call, in key order."""
+        return [self.calls[k] for k in sorted(self.calls)]
+
+    def recomputes_agree(self) -> bool:
+        """Under remat="full" a layer's calls alternate forward and
+        recompute: each recompute (odd count) picks the experts of the
+        forward before it."""
+        torch = self.torch
+        return all(torch.equal(e, self.calls[(i, n - 1)][1])
+                   for (i, n), (_, e) in self.calls.items() if n % 2)
+
+
+def routed_prefill(torch, model, params, tokens, replay=None):
+    """``model.prefill`` under a :class:`RouteLog` (replaying ``replay``'s
+    experts if given): (last-position logits, the log)."""
+    with RouteLog(torch, params, replay) as log:
         logits, _, _ = model.prefill(params, {"tokens": tokens},
                                      cache_len=MAX_SEQ)
-    finally:
-        moe.route = route
-    return logits, calls
+    return logits, log
 
 
 def routing_gaps(card, cpu) -> list:
     """Each (call, row, token) whose expert set the CPU's own router picks
-    differently from the card's, as the gap ln(p_a / p_b) between the
-    CPU's probabilities of the experts only it picked and those only the
-    card picked (0 at an exact tie)."""
+    differently from the card's (two :class:`RouteLog` s of the same
+    calls), as the gap ln(p_a / p_b) between the CPU's probabilities of
+    the experts only it picked and those only the card picked (0 at an
+    exact tie)."""
     gaps = []
-    for (_, eg), (pc, ec) in zip(card, cpu):
+    for (_, eg), (pc, ec) in zip(card.pairs(), cpu.pairs()):
         eg, ec = eg.sort(-1).values, ec.sort(-1).values
         for r, t in (eg != ec).any(-1).nonzero().tolist():
             gs, cs = set(eg[r, t].tolist()), set(ec[r, t].tolist())
@@ -1428,6 +1523,20 @@ def routing_gaps(card, cpu) -> list:
             gaps.append(math.log(max(float(p[j]) for j in cs - gs)
                                  / min(float(p[j]) for j in gs - cs)))
     return gaps
+
+
+def check_routing(tag: str, dtype: str, card, cpu) -> None:
+    """fp32: the CPU's own router picks the card's experts everywhere;
+    bf16: they may differ only at near-ties (``ROUTER_TIE``)."""
+    gaps = routing_gaps(card, cpu)
+    n_tok = sum(e.shape[0] * e.shape[1] for _, e in card.pairs())
+    say(tag, f"{dtype} MoE routing: {len(gaps)} of {n_tok} token routings "
+             f"differ card vs CPU, largest CPU probability gap ln p_a/p_b "
+             f"{max(gaps, default=0.0):.3e} (near-tie <= {ROUTER_TIE:g} in "
+             f"bf16, none in fp32)")
+    need(not gaps if dtype == "float32" else
+         max(gaps, default=0.0) <= ROUTER_TIE,
+         f"{dtype} MoE routing differs card vs CPU past a near-tie")
 
 
 def phase_width(torch, np, arch: str = "llama3-8b",
@@ -1461,15 +1570,7 @@ def phase_width(torch, np, arch: str = "llama3-8b",
                                            tokens, replay=r_gpu)
         lg_gpu, lg_cpu = lg_gpu.float().cpu(), lg_cpu.float()
         if cfg.moe:
-            gaps = routing_gaps(r_gpu, r_cpu)
-            n_tok = sum(e.shape[0] * e.shape[1] for _, e in r_gpu)
-            say(tag, f"{dtype} MoE routing: {len(gaps)} of {n_tok} token "
-                     f"routings differ card vs CPU, largest CPU probability "
-                     f"gap ln p_a/p_b {max(gaps, default=0.0):.3e} (near-tie "
-                     f"<= {ROUTER_TIE:g} in bf16, none in fp32)")
-            need(not gaps if dtype == "float32" else
-                 max(gaps, default=0.0) <= ROUTER_TIE,
-                 f"{dtype} MoE routing differs card vs CPU past a near-tie")
+            check_routing(tag, dtype, r_gpu, r_cpu)
         diff = (lg_gpu - lg_cpu).abs()
         ok = bool(torch.isfinite(lg_gpu).all()) and bool(
             (diff <= atol + rtol * lg_cpu.abs()).all())
@@ -1756,11 +1857,34 @@ def phase_train_width(torch, np) -> None:
                        f"{time.perf_counter() - t0:.1f} s ok")
 
 
+def step_with_grads(step_fn, params, opt_state, batch):
+    """One ``build_step_fn`` step that also returns the gradients it
+    handed to the optimizer (``apply_updates``, wrapped for the call):
+    ``(params, new_state, loss, grads)``."""
+    from repro_torch.runtime import train
+    seen, real = {}, train.apply_updates
+
+    def capture(cfg, named, grads, state, **kw):
+        seen["grads"] = grads
+        return real(cfg, named, grads, state, **kw)
+    train.apply_updates = capture
+    try:
+        params, state, loss, _ = step_fn(params, opt_state, batch)
+    finally:
+        train.apply_updates = real
+    return params, state, loss, seen["grads"]
+
+
 def width_step_check(torch, base, seq: int, tag: str) -> None:
     """One build_step_fn step of ``base`` at batch 1 x ``seq`` on the card
     and on the CPU from the same weights and batch, in fp32 and bf16:
     loss, grad norm, every leaf's gradient and the params after the
-    step, each held to its limit (below)."""
+    step, each held to its limit (below); the gradients are the ones the
+    step hands to its optimizer. With MoE layers both sides run under a
+    :class:`RouteLog` and the CPU replays the card's experts (forward and
+    remat recompute alike): in fp32 the CPU's own router must pick them
+    everywhere, in bf16 it may differ at near-ties only; on the card
+    every recompute must route as its forward did."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import Model
     from repro_torch.optim import (AdamWConfig, global_norm, init_opt_state,
@@ -1783,35 +1907,47 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
             ("float32", 1e-5, 1e-5, GRAD_RTOL["float32"], 1e-5),
             ("bfloat16", 1e-4, 2e-3, GRAD_RTOL["bfloat16"], 2.0 ** -7)):
         cfg = base.scaled(compute_dtype=dtype, param_dtype=dtype)
-        model = Model(cfg)
-        p_cpu = model.init(0, device="cpu", trainable=True)
-        p_gpu = copy.deepcopy(p_cpu).to(DEVICE)
-        out, side_s = [], {}
+        # the weights are drawn on the card (the CPU's generator took ~35
+        # s for 1.6 B parameters on the H100's host) and copied
+        p_gpu = Model(cfg).init(0, device=DEVICE, trainable=True)
+        p_cpu = copy.deepcopy(p_gpu).to("cpu")
+        out, side_s, logs = [], {}, {}
         for dev, params in ((DEVICE, p_gpu), ("cpu", p_cpu)):
             t_side = time.perf_counter()
             b = {k: v.to(dev) for k, v in batch.items()}
             named = dict(params.named_parameters())
-            loss, _ = model.loss(params, b)
-            grads = dict(zip(named, torch.autograd.grad(
-                loss, list(named.values()))))
+            with RouteLog(torch, params, logs.get(DEVICE)) as logs[dev]:
+                _, state, loss, grads = step_with_grads(
+                    build_step_fn(cfg, opt_cfg), params,
+                    init_opt_state(named), b)
             gnorm = global_norm(grads)
-            grads = {n: g.detach().float().cpu() for n, g in grads.items()}
-            step_fn = build_step_fn(cfg, opt_cfg)
-            _, state, _, _ = step_fn(params, init_opt_state(named), b)
+            grads = {n: g.detach().float() for n, g in grads.items()}
             del state
-            out.append((float(loss.detach()), float(gnorm), grads,
+            out.append((float(loss), float(gnorm), grads,
                         {n: p.detach() for n, p in named.items()}))
             side_s[dev] = time.perf_counter() - t_side
+        if cfg.moe:
+            check_routing(tag, dtype, logs[DEVICE], logs["cpu"])
+            n_calls = len(logs[DEVICE].calls)
+            same = logs[DEVICE].recomputes_agree()
+            say(tag, f"{dtype} card: {n_calls} routings over "
+                     f"{cfg.n_layers} layers (the forward and its remat "
+                     f"recompute), every recompute as its forward {same}")
+            need(same and n_calls == 2 * cfg.n_layers,
+                 f"{dtype}: a recompute routed other than its forward")
+        # compared on the card, each CPU leaf moved there (the host's
+        # passes over the gradients and params took ~10 s a dtype)
         (lg, ng, gg, pg), (lc, nc, gc, pc) = out
         g_err, g_leaf = 0.0, None
         for n, want in gc.items():
+            want = want.to(DEVICE)
             err = float((gg[n] - want).norm()) / max(float(want.norm()),
                                                      1e-30)
             if not math.isfinite(err) or err > g_err:
                 g_err, g_leaf = err, n
         worst, ok = 0.0, True
         for n, want in pc.items():
-            got = pg[n].float().cpu()
+            got, want = pg[n].float(), want.to(DEVICE)
             diff = (got - want.float()).abs()
             worst = max(worst, float(diff.max()))
             ok &= bool(torch.isfinite(got).all()) and bool(
@@ -1830,7 +1966,7 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
                  f"CPU side {side_s['cpu']:.1f} s {verdict}")
         need(ok_loss and ok_norm and ok_grad and ok,
              f"{dtype} full-width training step disagrees card vs CPU")
-        del p_cpu, p_gpu, out
+        del p_cpu, p_gpu, out, gg, pg, gc, pc
         gc_collect(torch)
 
 
@@ -1840,16 +1976,16 @@ def gc_collect(torch) -> None:
 
 
 def phase_dense_width(torch, np) -> None:
-    """One build_step_fn step of full-width llama3-8b (2 of 32 layers,
-    batch 1 x DENSE_WIDTH_SEQ, to fit the CPU side) on the card (the
-    flash backward, the MLP backward on ntx_gemm and the activation
-    backward) and on the CPU (their plain versions), same weights and
-    batch."""
+    """One build_step_fn step of full-width llama3-8b (1 of 32 layers,
+    batch 1 x DENSE_WIDTH_SEQ, to fit the CPU side within the script's
+    time) on the card (the flash backward, the MLP backward on ntx_gemm
+    and the activation backward) and on the CPU (their plain versions),
+    same weights and batch."""
     from repro_torch import configs
     t0 = time.perf_counter()
-    width_step_check(torch, configs.get("llama3-8b").scaled(n_layers=2),
+    width_step_check(torch, configs.get("llama3-8b").scaled(n_layers=1),
                      DENSE_WIDTH_SEQ, "dense width")
-    say("dense width", f"llama3-8b full width, 2 of 32 layers (depth cut to "
+    say("dense width", f"llama3-8b full width, 1 of 32 layers (depth cut to "
                        f"fit the CPU side), batch 1 x {DENSE_WIDTH_SEQ}, "
                        f"{time.perf_counter() - t0:.1f} s ok")
 
@@ -2191,6 +2327,252 @@ def phase_dense_train(torch, np) -> dict:
     del params, opt, batches
     gc_collect(torch)
     return counts
+
+
+# ----------------------------------------------------------------------
+# phases 13 / 14: the MoE family's training (deepseek, phi3.5-moe) and
+# phi3.5-moe's serving
+# ----------------------------------------------------------------------
+#: a MoE training step's kernels by family, for kernel_split: the flash
+#: kernels, the MoE's scatters (the capacity buffers' index_put, the
+#: combine's index_add_ and the backward's scatter-adds) and gathers
+#: (take_along_dim, advanced indexing), its routing sorts, cuBLAS
+MOE_GROUPS = {
+    "flash_attention_bwd.cu": DENSE_GROUPS["flash_attention_bwd.cu"],
+    "flash_attention.cu": DENSE_GROUPS["flash_attention.cu"],
+    "MoE scatter": ("index_put", "indexing_backward", "index_add",
+                    "indexfunc", "internal_kernel<true", "scatter_add"),
+    "MoE gather": ("internal_kernel<false", "index_kernel_impl", "gather",
+                   "index_select"),
+    "MoE routing sorts": ("sort", "searchsorted", "radix"),
+    "cuBLAS": CUBLAS_KEYS}
+
+
+def card_memory_ok(torch, peak: int, tag: str, what: str) -> None:
+    """A depth cut stands only if its measured peak leaves at least
+    HEADROOM_BYTES of the card's memory free."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    say(tag, f"{what}: peak memory {peak / 1e9:.2f} GB of the card's "
+             f"{total / 1e9:.2f} GB ({(total - peak) / 1e9:.2f} GB free; "
+             f"the cut needs >= {HEADROOM_BYTES / 1e9:g})")
+    need(peak <= total - HEADROOM_BYTES,
+         f"{tag}: {what} leaves less than {HEADROOM_BYTES / 1e9:g} GB free")
+
+
+def active_params(cfg, n_params: int) -> int:
+    """Parameters a token runs through: all but the routed experts it is
+    not sent to (the reference's ``configs.shapes.active_params``)."""
+    return n_params - cfg.n_layers * (cfg.n_experts - cfg.top_k) * 3 \
+        * cfg.d_model * cfg.d_ff_expert
+
+
+def profile_moe_step(torch, step_fn, params, opt, batch, wall_s, tag):
+    """One more MoE training step under torch.profiler: device time by
+    kernel family (MOE_GROUPS), the 8 longest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ranges = ("train_step.grads", "train_step.optimizer")
+    evs = prof.key_averages()
+    span = {e.key: e.device_time_total / 1e3 for e in evs
+            if e.key in ranges and e.device_type == DeviceType.CPU}
+    split = kernel_split(evs, MOE_GROUPS, skip=ranges)
+    if split is None:
+        say(tag, "profiler saw no device time: breakdown not measured")
+        return params, opt
+    busy, by_group, top = split
+    say(tag, f"profiled step: wall {wall_ms:.1f} ms (profiler on; "
+             f"{wall_s * 1e3:.1f} ms off) | device busy {busy:.1f} ms "
+             f"({busy / wall_ms:.3f} of wall) | ranges (device ms of their "
+             f"PyTorch ops) {({k: round(v, 1) for k, v in span.items()})} | "
+             f"card {card_line()}")
+    say(tag, "kernels by family (device ms, launches): " + " | ".join(
+        f"{k} {v[0]:.1f} x{v[1]}" for k, v in by_group.items()))
+    for e in top:
+        say(tag, f"  {e.self_device_time_total / 1e3:9.2f} ms "
+                 f"x{e.count:5d}  {e.key[:110]}")
+    return params, opt
+
+
+def moe_train(torch, arch: str, n_layers: int, batch: int, steps: int,
+              tag: str) -> dict:
+    """build_step_fn on ``arch`` at full width cut to ``n_layers`` (bf16,
+    remat="full", the config's own grad_accum): ``steps`` steps at batch
+    ``batch`` x DENSE_SEQ. Step time, tokens/s, peak memory (held to
+    HEADROOM_BYTES), the flash kernels' launches per step; one more step
+    profiled."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import build_step_fn
+
+    full = configs.get(arch)
+    cfg = full.scaled(n_layers=n_layers)
+    accum = cfg.grad_accum
+    card = card_line()
+    opt_cfg = AdamWConfig(warmup_steps=10, total_steps=steps)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device=DEVICE, trainable=True)
+    opt = init_opt_state(dict(params.named_parameters()))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_active = active_params(cfg, n_params)
+    say(tag, f"cut: layers {n_layers} of {full.n_layers} at full width, "
+             f"{n_params / 1e9:.3f} B params ({n_active / 1e9:.3f} B active "
+             f"a token); batch {batch} x {DENSE_SEQ} in grad_accum {accum} "
+             f"microbatches, {steps} steps; init "
+             f"{time.perf_counter() - t0:.1f} s")
+    step_fn = build_step_fn(cfg, opt_cfg)
+    data = SyntheticLM(cfg, batch, DENSE_SEQ, seed=0)
+    batches = [{k: v.to(DEVICE) for k, v in data.batch_at(i).items()}
+               for i in range(steps + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    ops.reset_launches()
+    for step in range(steps):
+        t0 = time.perf_counter()
+        params, opt, loss, _ = step_fn(params, opt, batches[step])
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    need(all(math.isfinite(x) for x in losses),
+         f"{tag}: losses not all finite: {losses}")
+    step_s = sum(times[1:]) / len(times[1:])
+    tokens = batch * DENSE_SEQ
+    share = 6.0 * n_active * tokens / step_s / PEAK_OPS["bf16"]
+    say(tag, f"{arch} {n_layers} layers, batch {batch} x seq {DENSE_SEQ}: "
+             f"losses {[round(x, 4) for x in losses]} | card {card}")
+    say(tag, f"step times {[round(t * 1e3, 1) for t in times]} ms | step "
+             f"after step 1 {step_s * 1e3:.1f} ms | {tokens / step_s:.0f} "
+             f"tokens/s | 6 N_active tokens / step time = {share:.4f} of the "
+             f"989 TFLOP/s bf16 peak (observation) | card {card}")
+    card_memory_ok(torch, peak, tag, f"{n_layers} of {full.n_layers} layers "
+                                     f"training")
+    L = n_layers * accum * steps
+    per = {k: counts[k] / steps for k in ("attention", "attention_bwd")}
+    dk, dv = ((cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim)
+              if cfg.mla else (cfg.hd, cfg.hd))
+    say(tag, f"kernel launches in {steps} steps {counts} | per step {per} "
+             f"(head dims q/k {dk}, v {dv})")
+    want = {"attention": 2 * L, "attention_bwd": L, "attention_merge": 0,
+            "gemm": 0}
+    need(all(counts[k] == v for k, v in want.items()),
+         f"{tag} launches {counts}, expected {want} (the forward with lse "
+         f"and its recompute a layer and microbatch; one backward)")
+    params, opt = profile_moe_step(torch, step_fn, params, opt,
+                                   batches[steps], step_s, tag)
+    del params, opt, batches
+    gc_collect(torch)
+    return counts
+
+
+def phase_deepseek_train(torch, np) -> dict:
+    """deepseek-v2-lite-16b's training: a 2-layer full-width step card vs
+    CPU at 1 x DENSE_WIDTH_SEQ (one microbatch), then the Trainer's step
+    at DEEPSEEK_TRAIN_LAYERS of 27 layers, 4 x 2048 in grad_accum 4. MLA's
+    attention runs the flash forward with lse and the backward kernel at
+    (q/k 192, v 128); the MoE's backward is PyTorch autograd."""
+    from repro_torch import configs
+    gc_collect(torch)
+    t0 = time.perf_counter()
+    width_step_check(torch, configs.get(DEEPSEEK).scaled(n_layers=2,
+                                                         grad_accum=1),
+                     DENSE_WIDTH_SEQ, "deepseek train width")
+    say("deepseek train width", f"{DEEPSEEK} full width, 2 of 27 layers "
+                                f"(depth cut to fit the CPU side), batch 1 "
+                                f"x {DENSE_WIDTH_SEQ}, "
+                                f"{time.perf_counter() - t0:.1f} s ok")
+    gc_collect(torch)
+    return moe_train(torch, DEEPSEEK, DEEPSEEK_TRAIN_LAYERS, DENSE_BATCH,
+                     DENSE_STEPS, "deepseek train")
+
+
+def phase_phi35(torch, np) -> tuple:
+    """phi3.5-moe-42b: the 2-layer serving width check card vs CPU (the
+    CPU replays the card's routing), Server.generate at full width cut to
+    PHI35_SERVE_LAYERS of 32 (bf16, Model.init(0) built layer by layer on
+    the card) at phase 5's sizes, greedy and at temperature 0.8, with one
+    decode step profiled; then a 1-layer full-width training step card vs
+    CPU at 1 x DENSE_WIDTH_SEQ and PHI35_STEPS steps at
+    PHI35_TRAIN_LAYERS, PHI35_BATCH x 2048 in grad_accum 8. Returns the
+    serving and the training launch counts."""
+    import importlib
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.runtime import ServeConfig, Server
+    dispatch = importlib.import_module("repro_torch.core.dispatch")
+
+    gc_collect(torch)
+    phase_width(torch, np, PHI35, "phi35 width")
+    gc_collect(torch)
+    full = configs.get(PHI35)
+    cfg = full.scaled(n_layers=PHI35_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("phi35", f"{PHI35} cut: {cfg.n_layers} of {full.n_layers} layers at "
+                 f"full width ({full.n_layers} need ~83.7 GB in bf16), "
+                 f"{n_params / 1e9:.3f} B params bf16 "
+                 f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), init "
+                 f"{time.perf_counter() - t0:.1f} s")
+    prompts = prompts_for(cfg, np)
+    card = card_line()
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    dispatch.reset_engine_fallbacks()
+    for name, temp in (("greedy", 0.0), ("temperature", 0.8)):
+        runs[name] = Server(cfg, params, ServeConfig(
+            max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS, eos_token=-1,
+            temperature=temp)).generate(prompts)
+    serve_counts = ops.launches()
+    fallbacks = dispatch.engine_fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    for name, out in runs.items():
+        comp = out["completions"]
+        need(len(comp) == BATCH and all(
+            len(c) == NEW_TOKENS and all(0 <= t < cfg.padded_vocab
+                                         for t in c) for c in comp),
+             f"phi35 {name}: completions malformed")
+        say("phi35", f"{name}: prefill {out['prefill_s'] * 1e3:.2f} ms | "
+                     f"decode {out['decode_tok_per_s']:.2f} tok/s | req0 "
+                     f"{comp[0]} | card {card}")
+    say("phi35", f"kernel launches {serve_counts} | engine_fallbacks "
+                 f"{fallbacks} | card {card}")
+    card_memory_ok(torch, peak, "phi35", f"serving {cfg.n_layers} of "
+                                         f"{full.n_layers} layers")
+    for wrapper in ("attention", "reduce", "chain_reduce"):
+        need(serve_counts[wrapper] > 0, f"phi35: {wrapper} kernel never "
+                                        f"launched")
+    need(fallbacks == 0, f"{fallbacks} descriptors fell back to the engine")
+    profile_decode_step(torch, np, cfg, params, prompts, "phi35")
+    del params
+    gc_collect(torch)
+
+    t0 = time.perf_counter()
+    width_step_check(torch, full.scaled(n_layers=1, grad_accum=1),
+                     DENSE_WIDTH_SEQ, "phi35 train width")
+    say("phi35 train width", f"{PHI35} full width, 1 of 32 layers (depth "
+                             f"cut to fit the CPU side), batch 1 x "
+                             f"{DENSE_WIDTH_SEQ}, "
+                             f"{time.perf_counter() - t0:.1f} s ok")
+    gc_collect(torch)
+    train_counts = moe_train(torch, PHI35, PHI35_TRAIN_LAYERS, PHI35_BATCH,
+                             PHI35_STEPS, "phi35 train")
+    return serve_counts, train_counts
 
 
 # ----------------------------------------------------------------------
@@ -2714,7 +3096,8 @@ def phase_policies(torch, np) -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases",
+                    default=",".join(map(str, sorted(ALL_PHASES))),
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--only", default="",
                     help="comma-separated case-name prefixes: check and time "
@@ -2798,13 +3181,17 @@ def main(argv=None) -> int:
             counts["dense"] = phase_dense_train(torch, np)
         if 12 in phases:
             counts["deepseek"] = phase_deepseek(torch, np)
+        if 13 in phases:
+            counts["deepseek_train"] = phase_deepseek_train(torch, np)
+        if 14 in phases:
+            counts["phi35"], counts["phi35_train"] = phase_phi35(torch, np)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     say("done", f"phases {sorted(phases)} passed in "
                 f"{time.perf_counter() - t_start:.1f} s, the build included")
 
-    if {3, 5, 7, 8, 9, 11, 12} <= phases:
+    if {3, 5, 7, 8, 9, 11, 12, 13, 14} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

@@ -2,7 +2,12 @@
 
 Serves random-init weights (``Model.init(0)``) of the reduced config, or
 of the full config with ``--full``, on the card (``--device cpu`` runs
-the plain PyTorch versions of the kernels instead).
+the plain PyTorch versions of the kernels instead). ``--set`` overrides
+config fields; phi3.5-moe-42b's 41.9 B parameters (83.7 GB in bf16) do
+not fit one 80 GB card, so serve it cut:
+
+    python -m repro_torch.launch.serve --arch phi3.5-moe-42b --full \\
+        --set n_layers=28
 """
 import argparse
 import sys
@@ -20,14 +25,21 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--set", nargs="*", default=[],
+                    help="ArchConfig overrides key=value")
     args = ap.parse_args(argv)
 
     from repro_torch import configs
     from repro_torch.models import Model
     from repro_torch.runtime import Server, ServeConfig
 
+    from repro_torch.launch.train import parse_overrides
+
     cfg = configs.get(args.arch) if args.full else configs.get_reduced(
         args.arch)
+    overrides = parse_overrides(args.set)
+    if overrides:
+        cfg = cfg.scaled(**overrides)
     params = Model(cfg).init(0, device=args.device)
     srv = Server(cfg, params, ServeConfig(
         max_seq=args.prompt_len + args.new_tokens + 8,

@@ -4,6 +4,8 @@
         --device cpu --steps 20
     python -m repro_torch.launch.train --arch llama3-8b \\
         --set n_layers=4 --global-batch 4 --seq 2048 --steps 5
+    python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \\
+        --set n_layers=3 --global-batch 4 --seq 2048 --steps 5
 
 Wires the arch registry, the Trainer and checkpointing, with the
 reference launcher's flags. It trains on one device (``--device``, the
@@ -20,10 +22,12 @@ import tempfile
 def _parse(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mamba2-1.3b",
-                    help="mamba2-1.3b or a dense GQA config (llama3-8b, "
-                         "yi-9b, phi3-medium-14b, granite-3-8b); a full "
-                         "dense config needs ~16 bytes a parameter, so cut "
-                         "its depth on one card (--set n_layers=4)")
+                    help="mamba2-1.3b, a dense GQA config (llama3-8b, "
+                         "yi-9b, phi3-medium-14b, granite-3-8b) or a MoE "
+                         "config (deepseek-v2-lite-16b, phi3.5-moe-42b); "
+                         "training takes ~30 bytes a parameter, so cut a "
+                         "full config's depth on one card (--set "
+                         "n_layers=4)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=100)
@@ -42,16 +46,11 @@ def _parse(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None):
-    args = _parse(argv)
-    from repro_torch import configs
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.runtime import TrainConfig, Trainer
-
-    cfg = (configs.get_reduced(args.arch) if args.reduced
-           else configs.get(args.arch))
+def parse_overrides(pairs) -> dict:
+    """``["n_layers=4", "remat=none"]`` -> ``{"n_layers": 4, "remat":
+    "none"}``: ints, floats, true / false, else strings."""
     overrides = {}
-    for kv in args.set:
+    for kv in pairs:
         k, v = kv.split("=", 1)
         try:
             v = int(v)
@@ -61,6 +60,18 @@ def main(argv=None):
             except ValueError:
                 v = {"true": True, "false": False}.get(v.lower(), v)
         overrides[k] = v
+    return overrides
+
+
+def main(argv=None):
+    args = _parse(argv)
+    from repro_torch import configs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get(args.arch))
+    overrides = parse_overrides(args.set)
     if overrides:
         cfg = cfg.scaled(**overrides)
 

@@ -12,7 +12,12 @@ ties in index order (here a stable descending sort); ``jnp.argsort`` is
 stable; segment starts are ``searchsorted(side="left")``; dropped
 entries go to the slot ``e * cap`` of a buffer of ``e * cap + 1`` rows.
 The expert and shared-expert products are plain einsum / matmul, as the
-reference leaves them to XLA.
+reference leaves them to XLA. Training differentiates all of it with
+PyTorch autograd, as the reference takes ``jax.grad``: the gate's
+gradient reaches the probabilities through the top-k values and the
+renormalisation, the drop slot's row is cut off before the experts and
+takes no gradient, and the aux loss's top-1 counts (a one-hot) take
+none either.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@ loss, and (attention families) prefill and cache decode.
 
 Counterpart of ``repro.models.transformer`` for three layer kinds:
 ``attn_mlp`` (dense GQA with an MLP), ``attn_moe`` (MLA or GQA with the
-MoE FFN; deepseek-v2) and ``ssm_none`` (a Mamba-2 mixer alone). The
+MoE FFN; deepseek-v2, phi3.5-moe) and ``ssm_none`` (a Mamba-2 mixer
+alone). The
 reference scans over layer stacks stored per kind; here the layers are a
 Python loop over per-layer modules, each wrapped by ``remat_wrap``. The
 cache is a list of per-layer bf16 dicts (bf16 whatever the compute

@@ -15,7 +15,8 @@ the counterpart of ``repro.runtime.train``.
 
 The step is eager PyTorch: autograd through ``Model.loss`` (each layer
 recomputed in the backward, ``cfg.remat``; attention and the MLP are
-autograd Functions whose backward kernels run on the card), gradients
+autograd Functions whose backward kernels run on the card, the MoE FFN
+is differentiated by PyTorch itself), gradients
 widened to fp32 and clipped per tensor by ``apply_updates``. With ``multistream_plan`` (the default, as in the
 reference) the run also plans and prices the optimizer update as a
 multi-cluster descriptor program (:func:`plan_update_multistream`) into

@@ -1643,3 +1643,99 @@ def test_attention_mla_autograd_on_the_card(cuda, dtype):
     for g, w in zip(got, want):
         assert g.dtype == dt and g.shape == w.shape
         assert _rel_l2(g, w) < _GRAD_RTOL[dtype]
+
+
+# ----------------------------------------------------------------------
+# MoE training: deepseek-v2-lite-16b (MLA) and phi3.5-moe-42b (GQA)
+# ----------------------------------------------------------------------
+def _moe_small(arch):
+    """The MoE config narrowed but keeping the head dims the kernels take
+    (MLA q/k 192 = 128 + 64, v 128; GQA 128): 2 layers, fp32, one
+    microbatch."""
+    from repro_torch import configs
+    narrow = {"deepseek-v2-lite-16b": dict(
+        d_model=256, n_heads=4, n_kv_heads=4, kv_lora_rank=64, n_experts=8,
+        top_k=2, d_ff_expert=64, n_shared_experts=1),
+        "phi3.5-moe-42b": dict(d_model=256, n_heads=2, n_kv_heads=1,
+                               n_experts=4, d_ff_expert=128)}[arch]
+    return configs.get(arch).scaled(
+        n_layers=2, vocab=512, grad_accum=1, compute_dtype="float32",
+        param_dtype="float32", **narrow)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "phi3.5-moe-42b"])
+def test_moe_training_step_card_vs_cpu(cuda, arch):
+    """A head-dim-preserving small MoE model's loss, every leaf's gradient
+    and one build_step_fn step on the card and on the CPU from the same
+    weights and batch (fp32): every MoE routing identical on both, the
+    loss at 1e-5, each leaf within 1e-4 relative L2 (chip_smoke's
+    limit); the attention forward with lse and its recompute, and the
+    backward kernel, launched once a layer each."""
+    import copy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model, moe
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import build_step_fn
+    cfg = _moe_small(arch)
+    model = Model(cfg)
+    p_cpu = model.init(0, device="cpu", trainable=True)
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    batch = SyntheticLM(cfg, 2, 64, seed=0).batch_at(0)
+    route, res = moe.route, []
+    for dev, params in ((cuda, p_gpu), ("cpu", p_cpu)):
+        experts = []
+
+        def recording(c, p, x):
+            out = route(c, p, x)
+            experts.append(out[2].cpu())
+            return out
+        named = dict(params.named_parameters())
+        b = {k: v.to(dev) for k, v in batch.items()}
+        ops.reset_launches()
+        moe.route = recording
+        try:
+            loss, _ = model.loss(params, b)
+            grads = {n: g.cpu() for n, g in zip(named, torch.autograd.grad(
+                loss, list(named.values())))}
+            counts = ops.launches()
+            build_step_fn(cfg, AdamWConfig(warmup_steps=1, total_steps=10))(
+                params, init_opt_state(named), b)
+        finally:
+            moe.route = route
+        res.append((float(loss.detach()), grads, experts, counts,
+                    {n: p.detach().cpu() for n, p in named.items()}))
+    (lg, gg, eg, counts, pg), (lc, gc, ec, _, pc) = res
+    assert (counts["attention"], counts["attention_bwd"]) == (
+        2 * cfg.n_layers, cfg.n_layers)
+    assert len(eg) == len(ec) == 4 * cfg.n_layers
+    assert all(torch.equal(a, b) for a, b in zip(eg, ec))
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for n, want in gc.items():
+        assert _rel_l2(gg[n], want) <= _GRAD_RTOL["float32"], n
+    for n, want in pc.items():
+        torch.testing.assert_close(pg[n], want, rtol=1e-5, atol=2 * 3e-4)
+
+
+def test_attention_mla_lse_under_remat(cuda):
+    """ops.attention at (192, 128) under autograd inside remat_wrap (the
+    MoE layers' full remat, non-reentrant checkpoint): the forward with
+    lse runs twice (the forward and the recompute), the backward kernel
+    once; gradients against the CPU's plain route."""
+    from repro_torch import configs
+    from repro_torch.models.common import remat_wrap
+    cfg = configs.get("deepseek-v2-lite-16b")
+    assert cfg.remat == "full"
+    q, k, v = _mla_qkv(cuda, 1, 4, 200, 200, torch.bfloat16)
+    go = _t((1, 4, 200, 128), cuda).bfloat16()
+    fn = remat_wrap(cfg, lambda a, b, c: ops.attention(a, b, c,
+                                                       scale=192 ** -0.5))
+    outs = []
+    for dev in (cuda, "cpu"):
+        xs = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        ops.reset_launches()
+        grads = torch.autograd.grad(fn(*xs), xs, go.to(dev))
+        outs.append((ops.launches(), [g.cpu() for g in grads]))
+    (counts, got), (_, want) = outs
+    assert (counts["attention"], counts["attention_bwd"]) == (2, 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel_l2(g, w) < _GRAD_RTOL["bfloat16"]
