@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port of the NTX reproduction on one NVIDIA GPU.
 
     python3 chip_smoke.py    # every phase: serve llama3-8b,
-                             # deepseek-v2-lite-16b and phi3.5-moe-42b,
-                             # train mamba2-1.3b, a 4-layer llama3-8b and
+                             # deepseek-v2-lite-16b, phi3.5-moe-42b,
+                             # mamba2-1.3b and jamba-v0.1-52b, train
+                             # mamba2-1.3b, a 4-layer llama3-8b and
                              # the two MoE models cut in depth, run the
                              # paper's kernel suite
     python3 chip_smoke.py --phases 1,13   # one phase alone
@@ -41,8 +42,9 @@ Phases, one result line each:
                and backward less its forward), with its plan (group
                splits, ring stages, grids).
   4. width   — llama3-8b at full width, depth cut to 2 layers, on the card
-               and on the CPU with the same weights: prefill logits and
-               4 greedy tokens.
+               and on the CPU with the same weights and tokens: prefill
+               logits, 4 decode steps' logits (the CPU decoding each from
+               the card's cache) and every cache leaf after each.
   5. serve   — Server.generate on the full 32-layer llama3-8b (bf16,
                random weights from Model.init(0)): 4 requests, prompt 32,
                16 new tokens, greedy and at temperature 0.8, and one
@@ -113,6 +115,23 @@ Phases, one result line each:
                5's sizes with a profiled decode step, a 1-layer
                full-width training step card vs CPU, and 5 steps at 1 of
                32 layers, 8 x 2048 in grad_accum 8 (as phase 13).
+ 15. mamba2 — mamba2-1.3b serving: 2 layers at full width card vs CPU
+               (prefill logits, the cache's state and conv tails, 4
+               decode steps from the card's cache; fp32 and bf16), decode
+               continuing a 16- and a 128-token prefill on the card, then
+               Server.generate on all 48 layers at phase 5's sizes and one
+               2048-token prompt: launch counts (the SSD kernel's state
+               route once a layer and prefill, never ops.ssd),
+               peak memory, the long prefill (ssd_scan.cu's three
+               kernels a layer) and a decode step under torch.profiler.
+               Phases 2/3 hold the state route (y bit-equal to ops.ssd's)
+               at its prefill shapes, timed beside ops.ssd.
+ 16. jamba  — jamba-v0.1-52b (hybrid: Mamba-2 and GQA on a period of 8,
+               MLP and MoE): phase 15's 2-layer check (ssm_mlp, ssm_moe;
+               the CPU replays the card's routing), then Server.generate
+               at full width cut to 23 of 32 layers (the deepest cut
+               that leaves 5 GB of the card free) at phase 5's sizes,
+               with launch counts, a profiled prefill and decode step.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -152,7 +171,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = set(range(1, 15))
+ALL_PHASES = set(range(1, 17))
 #: phase 12's model (MLA and MoE); phase 13 trains it at full width cut
 #: to DEEPSEEK_TRAIN_LAYERS of 27 layers (~30 bytes a parameter with the
 #: plain AdamW: 16.2 B parameters need ~490 GB), batch DENSE_BATCH x
@@ -167,6 +186,19 @@ PHI35 = "phi3.5-moe-42b-a6.6b"
 PHI35_VOCAB = 32064
 PHI35_SERVE_LAYERS, PHI35_TRAIN_LAYERS = 28, 1
 PHI35_BATCH, PHI35_STEPS = 8, 5
+#: phase 15's model, served at full size; phase 16's (the hybrid), served
+#: at full width cut to JAMBA_SERVE_LAYERS of 32 layers
+MAMBA2 = "mamba2-1.3b"
+JAMBA = "jamba-v0.1-52b"
+JAMBA_SERVE_LAYERS = 23
+#: the serving width checks (phases 4, 12, 14-16) compare WIDTH_STEPS
+#: decode steps after the prefill
+WIDTH_STEPS = 4
+#: the width checks' limit on the SSM state's relative L2 error, card vs
+#: CPU (a wrong state is off by ~1): fp32 33x the 3.0e-6 measured on an
+#: H100 at jamba's widths (mamba2's 1.4e-6), bf16 3x the 6.3e-3 / 5.8e-3
+#: measured at both
+SSM_STATE_L2 = {"float32": 1e-4, "bfloat16": 2e-2}
 #: every depth cut leaves at least this much of the card's memory free
 HEADROOM_BYTES = 5e9
 #: phases 10-11: llama3-8b cut to DENSE_LAYERS of 32 layers, batch
@@ -578,6 +610,7 @@ def kernel_cases(torch):
         library=lambda: torch.add(uy, ux, alpha=imm), mode="equal",
         tol=(0.0, 0.0), bytes=n * 12, ops=2 * n, kind="fp32", path=False))
     cases += train_cases(torch, rn)
+    cases += ssm_serve_cases(torch, rn)
     cases += suite_cases(torch, rn)
     # the dense training path's MLP products at m = 4 x 2048 tokens: the
     # forward's three (a1 and the gate, and dh = dout w2^T in the
@@ -895,6 +928,60 @@ def train_cases(torch, rn):
     return cases
 
 
+def ssm_serve_cases(torch, rn):
+    """The SSD kernel's final-state route (``ops.ssd_with_state``), as
+    the serving prefills of phases 15-16 call it: mamba2-1.3b's widths
+    (h 64, dh 64, n 128) at 4 x 32 (one ragged chunk) and at one
+    2048-token prompt (16 chunks carried), jamba-v0.1-52b's (h 128, dh
+    64, n 16) at 4 x 32, bf16, chunk 128. y against the plain version at
+    1e-2 (rounded once to bf16: one ulp); the fp32 state apart, at an
+    fp32 limit (its inputs exact and every sum fp32, only the order of the
+    sums differs): relative L2 SSM_STATE_L2["float32"] and elementwise
+    rtol = atol = 1e-3, as the card tests hold it; y bit-equal to
+    ``ops.ssd``'s on the same inputs; timed beside ``ops.ssd``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_with_state_plain
+    cases = []
+    bf, chunk = torch.bfloat16, 128
+    for name, b, l, h, n, phase in (
+            ("ssd_state:mamba2_prefill_b4_l32_bf16", BATCH, PROMPT_LEN, 64,
+             128, "mamba2_serve"),
+            ("ssd_state:mamba2_long_b1_l2048_bf16", 1, LONG_PROMPT, 64, 128,
+             "mamba2_serve"),
+            ("ssd_state:jamba_prefill_b4_l32_bf16", BATCH, PROMPT_LEN, 128,
+             16, "jamba")):
+        a = ssd_inputs(torch, rn, b, l, bf, h=h, n=n)
+        x = a[0]
+
+        def same_y(got, a=a):
+            same = bool(torch.equal(got[0], ops.ssd(*a, chunk=chunk)))
+            return same, f"y bit-equal to ops.ssd's: {same}"
+
+        def state_close(got, want):
+            d = (got[1] - want[1]).abs()
+            rel = float(d.norm() / want[1].norm().clamp_min(1e-30))
+            lim = SSM_STATE_L2["float32"]
+            ok = (bool(torch.isfinite(got[1]).all()) and rel <= lim
+                  and bool((d <= 1e-3 + 1e-3 * want[1].abs()).all()))
+            return ok, (f"fp32 state {tuple(got[1].shape)}: rel L2 "
+                        f"{rel:.3e} (<= {lim:g}), max_abs_err "
+                        f"{float(d.max()):.3e} (rtol 1e-3 atol 1e-3)")
+        cases.append(dict(
+            name=name, wrapper="ssd_state",
+            source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:68",
+            kernel=lambda a=a: ops.ssd_with_state(*a, chunk=chunk),
+            plain=lambda a=a: ssd_scan_with_state_plain(*a, chunk=chunk),
+            library=None, mode="close", tol=(1e-2, 1e-2), check=same_y,
+            apart=(1,), check_vs=state_close, beside=[("ops.ssd (no state)",
+                     lambda a=a: ops.ssd(*a, chunk=chunk))],
+            bytes=2 * x.numel() * 2 + a[1].numel() * 4 + h * 4
+            + 2 * a[3].numel() * 2 + b * h * n * 64 * 4,
+            ops=ssd_ops(l, h, 64, n, b, chunk), kind="bf16", path=True,
+            phase=phase))
+    return cases
+
+
 def laplace_per_axis(x, ops):
     """The per-axis route of ``ops.laplace`` before the fused kernel: a
     ``stencil_axis`` pass per axis over a contiguous copy of the slice
@@ -1202,6 +1289,8 @@ def compare(torch, case, got, want) -> tuple:
     wants = want if isinstance(want, tuple) else (want,)
     ok, max_abs, max_rel, worst_l2 = True, 0.0, 0.0, 0.0
     for part, (gg, ww) in enumerate(zip(gots, wants)):
+        if part in case.get("apart", ()):
+            continue                      # held by the case's check_vs
         if gg is None or ww is None:
             ok &= gg is None and ww is None
             continue
@@ -1397,6 +1486,8 @@ def check_and_time(torch, cases, do_time: bool, check: str,
             if case.get("backend"):
                 aside += f" | SDPA backend {sdpa_backend(case['backend'])}"
             aside += case.get("note", "")
+            for label, fn in case.get("beside", ()):
+                aside += f" | {label} {time_ms(fn, torch):.4f} ms"
             if case.get("singles"):
                 n_single, singles = case["singles"]
                 aside += (f" | {n_single} one-lane launches "
@@ -1428,7 +1519,7 @@ def check_and_time(torch, cases, do_time: bool, check: str,
     for case in rows:            # free the inputs the closures hold
         for key in ("kernel", "plain", "library", "scale", "check",
                     "aside", "splits", "plans", "backend", "singles",
-                    "check_vs", "library_minus"):
+                    "check_vs", "library_minus", "beside"):
             case.pop(key, None)
     torch.cuda.empty_cache()
     return rows
@@ -1499,15 +1590,6 @@ class RouteLog:
                    for (i, n), (_, e) in self.calls.items() if n % 2)
 
 
-def routed_prefill(torch, model, params, tokens, replay=None):
-    """``model.prefill`` under a :class:`RouteLog` (replaying ``replay``'s
-    experts if given): (last-position logits, the log)."""
-    with RouteLog(torch, params, replay) as log:
-        logits, _, _ = model.prefill(params, {"tokens": tokens},
-                                     cache_len=MAX_SEQ)
-    return logits, log
-
-
 def routing_gaps(card, cpu) -> list:
     """Each (call, row, token) whose expert set the CPU's own router picks
     differently from the card's (two :class:`RouteLog` s of the same
@@ -1537,69 +1619,6 @@ def check_routing(tag: str, dtype: str, card, cpu) -> None:
     need(not gaps if dtype == "float32" else
          max(gaps, default=0.0) <= ROUTER_TIE,
          f"{dtype} MoE routing differs card vs CPU past a near-tie")
-
-
-def phase_width(torch, np, arch: str = "llama3-8b",
-                tag: str = "width") -> None:
-    """``arch`` at full width, depth cut to 2 layers, on the card and on
-    the CPU with the same weights: prefill logits and 4 greedy tokens.
-    With MoE layers the CPU replays the card's expert choices: in fp32
-    its own router must pick the same; in bf16 it may differ only at
-    near-ties (``ROUTER_TIE``), and the logits are compared under the
-    card's routing."""
-    from repro_torch import configs
-    from repro_torch.models import Model
-    from repro_torch.runtime import ServeConfig, Server
-
-    full = configs.get(arch)
-    base = full.scaled(n_layers=2)
-    t0 = time.perf_counter()
-    params = Model(base).init(0, device=DEVICE)
-    params_cpu = copy.deepcopy(params).to("cpu")
-    prompts = prompts_for(base, np)
-    tokens = torch.as_tensor(np.stack(prompts), dtype=torch.long)
-    # bf16: about twice the worst card-vs-CPU logit error measured on an
-    # H100 (3.1e-2 absolute on logits of order 1); see PERF.md
-    for dtype, rtol, atol in (("float32", 1e-3, 1e-3),
-                              ("bfloat16", 2e-2, 6e-2)):
-        cfg = base.scaled(compute_dtype=dtype)
-        with torch.inference_mode():
-            lg_gpu, r_gpu = routed_prefill(torch, Model(cfg), params,
-                                           tokens.to(DEVICE))
-            lg_cpu, r_cpu = routed_prefill(torch, Model(cfg), params_cpu,
-                                           tokens, replay=r_gpu)
-        lg_gpu, lg_cpu = lg_gpu.float().cpu(), lg_cpu.float()
-        if cfg.moe:
-            check_routing(tag, dtype, r_gpu, r_cpu)
-        diff = (lg_gpu - lg_cpu).abs()
-        ok = bool(torch.isfinite(lg_gpu).all()) and bool(
-            (diff <= atol + rtol * lg_cpu.abs()).all())
-        say(tag, f"{dtype} prefill logits {tuple(lg_gpu.shape)}: card vs "
-                 f"CPU max_abs_err {float(diff.max()):.3e} mean "
-                 f"{float(diff.mean()):.3e} (rtol {rtol:g} atol {atol:g})"
-                 f" {'ok' if ok else 'FAIL'}")
-        need(ok, f"{dtype} full-width prefill logits disagree")
-        scfg = ServeConfig(max_seq=MAX_SEQ, max_new_tokens=4, eos_token=-1)
-        gpu = Server(cfg, params, scfg).generate(prompts)["completions"]
-        cpu = Server(cfg, params_cpu, scfg).generate(prompts)["completions"]
-        same = gpu == cpu
-        say(tag, f"{dtype} greedy tokens card {gpu} cpu {cpu} "
-                 f"{'equal' if same else 'DIFFER'}")
-        if dtype == "float32":
-            need(same, "fp32 full-width greedy tokens differ card vs CPU")
-        elif not same:
-            # bf16 logits carry ~2**-8 relative rounding, so two
-            # near-tied tokens may swap; hold the card's first token to
-            # the CPU's logits instead
-            first = [c[0] for c in gpu]
-            top = lg_cpu.max(-1).values
-            pick = lg_cpu[torch.arange(BATCH), torch.as_tensor(first)]
-            need(bool(((top - pick) <= atol + rtol * top.abs()).all()),
-                 "bf16 card token is not a near-argmax of the CPU logits")
-    say(tag, f"{arch} full width, 2 of {full.n_layers} layers (depth cut to "
-             f"fit the CPU side), {time.perf_counter() - t0:.1f} s ok")
-    del params, params_cpu
-    torch.cuda.empty_cache()
 
 
 def phase_serve(torch, np) -> dict:
@@ -1684,8 +1703,9 @@ def profile_long_prefill(torch, cfg, params, srv, prompt, out,
                          tag: str = "serve") -> None:
     """An observation, no limit: the long-prompt request's prefill and
     decode times (the run counted above), then its prefill once more
-    under torch.profiler, device ms of flash_attention.cu and ntx_gemm.cu
-    (their launches here are not counted)."""
+    under torch.profiler, device ms by kernel family (its launches here
+    are not counted); returns the groups, or None when the profiler saw
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
     card = card_line()
     say(tag, f"long prompt {LONG_PROMPT} + {LONG_NEW} new tokens (batch 1, "
@@ -1703,12 +1723,13 @@ def profile_long_prefill(torch, cfg, params, srv, prompt, out,
     split = kernel_split(prof.key_averages(), KERNEL_GROUPS)
     if split is None:
         say(tag, "profiler saw no device time: long prefill not measured")
-        return
+        return None
     busy, by_group, _ = split
     groups = {k: (round(v[0], 3), v[1]) for k, v in by_group.items()}
     say(tag, f"profiled long prefill: wall {wall_ms:.2f} ms (profiler on) | "
              f"device busy {busy:.2f} ms | kernels by group (ms, launches) "
              f"{groups} | card {card}")
+    return by_group
 
 
 def profile_decode_step(torch, np, cfg, params, prompts,
@@ -1836,6 +1857,310 @@ def phase_deepseek(torch, np) -> dict:
     profile_long_prefill(torch, cfg, params, long_srv, long_prompt,
                          long_out, "deepseek")
     profile_decode_step(torch, np, cfg, params, prompts, "deepseek")
+    del params
+    gc_collect(torch)
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phases 15 / 16: serving mamba2-1.3b and jamba-v0.1-52b (SSM and hybrid)
+# ----------------------------------------------------------------------
+def serve_and_decode(torch, model, params, tokens, steps, replay=None,
+                     starts=None):
+    """Prefill ``tokens`` then decode ``steps`` (each (b, 1) tokens, the
+    same on both devices), under a :class:`RouteLog`: (the prefill logits
+    and each step's last-position logits, host copies of the cache after
+    the prefill and after each step, the log). With ``starts`` (another
+    run's copies) each step first takes that run's cache, so both devices
+    decode every step from the same bytes: the bf16 conv tails and keys
+    round values that agree to ~1e-6, and may land one bf16 ulp apart at
+    every step."""
+    dev = tokens.device
+    host = lambda cache: [{k: v.detach().to("cpu", torch.float32,
+                                            copy=True)
+                           for k, v in c.items()} for c in cache]
+    with RouteLog(torch, params, replay) as log, torch.inference_mode():
+        logits, cache, fill = model.prefill(params, {"tokens": tokens},
+                                            cache_len=MAX_SEQ)
+        out, caches = [logits.float().cpu()], [host(cache)]
+        for i, tok in enumerate(steps):
+            for c, c0 in zip(cache, starts[i] if starts else ()):
+                for k, v in c.items():
+                    v.copy_(c0[k])
+            logits, cache = model.decode(params, tok.to(dev), cache, fill)
+            fill += 1
+            out.append(logits[:, -1].float().cpu())
+            caches.append(host(cache))
+    return out, caches, log
+
+
+def phase_width(torch, np, arch: str = "llama3-8b",
+                tag: str = "width") -> None:
+    """``arch`` at full width, depth cut to 2 layers, on the card and on
+    the CPU with the same weights and tokens: prefill logits, every cache
+    leaf (attention keys and values or MLA's latents; the SSM state and
+    conv tails) after the prefill and after each of WIDTH_STEPS decode
+    steps, and each step's logits, in fp32 and in bf16 compute; the CPU
+    decodes each step from the card's cache. With MoE layers the CPU
+    replays the card's expert choices (fp32: its own router must agree;
+    bf16: near-ties only, ``ROUTER_TIE``). fp32 at 1e-3 (the bf16 cache
+    leaves, one bf16 rounding of fp32 values, at 1e-2); bf16 at 2e-2 /
+    6e-2, about twice the worst card-vs-CPU logit error measured on an
+    H100 (3.1e-2 absolute on logits of order 1; see PERF.md). The SSM
+    state by its relative L2 error (SSM_STATE_L2): each element sums
+    decayed terms of either sign, so where bf16 inputs round one ulp
+    apart on the two devices its error scales with the sum of its terms'
+    sizes, not with its own size."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import layer_schedule
+
+    full = configs.get(arch)
+    base = full.scaled(n_layers=2)
+    t0 = time.perf_counter()
+    params = Model(base).init(0, device=DEVICE)
+    params_cpu = copy.deepcopy(params).to("cpu")
+    tokens = torch.as_tensor(np.stack(prompts_for(base, np)),
+                             dtype=torch.long)
+    steps = torch.as_tensor(np.random.default_rng(5).integers(
+        0, base.vocab, (WIDTH_STEPS, BATCH, 1)), dtype=torch.long)
+    kinds = layer_schedule(base)[0]
+    for dtype, rtol, atol in (("float32", 1e-3, 1e-3),
+                              ("bfloat16", 2e-2, 6e-2)):
+        cfg = base.scaled(compute_dtype=dtype)
+        lg, cg, rg = serve_and_decode(torch, Model(cfg), params,
+                                      tokens.to(DEVICE), steps)
+        lc, cc, rc = serve_and_decode(torch, Model(cfg), params_cpu,
+                                      tokens, steps, replay=rg, starts=cg)
+        if cfg.moe:
+            check_routing(tag, dtype, rg, rc)
+        worst = {}
+
+        def close(key, got, want, rt, at, l2=None):
+            d = (got - want).abs()
+            ok = bool(torch.isfinite(got).all())
+            if l2 is None:
+                ok &= bool((d <= at + rt * want.abs()).all())
+                rel = 0.0
+            else:
+                rel = float(d.norm() / want.norm().clamp_min(1e-30))
+                ok &= rel <= l2
+            err = float(d.max()) if d.numel() else 0.0
+            prev = worst.get(key, (0.0, 0.0, 0.0, True))
+            worst[key] = (max(prev[0], err), max(prev[1], rel),
+                          max(prev[2], float(want.abs().max())),
+                          prev[3] and ok)
+        for i, (g, c) in enumerate(zip(lg, lc)):
+            close("prefill logits" if i == 0 else "decode logits", g, c,
+                  rtol, atol)
+        for snap_g, snap_c in zip(cg, cc):
+            for layer_g, layer_c in zip(snap_g, snap_c):
+                for k in layer_g:
+                    tail = dtype == "float32" and k != "s"
+                    close(f"cache {k}", layer_g[k], layer_c[k],
+                          1e-2 if tail else rtol, 1e-2 if tail else atol,
+                          SSM_STATE_L2[dtype] if k == "s" else None)
+        msg = " | ".join(
+            f"{k} {e:.3e}" + (f" (rel L2 {r:.3e} <= "
+                              f"{SSM_STATE_L2[dtype]:g}, max|s| {m:.3e})"
+                              if k == "cache s" else "")
+            + f" {'ok' if ok else 'FAIL'}"
+            for k, (e, r, m, ok) in worst.items())
+        say(tag, f"{dtype} card vs CPU max_abs_err (prefill, "
+                 f"{WIDTH_STEPS} decode steps, caches): {msg}")
+        need(all(ok for *_, ok in worst.values()),
+             f"{tag}: {dtype} card and CPU disagree")
+    say(tag, f"{arch} full width, 2 of {full.n_layers} layers ({kinds}), "
+             f"{time.perf_counter() - t0:.1f} s ok")
+    del params, params_cpu
+    gc_collect(torch)
+
+
+def continuation_check(torch, np, arch: str, tag: str) -> None:
+    """On the card, decode continues the prefill (the mirror of the
+    reference's test_ssm_decode_matches_prefill_continuation): 2 layers
+    at full width in fp32 compute, token s + 1 decoded from an s-token
+    prefill (the conv tails cached in bf16) against an (s + 1)-token
+    prefill, at the reference's 2e-2, for s 16 (inside the first chunk)
+    and 128 (one whole chunk carried into the state)."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    cfg = configs.get(arch).scaled(n_layers=2, compute_dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device=DEVICE)
+    rng = np.random.default_rng(4)
+    for s in (16, 128):
+        t = torch.as_tensor(rng.integers(0, cfg.vocab, (1, s + 1)),
+                            device=DEVICE)
+        with torch.inference_mode():
+            full, _, _ = model.prefill(params, {"tokens": t},
+                                       cache_len=s + 8)
+            _, cache, fill = model.prefill(params, {"tokens": t[:, :s]},
+                                           cache_len=s + 8)
+            step, _ = model.decode(params, t[:, s:], cache, fill)
+        d = (full - step[:, 0]).abs()
+        ok = bool((d <= 2e-2 + 2e-2 * full.abs()).all())
+        say(tag, f"decode after a {s}-token prefill vs a {s + 1}-token "
+                 f"prefill (fp32, 2 layers): max_abs_err "
+                 f"{float(d.max()):.3e} (rtol 2e-2 atol 2e-2) "
+                 f"{'ok' if ok else 'FAIL'}")
+        need(ok, f"{tag}: decode does not continue the prefill at {s}")
+    del params
+    gc_collect(torch)
+
+
+def serve_runs(torch, np, cfg, params, tag: str, long: bool) -> tuple:
+    """Server.generate at phase 5's sizes, greedy and at temperature 0.8,
+    and (``long``) one LONG_PROMPT-token prompt with LONG_NEW new tokens,
+    with the launch counts (every Mamba-2 layer's prefill launches the
+    state route: a layer that took a plain version would leave the count
+    short) and the peak memory of that run; then the prefill under
+    torch.profiler (the long prompt's, or the batch's), which must launch
+    ssd_scan.cu's three kernels once per Mamba-2 layer, and one decode
+    step by kernel family. Returns (the launch counts, the peak)."""
+    import importlib
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeConfig, Server
+    dispatch = importlib.import_module("repro_torch.core.dispatch")
+    prompts = prompts_for(cfg, np)
+    card = card_line()
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    dispatch.reset_engine_fallbacks()
+    for name, temp in (("greedy", 0.0), ("temperature", 0.8)):
+        runs[name] = Server(cfg, params, ServeConfig(
+            max_seq=MAX_SEQ, max_new_tokens=NEW_TOKENS, eos_token=-1,
+            temperature=temp)).generate(prompts)
+    if long:
+        long_prompt = np.random.default_rng(1).integers(0, cfg.vocab,
+                                                        LONG_PROMPT)
+        long_srv = Server(cfg, params, ServeConfig(
+            max_seq=LONG_SEQ, max_new_tokens=LONG_NEW, eos_token=-1))
+        runs["long"] = long_srv.generate([long_prompt])
+    counts = ops.launches()
+    fallbacks = dispatch.engine_fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    n_ssm = sum(not cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    n_prefills = len(runs)
+    for name, out in runs.items():
+        comp = out["completions"]
+        n_req, n_new = (1, LONG_NEW) if name == "long" else (BATCH,
+                                                             NEW_TOKENS)
+        need(len(comp) == n_req and all(
+            len(c) == n_new and all(0 <= t < cfg.padded_vocab for t in c)
+            for c in comp), f"{tag} {name}: completions malformed")
+        say(tag, f"{name}: prefill {out['prefill_s'] * 1e3:.2f} ms | decode "
+                 f"{out['decode_tok_per_s']:.2f} tok/s | req0 {comp[0]} | "
+                 f"card {card}")
+    say(tag, f"peak memory {peak / 1e9:.2f} GB | kernel launches {counts} "
+             f"| engine_fallbacks {fallbacks} | card {card}")
+    need(counts["ssd_state"] == n_ssm * n_prefills,
+         f"{tag}: {counts['ssd_state']} state-route launches for "
+         f"{n_prefills} prefills of {n_ssm} Mamba-2 layers")
+    need(counts["ssd"] == 0 and counts["ssd_bwd"] == 0,
+         f"{tag}: serving ran ops.ssd")
+    for wrapper in ("reduce", "chain_reduce") + (
+            ("gemm", "attention") if cfg.family == "hybrid" else ()):
+        need(counts[wrapper] > 0, f"{tag}: {wrapper} kernel never launched")
+    need(fallbacks == 0, f"{fallbacks} descriptors fell back to the engine")
+    if long:
+        by_group = profile_long_prefill(torch, cfg, params, long_srv,
+                                        long_prompt, runs["long"], tag)
+    else:
+        by_group = profile_prefill(torch, np, cfg, params, prompts, tag)
+    if by_group is not None:
+        need(by_group["ssd_scan.cu"][1] == 3 * n_ssm,
+             f"{tag}: the profiled prefill launched "
+             f"{by_group['ssd_scan.cu'][1]} ssd_scan.cu kernels, not 3 a "
+             f"Mamba-2 layer ({n_ssm})")
+    profile_decode_step(torch, np, cfg, params, prompts, tag)
+    return counts, peak
+
+
+def profile_prefill(torch, np, cfg, params, prompts, tag: str):
+    """The batch's prefill once more under torch.profiler: device ms by
+    kernel family (its launches are not counted); the groups, or None
+    when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import Model
+    tokens = torch.as_tensor(np.stack(prompts), device=DEVICE)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            Model(cfg).prefill(params, {"tokens": tokens}, cache_len=MAX_SEQ)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    split = kernel_split(prof.key_averages(), KERNEL_GROUPS)
+    if split is None:
+        say(tag, "profiler saw no device time: prefill not measured")
+        return None
+    busy, by_group, _ = split
+    say(tag, f"profiled prefill ({len(prompts)} x {PROMPT_LEN}): wall "
+             f"{wall_ms:.2f} ms (profiler on) | device busy {busy:.2f} ms | "
+             f"kernels by group (ms, launches) "
+             f"{ {k: (round(v[0], 3), v[1]) for k, v in by_group.items()} }"
+             f" | card {card_line()}")
+    return by_group
+
+
+def phase_mamba2(torch, np) -> dict:
+    """mamba2-1.3b serving: the 2-layer full-width check card vs CPU
+    (prefill, caches, decode steps), decode continuing the prefill on the
+    card, then Server.generate on all 48 layers (bf16, Model.init(0)) at
+    phase 5's sizes and one 2048-token prompt, with launch counts and the
+    profiled long prefill and decode step."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    gc_collect(torch)
+    phase_width(torch, np, MAMBA2, "mamba2 width")
+    continuation_check(torch, np, MAMBA2, "mamba2 width")
+    cfg = configs.get(MAMBA2)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("mamba2", f"{MAMBA2} {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+                  f"params bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} "
+                  f"GB), init {time.perf_counter() - t0:.1f} s")
+    counts, _ = serve_runs(torch, np, cfg, params, "mamba2", long=True)
+    del params
+    gc_collect(torch)
+    return counts
+
+
+def phase_jamba(torch, np) -> dict:
+    """jamba-v0.1-52b serving: the 2-layer full-width check (ssm_mlp,
+    ssm_moe) card vs CPU with the CPU replaying the card's routing, then
+    Server.generate at full width cut to JAMBA_SERVE_LAYERS of 32 (bf16,
+    Model.init(0)) at phase 5's sizes, the cut's peaks (the init's and
+    the serving run's) leaving at least HEADROOM_BYTES of the card free,
+    with launch counts and the profiled prefill and decode step."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    gc_collect(torch)
+    phase_width(torch, np, JAMBA, "jamba width")
+    full = configs.get(JAMBA)
+    cfg = full.scaled(n_layers=JAMBA_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = Model(cfg).init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("jamba", f"{JAMBA} cut: {cfg.n_layers} of {full.n_layers} layers at "
+                 f"full width, {n_params / 1e9:.3f} B params bf16 "
+                 f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), init "
+                 f"{time.perf_counter() - t0:.1f} s")
+    # the init's transient counts: each expert tensor is drawn in fp32
+    # (3.76 GB) before its bf16 copy is made
+    card_memory_ok(torch, init_peak, "jamba", f"initialising {cfg.n_layers} "
+                                              f"of {full.n_layers} layers")
+    counts, peak = serve_runs(torch, np, cfg, params, "jamba", long=False)
+    card_memory_ok(torch, peak, "jamba", f"serving {cfg.n_layers} of "
+                                         f"{full.n_layers} layers")
     del params
     gc_collect(torch)
     return counts
@@ -2003,6 +2328,7 @@ KERNEL_GROUPS = {
     "flash_attention.cu": ("flash_tc", "flash_f32", "flash_merge"),
     "ntx_stream.cu": ("stream_flat", "stream_chunk_kernel",
                       "stream_merge_kernel"),
+    "ssd_scan.cu": ("ssd_state_", "ssd_carry", "ssd_out_"),
     "cuBLAS": CUBLAS_KEYS}
 
 
@@ -3095,6 +3421,7 @@ def phase_policies(torch, np) -> tuple:
 
 
 def main(argv=None) -> int:
+    global ONLY
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default=",".join(map(str, sorted(ALL_PHASES))),
@@ -3108,7 +3435,6 @@ def main(argv=None) -> int:
                          "commit's, on the same card)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    global ONLY
     ONLY = tuple(p for p in args.only.split(",") if p)
 
     import numpy as np
@@ -3185,13 +3511,17 @@ def main(argv=None) -> int:
             counts["deepseek_train"] = phase_deepseek_train(torch, np)
         if 14 in phases:
             counts["phi35"], counts["phi35_train"] = phase_phi35(torch, np)
+        if 15 in phases:
+            counts["mamba2_serve"] = phase_mamba2(torch, np)
+        if 16 in phases:
+            counts["jamba"] = phase_jamba(torch, np)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     say("done", f"phases {sorted(phases)} passed in "
                 f"{time.perf_counter() - t_start:.1f} s, the build included")
 
-    if {3, 5, 7, 8, 9, 11, 12, 13, 14} <= phases:
+    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

@@ -60,10 +60,10 @@ _SIGNATURES = {
     #  tail, red, red_int, chunk, counters, part, stream)
     "ntx_stream": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
                    _I, _I, _P, _P, _P],
-    # (x, dt, A, B, C, y, S, dec, b, l, h, dh, n, chunk, bf16, lp, np,
-    #  dtile, heads, stream)
-    "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _P],
+    # (x, dt, A, B, C, y, S, dec, S_final, b, l, h, dh, n, chunk, bf16,
+    #  lp, np, dtile, heads, stream)
+    "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _P],
     # (img, ker, out, h, w, kh, kw, in_bf16, tx, ty, rpt, ci, cj, blocks,
     #  stream)
     "ntx_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

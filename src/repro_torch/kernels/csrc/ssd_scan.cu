@@ -452,7 +452,10 @@ ssd_state_f32(const float* __restrict__ x, const float* __restrict__ dt,
 // ---------------------------------------------------------------------
 // A thread carries V (float4 when n * dh is a multiple of 4, else float)
 // of one (batch, head)'s state through the chunks, loading kCarryBatch
-// chunks' contributions before it stores their states.
+// chunks' contributions before it stores their states; with S_final it
+// then stores the state after the last chunk, by the same carry1. A
+// ragged last chunk ends at its last real row: pass 1 zero-fills dt past
+// l, so exp(la_L) and exp(la_L - la_s) stop there.
 constexpr int kCarryBatch = 8;
 
 __device__ __forceinline__ float carry1(float dec, float s, float d) {
@@ -465,8 +468,8 @@ __device__ __forceinline__ float4 carry1(float dec, float4 s, float4 d) {
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-ssd_carry(float* __restrict__ S, const float* __restrict__ dec, int H, int nc,
-          int nd) {
+ssd_carry(float* __restrict__ S, const float* __restrict__ dec,
+          float* __restrict__ S_final, int H, int nc, int nd) {
   constexpr int kW = sizeof(V) / sizeof(float);
   const int e = kW * (blockIdx.x * kThreads + threadIdx.x);
   if (e >= nd) return;
@@ -492,6 +495,9 @@ ssd_carry(float* __restrict__ S, const float* __restrict__ dec, int H, int nc,
       }
     }
   }
+  // the state after the last chunk: prefill hands it to decode
+  if (S_final)
+    *reinterpret_cast<V*>(S_final + ((size_t)b * H + h) * nd + e) = s;
 }
 
 // ---------------------------------------------------------------------
@@ -840,14 +846,16 @@ extern "C" {
 // contiguous on the device, x, B and C 16-byte aligned; x, B, C, y all
 // fp32 (is_bf16 = 0) or all bf16. S: (b, ceil(l / chunk), h, n, dh) fp32
 // scratch (ends holding the state entering each chunk); dec: (b, nc, h)
-// fp32 scratch. The plan: lp = chunk rounded up to 16 (bf16) or 32
-// (fp32), at most 128; np = n rounded up to 16; dtile, the head-dim
-// columns of a block, 16/32/64/128 (bf16) or 32/64/128 (fp32); heads per
-// block 1..64; each pass's shared memory at most 227 KB. Three launches.
+// fp32 scratch; S_final: null, or (b, h, n, dh) fp32, 16-byte aligned,
+// which receives the state after the last chunk. The plan: lp = chunk
+// rounded up to 16 (bf16) or 32 (fp32), at most 128; np = n rounded up
+// to 16; dtile, the head-dim columns of a block, 16/32/64/128 (bf16) or
+// 32/64/128 (fp32); heads per block 1..64; each pass's shared memory at
+// most 227 KB. Three launches.
 int ntx_ssd_scan(const void* x, const void* dt, const void* A, const void* B,
-                 const void* C, void* y, void* S, void* dec, int b, int l,
-                 int h, int dh, int n, int chunk, int is_bf16, int lp, int np,
-                 int dtile, int heads, void* stream) {
+                 const void* C, void* y, void* S, void* dec, void* S_final,
+                 int b, int l, int h, int dh, int n, int chunk, int is_bf16,
+                 int lp, int np, int dtile, int heads, void* stream) {
   if (b < 0 || l < 0 || h < 0 || dh <= 0 || n <= 0 || chunk <= 0 ||
       chunk > kMaxChunk)
     return (int)cudaErrorInvalidValue;
@@ -871,6 +879,7 @@ int ntx_ssd_scan(const void* x, const void* dt, const void* A, const void* B,
   const dim3 grid(nc, b, tiles);
   float* Sf = static_cast<float*>(S);
   float* decf = static_cast<float*>(dec);
+  float* finf = static_cast<float*>(S_final);
   cudaError_t err;
 
   if (is_bf16) {
@@ -894,10 +903,10 @@ int ntx_ssd_scan(const void* x, const void* dt, const void* A, const void* B,
   const int nd = n * dh;
   if (nd % 4 == 0)
     ssd_carry<float4><<<dim3((nd / 4 + kThreads - 1) / kThreads, h, b),
-                        kThreads, 0, s>>>(Sf, decf, h, nc, nd);
+                        kThreads, 0, s>>>(Sf, decf, finf, h, nc, nd);
   else
     ssd_carry<float><<<dim3((nd + kThreads - 1) / kThreads, h, b), kThreads,
-                       0, s>>>(Sf, decf, h, nc, nd);
+                       0, s>>>(Sf, decf, finf, h, nc, nd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -21,12 +21,12 @@ flash backward kernel (``csrc/flash_attention_bwd.cu``) from the
 forward's row log-sum-exp; the MLP's backward runs every product on the
 ``ntx_gemm`` kernel and the activation's derivative on
 ``csrc/ntx_act_bwd.cu``; the SSD's is PyTorch autograd of the masked
-chunked form. ``gemm`` called directly, the streaming commands, conv and
-the stencils have no backward (the reference has none for conv, the
-stencil pass or the compensated GEMM either, and no training path calls
-the others), so their CUDA routes raise under autograd rather than
-return results that no gradient reaches; their CPU routes are plain
-PyTorch and differentiate as such.
+chunked form. ``gemm`` called directly, ``ssd_with_state`` (prefill),
+the streaming commands, conv and the stencils have no backward (the
+reference has none for conv, the stencil pass or the compensated GEMM
+either, and no training path calls the others), so their CUDA routes
+raise under autograd rather than return results that no gradient
+reaches; their CPU routes are plain PyTorch and differentiate as such.
 """
 from __future__ import annotations
 
@@ -50,11 +50,14 @@ from .ntx_stencil import (LAPLACE_TAPS, as_blocks, laplace_cuda,
                           laplace_plain, laplace_shape, stencil1d_cuda,
                           stencil1d_plain)
 from .ntx_reduce import REDUCE_OPS, chain_reduce_plain, reduce_plain
-from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from .ssd_scan import (ssd_scan_cuda, ssd_scan_plain,
+                       ssd_scan_with_state_plain)
 
 #: kernel launches per wrapper since the last :func:`reset_launches`;
 #: ``ssd`` counts calls of the scan, each three kernels of
-#: ``csrc/ssd_scan.cu`` (state, carry, output passes); ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
+#: ``csrc/ssd_scan.cu`` (state, carry, output passes), ``ssd_state`` the
+#: calls of the same three that also store the final state (prefill);
+#: ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
 #: not a kernel of this package yet); ``laplace`` counts the fused Laplace
 #: launches (one per ``laplace`` call of 1-3 dimensions), ``stencil`` the
 #: per-axis passes; ``attention_merge`` counts the split-kv merge launched
@@ -67,8 +70,8 @@ LAUNCHES = {"gemm": 0, "gemm_kahan": 0, "attention": 0,
             "attention_merge": 0, "attention_bwd": 0, "act_bwd": 0,
             "elementwise": 0,
             "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0,
-            "ssd": 0, "ssd_bwd": 0, "adamw": 0, "conv2d": 0, "stencil": 0,
-            "laplace": 0}
+            "ssd": 0, "ssd_state": 0, "ssd_bwd": 0, "adamw": 0, "conv2d": 0,
+            "stencil": 0, "laplace": 0}
 
 
 def reset_launches() -> None:
@@ -100,16 +103,19 @@ def _tracked(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _no_backward(name: str, *tensors) -> None:
+_NO_TRAINING_PATH = (
+    "no training path does: dense training differentiates ops.fused_mlp "
+    "and ops.attention, whose backward kernels run every product on the "
+    "card; ROADMAP: ops.gemm's direct backward")
+
+
+def _no_backward(name: str, *tensors, why: str = _NO_TRAINING_PATH):
     """Raise where a kernel without a backward would be launched on a
     tensor that autograd tracks: its gradient would silently be lost."""
     if _tracked(*tensors):
         raise NotImplementedError(
-            f"the {name} kernel has no backward when called directly (no "
-            f"training path does: dense training differentiates "
-            f"ops.fused_mlp and ops.attention, whose backward kernels run "
-            f"every product on the card; ROADMAP: ops.gemm's direct "
-            f"backward); run it under torch.no_grad() or on CPU tensors")
+            f"the {name} kernel has no backward when called directly "
+            f"({why}); run it under torch.no_grad() or on CPU tensors")
 
 
 # ----------------------------------------------------------------------
@@ -590,6 +596,21 @@ def ssd(x, dt, A, B, C, chunk: int = 64,
     for the tensor cores)."""
     del work_dtype
     return _SSD.apply(x, dt, A, B, C, chunk)
+
+
+def ssd_with_state(x, dt, A, B, C, chunk: int = 64):
+    """The SSD scan that prefill runs: (y, the recurrent state after the
+    last step, (b, h, n, dh) fp32), which decode continues from. The
+    kernel's y is bit-equal to :func:`ssd`'s; the state comes from its
+    carry pass. The kernel has no backward: prefill runs under inference
+    mode, and training differentiates :func:`ssd`."""
+    if not _on_card(x, dt, A, B, C):
+        return ssd_scan_with_state_plain(x, dt, A, B, C, chunk=chunk)
+    _no_backward("ssd_with_state", x, dt, A, B, C,
+                 why="prefill runs it under inference mode; training "
+                     "differentiates ops.ssd")
+    LAUNCHES["ssd_state"] += 1
+    return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, final_state=True)
 
 
 # ----------------------------------------------------------------------

@@ -116,37 +116,63 @@ def scan_plan(b: int, l: int, h: int, dh: int, n: int, chunk: int,
                    d_tiles=-(-dh // dtile), smem_state=state, smem_out=out)
 
 
+def _padded_f32(x, dt, A, B, C, chunk: int):
+    """The operands in fp32, a ragged tail padded with dt = 0 and x = 0
+    (B and C with 0): a padded step decays by exp(0) = 1 and adds 0, so
+    it changes neither the earlier outputs (the scan is causal) nor the
+    state."""
+    xf, dtf, Af, Bf, Cf = (t.float() for t in (x, dt, A, B, C))
+    pad = -x.shape[1] % chunk
+    if pad:
+        F = torch.nn.functional
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf, Cf = F.pad(Bf, (0, 0, 0, pad)), F.pad(Cf, (0, 0, 0, pad))
+    return xf, dtf, Af, Bf, Cf
+
+
 def ssd_scan_plain(x, dt, A, B, C, chunk: int = 64) -> torch.Tensor:
     """Plain version of what ``_ssd_kernel`` computes, in fp32 throughout:
     the masked chunked form ``ref.ssd_scan_chunked`` (all chunks at once,
     the state carried from chunk to chunk, the decay exponent masked to
     -inf above the diagonal before ``exp``). A ragged tail is padded with
-    dt = 0 and x = 0, which adds nothing to the earlier steps (the scan
-    is causal), and cut off again. ``ops.ssd``'s backward is autograd of
-    this function.
+    dt = 0 and x = 0 and cut off again. ``ops.ssd``'s backward is
+    autograd of this function.
 
     x: (b, l, h, dh); dt: (b, l, h); A: (h,); B/C: (b, l, n). Returns y
     (b, l, h, dh) in ``x.dtype``."""
     l = x.shape[1]
     if l == 0:
         return torch.empty_like(x)
-    xf, dtf, Af, Bf, Cf = (t.float() for t in (x, dt, A, B, C))
-    pad = -l % chunk
-    if pad:
-        F = torch.nn.functional
-        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
-        dtf = F.pad(dtf, (0, 0, 0, pad))
-        Bf, Cf = F.pad(Bf, (0, 0, 0, pad)), F.pad(Cf, (0, 0, 0, pad))
-    y = ref.ssd_scan_chunked(xf, dtf, Af, Bf, Cf, chunk=chunk)
+    y = ref.ssd_scan_chunked(*_padded_f32(x, dt, A, B, C, chunk),
+                             chunk=chunk)
     return y[:, :l].to(x.dtype)
 
 
+def ssd_scan_with_state_plain(x, dt, A, B, C, chunk: int = 64):
+    """Plain version of the kernel with its final-state output: the
+    masked chunked form on the padded length
+    (``ref.ssd_scan_chunked_with_state``), returning y (b, l, h, dh) in
+    ``x.dtype`` and the state after the last real step, (b, h, n, dh)
+    fp32 (zeros for l = 0)."""
+    b, l, h, dh = x.shape
+    if l == 0:
+        return torch.empty_like(x), torch.zeros(
+            b, h, B.shape[-1], dh, dtype=torch.float32, device=x.device)
+    y, s = ref.ssd_scan_chunked_with_state(
+        *_padded_f32(x, dt, A, B, C, chunk), chunk=chunk)
+    return y[:, :l].to(x.dtype), s
+
+
 def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 64,
-                  plan: SSDPlan | None = None) -> torch.Tensor:
+                  plan: SSDPlan | None = None, final_state: bool = False):
     """Launch ``csrc/ssd_scan.cu`` (three kernels). x: (b, l, h, dh) fp32
     or bf16; B/C (b, l, n) in x's dtype; dt (b, l, h) and A (h,) fp32.
-    ``plan`` defaults to :func:`scan_plan`; another plan is passed only to
-    test that the kernel refuses it, the ``ops`` entry point never does."""
+    Returns y, or with ``final_state`` (y, the state after the last step,
+    (b, h, n, dh) fp32), which the carry pass stores as it ends; y is the
+    same either way. ``plan`` defaults to :func:`scan_plan`; another plan
+    is passed only to test that the kernel refuses it, the ``ops`` entry
+    point never does."""
     b, l, h, dh = x.shape
     n = B.shape[-1]
     if tuple(dt.shape) != (b, l, h) or tuple(A.shape) != (h,) or \
@@ -170,11 +196,16 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 64,
     # state entering each chunk; and exp(la_L) per chunk and head
     S = torch.empty((b, nc, h, n, dh), dtype=torch.float32, device=x.device)
     dec = torch.empty((b, nc, h), dtype=torch.float32, device=x.device)
+    # the kernel writes no state for l = 0: the state is then zero
+    s_final = ((torch.empty if l else torch.zeros)(
+        (b, h, n, dh), dtype=torch.float32, device=x.device)
+        if final_state else None)
     with _build.on_device(x):
         code = _build.library().ntx_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), S.data_ptr(), dec.data_ptr(), b, l,
-            h, dh, n, chunk, int(bf16), p.lp, p.np, p.dtile, p.heads,
+            C.data_ptr(), y.data_ptr(), S.data_ptr(), dec.data_ptr(),
+            None if s_final is None else s_final.data_ptr(), b, l, h, dh, n,
+            chunk, int(bf16), p.lp, p.np, p.dtile, p.heads,
             _build.stream_of(x))
     _build.check(code, "ntx_ssd_scan")
-    return y
+    return y if s_final is None else (y, s_final)

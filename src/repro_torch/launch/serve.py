@@ -2,12 +2,17 @@
 
 Serves random-init weights (``Model.init(0)``) of the reduced config, or
 of the full config with ``--full``, on the card (``--device cpu`` runs
-the plain PyTorch versions of the kernels instead). ``--set`` overrides
-config fields; phi3.5-moe-42b's 41.9 B parameters (83.7 GB in bf16) do
-not fit one 80 GB card, so serve it cut:
+the plain PyTorch versions of the kernels instead). Every family serves
+through the same ``Server``: the SSM and hybrid caches hold each Mamba-2
+layer's fp32 state beside its conv tails, and prefill takes the state
+from the SSD kernel. ``--set`` overrides config fields; a model larger
+than one 80 GB card serves cut in depth:
 
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --full
     python -m repro_torch.launch.serve --arch phi3.5-moe-42b --full \\
-        --set n_layers=28
+        --set n_layers=28          # 41.9 B parameters, 83.7 GB in bf16
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --full \\
+        --set n_layers=23          # 32 layers: 51.5 B, 102.9 GB in bf16
 """
 import argparse
 import sys

@@ -1,5 +1,6 @@
 """Unified model API for the ported families (dense decoders, MLA / MoE
-decoders and the Mamba-2 stack), the counterpart of ``repro.models.api``:
+decoders, the Mamba-2 stack and the hybrid), the counterpart of
+``repro.models.api``:
 
     model = Model(cfg)
     params = model.init(seed, device="cuda", trainable=True)
@@ -8,8 +9,8 @@ decoders and the Mamba-2 stack), the counterpart of ``repro.models.api``:
     cache = model.init_cache(batch_size, seq_len)
     logits, cache = model.decode(params, tokens, cache, fill)
 
-Work runs on the device the parameters and tokens are on. Serving takes
-the attention families (SSM serving: ROADMAP queue 1, item 10).
+Work runs on the device the parameters and tokens are on; every family
+serves and trains.
 """
 from __future__ import annotations
 

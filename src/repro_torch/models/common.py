@@ -1,6 +1,6 @@
 """Shared model components of the ported families (the dense decoder,
-MLA / MoE and Mamba-2): config, RMSNorm, RoPE, the MLP, the embeddings,
-the cross-entropy and activation recomputation.
+MLA / MoE, Mamba-2 and the hybrid): config, RMSNorm, RoPE, the MLP, the
+embeddings, the cross-entropy and activation recomputation.
 
 Counterpart of ``repro.models.common`` (those parts only). Parameters
 are ``nn.Module``s whose tensors keep the reference's layouts
@@ -136,13 +136,18 @@ class ArchConfig:
 
 def check_ported(cfg: ArchConfig) -> None:
     """This package runs the dense GQA decoder, the attention-free Mamba-2
-    stack (``family == "ssm"``) and MLA / MoE decoders (deepseek-v2);
-    ROADMAP slice D brings the other families (hybrid, enc-dec, VLM)."""
-    ssm_family = cfg.family == "ssm"
+    stack (``family == "ssm"``), MLA / MoE decoders (deepseek-v2) and the
+    hybrid family (jamba: Mamba-2 and GQA layers on a period, dense and
+    MoE FFNs); ROADMAP slice D brings the others (enc-dec, VLM)."""
+    ssm_family = cfg.family in ("ssm", "hybrid")
     unsupported = [name for name, on in (
-        ("ssm outside the ssm family", cfg.ssm and not ssm_family),
-        ("ssm family without ssm layers", ssm_family and not cfg.ssm),
-        ("hybrid", bool(cfg.attn_period)), ("mrope", cfg.mrope),
+        ("ssm outside the ssm and hybrid families",
+         cfg.ssm and not ssm_family),
+        ("ssm family without ssm layers",
+         cfg.family == "ssm" and not cfg.ssm),
+        ("attn_period outside the hybrid family",
+         bool(cfg.attn_period) and cfg.family != "hybrid"),
+        ("mrope", cfg.mrope),
         ("encoder_decoder", cfg.encoder_decoder),
         ("n_patches", bool(cfg.n_patches)),
         ("layernorm", cfg.norm != "rmsnorm"),

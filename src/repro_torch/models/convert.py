@@ -4,9 +4,11 @@ back.
 The reference keeps its parameters (and its optimizer state) as a tree
 of arrays stacked per layer kind (``repro/models/transformer.py:
 init_params``): ``tree["layers"]["ssm_none"]["mixer"]["wz"]`` holds the
-``wz`` of every ``ssm_none`` layer along a leading axis. This package
-keeps one module per layer, so ``layers.3.mixer.wz`` is that stack's
-entry 3. :func:`reference_path` maps one name to the other;
+``wz`` of every ``ssm_none`` layer along a leading axis, and a hybrid
+model (jamba) has one such stack per kind (``ssm_mlp``, ``ssm_moe``,
+``attn_mlp``). This package keeps one module per layer, so
+``layers.3.mixer.wz`` is its kind's stack's entry at the layer's index
+within the kind. :func:`reference_path` maps one name to the other;
 :func:`from_reference` builds the modules from a reference tree (numpy
 leaves, any float dtype, bf16 included) and :func:`to_reference` stacks
 named tensors back into the reference's tree, which is what checkpoints
@@ -38,24 +40,26 @@ def from_reference(params, cfg: ArchConfig, device="cuda") -> Transformer:
     sched, _, idx_in_kind = layer_schedule(cfg)
     layers = []
     for kind, i in zip(sched, idx_in_kind):
+        mixer_kind, ffn_kind = kind.split("_")
         stack = params["layers"][kind]
         get = lambda tree, name: _t(tree[name][i], cfg, device)
         mx = stack["mixer"]
         norm1 = Norm(get(stack["norm1"], "scale"))
-        if kind == "ssm_none":
-            layers.append(Block(norm1, SSM(**{k: get(mx, k)
-                                              for k in SSM.NAMES})))
-            continue
-        if cfg.mla:
+        if mixer_kind == "ssm":
+            mixer = SSM(**{k: get(mx, k) for k in SSM.NAMES})
+        elif cfg.mla:
             mixer = MLA(*(get(mx, w) for w in MLA.NAMES))
         else:
             bias = {k: get(mx, k) for k in ("bq", "bk", "bv") if k in mx}
             mixer = GQA(*(get(mx, w) for w in ("wq", "wk", "wv", "wo")),
                         **bias)
+        if ffn_kind == "none":
+            layers.append(Block(norm1, mixer))
+            continue
         ffn = stack["ffn"]
         mlp = lambda tree: MLP(get(tree, "w1"), get(tree, "w2"),
                                get(tree, "w3") if "w3" in tree else None)
-        if kind == "attn_moe":
+        if ffn_kind == "moe":
             ffn_mod = MoE(*(get(ffn, w) for w in ("router", "w1", "w2", "w3")),
                           mlp(ffn["shared"]) if "shared" in ffn else None)
         else:

@@ -1,13 +1,15 @@
 """Mamba-2 block (SSD): projections, causal conv, the SSD scan, gated
 output.
 
-Counterpart of ``repro.models.ssm`` (the training forward). The SSD scan
-runs through ``ops.ssd``: the CUDA kernel on the card, its plain version
-on the CPU. As in the reference, the projections z, x, B, C and dt are
-separate, a width-``d_conv`` depthwise causal conv runs over x, B and C,
-A is a scalar decay per head and the output is RMSNorm-gated. The
-serving half (``return_state``, the recurrent cache, single-token
-decode) comes with the SSM serving slice (ROADMAP queue 1, item 10).
+Counterpart of ``repro.models.ssm``. The SSD scan runs through
+``ops.ssd`` (training) or ``ops.ssd_with_state`` (prefill, which also
+hands the final state to decode): the CUDA kernel on the card, its plain
+version on the CPU. As in the reference, the projections z, x, B, C and
+dt are separate, a width-``d_conv`` depthwise causal conv runs over x, B
+and C, A is a scalar decay per head and the output is RMSNorm-gated.
+Decode is the single-token recurrence in plain PyTorch, as the reference
+computes it outside any kernel, on a cache of the fp32 state and the
+last ``d_conv - 1`` pre-conv rows of x, B and C, updated in place.
 """
 from __future__ import annotations
 
@@ -91,12 +93,11 @@ def _project(cfg: ArchConfig, p: SSM, u: torch.Tensor):
 
 
 def ssm_forward(cfg: ArchConfig, p: SSM, u: torch.Tensor,
-                return_state: bool = False) -> torch.Tensor:
-    """u: (bsz, l, d) -> (bsz, l, d)."""
-    if return_state:
-        raise NotImplementedError(
-            "SSM prefill with a recurrent cache comes with SSM serving "
-            "(ROADMAP queue 1, item 10)")
+                return_state: bool = False):
+    """u: (bsz, l, d) -> (bsz, l, d); with ``return_state`` also the
+    decode cache ``{"s": the state after the last step (bsz, nh, n, dh)
+    fp32, "cx", "cb", "cc": the last d_conv - 1 pre-conv rows of x, B, C
+    (zeros before the first)}``."""
     cdt = cfg.cdtype
     bsz, l, _ = u.shape
     di, nh, dh = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
@@ -107,18 +108,68 @@ def ssm_forward(cfg: ArchConfig, p: SSM, u: torch.Tensor,
     C = _causal_conv(p.conv_c.to(cdt), p.conv_c_b.to(cdt), C_pre)
     A = -torch.exp(p.A_log.float())                             # (nh,)
     xh = x.reshape(bsz, l, nh, dh)
-    y = ops.ssd(xh, dt, A, B, C, chunk=cfg.ssm_chunk, work_dtype=cdt)
+    if return_state:
+        y, state = ops.ssd_with_state(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
+    else:
+        y = ops.ssd(xh, dt, A, B, C, chunk=cfg.ssm_chunk, work_dtype=cdt)
     y = y + p.D.to(cdt)[None, None, :, None] * xh
     y = y.reshape(bsz, l, di)
     y = rmsnorm(y * F.silu(z), p.norm)
-    return y @ p.wo.to(cdt)
+    out = y @ p.wo.to(cdt)
+    if not return_state:
+        return out
+    k = cfg.d_conv
+    tail = lambda t: F.pad(t, (0, 0, k - 1, 0))[:, l:l + k - 1]
+    return out, {"s": state, "cx": tail(x_pre), "cb": tail(B_pre),
+                 "cc": tail(C_pre)}
 
 
 def ssm_init_cache(cfg: ArchConfig, batch: int, dtype, device="cuda"):
-    raise NotImplementedError("the SSM decode cache comes with SSM serving "
-                              "(ROADMAP queue 1, item 10)")
+    """An empty decode cache: the fp32 state and the conv tails in
+    ``dtype``."""
+    nh, n, dh, k = cfg.ssm_heads, cfg.d_state, cfg.ssm_headdim, cfg.d_conv
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt,
+                                                 device=device)
+    return {"s": zeros(batch, nh, n, dh, dt=torch.float32),
+            "cx": zeros(batch, k - 1, cfg.d_inner),
+            "cb": zeros(batch, k - 1, n), "cc": zeros(batch, k - 1, n)}
+
+
+def _conv_step(w: torch.Tensor, b: torch.Tensor,
+               hist: torch.Tensor) -> torch.Tensor:
+    """hist: (bsz, k, c) -> the conv output at the newest position."""
+    return F.silu((hist * w[None]).sum(1) + b)
 
 
 def ssm_decode(cfg: ArchConfig, p: SSM, u: torch.Tensor, cache):
-    raise NotImplementedError("SSM single-token decode comes with SSM "
-                              "serving (ROADMAP queue 1, item 10)")
+    """One recurrent step. u: (bsz, 1, d) -> ((bsz, 1, d), cache): the
+    state advances by s <- exp(dt A) s + dt B (x) x in fp32 and the conv
+    tails shift by one row, both written into ``cache`` in place (the
+    tails cast to its dtype)."""
+    cdt = cfg.cdtype
+    bsz = u.shape[0]
+    di, nh, dh = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
+    u1 = u.to(cdt)[:, 0]
+    z = u1 @ p.wz.to(cdt)
+    hist = [torch.cat([cache[c].to(cdt), (u1 @ w.to(cdt))[:, None]], 1)
+            for c, w in (("cx", p.wx), ("cb", p.wb), ("cc", p.wc))]
+    x, B, C = (_conv_step(w.to(cdt), b.to(cdt), h) for w, b, h in zip(
+        (p.conv_x, p.conv_b, p.conv_c), (p.conv_x_b, p.conv_b_b, p.conv_c_b),
+        hist))
+    dt = softplus((u1 @ p.wdt.to(cdt)).float() + p.dt_bias.float())
+    A = -torch.exp(p.A_log.float())
+    # the recurrence: s <- e^{dt A} s + dt B (outer) x; y = C . s
+    decay = torch.exp(dt * A)                                    # (bsz, nh)
+    xh = x.reshape(bsz, nh, dh).float()
+    upd = dt[..., None] * xh                                     # (bsz,nh,dh)
+    s = decay[..., None, None] * cache["s"] + \
+        B.float()[:, None, :, None] * upd[:, :, None, :]
+    y = torch.einsum("bn,bhnd->bhd", C.float(), s)
+    y = y + p.D.float()[None, :, None] * xh
+    y = y.reshape(bsz, di).to(cdt)
+    y = rmsnorm(y * F.silu(z), p.norm)
+    out = (y @ p.wo.to(cdt))[:, None]
+    cache["s"].copy_(s)
+    for c, h in zip(("cx", "cb", "cc"), hist):
+        cache[c].copy_(h[:, 1:])
+    return out, cache

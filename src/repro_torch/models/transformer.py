@@ -1,15 +1,18 @@
 """The decoder-only LM of the ported families: parameters, the training
-loss, and (attention families) prefill and cache decode.
+loss, prefill and cache decode.
 
-Counterpart of ``repro.models.transformer`` for three layer kinds:
-``attn_mlp`` (dense GQA with an MLP), ``attn_moe`` (MLA or GQA with the
-MoE FFN; deepseek-v2, phi3.5-moe) and ``ssm_none`` (a Mamba-2 mixer
-alone). The
-reference scans over layer stacks stored per kind; here the layers are a
-Python loop over per-layer modules, each wrapped by ``remat_wrap``. The
-cache is a list of per-layer bf16 dicts (bf16 whatever the compute
-dtype, as the reference keeps it), filled in place: ``{"k", "v"}`` for
-GQA, the latent ``{"c_kv", "k_rope"}`` for MLA.
+Counterpart of ``repro.models.transformer`` for its five decoder layer
+kinds, a mixer and an FFN: ``attn_mlp`` (GQA with an MLP), ``attn_moe``
+(MLA or GQA with the MoE FFN; deepseek-v2, phi3.5-moe), ``ssm_none`` (a
+Mamba-2 mixer alone; mamba2), and jamba's ``ssm_mlp`` and ``ssm_moe``,
+which it interleaves with ``attn_mlp`` on a period of 8. The reference
+scans over layer stacks stored per kind; here the layers are a Python
+loop over per-layer modules, each wrapped by ``remat_wrap``. The cache is
+a list of per-layer dicts filled in place: bf16 ``{"k", "v"}`` for GQA,
+the latent ``{"c_kv", "k_rope"}`` for MLA (bf16 whatever the compute
+dtype, as the reference keeps them), and for a Mamba-2 layer the fp32
+state ``{"s"}`` beside the bf16 conv tails ``{"cx", "cb", "cc"}``, which
+have no sequence axis.
 """
 from __future__ import annotations
 
@@ -57,8 +60,8 @@ def layer_schedule(cfg: ArchConfig):
 
 class Block(nn.Module):
     """One layer: norm1 and the mixer (GQA, MLA or Mamba-2), then, for
-    kinds with an FFN (``attn_mlp``, ``attn_moe``), norm2 and the MLP or
-    the MoE. An ``ssm_none`` layer has no norm2 or ffn (both None)."""
+    kinds with an FFN (``*_mlp``, ``*_moe``), norm2 and the MLP or the
+    MoE. A ``ssm_none`` layer has no norm2 or ffn (both None)."""
 
     def __init__(self, norm1: Norm, mixer: nn.Module,
                  norm2: Optional[Norm] = None,
@@ -88,25 +91,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     embed = embed_params(cfg, gen)
     layers = []
     for kind in layer_schedule(cfg)[0]:
+        mixer_kind, ffn_kind = kind.split("_")
         norm1 = norm_params(cfg, cfg.d_model, device)
-        if kind == "ssm_none":
-            layers.append(Block(norm1, ssm_mod.ssm_params(cfg, gen)))
+        if mixer_kind == "ssm":
+            mixer = ssm_mod.ssm_params(cfg, gen)
+        else:
+            mixer = (attn.mla_params(cfg, gen) if cfg.mla
+                     else attn.gqa_params(cfg, gen))
+        if ffn_kind == "none":
+            layers.append(Block(norm1, mixer))
             continue
-        mixer = (attn.mla_params(cfg, gen) if cfg.mla
-                 else attn.gqa_params(cfg, gen))
-        ffn = (moe_mod.moe_params(cfg, gen) if kind == "attn_moe"
+        ffn = (moe_mod.moe_params(cfg, gen) if ffn_kind == "moe"
                else mlp_params(cfg, gen, cfg.d_model, cfg.d_ff))
         layers.append(Block(norm1, mixer,
                             norm_params(cfg, cfg.d_model, device), ffn))
     params = Transformer(embed, layers, norm_params(cfg, cfg.d_model, device))
     return params.requires_grad_(trainable)
-
-
-def _require_attention(cfg: ArchConfig, what: str) -> None:
-    if cfg.ssm:
-        raise NotImplementedError(
-            f"{what} for the ssm family comes with SSM serving (ROADMAP "
-            f"queue 1, item 10)")
 
 
 # ----------------------------------------------------------------------
@@ -120,8 +120,10 @@ def _mixer_forward(cfg: ArchConfig, mixer: nn.Module, h: torch.Tensor, pos):
 
 
 def _apply_ffn(cfg: ArchConfig, layer: Block, x: torch.Tensor, aux):
-    """norm2 and the FFN with its residual: (x, aux + the MoE aux loss;
-    aux None counts from the first MoE layer's)."""
+    """norm2 and the FFN with its residual, if the layer has one: (x, aux
+    + the MoE aux loss; aux None counts from the first MoE layer's)."""
+    if layer.ffn is None:
+        return x, aux
     h = apply_norm(cfg, layer.norm2, x)
     if isinstance(layer.ffn, moe_mod.MoE):
         o, a = moe_mod.apply_moe(cfg, layer.ffn, h)
@@ -136,10 +138,7 @@ def _apply_layer(cfg: ArchConfig, layer: Block, x: torch.Tensor, pos, aux):
         o = ssm_mod.ssm_forward(cfg, layer.mixer, h)
     else:
         o, _ = _mixer_forward(cfg, layer.mixer, h, pos)
-    x = x + o
-    if layer.ffn is None:
-        return x, aux
-    return _apply_ffn(cfg, layer, x, aux)
+    return _apply_ffn(cfg, layer, x + o, aux)
 
 
 def backbone(cfg: ArchConfig, params: Transformer, x: torch.Tensor, pos):
@@ -173,10 +172,15 @@ def loss_fn(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any]):
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int,
                dtype=torch.bfloat16, device="cuda") -> Cache:
-    _require_attention(cfg, "the decode cache")
-    make = attn.mla_init_cache if cfg.mla else attn.gqa_init_cache
-    return [make(cfg, batch, seq, dtype, device)
-            for _ in range(cfg.n_layers)]
+    """Each layer's empty cache by its mixer, as the reference's
+    ``_kind_cache`` builds them (``seq`` slots for attention; a Mamba-2
+    layer's state and conv tails have no sequence axis)."""
+    def one(kind: str):
+        if kind.startswith("ssm"):
+            return ssm_mod.ssm_init_cache(cfg, batch, dtype, device)
+        make = attn.mla_init_cache if cfg.mla else attn.gqa_init_cache
+        return make(cfg, batch, seq, dtype, device)
+    return [one(kind) for kind in layer_schedule(cfg)[0]]
 
 
 def positions(cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
@@ -187,17 +191,24 @@ def positions(cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
 def decode_step(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
                 cache: Cache, fill: int, absorbed_mla: bool = False):
     """tokens: (b, s_new) -> (logits (b, s_new, vocab), cache). The new
-    cache entries are written into ``cache`` in place at ``fill``.
-    ``absorbed_mla``: MLA layers attend in the latent space instead of
-    expanding the cache (the reference's default is the expanded form)."""
-    _require_attention(cfg, "decode")
+    cache entries are written into ``cache`` in place at ``fill``. A model
+    with a Mamba-2 layer takes one token a step (s_new 1) and raises
+    ValueError on more. ``absorbed_mla``: MLA
+    layers attend in the latent space instead of expanding the cache (the
+    reference's default is the expanded form)."""
     b, s = tokens.shape
+    if s != 1 and any(isinstance(layer.mixer, ssm_mod.SSM)
+                      for layer in params.layers):
+        raise ValueError(f"a Mamba-2 layer decodes one token a step; got "
+                         f"tokens of shape {tuple(tokens.shape)}")
     x = embed_tokens(cfg, params.embed, tokens)
     pos = (fill + torch.arange(s, device=tokens.device))[None].expand(b, s)
     aux = None
     for layer, c in zip(params.layers, cache):
         h = apply_norm(cfg, layer.norm1, x)
-        if isinstance(layer.mixer, attn.MLA):
+        if isinstance(layer.mixer, ssm_mod.SSM):
+            o, _ = ssm_mod.ssm_decode(cfg, layer.mixer, h, c)
+        elif isinstance(layer.mixer, attn.MLA):
             o, _ = attn.mla_decode(cfg, layer.mixer, h, pos, c, fill,
                                    absorbed=absorbed_mla)
         else:
@@ -208,10 +219,14 @@ def decode_step(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
 
 
 def _write_cache(c: Dict[str, torch.Tensor], entries, s: int) -> None:
-    """A prefilled layer's cache entries into its first s slots, in bf16:
-    (k, v) (b, hkv, s, hd) for GQA, (c_kv (b, s, r), k_rope (b, 1, s,
-    dr)) for MLA."""
-    if "c_kv" in c:
+    """A prefilled layer's cache entries, in the cache's dtypes: into the
+    first s slots (k, v) (b, hkv, s, hd) for GQA, (c_kv (b, s, r), k_rope
+    (b, 1, s, dr)) for MLA, in bf16; a Mamba-2 layer's dict as a whole,
+    the state staying fp32 and the conv tails cast to bf16."""
+    if "s" in c:
+        for k, v in entries.items():
+            c[k].copy_(v)
+    elif "c_kv" in c:
         c_kv, k_rope = entries
         c["c_kv"][:, :s] = c_kv.to(torch.bfloat16)
         c["k_rope"][:, :, :s] = k_rope.to(torch.bfloat16)
@@ -228,8 +243,8 @@ def prefill(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any],
     ``cfg.prefill_microbatch`` mb > 1 dividing the batch, the requests are
     prefilled in mb sequential chunks and the caches joined along the
     batch, as the reference's chunked prefill does (each batch row is its
-    own MoE routing group, so the chunks compute what one batch would)."""
-    _require_attention(cfg, "prefill")
+    own MoE routing group, so the chunks compute what one batch would;
+    every cache leaf, a Mamba-2 state included, has the batch first)."""
     mb = max(1, cfg.prefill_microbatch)
     b = batch["tokens"].shape[0]
     if mb == 1 or b % mb:
@@ -254,7 +269,11 @@ def _prefill_impl(cfg: ArchConfig, params: Transformer,
     aux = None
     for layer, c in zip(params.layers, cache):
         h = apply_norm(cfg, layer.norm1, x)
-        o, entries = _mixer_forward(cfg, layer.mixer, h, pos)
+        if isinstance(layer.mixer, ssm_mod.SSM):
+            o, entries = ssm_mod.ssm_forward(cfg, layer.mixer, h,
+                                             return_state=True)
+        else:
+            o, entries = _mixer_forward(cfg, layer.mixer, h, pos)
         _write_cache(c, entries, s)
         x, aux = _apply_ffn(cfg, layer, x + o, aux)
     h = apply_norm(cfg, params.final_norm, x)

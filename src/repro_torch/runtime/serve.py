@@ -1,8 +1,10 @@
-"""Batched serving loop: prefill + decode with a pre-allocated KV cache.
+"""Batched serving loop: prefill + decode with a pre-allocated cache.
 
-Counterpart of ``repro.runtime.serve`` for dense decoders. A batch of
-same-length prompts is prefilled, then decoded token by token against
-the bf16 KV cache. Sampling runs as NTX descriptor
+Counterpart of ``repro.runtime.serve`` for every ported family. A batch
+of same-length prompts is prefilled, then decoded token by token against
+the model's cache (a list of per-layer dicts: bf16 keys and values or
+MLA latents; a Mamba-2 layer's fp32 state and bf16 conv tails).
+Sampling runs as NTX descriptor
 :class:`~repro_torch.core.program.Program`\\ s through the
 :class:`~repro_torch.core.executor.Executor`, on the model's device:
 

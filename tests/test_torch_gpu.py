@@ -1739,3 +1739,109 @@ def test_attention_mla_lse_under_remat(cuda):
     assert (counts["attention"], counts["attention_bwd"]) == (2, 1)
     for g, w in zip(got, want):
         assert g.shape == w.shape and _rel_l2(g, w) < _GRAD_RTOL["bfloat16"]
+
+
+# ----------------------------------------------------------------------
+# SSM serving: the SSD kernel's final state, mamba2 and jamba on the card
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,dh,n,chunk", [
+    (4, 32, 64, 64, 128, 128),       # mamba2's serving prefill (ragged)
+    (1, 2048, 64, 64, 128, 128),     # a long prompt: 16 chunks carried
+    (4, 32, 128, 64, 16, 128),       # jamba's widths
+    (2, 1, 4, 64, 128, 128), (2, 129, 4, 64, 128, 128),
+    (3, 17, 2, 32, 32, 16)])         # ragged: l 1 and chunk + 1
+def test_ssd_state_kernel(cuda, dtype, b, l, h, dh, n, chunk):
+    """The final-state route against its plain version (y as
+    test_ssd_kernel holds it; the fp32 state in both routes at 1e-3
+    elementwise and at a relative L2 of 1e-4, chip_smoke's
+    SSM_STATE_L2["float32"]: every product exact or fp32, every sum fp32,
+    so only the order of the sums differs); y bit-equal to the call
+    without the state."""
+    from repro_torch.kernels import ssd_scan
+    ins = _ssd_inputs(cuda, b, l, h, dh, n, getattr(torch, dtype))
+    y, s = ssd_scan.ssd_scan_cuda(*ins, chunk=chunk, final_state=True)
+    want_y, want_s = ssd_scan.ssd_scan_with_state_plain(*ins, chunk=chunk)
+    assert s.shape == (b, h, n, dh) and s.dtype == torch.float32
+    tol = 1e-3 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, want_s, rtol=1e-3, atol=1e-3)
+    assert _rel_l2(s, want_s) <= 1e-4
+    assert torch.equal(y, ssd_scan.ssd_scan_cuda(*ins, chunk=chunk))
+
+
+def test_ssd_with_state_counts_and_refuses_a_gradient(cuda):
+    """ops.ssd_with_state launches the kernel (counted under ssd_state,
+    not ssd) and refuses tensors that autograd tracks."""
+    ins = _ssd_inputs(cuda, 1, 40, 2, 16, 32, torch.bfloat16)
+    ops.reset_launches()
+    y, s = ops.ssd_with_state(*ins, chunk=16)
+    assert ops.launches()["ssd_state"] == 1 and ops.launches()["ssd"] == 0
+    assert torch.equal(y, ops.ssd(*ins, chunk=16))
+    x = ins[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssd_with_state(x, *ins[1:], chunk=16)
+    with torch.no_grad():
+        ops.ssd_with_state(x, *ins[1:], chunk=16)
+
+
+def _ssm_small(arch):
+    """The config narrowed to d_model 256 but keeping the SSM's head dim,
+    d_state and chunk and GQA's head dim 128 (the flash kernel's): mamba2
+    at 2 layers, jamba at one whole period of 8 (its attention layer
+    included, 4 experts), fp32."""
+    from repro_torch import configs
+    narrow = {"mamba2-1.3b": dict(n_layers=2),
+              "jamba-v0.1-52b": dict(n_layers=8, n_heads=2, n_kv_heads=1,
+                                     d_ff=256, n_experts=4,
+                                     d_ff_expert=128)}[arch]
+    return configs.get(arch).scaled(
+        d_model=256, vocab=512, compute_dtype="float32",
+        param_dtype="float32", **narrow)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_ssm_serving_card_vs_cpu(cuda, arch):
+    """A small mamba2 and jamba (``_ssm_small``): prefill logits and every
+    cache leaf, then 4 decode steps' logits, card against CPU from the
+    same weights; the prefill runs the state route once per Mamba-2 layer
+    and never ops.ssd. fp32 logits and the state at the SSD kernel's 1e-3,
+    the bf16 cache leaves at 1e-2."""
+    import copy
+    from repro_torch.models import Model
+    cfg = _ssm_small(arch)
+    n_layers = cfg.n_layers
+    model = Model(cfg)
+    p_cpu = model.init(0, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20))).long()
+    # the decode steps' tokens, the same on both sides
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2, 1))).long()
+    n_ssm = sum(not cfg.is_attn_layer(i) for i in range(n_layers))
+    res = []
+    for dev, params in ((cuda, p_gpu), ("cpu", p_cpu)):
+        ops.reset_launches()
+        with torch.inference_mode():
+            logits, cache, fill = model.prefill(
+                params, {"tokens": toks.to(dev)}, cache_len=32)
+            counts = ops.launches()
+            steps = [logits.cpu()]
+            cache0 = [{k: v.cpu().clone() for k, v in c.items()}
+                      for c in cache]
+            for tok in nxt:
+                logits, cache = model.decode(params, tok.to(dev), cache,
+                                             fill)
+                fill += 1
+                steps.append(logits[:, 0].cpu())
+        res.append((steps, cache0, counts))
+    (sg, cg, counts), (sc, cc, _) = res
+    assert counts["ssd_state"] == n_ssm and counts["ssd"] == 0
+    for a, b in zip(sg, sc):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    for a, b in zip(cg, cc):
+        assert a.keys() == b.keys()
+        for k in a:
+            tol = 1e-3 if a[k].dtype == torch.float32 else 1e-2
+            torch.testing.assert_close(a[k].float(), b[k].float(), rtol=tol,
+                                       atol=tol)

@@ -20,6 +20,10 @@ from repro import configs as jconfigs
 from repro.models import Model as JModel
 from repro.runtime import ServeConfig as JServeConfig
 from repro.runtime import Server as JServer
+from repro.runtime import serve as jserve
+
+from repro_torch.core.stream import FusedChainReduce, plan_stream
+from repro_torch.runtime import serve as tserve
 
 from repro_torch import configs as tconfigs
 from repro_torch.models import Model as TModel
@@ -167,3 +171,62 @@ def test_launch_serve_on_cpu(capsys):
                         "8", "--new-tokens", "3"]) == 0
     out = capsys.readouterr().out
     assert "tok/s" in out and out.count("req") == 2
+
+
+# ----------------------------------------------------------------------
+# the temperature sampler: tests/test_serve_sampling.py on the port
+# ----------------------------------------------------------------------
+def _sample(logits, T, g, min_logit=None):
+    """The port's tokens, held to the reference's on the same noise."""
+    got = tserve.temperature_sample_multistream(logits, T, g, min_logit,
+                                                device="cpu")
+    want = jserve.temperature_sample_multistream(logits, T, g, min_logit)
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+def test_empirical_distribution_tracks_softmax():
+    """600 draws of 8 rows over 6 tokens at T 1.3, each equal to the
+    reference's draw on the same Gumbel noise, track ``jax.nn.softmax``
+    within the reference test's 0.08."""
+    rng = np.random.default_rng(42)
+    b, vocab, T, n_draws = 8, 6, 1.3, 600
+    logits = rng.standard_normal((b, vocab)).astype(np.float32)
+    p_ref = np.asarray(jax.nn.softmax(jnp.asarray(logits) / T, axis=-1))
+    gs = rng.gumbel(size=(n_draws, b, vocab)).astype(np.float32)
+    counts = np.zeros((b, vocab))
+    for g in gs:
+        counts[np.arange(b), _sample(logits, T, g)] += 1
+    np.testing.assert_allclose(counts / n_draws, p_ref, atol=0.08)
+
+
+def test_min_logit_threshold_prunes():
+    """The THRESH stage: the winner is the argmax over the perturbed
+    scaled logits above the floor, as the reference picks it; a floor
+    above all of them leaves all-zero rows and index 0; the THRESH
+    variant is cached apart and fuses its 3-stage chain per request."""
+    rng = np.random.default_rng(43)
+    b, vocab, T = 3, 32, 1.0
+    logits = (rng.standard_normal((b, vocab)) * 3.0).astype(np.float32)
+    g = rng.gumbel(size=(b, vocab)).astype(np.float32)
+    z = logits / T + g
+    floor = float(np.quantile(z, 0.6))
+    tok = _sample(logits, T, g, floor)
+    np.testing.assert_array_equal(
+        tok, np.argmax(np.where(z > floor, z, -np.inf), axis=-1))
+    assert (_sample(logits, T, g, 500.0) == 0).all()
+    ent = tserve._TEMPERATURE_PROGRAMS[(b, vocab, T, floor,
+                                        torch.device("cpu"))]
+    groups = plan_stream(ent[0].descriptors)
+    assert len(groups) == b and all(
+        isinstance(gr, FusedChainReduce) and len(gr.descs) == 3
+        for gr in groups)
+
+
+def test_min_logit_all_negative_survivors():
+    """Every perturbed logit negative: the one survivor of the floor wins,
+    not a pruned token (THRESH zeroes prunes, so the chain runs shifted
+    positive)."""
+    logits = np.full((1, 8), -10.0, np.float32)
+    logits[0, 3] = -2.0
+    assert _sample(logits, 1.0, np.zeros((1, 8), np.float32), -5.0)[0] == 3
