@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py    # every phase: serve llama3-8b,
                              # deepseek-v2-lite-16b, phi3.5-moe-42b,
-                             # mamba2-1.3b and jamba-v0.1-52b, train
-                             # mamba2-1.3b, a 4-layer llama3-8b and
-                             # the two MoE models cut in depth, run the
-                             # paper's kernel suite
+                             # mamba2-1.3b and jamba-v0.1-52b, serve
+                             # and train whisper-medium and qwen2-vl-2b,
+                             # train mamba2-1.3b, a 4-layer llama3-8b
+                             # and the two MoE models cut in depth, run
+                             # the paper's kernel suite
     python3 chip_smoke.py --phases 1,13   # one phase alone
     python3 chip_smoke.py --phases 1,3 --only attention:prefill_4096 \
         --src ../parent/src  # one case's check and time, another tree's
@@ -132,6 +133,32 @@ Phases, one result line each:
                at full width cut to 23 of 32 layers (the deepest cut
                that leaves 5 GB of the card free) at phase 5's sizes,
                with launch counts, a profiled prefill and decode step.
+ 17. whisper — whisper-medium (the encoder-decoder: 24 + 24 layers,
+               16 heads of 64, LayerNorm, GELU MLPs, 1500 encoder frames
+               from the frontend stub): the width check at 2 + 2 layers
+               (prefill logits, 4 decode steps and the cache's k, v, ck,
+               cv), then Server.generate(prompts, extra={"enc_embeds"})
+               on the full model at phase 5's sizes, its launches held
+               exactly (per prefill 72 flash launches and 96 GEMMs, per
+               decode step 48 flash launches and the cross-attention's
+               split merges), a profiled decode step; a 1 + 1-layer
+               training step card vs CPU, then 5 steps at full size, 8 x
+               448 decoder tokens against 8 x 1500 frames (the flash
+               forward with lse, its backward at sq != skv and the GELU
+               activation backward, counted exactly), one step profiled.
+ 18. qwen2-vl — qwen2-vl-2b (28 layers, 12 / 2 heads of 128, M-RoPE,
+               256 patch embeddings from the stub): phase 17's pattern at
+               4 prompts of 256 patches and 32 text tokens with pos3 on a
+               patch grid, training at 4 x 1024 with the patches masked
+               out of the loss.
+               Phases 2/3 hold and time both families' path shapes: the
+               flash forward at d 64 non-causal (1500 x 1500, 32 and one
+               query against 1500 keys, with its merge) and causal, qwen's
+               group of 6, each with lse for training; the backward at
+               sq 448 / skv 1500 non-causal, at 1500 x 1500 and qwen's 4
+               x 1024; the GELU GEMM and w2 + residual at m 6000; the
+               GELU activation backward at 3584 and 12000 x 4096; the
+               samplers' ARGMAX and AXPY -> ARGMAX at both vocabularies.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -171,7 +198,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = set(range(1, 17))
+ALL_PHASES = set(range(1, 19))
 #: phase 12's model (MLA and MoE); phase 13 trains it at full width cut
 #: to DEEPSEEK_TRAIN_LAYERS of 27 layers (~30 bytes a parameter with the
 #: plain AdamW: 16.2 B parameters need ~490 GB), batch DENSE_BATCH x
@@ -191,7 +218,22 @@ PHI35_BATCH, PHI35_STEPS = 8, 5
 MAMBA2 = "mamba2-1.3b"
 JAMBA = "jamba-v0.1-52b"
 JAMBA_SERVE_LAYERS = 23
-#: the serving width checks (phases 4, 12, 14-16) compare WIDTH_STEPS
+#: phase 17's model (the encoder-decoder) at full size: the config's 1500
+#: encoder frames a request, its padded vocabulary; trained at WHISPER_TRAIN_BATCH x
+#: WHISPER_TRAIN_SEQ decoder tokens (each against its 1500 frames)
+WHISPER = "whisper-medium"
+ENC_SEQ, WHISPER_VOCAB = 1500, 51968
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 8, 448
+#: phase 18's model (the VLM) at full size: prompts of QWEN_PATCHES
+#: patch positions and PROMPT_LEN text tokens, its padded vocabulary;
+#: trained at QWEN_TRAIN_BATCH
+#: x QWEN_TRAIN_SEQ with the patches masked out of the loss
+QWEN = "qwen2-vl-2b"
+QWEN_PATCHES, QWEN_VOCAB = 256, 152064
+QWEN_PLEN = QWEN_PATCHES + PROMPT_LEN
+QWEN_MAX_SEQ = QWEN_PLEN + NEW_TOKENS + 8
+QWEN_TRAIN_BATCH, QWEN_TRAIN_SEQ = 4, 1024
+#: the serving width checks (phases 4, 12, 14-18) compare WIDTH_STEPS
 #: decode steps after the prefill
 WIDTH_STEPS = 4
 #: the width checks' limit on the SSM state's relative L2 error, card vs
@@ -389,16 +431,21 @@ def kernel_cases(torch):
               path=False)
 
     def flash_case(name, b, hq, hkv, sq, skv, kv_len, dt, tol, path=True,
-                   d=128, dv=128, phase="serve"):
+                   d=128, dv=128, phase="serve", causal=True, cached=None):
+        """``cached``: k and v in the cache's contiguous (b, hkv, skv, d)
+        layout (default: where kv_len is given, i.e. decode); else the
+        projections' (b, s, h, d) viewed as (b, h, s, d)."""
         if not wanted(name):
             return
+        cached = kv_len is not None if cached is None else cached
         if d == dv:
             # prefill q/k/v are (b, s, h, d) projections viewed as (b, h,
             # s, d) as models/attention.py makes them; decode reads the
-            # cache
+            # cache (and the encoder-decoder's cross-attention its cached
+            # encoder keys and values, whole)
             q = rn(b, sq, hq, d, dt=dt).transpose(1, 2)
-            kv = (lambda: rn(b, skv, hkv, d, dt=dt).transpose(1, 2)) \
-                if kv_len is None else (lambda: rn(b, hkv, skv, d, dt=dt))
+            kv = (lambda: rn(b, hkv, skv, d, dt=dt)) if cached else (
+                lambda: rn(b, skv, hkv, d, dt=dt).transpose(1, 2))
             k, v = kv(), kv()
         else:
             # MLA: q and k are concatenations of the nope and rope parts
@@ -407,16 +454,16 @@ def kernel_cases(torch):
             q = rn(b, hq, sq, d, dt=dt)
             k = rn(b, hkv, skv, d, dt=dt)
             v = rn(b, skv, hkv, dv, dt=dt).transpose(1, 2)
-        kw = dict(causal=True, kv_len=kv_len)
+        kw = dict(causal=causal, kv_len=kv_len)
         n_kv = skv if kv_len is None else kv_len
         # the library gets its fastest form of the same function: SDPA's
         # own causal flag where the mask is plain causal (sq = skv =
-        # kv_len), the first kv_len keys and no mask for one query, else
-        # the dense mask
-        if sq == skv == n_kv:
+        # kv_len), the first kv_len keys and no mask for one query or
+        # without the causal mask, else the dense mask
+        if sq == skv == n_kv and causal:
             lib_kw = dict(is_causal=True)
             lk, lv = k, v
-        elif sq == 1:
+        elif sq == 1 or not causal:
             lib_kw, lk, lv = {}, k[:, :, :n_kv], v[:, :, :n_kv]
         else:
             qpos = torch.arange(sq, device=dev)[:, None] + (n_kv - sq)
@@ -430,8 +477,10 @@ def kernel_cases(torch):
         nbytes = (q.numel() + b * hkv * n_kv * (d + dv)
                   + b * hq * sq * dv) * esz
         # operations over the unmasked (query, key) pairs only: query i
-        # takes min(n_kv, n_kv - sq + i + 1) keys; S over d, P V over dv
-        pairs = sum(max(0, min(n_kv, n_kv - sq + i + 1)) for i in range(sq))
+        # takes min(n_kv, n_kv - sq + i + 1) keys (all n_kv without the
+        # causal mask); S over d, P V over dv
+        pairs = (sum(max(0, min(n_kv, n_kv - sq + i + 1)) for i in range(sq))
+                 if causal else sq * n_kv)
         case = dict(
             name=name, wrapper="attention", source=flash_src,
             replaces=flash_rep,
@@ -443,13 +492,16 @@ def kernel_cases(torch):
         if d != dv:
             cases.append(case)
             return
-        plan = fa.flash_plan(b, hq, hkv, sq, skv, n_kv, d, dt)
+        plan = fa.flash_plan(b, hq, hkv, sq, skv, n_kv, d, dt, causal)
         if plan.wr == 8:
             # the plan's 128-row blocks against 64-row ones (each K/V
             # tile read from L2 for half the rows), timed in phase 3
             rows64 = dataclasses.replace(
                 plan, qn=64, rows=64, wr=4, stages=fa.tc_stages(4),
                 q_tiles=-(-sq // 64), smem=fa.tc_smem(d, 4))
+            if d != 128:        # the 64-row alternative is timed at d 128
+                cases.append(case)
+                return
             case["plans"] = (
                 (("128-row blocks (the plan)", plan),
                  ("64-row blocks", rows64)),
@@ -489,12 +541,47 @@ def kernel_cases(torch):
                1, 16, 16, 1, LONG_SEQ, LONG_PROMPT + 1, bf, bf_tol, **mla)
     flash_case("attention:mla_prefill_b1_s300_fp32", 1, 16, 16, 300, 300,
                None, f32, f_tol, path=False, **mla)
+    # phase 17's whisper-medium (16 heads of 64, one kv head each): the
+    # encoder's 1500 frames non-causal, the decoder's causal prompt, its
+    # cross-attention non-causal on the encoder's keys (the projections'
+    # views at prefill, the cached bf16 keys whole at decode: split, with
+    # its merge), the causal decode step; an fp32 ragged shape off the path
+    wh = dict(d=64, dv=64, phase="whisper")
+    flash_case(f"attention:whisper_enc_b{BATCH}_h16_s{ENC_SEQ}_d64", BATCH,
+               16, 16, ENC_SEQ, ENC_SEQ, None, bf, bf_tol, causal=False, **wh)
+    flash_case(f"attention:whisper_self_b{BATCH}_s{PROMPT_LEN}_d64", BATCH,
+               16, 16, PROMPT_LEN, PROMPT_LEN, None, bf, bf_tol, **wh)
+    flash_case(f"attention:whisper_cross_b{BATCH}_sq{PROMPT_LEN}_skv{ENC_SEQ}"
+               f"_d64", BATCH, 16, 16, PROMPT_LEN, ENC_SEQ, None, bf, bf_tol,
+               causal=False, **wh)
+    flash_case(f"attention:whisper_self_decode_b{BATCH}_kv40_of_{MAX_SEQ}"
+               f"_d64", BATCH, 16, 16, 1, MAX_SEQ, 40, bf, bf_tol, **wh)
+    flash_case(f"attention:whisper_cross_decode_b{BATCH}_skv{ENC_SEQ}_d64",
+               BATCH, 16, 16, 1, ENC_SEQ, None, bf, bf_tol, causal=False,
+               cached=True, **wh)
+    flash_case("attention:whisper_cross_b1_sq100_skv300_d64_fp32", 1, 16, 16,
+               100, 300, None, f32, f_tol, causal=False, path=False, d=64,
+               dv=64)
+    # phase 18's qwen2-vl-2b (12 / 2 heads of 128: a GQA group of 6): the
+    # 288-token prompt (256 patches, 32 text) and a decode step
+    flash_case(f"attention:qwen_prefill_b{BATCH}_hq12_hkv2_s{QWEN_PLEN}",
+               BATCH, 12, 2, QWEN_PLEN, QWEN_PLEN, None, bf, bf_tol,
+               phase="qwen")
+    flash_case(f"attention:qwen_decode_b{BATCH}_kv{QWEN_PLEN + 1}_of_"
+               f"{QWEN_MAX_SEQ}", BATCH, 12, 2, 1, QWEN_MAX_SEQ,
+               QWEN_PLEN + 1, bf, bf_tol, phase="qwen")
 
     # the split-kv merge alone, at the decode step of phase 5's long
     # prompt (b 1, kv_len 2049 of 2064: the plan splits the keys), on the
     # partials its split kernel leaves
     if wanted("attention_merge"):
         cases.append(merge_case(torch, rn, fa, flash_src, flash_rep, bf_tol))
+        # and at whisper's decode cross-attention (d 64, non-causal, all
+        # 1500 cached encoder keys)
+        cases.append(merge_case(torch, rn, fa, flash_src, flash_rep, bf_tol,
+                                b=BATCH, hq=16, hkv=16, skv=ENC_SEQ,
+                                kv_len=ENC_SEQ, d=64, causal=False,
+                                name="whisper_cross_decode", phase="whisper"))
 
     vocab = 128256
     red_rep = "src/repro/kernels/ntx_reduce.py:153"
@@ -529,6 +616,11 @@ def kernel_cases(torch):
     reduce_case("argmax", with_ties(rn(1, vocab)), path=True)
     reduce_case("argmax", with_ties(rn(1, PHI35_VOCAB)), path=True,
                 phase="phi35")
+    # phases 17-18: whisper's and qwen2-vl's padded vocabularies
+    reduce_case("argmax", with_ties(rn(1, WHISPER_VOCAB)), path=True,
+                phase="whisper")
+    reduce_case("argmax", with_ties(rn(1, QWEN_VOCAB)), path=True,
+                phase="qwen")
 
     row = rn(1, vocab, std=3.0)
     gum = -torch.log(-torch.log(torch.rand(1, vocab, generator=g,
@@ -546,6 +638,12 @@ def kernel_cases(torch):
          [("axpy", 1 / 0.8)], row[:, :PHI35_VOCAB].contiguous(),
          (gum[:, :PHI35_VOCAB].contiguous(),), True, "phi35"),
     ]
+    for tag, v in (("whisper", WHISPER_VOCAB), ("qwen", QWEN_VOCAB)):
+        vrow = rn(1, v, std=3.0)
+        vgum = -torch.log(-torch.log(torch.rand(1, v, generator=g,
+                                                device=dev)))
+        chains.append((f"chain_reduce:{tag}_axpy_argmax_1x{v}",
+                       [("axpy", 1 / 0.8)], vrow, (vgum,), True, tag))
     for name, stages, xx, ys, path, phase in chains:
         # COPY->ARGMAX is one torch.argmax; the AXPY chains have no one call
         lib = (lambda xx=xx: torch.argmax(xx, -1)) \
@@ -633,30 +731,53 @@ def kernel_cases(torch):
         if wanted(name):
             gemm_case(name, m, k, n, bf, out_dt, ep, f_tol if out_dt == f32
                       else bf_tol, phase="dense")
+    # phase 17's GELU MLPs (d 1024, d_ff 4096): the encoder's 4 x 1500
+    # frames, a decode step's 4 rows; phase 18's SwiGLU (1536 -> 8960) at
+    # the 4 x 288-token prefill
+    m_enc, m_q = BATCH * ENC_SEQ, BATCH * QWEN_PLEN
+    for name, m, k, n, out_dt, ep, phase in (
+            (f"gemm:whisper_w1_gelu_m{m_enc}_k1024_n4096", m_enc, 1024, 4096,
+             bf, [("gelu",)], "whisper"),
+            (f"gemm:whisper_w2_residual_m{m_enc}_k4096_n1024", m_enc, 4096,
+             1024, bf, [("residual", bf)], "whisper"),
+            (f"gemm:whisper_decode_w1_gelu_m{BATCH}", BATCH, 1024, 4096, bf,
+             [("gelu",)], "whisper"),
+            (f"gemm:whisper_decode_w2_residual_m{BATCH}", BATCH, 4096, 1024,
+             bf, [("residual", bf)], "whisper"),
+            (f"gemm:qwen_w3_gate_m{m_q}_k1536_n8960", m_q, 1536, 8960, f32,
+             [], "qwen"),
+            (f"gemm:qwen_w1_silu_mul_m{m_q}", m_q, 1536, 8960, bf,
+             [("silu",), ("mul", f32)], "qwen"),
+            (f"gemm:qwen_w2_residual_m{m_q}_k8960_n1536", m_q, 8960, 1536,
+             bf, [("residual", bf)], "qwen")):
+        if wanted(name):
+            gemm_case(name, m, k, n, bf, out_dt, ep, f_tol if out_dt == f32
+                      else bf_tol, phase=phase)
     cases += dense_cases(torch, rn, bf_tol)
     return cases
 
 
-def merge_case(torch, rn, fa, flash_src, flash_rep, tol) -> dict:
+def merge_case(torch, rn, fa, flash_src, flash_rep, tol, b=1, hq=32,
+               hkv=8, skv=LONG_SEQ, kv_len=LONG_PROMPT + 1, d=128,
+               causal=True, name="decode", phase="serve") -> dict:
     """The split-kv merge of ``csrc/flash_attention.cu`` on its own, on
-    the partials the split kernel leaves at the decode step of phase 5's
-    long prompt."""
+    the partials the split kernel leaves at a decode step (default: that
+    of phase 5's long prompt)."""
     bf = torch.bfloat16
-    mq = rn(1, 32, 1, 128, dt=bf)
-    mk, mv = (rn(1, 8, LONG_SEQ, 128, dt=bf) for _ in range(2))
-    plan = fa.flash_plan(1, 32, 8, 1, LONG_SEQ, LONG_PROMPT + 1, 128, bf)
-    ws, mo = fa.flash_attention_cuda(mq, mk, mv, kv_len=LONG_PROMPT + 1,
-                                     plan=plan, partials=True)
+    mq = rn(b, hq, 1, d, dt=bf)
+    mk, mv = (rn(b, hkv, skv, d, dt=bf) for _ in range(2))
+    plan = fa.flash_plan(b, hq, hkv, 1, skv, kv_len, d, bf, causal)
+    ws, mo = fa.flash_attention_cuda(mq, mk, mv, causal=causal,
+                                     kv_len=kv_len, plan=plan, partials=True)
     case = dict(
-        name=f"attention_merge:decode_kv{LONG_PROMPT + 1}_{plan.splits}"
-             f"_splits", wrapper="attention_merge", source=flash_src,
-        replaces=flash_rep,
+        name=f"attention_merge:{name}_kv{kv_len}_{plan.splits}_splits",
+        wrapper="attention_merge", source=flash_src, replaces=flash_rep,
         kernel=lambda: fa.flash_merge_cuda(ws, mo, plan.splits),
-        plain=lambda: fa.flash_merge_plain(ws, plan.splits, 1, 32, 1, 128,
+        plain=lambda: fa.flash_merge_plain(ws, plan.splits, b, hq, 1, d,
                                            bf),
         library=None, mode="close", tol=tol,
         bytes=ws.numel() * 4 + mo.numel() * 2,
-        ops=3.0 * ws.numel(), kind="fp32", path=True)
+        ops=3.0 * ws.numel(), kind="fp32", path=True, phase=phase)
     del mk, mv
     return case
 
@@ -681,66 +802,73 @@ def dense_cases(torch, rn, bf_tol):
     bwd_rep = "src/repro/kernels/ref.py:250 _mha_blocked_bwd"
     cases = []
 
-    def qkv(b, hq, hkv, s, dt, d=128, dv=128):
+    def qkv(b, hq, hkv, s, dt, d=128, dv=128, skv=None):
         # (b, s, h, d) projections viewed as (b, h, s, d), as the model
         # makes them (MLA's q and k: contiguous concatenations); dO as
-        # autograd hands it (a view of (b, s, h dv))
+        # autograd hands it (a view of (b, s, h dv)); k and v of skv rows
+        # (default s: the encoder-decoder's cross-attention has more)
+        skv = s if skv is None else skv
         if d == dv:
             q = rn(b, s, hq, d, dt=dt, std=0.5).transpose(1, 2)
-            k = rn(b, s, hkv, d, dt=dt, std=0.5).transpose(1, 2)
+            k = rn(b, skv, hkv, d, dt=dt, std=0.5).transpose(1, 2)
         else:
             q = rn(b, hq, s, d, dt=dt, std=0.5)
-            k = rn(b, hkv, s, d, dt=dt, std=0.5)
-        v = rn(b, s, hkv, dv, dt=dt).transpose(1, 2)
+            k = rn(b, hkv, skv, d, dt=dt, std=0.5)
+        v = rn(b, skv, hkv, dv, dt=dt).transpose(1, 2)
         do = rn(b, s, hq, dv, dt=dt).transpose(1, 2)
         return q, k, v, do
 
     def bwd_case(name, b, hq, hkv, s, dt, path, d=128, dv=128,
-                 phase="dense"):
+                 phase="dense", skv=None, causal=True):
         if not wanted(name):
             return
-        q, k, v, do = qkv(b, hq, hkv, s, dt, d, dv)
-        plan = fa.flash_plan(b, hq, hkv, s, s, s, d, dt, True, lse=True,
-                             **({} if d == dv else {"dv": dv}))
-        o, lse = fa.flash_attention_cuda(q, k, v, plan=plan, lse=True)
+        skv = s if skv is None else skv
+        q, k, v, do = qkv(b, hq, hkv, s, dt, d, dv, skv)
+        plan = fa.flash_plan(b, hq, hkv, s, skv, skv, d, dt, causal,
+                             lse=True, **({} if d == dv else {"dv": dv}))
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, plan=plan,
+                                         lse=True)
         lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
 
         def lib_fwd():
-            return F.scaled_dot_product_attention(*lib_in, is_causal=True,
+            return F.scaled_dot_product_attention(*lib_in, is_causal=causal,
                                                   enable_gqa=True)
 
         def last_tile(got, want):
             rel = [float((g[:, :, -64:].float() - w[:, :, -64:].float())
                          .norm() / w[:, :, -64:].float().norm())
                    for g, w in zip(got[1:], want[1:])]
-            again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+            again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                causal=causal)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             ok = max(rel) <= GRAD_RTOL[str(dt)[6:]] and all(
                 float(g[:, :, -64:].float().abs().sum()) > 0
                 for g in got[1:]) and same
-            return ok, (f"last key tile (keys {s - 64}-{s - 1}): dK, dV rel "
-                        f"L2 {rel[0]:.3e}, {rel[1]:.3e}, nonzero | a second "
-                        f"call bit-equal {same}")
-        bp = fa.flash_bwd_plan(b, hq, hkv, s, s, d, dt, True,
+            return ok, (f"last key tile (keys {skv - 64}-{skv - 1}): dK, dV "
+                        f"rel L2 {rel[0]:.3e}, {rel[1]:.3e}, nonzero | a "
+                        f"second call bit-equal {same}")
+        bp = fa.flash_bwd_plan(b, hq, hkv, s, skv, d, dt, causal,
                                *(() if d == dv else (dv,)))
         # (an older tree's plan, under --src, has no group split or ring)
         note = (f" | plan gs {getattr(bp, 'gs', 1)}, stages "
                 f"{getattr(bp, 'stages', 2)}, dK/dV grid {bp.dkdv_grid}, dQ "
                 f"grid {bp.dq_grid}")
         esz = q.element_size()
-        pairs = b * hq * s * (s + 1) / 2
+        pairs = b * hq * (s * (s + 1) / 2 if causal else s * skv)
         # q, dq at d and o, dO at dv a query; k, dk at d and v, dv at dv a
         # key; five products a pair: S, dK, dQ over d, dP, dV over dv
         cases.append(dict(
             name=name, wrapper="attention_bwd", source=bwd_src,
             replaces=bwd_rep,
-            kernel=lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do),
-            plain=lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+            kernel=lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                        causal=causal),
+            plain=lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       causal=causal),
             library=lambda: torch.autograd.grad(lib_fwd(), lib_in, do),
             library_minus=lib_fwd, backend=lib_fwd, check_vs=last_tile,
             note=note,
             mode="rel_l2", tol=(GRAD_RTOL[str(dt)[6:]], 0.0),
-            bytes=(b * (hq + hkv) * s * 2 * (d + dv)) * esz
+            bytes=(b * (hq * s + hkv * skv) * 2 * (d + dv)) * esz
             + lse.numel() * 4,
             ops=2.0 * (3 * d + 2 * dv) * pairs,
             kind="bf16" if dt == bf else "fp32", path=path, phase=phase))
@@ -762,13 +890,15 @@ def dense_cases(torch, rn, bf_tol):
     bwd_case(f"attention_bwd:phi35_b1_hq32_hkv8_s{DENSE_SEQ}_bf16", 1, 32,
              8, DENSE_SEQ, bf, True, phase="phi35_train")
 
-    def lse_case(name, b, hq, hkv, s, phase, d=128, dv=128):
+    def lse_case(name, b, hq, hkv, s, phase, d=128, dv=128, skv=None,
+                 causal=True):
         if not wanted(name):
             return
-        q, k, v, _ = qkv(b, hq, hkv, s, bf, d, dv)
-        plan = fa.flash_plan(b, hq, hkv, s, s, s, d, bf, True, lse=True,
-                             dv=dv)
-        o_serve = fa.flash_attention_cuda(q, k, v, plan=plan)
+        skv = s if skv is None else skv
+        q, k, v, _ = qkv(b, hq, hkv, s, bf, d, dv, skv)
+        plan = fa.flash_plan(b, hq, hkv, s, skv, skv, d, bf, causal,
+                             lse=True, dv=dv)
+        o_serve = fa.flash_attention_cuda(q, k, v, causal=causal, plan=plan)
 
         def lse_check(got, want):
             err = float((got[1] - want[1]).abs().max())
@@ -777,19 +907,18 @@ def dense_cases(torch, rn, bf_tol):
             return ok, (f"o bit-equal to the call without lse "
                         f"{torch.equal(got[0], o_serve)} | lse max_abs_err "
                         f"{err:.3e} (<= 1e-4 (1 + max|lse|))")
-        pairs = b * hq * s * (s + 1) / 2
+        pairs = b * hq * (s * (s + 1) / 2 if causal else s * skv)
         scale = d ** -0.5            # MLA's (dn + dr) ** -0.5 at 192
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True, scale=scale)
         cases.append(dict(
             name=name, wrapper="attention", source=flash_src,
             replaces="src/repro/kernels/flash_attention.py:77",
-            kernel=lambda: fa.flash_attention_cuda(q, k, v, plan=plan,
-                                                   lse=True),
-            plain=lambda: (fa.flash_attention_plain(q, k, v),
-                           fa.flash_lse_plain(q, k)),
-            library=lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True, scale=scale),
-            backend=lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True, scale=scale),
+            kernel=lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                                   plan=plan, lse=True),
+            plain=lambda: (fa.flash_attention_plain(q, k, v, causal=causal),
+                           fa.flash_lse_plain(q, k, causal=causal)),
+            library=sdpa, backend=sdpa,
             check_vs=lse_check, mode="close", tol=bf_tol,
             bytes=(q.numel() + k.numel() + v.numel() + b * hq * s * dv) * 2
             + b * hq * s * 4,
@@ -802,6 +931,36 @@ def dense_cases(torch, rn, bf_tol):
              DENSE_SEQ, "deepseek_train", d=192, dv=128)
     lse_case(f"attention:phi35_train_lse_b1_hq32_hkv8_s{DENSE_SEQ}_bf16", 1,
              32, 8, DENSE_SEQ, "phi35_train")
+    # phase 17's training forward with lse: the encoder's 1500 frames and
+    # the decoder's cross-attention non-causal, its self-attention causal;
+    # phase 18's at 4 x 1024 (a GQA group of 6)
+    wb, ws_ = WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ
+    wt = dict(d=64, dv=64)
+    lse_case(f"attention:whisper_train_lse_enc_b{wb}_s{ENC_SEQ}", wb, 16, 16,
+             ENC_SEQ, "whisper_train", causal=False, **wt)
+    lse_case(f"attention:whisper_train_lse_cross_b{wb}_sq{ws_}_skv{ENC_SEQ}",
+             wb, 16, 16, ws_, "whisper_train", skv=ENC_SEQ, causal=False,
+             **wt)
+    lse_case(f"attention:whisper_train_lse_self_b{wb}_s{ws_}", wb, 16, 16,
+             ws_, "whisper_train", **wt)
+    lse_case(f"attention:qwen_train_lse_b{QWEN_TRAIN_BATCH}_hq12_hkv2_s"
+             f"{QWEN_TRAIN_SEQ}", QWEN_TRAIN_BATCH, 12, 2, QWEN_TRAIN_SEQ,
+             "qwen_train")
+    # and their backward: sq != skv non-causal (both tiles ragged: 1500 =
+    # 23 x 64 + 28), the encoder's square non-causal, the decoder's causal,
+    # qwen's group of 6; a small fp32 sq != skv case off the path
+    bwd_case(f"attention_bwd:whisper_cross_b{wb}_h16_sq{ws_}_skv{ENC_SEQ}"
+             f"_bf16", wb, 16, 16, ws_, bf, True, skv=ENC_SEQ, causal=False,
+             phase="whisper_train", **wt)
+    bwd_case(f"attention_bwd:whisper_enc_b{wb}_h16_s{ENC_SEQ}_bf16", wb, 16,
+             16, ENC_SEQ, bf, True, causal=False, phase="whisper_train", **wt)
+    bwd_case(f"attention_bwd:whisper_self_b{wb}_h16_s{ws_}_bf16", wb, 16, 16,
+             ws_, bf, True, phase="whisper_train", **wt)
+    bwd_case(f"attention_bwd:qwen_b{QWEN_TRAIN_BATCH}_hq12_hkv2_s"
+             f"{QWEN_TRAIN_SEQ}_bf16", QWEN_TRAIN_BATCH, 12, 2,
+             QWEN_TRAIN_SEQ, bf, True, phase="qwen_train")
+    bwd_case("attention_bwd:b1_h4_sq100_skv300_d64_fp32", 1, 4, 4, 100, f32,
+             False, skv=300, causal=False, **wt)
 
     act_src = "src/repro_torch/kernels/csrc/ntx_act_bwd.cu"
     act_rep = ("none: XLA autodiff of the MLP's epilogue "
@@ -810,7 +969,18 @@ def dense_cases(torch, rn, bf_tol):
             (f"act_bwd:swiglu_{DENSE_BATCH * DENSE_SEQ}x14336_bf16",
              "swiglu", (DENSE_BATCH * DENSE_SEQ, 14336), bf, True),
             ("act_bwd:gelu_4096x4095_fp32", "gelu", (4096, 4095), f32,
-             False)):
+             False),
+            # phase 17's GELU MLPs: the decoder's 8 x 448 tokens and the
+            # encoder's 8 x 1500 frames, d_ff 4096
+            (f"act_bwd:whisper_gelu_{WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ}"
+             f"x4096_bf16", "gelu", (WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ,
+                                     4096), bf, True),
+            (f"act_bwd:whisper_gelu_{WHISPER_TRAIN_BATCH * ENC_SEQ}x4096_bf16",
+             "gelu", (WHISPER_TRAIN_BATCH * ENC_SEQ, 4096), bf, True),
+            # phase 18's SwiGLU at 4 x 1024 tokens, d_ff 8960
+            (f"act_bwd:qwen_swiglu_{QWEN_TRAIN_BATCH * QWEN_TRAIN_SEQ}x8960"
+             f"_bf16", "swiglu", (QWEN_TRAIN_BATCH * QWEN_TRAIN_SEQ, 8960),
+             bf, True)):
         if not wanted(name):
             continue
         dh, a1, gate = rn(m, n), rn(m, n, std=3.0), rn(m, n)
@@ -822,7 +992,9 @@ def dense_cases(torch, rn, bf_tol):
             plain=lambda a=(act, dh, a1, g, dt): ew.act_bwd_plain(*a),
             library=None, mode="equal", tol=(0.0, 0.0),
             bytes=m * n * (4 * n_in + n_out * (2 if dt == bf else 4)),
-            ops=20.0 * m * n, kind="fp32", path=path, phase="dense"))
+            ops=20.0 * m * n, kind="fp32", path=path,
+            phase=("whisper_train" if "whisper" in name else "qwen_train"
+                   if "qwen" in name else "dense")))
     return cases
 
 
@@ -1528,9 +1700,9 @@ def check_and_time(torch, cases, do_time: bool, check: str,
 # ----------------------------------------------------------------------
 # phase 4 / 5: the serving path
 # ----------------------------------------------------------------------
-def prompts_for(cfg, np):
+def prompts_for(cfg, np, plen: int = PROMPT_LEN):
     rng = np.random.default_rng(0)
-    return [rng.integers(0, cfg.vocab, PROMPT_LEN) for _ in range(BATCH)]
+    return [rng.integers(0, cfg.vocab, plen) for _ in range(BATCH)]
 
 
 #: a near-tie of the MoE router that bf16 rounding can flip: the two
@@ -1552,7 +1724,9 @@ class RouteLog:
 
     def __init__(self, torch, params, replay=None):
         self.torch, self.replay = torch, replay
-        self.layer = {id(l.ffn): i for i, l in enumerate(params.layers)}
+        # (the encoder-decoder has no MoE layer, and no "layers")
+        self.layer = {id(l.ffn): i for i, l in enumerate(
+            getattr(params, "layers", ()))}
         self.calls = {}
 
     def __enter__(self):
@@ -1733,15 +1907,16 @@ def profile_long_prefill(torch, cfg, params, srv, prompt, out,
 
 
 def profile_decode_step(torch, np, cfg, params, prompts,
-                        tag: str = "serve") -> None:
+                        tag: str = "serve", extra=None,
+                        max_seq: int = MAX_SEQ) -> None:
     """One greedy decode step of the batch (Model.decode, then the
-    per-request ARGMAX programs) under torch.profiler, after one
-    unprofiled step: device time by kernel family, and the host's share
-    of the step's wall time. Its launches are not counted in the kernels
-    line."""
+    per-request ARGMAX programs) under torch.profiler, after a prefill
+    (with the ``extra`` inputs, on the card) and one unprofiled step:
+    device time by kernel family, and the host's share of the step's wall
+    time. Its launches are not counted in the kernels line."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime import ServeConfig, Server
-    srv = Server(cfg, params, ServeConfig(max_seq=MAX_SEQ, eos_token=-1))
+    srv = Server(cfg, params, ServeConfig(max_seq=max_seq, eos_token=-1))
     rng = np.random.default_rng(0)
 
     def step(cur, cache, fill):
@@ -1752,8 +1927,8 @@ def profile_decode_step(torch, np, cfg, params, prompts,
     with torch.inference_mode():
         logits, cache, fill = srv.model.prefill(
             params, {"tokens": torch.as_tensor(np.stack(prompts),
-                                               device=DEVICE)},
-            cache_len=MAX_SEQ)
+                                               device=DEVICE),
+                     **(extra or {})}, cache_len=max_seq)
         cur = srv._sample(logits, rng, prefill=True)
         cur, cache, fill = step(cur, cache, fill)
         torch.cuda.synchronize()
@@ -1866,9 +2041,11 @@ def phase_deepseek(torch, np) -> dict:
 # phases 15 / 16: serving mamba2-1.3b and jamba-v0.1-52b (SSM and hybrid)
 # ----------------------------------------------------------------------
 def serve_and_decode(torch, model, params, tokens, steps, replay=None,
-                     starts=None):
-    """Prefill ``tokens`` then decode ``steps`` (each (b, 1) tokens, the
-    same on both devices), under a :class:`RouteLog`: (the prefill logits
+                     starts=None, extra=None, max_seq=MAX_SEQ):
+    """Prefill ``tokens`` (with the ``extra`` inputs, CPU tensors moved to
+    the tokens' device) into a cache of ``max_seq`` slots, then decode
+    ``steps`` (each (b, 1) tokens, the same on both devices), under a
+    :class:`RouteLog`: (the prefill logits
     and each step's last-position logits, host copies of the cache after
     the prefill and after each step, the log). With ``starts`` (another
     run's copies) each step first takes that run's cache, so both devices
@@ -1879,9 +2056,10 @@ def serve_and_decode(torch, model, params, tokens, steps, replay=None,
     host = lambda cache: [{k: v.detach().to("cpu", torch.float32,
                                             copy=True)
                            for k, v in c.items()} for c in cache]
+    batch = {"tokens": tokens, **{k: v.to(dev) for k, v in
+                                  (extra or {}).items()}}
     with RouteLog(torch, params, replay) as log, torch.inference_mode():
-        logits, cache, fill = model.prefill(params, {"tokens": tokens},
-                                            cache_len=MAX_SEQ)
+        logits, cache, fill = model.prefill(params, batch, cache_len=max_seq)
         out, caches = [logits.float().cpu()], [host(cache)]
         for i, tok in enumerate(steps):
             for c, c0 in zip(cache, starts[i] if starts else ()):
@@ -1894,12 +2072,15 @@ def serve_and_decode(torch, model, params, tokens, steps, replay=None,
     return out, caches, log
 
 
-def phase_width(torch, np, arch: str = "llama3-8b",
-                tag: str = "width") -> None:
-    """``arch`` at full width, depth cut to 2 layers, on the card and on
-    the CPU with the same weights and tokens: prefill logits, every cache
-    leaf (attention keys and values or MLA's latents; the SSM state and
-    conv tails) after the prefill and after each of WIDTH_STEPS decode
+def phase_width(torch, np, arch: str = "llama3-8b", tag: str = "width",
+                cut=None, plen: int = PROMPT_LEN, extra=None) -> None:
+    """``arch`` at full width, depth cut to 2 layers (or the ``cut``
+    overrides), on the card and on the CPU with the same weights, tokens
+    (``plen`` a prompt) and ``extra`` inputs (``extra(cfg, np, plen)``:
+    CPU tensors): prefill logits, every cache leaf (attention keys and values,
+    the encoder-decoder's cross-attention ones, or MLA's latents; the SSM
+    state and conv tails) after the prefill and after each of WIDTH_STEPS
+    decode
     steps, and each step's logits, in fp32 and in bf16 compute; the CPU
     decodes each step from the card's cache. With MoE layers the CPU
     replays the card's expert choices (fp32: its own router must agree;
@@ -1916,22 +2097,28 @@ def phase_width(torch, np, arch: str = "llama3-8b",
     from repro_torch.models.transformer import layer_schedule
 
     full = configs.get(arch)
-    base = full.scaled(n_layers=2)
+    cut = cut or {"n_layers": 2}
+    base = full.scaled(**cut)
     t0 = time.perf_counter()
     params = Model(base).init(0, device=DEVICE)
     params_cpu = copy.deepcopy(params).to("cpu")
-    tokens = torch.as_tensor(np.stack(prompts_for(base, np)),
+    tokens = torch.as_tensor(np.stack(prompts_for(base, np, plen)),
                              dtype=torch.long)
+    inputs = extra(base, np, plen) if extra else {}
+    max_seq = plen + WIDTH_STEPS + 8
     steps = torch.as_tensor(np.random.default_rng(5).integers(
         0, base.vocab, (WIDTH_STEPS, BATCH, 1)), dtype=torch.long)
-    kinds = layer_schedule(base)[0]
+    kinds = ("encoder-decoder" if base.encoder_decoder
+             else layer_schedule(base)[0])
     for dtype, rtol, atol in (("float32", 1e-3, 1e-3),
                               ("bfloat16", 2e-2, 6e-2)):
         cfg = base.scaled(compute_dtype=dtype)
         lg, cg, rg = serve_and_decode(torch, Model(cfg), params,
-                                      tokens.to(DEVICE), steps)
+                                      tokens.to(DEVICE), steps, extra=inputs,
+                                      max_seq=max_seq)
         lc, cc, rc = serve_and_decode(torch, Model(cfg), params_cpu,
-                                      tokens, steps, replay=rg, starts=cg)
+                                      tokens, steps, replay=rg, starts=cg,
+                                      extra=inputs, max_seq=max_seq)
         if cfg.moe:
             check_routing(tag, dtype, rg, rc)
         worst = {}
@@ -1970,8 +2157,10 @@ def phase_width(torch, np, arch: str = "llama3-8b",
                  f"{WIDTH_STEPS} decode steps, caches): {msg}")
         need(all(ok for *_, ok in worst.values()),
              f"{tag}: {dtype} card and CPU disagree")
-    say(tag, f"{arch} full width, 2 of {full.n_layers} layers ({kinds}), "
-             f"{time.perf_counter() - t0:.1f} s ok")
+    depth = ", ".join(f"{k} {v} of {getattr(full, k)}"
+                      for k, v in cut.items())
+    say(tag, f"{arch} full width, {depth} ({kinds}), prompts {BATCH} x "
+             f"{plen}, {time.perf_counter() - t0:.1f} s ok")
     del params, params_cpu
     gc_collect(torch)
 
@@ -2164,6 +2353,291 @@ def phase_jamba(torch, np) -> dict:
     del params
     gc_collect(torch)
     return counts
+
+
+# ----------------------------------------------------------------------
+# phases 17 / 18: the encoder-decoder (whisper-medium) and the VLM
+# (qwen2-vl-2b), served and trained at full size
+# ----------------------------------------------------------------------
+def whisper_extra(cfg, np, s: int, b: int = BATCH, seed: int = 11) -> dict:
+    """The frontend stub's frame embeddings (b, enc_seq, d_model) for
+    prompts of s tokens (any), drawn
+    as the data pipeline draws them (0.02 N(0, 1) in numpy, rounded to
+    bf16), as CPU tensors."""
+    import torch
+    a = np.random.default_rng(seed).standard_normal(
+        (b, cfg.enc_seq, cfg.d_model)) * 0.02
+    return {"enc_embeds": torch.from_numpy(a).to(torch.bfloat16)}
+
+
+def qwen_extra(cfg, np, s: int, b: int = BATCH, seed: int = 12) -> dict:
+    """For prompts of s tokens: the patch stub's embeddings (b, n_patches,
+    d_model) bf16 and M-RoPE's positions pos3 (3, b, s): the patches on a 1 x 16 x 16 (t,
+    h, w) grid, the text after them from the grid's largest position on,
+    as CPU tensors."""
+    import torch
+    a = np.random.default_rng(seed).standard_normal(
+        (b, cfg.n_patches, cfg.d_model)) * 0.02
+    n = cfg.n_patches
+    side = int(round(n ** 0.5))
+    grid = [np.zeros(n, np.int64), np.arange(n) // side, np.arange(n) % side]
+    text = np.arange(s - n) + side
+    pos = np.stack([np.concatenate([g, text]) for g in grid])
+    return {"img_embeds": torch.from_numpy(a).to(torch.bfloat16),
+            "pos3": torch.from_numpy(np.broadcast_to(
+                pos[:, None], (3, b, s)).copy())}
+
+
+def serve_launches(torch, cfg, plen: int, max_seq: int,
+                   n_runs: int) -> tuple:
+    """The exact launches of ``n_runs`` Server.generate calls of BATCH
+    prompts of ``plen`` tokens and NEW_TOKENS decode steps each: a flash
+    launch per attention layer and call (the encoder's, the decoder's
+    self- and cross-attention), a merge for each plan that splits the
+    keys, the MLP's GEMMs (GELU 2, SwiGLU 3), nothing of training; and
+    the flash launches of one prefill."""
+    from repro_torch.kernels import flash_attention as fa
+    b, hq, hkv, d = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    L, enc = cfg.n_layers, cfg.enc_seq
+    calls = [(plen, plen, plen, True)] * L               # prefill self
+    n_mlp = L
+    if cfg.encoder_decoder:
+        calls += [(enc, enc, enc, False)] * cfg.n_enc_layers
+        calls += [(plen, enc, enc, False)] * L
+        n_mlp += cfg.n_enc_layers
+    prefill_calls = len(calls)
+    for j in range(NEW_TOKENS):                          # decode steps
+        calls += [(1, max_seq, plen + j + 1, True)] * L
+        if cfg.encoder_decoder:
+            calls += [(1, enc, enc, False)] * L
+    merges = sum(fa.flash_plan(b, hq, hkv, sq, skv, kv, d, torch.bfloat16,
+                               causal).splits > 1
+                 for sq, skv, kv, causal in calls)
+    per_mlp = 2 if cfg.act == "gelu" else 3
+    return {"attention": n_runs * len(calls),
+            "attention_merge": n_runs * merges,
+            "gemm": n_runs * per_mlp * (n_mlp + NEW_TOKENS * L),
+            "attention_bwd": 0, "act_bwd": 0, "gemm_kahan": 0}, prefill_calls
+
+
+def serve_family(torch, np, cfg, params, tag: str, plen: int, max_seq: int,
+                 extra: dict) -> tuple:
+    """Server.generate(prompts, extra=...) on ``cfg`` at BATCH prompts of
+    ``plen`` tokens, NEW_TOKENS new ones, greedy and at temperature 0.8,
+    the ``extra`` inputs on the card: prefill ms, decode tok/s, peak
+    memory, the launches held exactly to :func:`serve_launches`, the
+    samplers' launches, no engine fallback; then one decode step
+    profiled. Returns (the launch counts, the peak)."""
+    import importlib
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServeConfig, Server
+    dispatch = importlib.import_module("repro_torch.core.dispatch")
+    prompts = prompts_for(cfg, np, plen)
+    extra = {k: v.to(DEVICE) for k, v in extra.items()}
+    card = card_line()
+    runs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    dispatch.reset_engine_fallbacks()
+    for name, temp in (("greedy", 0.0), ("temperature", 0.8)):
+        runs[name] = Server(cfg, params, ServeConfig(
+            max_seq=max_seq, max_new_tokens=NEW_TOKENS, eos_token=-1,
+            temperature=temp)).generate(prompts, extra=extra)
+    counts = ops.launches()
+    fallbacks = dispatch.engine_fallbacks
+    peak = torch.cuda.max_memory_allocated()
+    for name, out in runs.items():
+        comp = out["completions"]
+        need(len(comp) == BATCH and all(
+            len(c) == NEW_TOKENS and all(0 <= t < cfg.padded_vocab
+                                         for t in c) for c in comp),
+             f"{tag} {name}: completions malformed")
+        say(tag, f"{name}: prefill {out['prefill_s'] * 1e3:.2f} ms | decode "
+                 f"{out['decode_tok_per_s']:.2f} tok/s | req0 {comp[0]} | "
+                 f"card {card}")
+    want, per_prefill = serve_launches(torch, cfg, plen, max_seq, len(runs))
+    say(tag, f"peak memory {peak / 1e9:.2f} GB | kernel launches {counts} "
+             f"| expected {want} ({per_prefill} attention launches a "
+             f"prefill) | engine_fallbacks {fallbacks} | card {card}")
+    need(all(counts[k] == v for k, v in want.items()),
+         f"{tag}: launches {counts}, expected {want}")
+    for wrapper in ("reduce", "chain_reduce"):
+        need(counts[wrapper] > 0, f"{tag}: {wrapper} kernel never launched")
+    need(fallbacks == 0, f"{fallbacks} descriptors fell back to the engine")
+    profile_decode_step(torch, np, cfg, params, prompts, tag, extra=extra,
+                        max_seq=max_seq)
+    return counts, peak
+
+
+def family_train(torch, cfg, batch: int, seq: int, tag: str) -> dict:
+    """build_step_fn on ``cfg`` (bf16, remat="full") for DENSE_STEPS steps
+    at ``batch`` x ``seq`` from SyntheticLM (with the stub inputs it
+    draws): step time, tokens/s, peak memory (held to HEADROOM_BYTES), the
+    launches checked exactly per step (the flash forward with lse and its
+    remat recompute a layer, one backward; the activation backward an
+    MLP; GELU 2 + 2 + 5 GEMMs an MLP, SwiGLU 3 + 3 + 8); one more step
+    profiled by kernel family."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import build_step_fn
+
+    card = card_line()
+    opt_cfg = AdamWConfig(warmup_steps=10, total_steps=DENSE_STEPS)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device=DEVICE, trainable=True)
+    opt = init_opt_state(dict(params.named_parameters()))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    step_fn = build_step_fn(cfg, opt_cfg)
+    data = SyntheticLM(cfg, batch, seq, seed=0)
+    batches = [{k: v.to(DEVICE) for k, v in data.batch_at(i).items()}
+               for i in range(DENSE_STEPS + 1)]
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.encoder_decoder
+             else cfg.n_layers)
+    say(tag, f"{cfg.name} {depth} layers, {n_params / 1e9:.3f} B "
+             f"params, batch {batch} x {seq} "
+             f"({', '.join(sorted(batches[0]))}), {DENSE_STEPS} steps; "
+             f"init {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    ops.reset_launches()
+    for step in range(DENSE_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss, _ = step_fn(params, opt, batches[step])
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    need(all(math.isfinite(x) for x in losses),
+         f"{tag}: losses not all finite: {losses}")
+    step_s = sum(times[1:]) / len(times[1:])
+    tokens = batch * seq
+    if cfg.encoder_decoder:
+        # 6 N D over each stack's tokens: the encoder's parameters see the
+        # frames, the decoder's (and the unembedding) the tokens
+        n_enc = sum(p.numel() for p in params.enc_layers.parameters())
+        n_dec = sum(p.numel() for p in params.dec_layers.parameters()) \
+            + cfg.d_model * cfg.padded_vocab
+        flops = 6.0 * (n_enc * batch * cfg.enc_seq + n_dec * tokens)
+        what = (f"{batch * cfg.enc_seq / step_s:.0f} frames/s and "
+                f"{tokens / step_s:.0f} tokens/s")
+    else:
+        flops = 6.0 * n_params * tokens
+        what = f"{tokens / step_s:.0f} tokens/s"
+    say(tag, f"losses {[round(x, 4) for x in losses]} | step times "
+             f"{[round(t * 1e3, 1) for t in times]} ms | step after step 1 "
+             f"{step_s * 1e3:.1f} ms | {what} | model FLOPs {flops / 1e12:.2f}"
+             f" T a step = {flops / step_s / PEAK_OPS['bf16']:.4f} of the "
+             f"989 TFLOP/s bf16 peak (observation) | card {card}")
+    card_memory_ok(torch, peak, tag, f"training at batch {batch} x {seq}")
+    n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.encoder_decoder
+              else cfg.n_layers)
+    n_mlp = cfg.n_layers + (cfg.n_enc_layers if cfg.encoder_decoder else 0)
+    per_gemm = 9 if cfg.act == "gelu" else 14
+    S = DENSE_STEPS
+    want = {"attention": 2 * n_attn * S, "attention_bwd": n_attn * S,
+            "act_bwd": n_mlp * S, "gemm": per_gemm * n_mlp * S,
+            "attention_merge": 0}
+    say(tag, f"kernel launches in {S} steps {counts} | expected {want}")
+    need(all(counts[k] == v for k, v in want.items()),
+         f"{tag}: launches {counts}, expected {want}")
+    params, opt = profile_dense_step(torch, cfg, step_fn, params, opt,
+                                     batches[DENSE_STEPS], step_s, tag)
+    del params, opt, batches
+    gc_collect(torch)
+    return counts
+
+
+def phase_whisper(torch, np) -> tuple:
+    """whisper-medium: the width check (2 encoder + 2 decoder layers at
+    full width, card vs CPU: prefill logits, 4 decode steps and every
+    cache leaf, k, v, ck and cv), then Server.generate on the full model
+    (24 + 24 layers) with 1500-frame inputs, its launches held exactly; a
+    1 + 1-layer training step card vs CPU, then DENSE_STEPS steps at
+    full size, 8 x 448 decoder tokens against 8 x 1500 frames. Returns the
+    serving and the training launch counts."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    gc_collect(torch)
+    phase_width(torch, np, WHISPER, "whisper width",
+                cut={"n_layers": 2, "n_enc_layers": 2}, extra=whisper_extra)
+    cfg = configs.get(WHISPER)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("whisper", f"{WHISPER} {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+                   f"{n_params / 1e9:.3f} B params bf16 "
+                   f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), init "
+                   f"{time.perf_counter() - t0:.1f} s")
+    # a decode step reads the decoder's weights but the cross-attention's
+    # wk and wv, the unembedding, and the cached keys and values
+    d, L = cfg.d_model, cfg.n_layers
+    step_bytes = 2 * (L * (6 * d * d + 2 * d * cfg.d_ff)
+                      + d * cfg.padded_vocab
+                      + L * BATCH * 2 * d * (cfg.enc_seq + MAX_SEQ))
+    say("whisper", f"a decode step reads {step_bytes / 1e9:.3f} GB of "
+                   f"weights and caches (bf16): bound "
+                   f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)")
+    serve_counts, _ = serve_family(torch, np, cfg, params, "whisper",
+                                   PROMPT_LEN, MAX_SEQ,
+                                   whisper_extra(cfg, np, PROMPT_LEN))
+    del params
+    gc_collect(torch)
+    t0 = time.perf_counter()
+    width_step_check(torch, cfg.scaled(n_layers=1, n_enc_layers=1),
+                     DENSE_WIDTH_SEQ, "whisper train width")
+    say("whisper train width", f"{WHISPER} full width, 1 + 1 of 24 + 24 "
+                               f"layers, batch 1 x {DENSE_WIDTH_SEQ} tokens "
+                               f"against {cfg.enc_seq} frames, "
+                               f"{time.perf_counter() - t0:.1f} s ok")
+    gc_collect(torch)
+    train_counts = family_train(torch, cfg, WHISPER_TRAIN_BATCH,
+                                WHISPER_TRAIN_SEQ, "whisper train")
+    return serve_counts, train_counts
+
+
+def phase_qwen(torch, np) -> tuple:
+    """qwen2-vl-2b: the width check (2 of 28 layers at full width, card vs
+    CPU, prompts of 256 patches and 32 text tokens with pos3 on a patch
+    grid), then Server.generate on the full model with img_embeds and
+    pos3, its launches held exactly; a 1-layer training step card vs CPU,
+    then DENSE_STEPS steps at full size, QWEN_TRAIN_BATCH x
+    QWEN_TRAIN_SEQ with the patches masked out of the loss. Returns the
+    serving and the training launch counts."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    gc_collect(torch)
+    phase_width(torch, np, QWEN, "qwen width", plen=QWEN_PLEN,
+                extra=qwen_extra)
+    cfg = configs.get(QWEN)
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say("qwen", f"{QWEN} {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+                f"params bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} GB),"
+                f" init {time.perf_counter() - t0:.1f} s")
+    serve_counts, _ = serve_family(torch, np, cfg, params, "qwen", QWEN_PLEN,
+                                   QWEN_MAX_SEQ,
+                                   qwen_extra(cfg, np, QWEN_PLEN))
+    del params
+    gc_collect(torch)
+    t0 = time.perf_counter()
+    width_step_check(torch, cfg.scaled(n_layers=1), QWEN_PATCHES + 64,
+                     "qwen train width")
+    say("qwen train width", f"{QWEN} full width, 1 of 28 layers, batch 1 x "
+                            f"{QWEN_PATCHES + 64} ({QWEN_PATCHES} patches "
+                            f"masked), {time.perf_counter() - t0:.1f} s ok")
+    gc_collect(torch)
+    train_counts = family_train(torch, cfg, QWEN_TRAIN_BATCH, QWEN_TRAIN_SEQ,
+                                "qwen train")
+    return serve_counts, train_counts
 
 
 # ----------------------------------------------------------------------
@@ -2524,7 +2998,8 @@ DENSE_GROUPS = {
     "cuBLAS": CUBLAS_KEYS}
 
 
-def profile_dense_step(torch, cfg, step_fn, params, opt, batch, wall_s):
+def profile_dense_step(torch, cfg, step_fn, params, opt, batch, wall_s,
+                       tag: str = "dense train"):
     """One more dense training step under torch.profiler: device time by
     kernel family. The ctypes launches are not attributed to the
     profiler's ranges, so ntx_gemm.cu is split into forward and backward
@@ -2552,7 +3027,7 @@ def profile_dense_step(torch, cfg, step_fn, params, opt, batch, wall_s):
             if e.key in ranges and e.device_type == DeviceType.CPU}
     split = kernel_split(evs, DENSE_GROUPS, skip=ranges)
     if split is None:
-        say("dense train", "profiler saw no device time: breakdown not "
+        say(tag, "profiler saw no device time: breakdown not "
                            "measured")
         return params, opt
     busy, by_group, top = split
@@ -2563,18 +3038,18 @@ def profile_dense_step(torch, cfg, step_fn, params, opt, batch, wall_s):
         f_ms, f_n = (2 * x for x in fwd[1]["ntx_gemm.cu"])
         bwd = (f"forward and its recompute {f_ms:.1f} ms x{f_n}, MLP "
                f"backward {gemm_ms - f_ms:.1f} ms x{gemm_n - f_n}")
-    say("dense train", f"profiled step: wall {wall_ms:.1f} ms (profiler on; "
+    say(tag, f"profiled step: wall {wall_ms:.1f} ms (profiler on; "
                        f"{wall_s * 1e3:.1f} ms off) | device busy {busy:.1f} "
                        f"ms ({busy / wall_ms:.3f} of wall) | ranges (device "
                        f"ms of their PyTorch ops; the kernels' ctypes "
                        f"launches are not attributed) "
                        f"{ {k: round(v, 1) for k, v in span.items()} } | "
                        f"card {card_line()}")
-    say("dense train", "kernels by family (device ms, launches): " + " | "
+    say(tag, "kernels by family (device ms, launches): " + " | "
         .join(f"{k} {v[0]:.1f} x{v[1]}" for k, v in by_group.items())
         + f" | ntx_gemm.cu: {bwd}")
     for e in top:
-        say("dense train", f"  {e.self_device_time_total / 1e3:9.2f} ms "
+        say(tag, f"  {e.self_device_time_total / 1e3:9.2f} ms "
                            f"x{e.count:5d}  {e.key[:110]}")
     return params, opt
 
@@ -2584,75 +3059,14 @@ def phase_dense_train(torch, np) -> dict:
     heads of 128, d_ff 14336, vocab 128256, bf16, remat="full") cut to
     DENSE_LAYERS of 32 layers: DENSE_STEPS steps at batch DENSE_BATCH x
     DENSE_SEQ (the step the Trainer runs; phase 7 covers its
-    checkpoints). Step time, tokens/s, peak memory, the model-FLOP share,
-    the kernel launches of those steps; one more step profiled."""
+    checkpoints), through :func:`family_train`."""
     from repro_torch import configs
-    from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import ops
-    from repro_torch.models import Model
-    from repro_torch.optim import AdamWConfig, init_opt_state
-    from repro_torch.runtime import build_step_fn
-
     full = configs.get("llama3-8b")
-    cfg = full.scaled(n_layers=DENSE_LAYERS)
     say("dense train", f"cut: layers {DENSE_LAYERS} of {full.n_layers} (~16 "
                        f"bytes a parameter: the {full.n_layers}-layer model "
                        f"needs ~128 GB)")
-    say("dense train", f"cut: batch {DENSE_BATCH} x {DENSE_SEQ} tokens, "
-                       f"{DENSE_STEPS} steps")
-    card = card_line()
-    opt_cfg = AdamWConfig(warmup_steps=max(10, DENSE_STEPS // 10),
-                          total_steps=DENSE_STEPS)
-    params = Model(cfg).init(0, device=DEVICE, trainable=True)
-    opt = init_opt_state(dict(params.named_parameters()))
-    n_params = sum(p.numel() for p in params.parameters())
-    step_fn = build_step_fn(cfg, opt_cfg)
-    data = SyntheticLM(cfg, DENSE_BATCH, DENSE_SEQ, seed=0)
-    batches = [{k: v.to(DEVICE) for k, v in data.batch_at(i).items()}
-               for i in range(DENSE_STEPS + 1)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, losses = [], []
-    ops.reset_launches()
-    for step in range(DENSE_STEPS):
-        t0 = time.perf_counter()
-        params, opt, loss, _ = step_fn(params, opt, batches[step])
-        losses.append(float(loss))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    counts = ops.launches()
-    peak = torch.cuda.max_memory_allocated()
-    need(all(math.isfinite(x) for x in losses),
-         f"dense training losses not all finite: {losses}")
-    steady = times[1:]
-    step_s = sum(steady) / len(steady)
-    tokens = DENSE_BATCH * DENSE_SEQ
-    share = 6.0 * n_params * tokens / step_s / PEAK_OPS["bf16"]
-    say("dense train", f"llama3-8b {cfg.n_layers} layers, {n_params / 1e9:.3f} "
-                       f"B params bf16, batch {DENSE_BATCH} x seq "
-                       f"{DENSE_SEQ}: losses {[round(x, 4) for x in losses]} "
-                       f"| card {card}")
-    say("dense train", f"step times {[round(t * 1e3, 1) for t in times]} ms | "
-                       f"step after step 1 {step_s * 1e3:.1f} ms | "
-                       f"{tokens / step_s:.0f} tokens/s | 6 N tokens / step "
-                       f"time = {share:.4f} of the 989 TFLOP/s bf16 peak "
-                       f"(observation) | peak memory {peak / 1e9:.2f} GB | "
-                       f"card {card}")
-    per = {k: counts[k] / DENSE_STEPS for k in ("attention", "attention_bwd",
-                                                "act_bwd", "gemm")}
-    say("dense train", f"kernel launches in {DENSE_STEPS} steps {counts} | "
-                       f"per step {per}")
-    L = cfg.n_layers * DENSE_STEPS
-    want = {"attention": 2 * L, "attention_bwd": L, "act_bwd": L,
-            "gemm": 14 * L, "attention_merge": 0}
-    need(all(counts[k] == v for k, v in want.items()),
-         f"dense launches {counts}, expected {want} (forward and recompute "
-         f"per layer; one backward; 3 + 3 + 8 GEMMs)")
-    params, opt = profile_dense_step(torch, cfg, step_fn, params, opt,
-                                     batches[DENSE_STEPS], step_s)
-    del params, opt, batches
-    gc_collect(torch)
-    return counts
+    return family_train(torch, full.scaled(n_layers=DENSE_LAYERS),
+                        DENSE_BATCH, DENSE_SEQ, "dense train")
 
 
 # ----------------------------------------------------------------------
@@ -3515,13 +3929,18 @@ def main(argv=None) -> int:
             counts["mamba2_serve"] = phase_mamba2(torch, np)
         if 16 in phases:
             counts["jamba"] = phase_jamba(torch, np)
+        if 17 in phases:
+            counts["whisper"], counts["whisper_train"] = phase_whisper(
+                torch, np)
+        if 18 in phases:
+            counts["qwen"], counts["qwen_train"] = phase_qwen(torch, np)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     say("done", f"phases {sorted(phases)} passed in "
                 f"{time.perf_counter() - t_start:.1f} s, the build included")
 
-    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16} <= phases:
+    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

@@ -7,8 +7,13 @@ step a checkpoint stores; a background thread prefetches the next
 batches while a step runs. ``batch_at`` draws the same numpy tokens as
 the reference (a Zipfian unigram mixture with every even position
 repeating the previous token, so the loss can fall) and returns them as
-int64 CPU tensors, torch's index type. The encoder and image stub inputs
-come with the enc-dec and VLM families (ROADMAP slice D).
+int64 CPU tensors, torch's index type. After the tokens the same rng
+draws the stub inputs, in the reference's order: the encoder-decoder's
+frame embeddings ``enc_embeds`` (b, enc_seq, d) and the VLM's patch
+embeddings ``img_embeds`` (b, n_patches, d), both bf16 (rounded once from
+numpy's float64, as ``jnp.asarray`` rounds them), with a ``loss_mask``
+that is 0 on the patches; M-RoPE's ``pos3`` (3, b, s) is ``arange(s)`` in
+all three streams.
 """
 from __future__ import annotations
 
@@ -37,10 +42,6 @@ class SyntheticLM:
         if global_batch % n_hosts:
             raise ValueError(f"global batch {global_batch} does not split "
                              f"over {n_hosts} hosts")
-        if cfg.encoder_decoder or cfg.n_patches or cfg.mrope:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder/image/M-RoPE inputs come with their "
-                f"families (ROADMAP slice D)")
         self.cfg = cfg
         self.b_local = global_batch // n_hosts
         self.seq = seq_len
@@ -64,8 +65,22 @@ class SyntheticLM:
         base = rng.choice(self._v_eff, size=(b, s + 1), p=self._probs)
         # learnable structure: every even position repeats the previous token
         base[:, 2::2] = base[:, 1:-1:2]
-        return {"tokens": torch.from_numpy(base[:, :-1].astype(np.int64)),
-                "labels": torch.from_numpy(base[:, 1:].astype(np.int64))}
+        batch = {"tokens": torch.from_numpy(base[:, :-1].astype(np.int64)),
+                 "labels": torch.from_numpy(base[:, 1:].astype(np.int64))}
+        cfg = self.cfg
+        bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+        if cfg.encoder_decoder:
+            batch["enc_embeds"] = bf16(rng.standard_normal(
+                (b, cfg.enc_seq, cfg.d_model)) * 0.02)
+        if cfg.n_patches:
+            batch["img_embeds"] = bf16(rng.standard_normal(
+                (b, cfg.n_patches, cfg.d_model)) * 0.02)
+            mask = np.ones((b, s), np.float32)
+            mask[:, :cfg.n_patches] = 0.0
+            batch["loss_mask"] = torch.from_numpy(mask)
+        if cfg.mrope:
+            batch["pos3"] = torch.arange(s).expand(3, b, s).contiguous()
+        return batch
 
     # -- iterator with background prefetch ------------------------------
     def _worker(self, start_step: int, q: queue.Queue):

@@ -13,6 +13,12 @@ than one 80 GB card serves cut in depth:
         --set n_layers=28          # 41.9 B parameters, 83.7 GB in bf16
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --full \\
         --set n_layers=23          # 32 layers: 51.5 B, 102.9 GB in bf16
+
+The encoder-decoder (whisper-medium) and the VLM (qwen2-vl-2b) need
+frontend inputs (frame or patch embeddings) that prompts do not carry:
+as the reference's launcher does, this one refuses them. They serve
+through ``Server.generate(prompts, extra={"enc_embeds": ...})`` or
+``extra={"img_embeds": ..., "pos3": ...}``.
 """
 import argparse
 import sys
@@ -45,6 +51,10 @@ def main(argv=None):
     overrides = parse_overrides(args.set)
     if overrides:
         cfg = cfg.scaled(**overrides)
+    if cfg.encoder_decoder or cfg.n_patches:
+        print(f"{args.arch} needs frontend inputs — serve it through "
+              f"Server.generate(prompts, extra={{...}})")
+        return 1
     params = Model(cfg).init(0, device=args.device)
     srv = Server(cfg, params, ServeConfig(
         max_seq=args.prompt_len + args.new_tokens + 8,

@@ -6,12 +6,20 @@
         --set n_layers=4 --global-batch 4 --seq 2048 --steps 5
     python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \\
         --set n_layers=3 --global-batch 4 --seq 2048 --steps 5
+    python -m repro_torch.launch.train --arch whisper-medium \\
+        --global-batch 8 --seq 448 --steps 5
+    python -m repro_torch.launch.train --arch qwen2-vl-2b \\
+        --global-batch 4 --seq 1024 --steps 5
 
 Wires the arch registry, the Trainer and checkpointing, with the
 reference launcher's flags. It trains on one device (``--device``, the
 card by default); the mesh (ROADMAP slice G) is not ported. The Trainer
 plans its optimizer update as a multistream descriptor program, as the
-reference's does.
+reference's does. The data pipeline draws the stub inputs of the
+encoder-decoder (``--arch whisper-medium``: frame embeddings at the
+config's ``enc_seq``, ``--seq`` decoder tokens) and of the VLM (``--arch
+qwen2-vl-2b``: ``n_patches`` patch embeddings over the first positions,
+masked out of the loss, and M-RoPE positions), so both train from here.
 """
 import argparse
 import os
@@ -23,8 +31,9 @@ def _parse(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mamba2-1.3b",
                     help="mamba2-1.3b, a dense GQA config (llama3-8b, "
-                         "yi-9b, phi3-medium-14b, granite-3-8b) or a MoE "
-                         "config (deepseek-v2-lite-16b, phi3.5-moe-42b); "
+                         "yi-9b, phi3-medium-14b, granite-3-8b), a MoE "
+                         "config (deepseek-v2-lite-16b, phi3.5-moe-42b), "
+                         "whisper-medium or qwen2-vl-2b; "
                          "training takes ~30 bytes a parameter, so cut a "
                          "full config's depth on one card (--set "
                          "n_layers=4)")

@@ -1,6 +1,6 @@
-"""Unified model API for the ported families (dense decoders, MLA / MoE
-decoders, the Mamba-2 stack and the hybrid), the counterpart of
-``repro.models.api``:
+"""Unified model API for every family (dense, MLA / MoE and VLM decoders,
+the Mamba-2 stack, the hybrid and the encoder-decoder), the counterpart
+of ``repro.models.api``:
 
     model = Model(cfg)
     params = model.init(seed, device="cuda", trainable=True)
@@ -10,7 +10,9 @@ decoders, the Mamba-2 stack and the hybrid), the counterpart of
     logits, cache = model.decode(params, tokens, cache, fill)
 
 Work runs on the device the parameters and tokens are on; every family
-serves and trains.
+serves and trains. ``cfg.encoder_decoder`` dispatches to ``encdec``,
+everything else to ``transformer``, as the reference does; the decode
+signature is the same for both.
 """
 from __future__ import annotations
 
@@ -19,33 +21,33 @@ from typing import Any, Dict
 import torch
 
 from .common import ArchConfig, check_ported
-from . import transformer
+from . import encdec, transformer
 
 
 class Model:
     def __init__(self, cfg: ArchConfig):
         check_ported(cfg)
         self.cfg = cfg
+        self._mod = encdec if cfg.encoder_decoder else transformer
 
     # -- parameters ----------------------------------------------------
-    def init(self, seed: int = 0, device="cuda",
-             trainable: bool = False) -> transformer.Transformer:
-        return transformer.init_params(self.cfg, seed, device, trainable)
+    def init(self, seed: int = 0, device="cuda", trainable: bool = False):
+        return self._mod.init_params(self.cfg, seed, device, trainable)
 
     # -- training ------------------------------------------------------
     def loss(self, params, batch: Dict[str, Any]):
-        return transformer.loss_fn(self.cfg, params, batch)
+        return self._mod.loss_fn(self.cfg, params, batch)
 
     # -- inference -----------------------------------------------------
     def init_cache(self, batch: int, seq: int, dtype=torch.bfloat16,
                    device="cuda"):
-        return transformer.init_cache(self.cfg, batch, seq, dtype, device)
+        return self._mod.init_cache(self.cfg, batch, seq, dtype, device)
 
     def prefill(self, params, batch: Dict[str, Any],
                 cache_len: int | None = None):
-        return transformer.prefill(self.cfg, params, batch, cache_len)
+        return self._mod.prefill(self.cfg, params, batch, cache_len)
 
     def decode(self, params, tokens, cache, fill: int,
                absorbed_mla: bool = False):
-        return transformer.decode_step(self.cfg, params, tokens, cache, fill,
-                                       absorbed_mla=absorbed_mla)
+        return self._mod.decode_step(self.cfg, params, tokens, cache, fill,
+                                     absorbed_mla=absorbed_mla)

@@ -1,6 +1,7 @@
-"""Attention blocks: GQA (llama-class) and MLA (deepseek-v2 class):
-parameters, full-sequence forward and decode against a pre-allocated
-cache.
+"""Attention blocks: GQA (llama-class; M-RoPE for the VLM, and
+cross-attention on given keys and values for the encoder-decoder) and
+MLA (deepseek-v2 class): parameters, full-sequence forward and decode
+against a pre-allocated cache.
 
 Counterpart of ``repro.models.attention``. The attention math runs
 through ``repro_torch.kernels.ops.attention`` — the NTX MAX+MAC streaming
@@ -17,7 +18,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
-from .common import ArchConfig, _param, apply_rope, dense_init, rmsnorm
+from .common import (ArchConfig, _param, apply_mrope, apply_rope, dense_init,
+                     rmsnorm)
 
 
 class GQA(nn.Module):
@@ -61,20 +63,36 @@ def _qkv(cfg: ArchConfig, p: GQA, x: torch.Tensor):
 
 
 def _rope_qk(cfg: ArchConfig, q, k, pos):
-    if pos is not None:
+    """RoPE at ``pos`` (b, s), M-RoPE at ``pos`` (3, b, s) when
+    ``cfg.mrope``; none when ``pos`` is None (the encoder-decoder)."""
+    if cfg.mrope:
+        q = apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos, cfg.rope_theta, cfg.mrope_sections)
+    elif pos is not None:
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     return q, k
 
 
 def gqa_forward(cfg: ArchConfig, p: GQA, x: torch.Tensor, pos,
-                causal: bool = True):
-    """Self-attention over a full sequence. Returns (out, (k, v)) with
-    k/v in (b, hkv, s, hd) layout, so prefill can populate a cache."""
+                causal: bool = True, kv=None):
+    """Self- or cross-attention over a full sequence. ``kv``: (k, v)
+    already in (b, hkv, skv, hd) layout for cross-attention (the
+    encoder-decoder's decoder attending to the encoder; only the query is
+    projected, with ``wq`` and ``bq``, and nothing rotated); otherwise
+    computed from x. Returns (out, (k, v)) with k/v in (b, hkv, s, hd)
+    layout, so prefill can populate a cache."""
     dt = cfg.cdtype
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, p, x)
-    q, k = _rope_qk(cfg, q, k, pos)
+    if kv is None:
+        q, k, v = _qkv(cfg, p, x)
+        q, k = _rope_qk(cfg, q, k, pos)
+    else:
+        q = x @ p.wq.to(dt)
+        if cfg.qkv_bias:
+            q = q + p.bq.to(dt)
+        q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+        k, v = kv
     o = ops.attention(q, k, v, causal=causal)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     return o @ p.wo.to(dt), (k, v)

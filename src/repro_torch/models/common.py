@@ -1,8 +1,10 @@
-"""Shared model components of the ported families (the dense decoder,
-MLA / MoE, Mamba-2 and the hybrid): config, RMSNorm, RoPE, the MLP, the
-embeddings, the cross-entropy and activation recomputation.
+"""Shared model components of every ported family: config, RMSNorm and
+LayerNorm, RoPE and M-RoPE, sinusoidal positions, the MLP, the
+embeddings (tied or not), the cross-entropy and activation
+recomputation.
 
-Counterpart of ``repro.models.common`` (those parts only). Parameters
+Counterpart of ``repro.models.common`` (all but its sharding hooks,
+which wait for the mesh, ROADMAP slice G). Parameters
 are ``nn.Module``s whose tensors keep the reference's layouts
 ((d_in, d_out) weights used as ``x @ w``), so converted weights and the
 functions below compute what the reference computes. The QKV, WO and
@@ -17,7 +19,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops
 
@@ -135,10 +138,12 @@ class ArchConfig:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """This package runs the dense GQA decoder, the attention-free Mamba-2
-    stack (``family == "ssm"``), MLA / MoE decoders (deepseek-v2) and the
-    hybrid family (jamba: Mamba-2 and GQA layers on a period, dense and
-    MoE FFNs); ROADMAP slice D brings the others (enc-dec, VLM)."""
+    """This package runs every family of the reference's registry: dense
+    GQA and MLA / MoE decoders, the attention-free Mamba-2 stack
+    (``family == "ssm"``), the hybrid (jamba: Mamba-2 and GQA layers on a
+    period), the encoder-decoder (whisper) and the VLM (qwen2-vl, M-RoPE
+    and the patch stub). It refuses the combinations no family has: an
+    encoder-decoder runs GQA layers with MLPs only."""
     ssm_family = cfg.family in ("ssm", "hybrid")
     unsupported = [name for name, on in (
         ("ssm outside the ssm and hybrid families",
@@ -147,19 +152,36 @@ def check_ported(cfg: ArchConfig) -> None:
          cfg.family == "ssm" and not cfg.ssm),
         ("attn_period outside the hybrid family",
          bool(cfg.attn_period) and cfg.family != "hybrid"),
-        ("mrope", cfg.mrope),
-        ("encoder_decoder", cfg.encoder_decoder),
-        ("n_patches", bool(cfg.n_patches)),
-        ("layernorm", cfg.norm != "rmsnorm"),
-        ("tie_embeddings", cfg.tie_embeddings)) if on]
+        ("encoder_decoder with ssm, mla, moe, mrope or patches",
+         cfg.encoder_decoder and (cfg.ssm or cfg.mla or cfg.moe
+                                  or cfg.mrope or bool(cfg.n_patches)))
+    ) if on]
     if unsupported:
-        raise NotImplementedError(f"{cfg.name}: {unsupported} not ported "
-                                  f"yet (ROADMAP queue 1, slice D)")
+        raise NotImplementedError(f"{cfg.name}: {unsupported} not "
+                                  f"supported")
 
 
 # ----------------------------------------------------------------------
 # Initialisation helpers (the reference's distributions)
 # ----------------------------------------------------------------------
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so the parameters
+    drawn with it are shapes only."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def make_generator(device, seed: int) -> torch.Generator:
+    """The init's generator on ``device``, seeded with ``seed``. On the
+    meta device the draws land on meta tensors: a full config's
+    parameters, counted without memory."""
+    if torch.device(device).type == "meta":
+        return _MetaGenerator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _trunc_normal(shape, std: float, dtype, gen: torch.Generator):
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -187,13 +209,20 @@ def _param(t: torch.Tensor, requires_grad: bool = False) -> nn.Parameter:
 # Norms
 # ----------------------------------------------------------------------
 class Norm(nn.Module):
-    def __init__(self, scale: torch.Tensor):
+    """RMSNorm's ``scale``, and LayerNorm's ``scale`` and ``bias``."""
+
+    def __init__(self, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
         super().__init__()
         self.scale = _param(scale)
+        self.bias = _param(bias) if bias is not None else None
 
 
 def norm_params(cfg: ArchConfig, d: int, device) -> Norm:
-    return Norm(torch.ones(d, dtype=cfg.pdtype, device=device))
+    ones = torch.ones(d, dtype=cfg.pdtype, device=device)
+    if cfg.norm == "layernorm":
+        return Norm(ones, torch.zeros(d, dtype=cfg.pdtype, device=device))
+    return Norm(ones)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -203,14 +232,27 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return (x * scale.float()).to(dt)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    """The reference's LayerNorm, written out in its order: the mean and
+    then the mean of the squared deviations in fp32, scale and bias
+    applied in fp32, one cast back."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(dt)
+
+
 def apply_norm(cfg: ArchConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} (ROADMAP slice D)")
+    if cfg.norm == "layernorm":
+        return layernorm(x, p.scale, p.bias)
     return rmsnorm(x, p.scale)
 
 
 # ----------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE / sinusoidal positions
 # ----------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -228,6 +270,36 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl). x: (b, h, s, d); pos3: (3, b, s), the
+    (t, h, w) position streams. The d/2 frequency slots fall into three
+    sections, slot j rotated by position stream ``sec[j]``."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                 # (d/2,)
+    sec = np.concatenate([np.full(s, i) for i, s in enumerate(sections)])
+    if sec.shape[0] != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {d // 2}")
+    sec = torch.as_tensor(sec, device=x.device)
+    pos = pos3.permute(1, 2, 0).float()[:, :, sec]         # (b, s, d/2)
+    ang = pos[:, None] * freqs                             # (b,1,s,d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) fp32 sinusoids [sin | cos], the table built in float64
+    numpy as the reference builds it, then rounded once."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], -1)
+    return torch.as_tensor(emb.astype(np.float32), device=device)
 
 
 # ----------------------------------------------------------------------
@@ -266,15 +338,23 @@ def apply_mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor,
 # Embedding / unembedding
 # ----------------------------------------------------------------------
 class Embed(nn.Module):
-    def __init__(self, embed: torch.Tensor, unembed: torch.Tensor):
+    """The (vocab, d) table and, unless the embeddings are tied, the
+    (d, vocab) unembedding (tied: ``unembed`` is None and the table's
+    transpose unembeds)."""
+
+    def __init__(self, embed: torch.Tensor,
+                 unembed: Optional[torch.Tensor] = None):
         super().__init__()
-        self.embed, self.unembed = _param(embed), _param(unembed)
+        self.embed = _param(embed)
+        self.unembed = _param(unembed) if unembed is not None else None
 
 
 def embed_params(cfg: ArchConfig, gen: torch.Generator) -> Embed:
     v = cfg.padded_vocab
-    return Embed(embed_init((v, cfg.d_model), gen, cfg.pdtype),
-                 dense_init((cfg.d_model, v), gen, 0, cfg.pdtype))
+    embed = embed_init((v, cfg.d_model), gen, cfg.pdtype)
+    if cfg.tie_embeddings:
+        return Embed(embed)
+    return Embed(embed, dense_init((cfg.d_model, v), gen, 0, cfg.pdtype))
 
 
 def embed_tokens(cfg: ArchConfig, p: Embed,
@@ -283,7 +363,8 @@ def embed_tokens(cfg: ArchConfig, p: Embed,
 
 
 def unembed(cfg: ArchConfig, p: Embed, x: torch.Tensor) -> torch.Tensor:
-    return x.to(cfg.cdtype) @ p.unembed.to(cfg.cdtype)
+    w = p.embed.t() if cfg.tie_embeddings else p.unembed
+    return x.to(cfg.cdtype) @ w.to(cfg.cdtype)
 
 
 # ----------------------------------------------------------------------
@@ -328,16 +409,30 @@ def chunked_xent(cfg: ArchConfig, p: Embed, h: torch.Tensor,
 # ----------------------------------------------------------------------
 # Activation recomputation
 # ----------------------------------------------------------------------
+#: the products without batch dims, whose outputs ``remat="dots"`` saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def remat_wrap(cfg: ArchConfig, fn: Callable) -> Callable:
     """``"full"``: recompute ``fn``'s activations in the backward
-    (``torch.utils.checkpoint``, non-reentrant); ``"none"``: keep them."""
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"``: keep the
+    outputs of the products without batch dims (``aten.mm`` /
+    ``aten.addmm``, the reference's ``checkpoint_dots_with_no_batch_dims``)
+    and recompute the rest, through a selective-checkpoint policy (the
+    values are those of ``"full"``); ``"none"``: keep them all."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matmul outputs) is not ported yet "
-            "(ROADMAP queue 1, slice D)")
+    kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return wrapped

@@ -8,7 +8,12 @@ init_params``): ``tree["layers"]["ssm_none"]["mixer"]["wz"]`` holds the
 model (jamba) has one such stack per kind (``ssm_mlp``, ``ssm_moe``,
 ``attn_mlp``). This package keeps one module per layer, so
 ``layers.3.mixer.wz`` is its kind's stack's entry at the layer's index
-within the kind. :func:`reference_path` maps one name to the other;
+within the kind. The encoder-decoder (``repro/models/encdec.py``)
+stacks its ``enc_layers`` and ``dec_layers`` as they come, so
+``dec_layers.3.cross_attn.wq`` is entry 3 of
+``tree["dec_layers"]["cross_attn"]["wq"]``; LayerNorms add a ``bias``
+beside each ``scale``, the VLM an ``img_proj`` leaf, and tied embeddings
+drop ``unembed``. :func:`reference_path` maps one name to the other;
 :func:`from_reference` builds the modules from a reference tree (numpy
 leaves, any float dtype, bf16 included) and :func:`to_reference` stacks
 named tensors back into the reference's tree, which is what checkpoints
@@ -23,9 +28,13 @@ import torch
 
 from .attention import GQA, MLA
 from .common import MLP, ArchConfig, Embed, Norm, check_ported
+from .encdec import DecBlock, EncBlock, EncDec
 from .moe import MoE
 from .ssm import SSM
 from .transformer import Block, Transformer, layer_schedule
+
+#: the encoder-decoder's layer stacks, indexed by the layer itself
+_STACKS = ("enc_layers", "dec_layers")
 
 
 def _t(a, cfg: ArchConfig, device) -> torch.Tensor:
@@ -33,10 +42,56 @@ def _t(a, cfg: ArchConfig, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device=device, dtype=cfg.pdtype)
 
 
-def from_reference(params, cfg: ArchConfig, device="cuda") -> Transformer:
+def _norm(get, tree) -> Norm:
+    return Norm(get(tree, "scale"),
+                get(tree, "bias") if "bias" in tree else None)
+
+
+def _gqa(get, tree) -> GQA:
+    bias = {k: get(tree, k) for k in ("bq", "bk", "bv") if k in tree}
+    return GQA(*(get(tree, w) for w in ("wq", "wk", "wv", "wo")), **bias)
+
+
+def _mlp(get, tree) -> MLP:
+    return MLP(get(tree, "w1"), get(tree, "w2"),
+               get(tree, "w3") if "w3" in tree else None)
+
+
+def _embed(params, cfg: ArchConfig, device) -> Embed:
+    emb = params["embed"]
+    return Embed(_t(emb["embed"], cfg, device),
+                 _t(emb["unembed"], cfg, device) if "unembed" in emb
+                 else None)
+
+
+def _encdec_from_reference(params, cfg: ArchConfig, device) -> EncDec:
+    whole = lambda tree, name: _t(tree[name], cfg, device)
+    enc, dec = [], []
+    for i in range(cfg.n_enc_layers):
+        get = lambda tree, name: _t(tree[name][i], cfg, device)
+        st = params["enc_layers"]
+        enc.append(EncBlock(_norm(get, st["norm1"]), _gqa(get, st["attn"]),
+                            _norm(get, st["norm2"]), _mlp(get, st["ffn"])))
+    for i in range(cfg.n_layers):
+        get = lambda tree, name: _t(tree[name][i], cfg, device)
+        st = params["dec_layers"]
+        dec.append(DecBlock(_norm(get, st["norm1"]),
+                            _gqa(get, st["self_attn"]),
+                            _norm(get, st["norm_x"]),
+                            _gqa(get, st["cross_attn"]),
+                            _norm(get, st["norm2"]), _mlp(get, st["ffn"])))
+    return EncDec(_embed(params, cfg, device), enc, dec,
+                  _norm(whole, params["enc_norm"]),
+                  _norm(whole, params["dec_norm"]))
+
+
+def from_reference(params, cfg: ArchConfig, device="cuda"):
     """The reference parameter tree (numpy leaves) as a
-    :class:`Transformer` on ``device``, in ``cfg.param_dtype``."""
+    :class:`Transformer` (or, for the encoder-decoder, an
+    :class:`EncDec`) on ``device``, in ``cfg.param_dtype``."""
     check_ported(cfg)
+    if cfg.encoder_decoder:
+        return _encdec_from_reference(params, cfg, device)
     sched, _, idx_in_kind = layer_schedule(cfg)
     layers = []
     for kind, i in zip(sched, idx_in_kind):
@@ -44,42 +99,42 @@ def from_reference(params, cfg: ArchConfig, device="cuda") -> Transformer:
         stack = params["layers"][kind]
         get = lambda tree, name: _t(tree[name][i], cfg, device)
         mx = stack["mixer"]
-        norm1 = Norm(get(stack["norm1"], "scale"))
+        norm1 = _norm(get, stack["norm1"])
         if mixer_kind == "ssm":
             mixer = SSM(**{k: get(mx, k) for k in SSM.NAMES})
         elif cfg.mla:
             mixer = MLA(*(get(mx, w) for w in MLA.NAMES))
         else:
-            bias = {k: get(mx, k) for k in ("bq", "bk", "bv") if k in mx}
-            mixer = GQA(*(get(mx, w) for w in ("wq", "wk", "wv", "wo")),
-                        **bias)
+            mixer = _gqa(get, mx)
         if ffn_kind == "none":
             layers.append(Block(norm1, mixer))
             continue
         ffn = stack["ffn"]
-        mlp = lambda tree: MLP(get(tree, "w1"), get(tree, "w2"),
-                               get(tree, "w3") if "w3" in tree else None)
         if ffn_kind == "moe":
             ffn_mod = MoE(*(get(ffn, w) for w in ("router", "w1", "w2", "w3")),
-                          mlp(ffn["shared"]) if "shared" in ffn else None)
+                          _mlp(get, ffn["shared"]) if "shared" in ffn
+                          else None)
         else:
-            ffn_mod = mlp(ffn)
-        layers.append(Block(norm1, mixer, Norm(get(stack["norm2"], "scale")),
+            ffn_mod = _mlp(get, ffn)
+        layers.append(Block(norm1, mixer, _norm(get, stack["norm2"]),
                             ffn_mod))
-    emb = params["embed"]
-    return Transformer(Embed(_t(emb["embed"], cfg, device),
-                             _t(emb["unembed"], cfg, device)),
-                       layers,
-                       Norm(_t(params["final_norm"]["scale"], cfg, device)))
+    whole = lambda tree, name: _t(tree[name], cfg, device)
+    return Transformer(_embed(params, cfg, device), layers,
+                       _norm(whole, params["final_norm"]),
+                       _t(params["img_proj"], cfg, device)
+                       if "img_proj" in params else None)
 
 
 def reference_path(name: str,
                    cfg: ArchConfig) -> Tuple[Tuple[str, ...], Optional[int]]:
     """``"layers.3.mixer.wz"`` -> ``(("layers", "ssm_none", "mixer",
     "wz"), 3)``: the key path of the reference's stacked leaf and the
-    layer's index in it; ``(path, None)`` for a leaf outside the
+    layer's index in it (``"dec_layers.3.norm_x.bias"`` -> ``(("dec_layers",
+    "norm_x", "bias"), 3)``); ``(path, None)`` for a leaf outside the
     layers."""
     parts = name.split(".")
+    if parts[0] in _STACKS:
+        return (parts[0], *parts[2:]), int(parts[1])
     if parts[0] != "layers":
         return tuple(parts), None
     sched, _, idx_in_kind = layer_schedule(cfg)

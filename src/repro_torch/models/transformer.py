@@ -12,7 +12,9 @@ a list of per-layer dicts filled in place: bf16 ``{"k", "v"}`` for GQA,
 the latent ``{"c_kv", "k_rope"}`` for MLA (bf16 whatever the compute
 dtype, as the reference keeps them), and for a Mamba-2 layer the fp32
 state ``{"s"}`` beside the bf16 conv tails ``{"cx", "cb", "cc"}``, which
-have no sequence axis.
+have no sequence axis. The VLM (qwen2-vl) adds the patch stub (the first
+``n_patches`` positions take precomputed ``img_embeds`` through
+``img_proj``) and M-RoPE's (3, b, s) positions ``pos3``.
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from .common import (ArchConfig, Embed, Norm, apply_mlp, apply_norm,
+from .common import (ArchConfig, Embed, Norm, _param, apply_mlp, apply_norm,
                      check_ported, chunked_xent, embed_params, embed_tokens,
-                     mlp_params, norm_params, remat_wrap, unembed)
+                     make_generator, mlp_params, norm_params, remat_wrap,
+                     unembed)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -71,13 +74,16 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The parameters: embeddings, the layer list and the final norm."""
+    """The parameters: embeddings, the layer list, the final norm and,
+    with the patch stub (``cfg.n_patches``), the (d, d) ``img_proj``."""
 
-    def __init__(self, embed: Embed, layers: List[Block], final_norm: Norm):
+    def __init__(self, embed: Embed, layers: List[Block], final_norm: Norm,
+                 img_proj: Optional[torch.Tensor] = None):
         super().__init__()
         self.embed = embed
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
+        self.img_proj = _param(img_proj) if img_proj is not None else None
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
@@ -87,7 +93,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     ``convert.from_reference`` for those). ``trainable`` turns on
     ``requires_grad`` for every parameter."""
     check_ported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = make_generator(device, seed)
     embed = embed_params(cfg, gen)
     layers = []
     for kind in layer_schedule(cfg)[0]:
@@ -105,7 +111,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
                else mlp_params(cfg, gen, cfg.d_model, cfg.d_ff))
         layers.append(Block(norm1, mixer,
                             norm_params(cfg, cfg.d_model, device), ffn))
-    params = Transformer(embed, layers, norm_params(cfg, cfg.d_model, device))
+    img_proj = (torch.eye(cfg.d_model, dtype=cfg.pdtype, device=device)
+                if cfg.n_patches else None)
+    params = Transformer(embed, layers, norm_params(cfg, cfg.d_model, device),
+                         img_proj)
     return params.requires_grad_(trainable)
 
 
@@ -155,7 +164,14 @@ def backbone(cfg: ArchConfig, params: Transformer, x: torch.Tensor, pos):
 
 def embed_inputs(cfg: ArchConfig, params: Transformer,
                  batch: Dict[str, Any]) -> torch.Tensor:
-    return embed_tokens(cfg, params.embed, batch["tokens"])
+    """Token embeddings; with the patch stub the first ``n_patches``
+    positions are ``batch["img_embeds"] @ img_proj`` instead."""
+    x = embed_tokens(cfg, params.embed, batch["tokens"])
+    if cfg.n_patches:
+        dt = cfg.cdtype
+        img = batch["img_embeds"].to(dt) @ params.img_proj.to(dt)
+        x = torch.cat([img, x[:, cfg.n_patches:]], 1)
+    return x
 
 
 def loss_fn(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any]):
@@ -184,8 +200,13 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int,
 
 
 def positions(cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
+    """(b, s) positions; with M-RoPE ``batch["pos3"]`` (3, b, s), or
+    ``arange(s)`` in all three streams."""
     b, s = batch["tokens"].shape
-    return torch.arange(s, device=batch["tokens"].device)[None].expand(b, s)
+    pos = torch.arange(s, device=batch["tokens"].device)[None].expand(b, s)
+    if cfg.mrope:
+        return batch["pos3"] if "pos3" in batch else pos[None].expand(3, b, s)
+    return pos
 
 
 def decode_step(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
@@ -203,6 +224,8 @@ def decode_step(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
                          f"tokens of shape {tuple(tokens.shape)}")
     x = embed_tokens(cfg, params.embed, tokens)
     pos = (fill + torch.arange(s, device=tokens.device))[None].expand(b, s)
+    if cfg.mrope:
+        pos = pos[None].expand(3, b, s)
     aux = None
     for layer, c in zip(params.layers, cache):
         h = apply_norm(cfg, layer.norm1, x)
@@ -244,14 +267,15 @@ def prefill(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any],
     prefilled in mb sequential chunks and the caches joined along the
     batch, as the reference's chunked prefill does (each batch row is its
     own MoE routing group, so the chunks compute what one batch would;
-    every cache leaf, a Mamba-2 state included, has the batch first)."""
+    every cache leaf, a Mamba-2 state included, has the batch first).
+    ``pos3`` (3, b, s) is split along its batch axis, 1."""
     mb = max(1, cfg.prefill_microbatch)
     b = batch["tokens"].shape[0]
     if mb == 1 or b % mb:
         return _prefill_impl(cfg, params, batch, cache_len)
-    parts = [_prefill_impl(cfg, params, {k: v.chunk(mb)[i]
-                                         for k, v in batch.items()},
-                           cache_len) for i in range(mb)]
+    parts = [_prefill_impl(cfg, params, {
+        k: v.chunk(mb, dim=1 if k == "pos3" else 0)[i]
+        for k, v in batch.items()}, cache_len) for i in range(mb)]
     logits = torch.cat([p[0] for p in parts])
     cache = [{k: torch.cat([p[1][i][k] for p in parts]) for k in c}
              for i, c in enumerate(parts[0][1])]
@@ -263,7 +287,7 @@ def _prefill_impl(cfg: ArchConfig, params: Transformer,
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache_len = cache_len or s
-    x = embed_tokens(cfg, params.embed, tokens)
+    x = embed_inputs(cfg, params, batch)
     pos = positions(cfg, batch)
     cache = init_cache(cfg, b, cache_len, torch.bfloat16, tokens.device)
     aux = None

@@ -3,7 +3,8 @@
 Counterpart of ``repro.runtime.serve`` for every ported family. A batch
 of same-length prompts is prefilled, then decoded token by token against
 the model's cache (a list of per-layer dicts: bf16 keys and values or
-MLA latents; a Mamba-2 layer's fp32 state and bf16 conv tails).
+MLA latents, the encoder-decoder's cross-attention keys and values
+beside them; a Mamba-2 layer's fp32 state and bf16 conv tails).
 Sampling runs as NTX descriptor
 :class:`~repro_torch.core.program.Program`\\ s through the
 :class:`~repro_torch.core.executor.Executor`, on the model's device:
@@ -236,7 +237,10 @@ class Server:
     @torch.inference_mode()
     def generate(self, prompts: List[np.ndarray],
                  extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """Greedy/temperature generation for a batch of same-length prompts."""
+        """Greedy/temperature generation for a batch of same-length
+        prompts. ``extra``: further model inputs, put on the model's
+        device (the encoder-decoder's ``enc_embeds``; the VLM's
+        ``img_embeds`` and ``pos3``)."""
         scfg = self.scfg
         rng = np.random.default_rng(scfg.seed)
         b = len(prompts)
@@ -247,7 +251,8 @@ class Server:
                                  device=self.device)
         batch = {"tokens": tokens}
         if extra:
-            batch.update(extra)
+            batch.update({k: torch.as_tensor(v, device=self.device)
+                          for k, v in extra.items()})
 
         self._sync()
         t0 = time.perf_counter()

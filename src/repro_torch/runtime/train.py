@@ -61,8 +61,14 @@ class TrainConfig:
 
 
 def microbatches(batch: Dict[str, torch.Tensor], accum: int):
-    """Split a batch into (accum, b/accum, ...) microbatches."""
-    return {k: v.reshape(accum, -1, *v.shape[1:]) for k, v in batch.items()}
+    """Split a batch into (accum, b/accum, ...) microbatches. ``pos3``
+    (3, b, s) carries the batch on axis 1, the rest on axis 0."""
+    def split(k, v):
+        if k == "pos3":
+            return v.reshape(v.shape[0], accum, -1,
+                             *v.shape[2:]).movedim(1, 0)
+        return v.reshape(accum, -1, *v.shape[1:])
+    return {k: split(k, v) for k, v in batch.items()}
 
 
 def build_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig):

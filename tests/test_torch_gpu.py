@@ -1845,3 +1845,217 @@ def test_ssm_serving_card_vs_cpu(cuda, arch):
             tol = 1e-3 if a[k].dtype == torch.float32 else 1e-2
             torch.testing.assert_close(a[k].float(), b[k].float(), rtol=tol,
                                        atol=tol)
+
+
+# ----------------------------------------------------------------------
+# the encoder-decoder (whisper) and the VLM (qwen2-vl)
+# ----------------------------------------------------------------------
+def _cross_inputs(cuda, b, hq, hkv, sq, skv, d, dt, causal):
+    """q and dO of sq rows, k and v of skv rows, as the model hands them
+    ((b, s, h, d) viewed as (b, h, s, d)); o and lse from the kernel
+    forward."""
+    view = lambda s, h, scale: _t((b, s, h, d), cuda, scale).to(
+        dt).transpose(1, 2)
+    q, k, v = view(sq, hq, 0.5), view(skv, hkv, 0.5), view(skv, hkv, 1.0)
+    do = view(sq, hq, 1.0)
+    plan = tfa.flash_plan(b, hq, hkv, sq, skv, skv, d, dt, causal, lse=True)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, plan=plan,
+                                      lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,sq,skv", [(2, 4, 100, 300), (2, 4, 300, 100),
+                                        (1, 4, 448, 1500)])
+def test_flash_backward_cross_attention(cuda, dtype, d, b, h, sq, skv):
+    """The backward at sq != skv, non-causal (the encoder-decoder's
+    cross-attention: 448 decoder queries against 1500 encoder keys, both
+    tiles ragged), d 64 and 128, against its plain version: each gradient
+    by relative L2 (GRAD_RTOL), the last key tile on its own."""
+    dt = getattr(torch, dtype)
+    args = _cross_inputs(cuda, b, h, h, sq, skv, d, dt, False)
+    got = tfa.flash_attention_bwd_cuda(*args, causal=False)
+    want = tfa.flash_attention_bwd_plain(*args, causal=False)
+    assert got[0].shape == (b, h, sq, d) and got[1].shape == (b, h, skv, d)
+    _check_bwd(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,causal,gs", [(1, 64, 3000, False, 3),
+                                                (2, 256, 256, True, 6)])
+def test_flash_backward_group_of_six(cuda, dtype, b, sq, skv, causal, gs):
+    """qwen2-vl's GQA group of 6 (12 / 2 heads of 128): the plan splits
+    the group into 3 (a long non-causal key run) or 6 (causal), the
+    splits' fp32 partials added in split order; against the plain
+    version by relative L2."""
+    dt = getattr(torch, dtype)
+    plan = tfa.flash_bwd_plan(b, 12, 2, sq, skv, 128, dt, causal)
+    assert plan.gs == gs and 6 % plan.gs == 0
+    args = _cross_inputs(cuda, b, 12, 2, sq, skv, 128, dt, causal)
+    got = tfa.flash_attention_bwd_cuda(*args, causal=causal)
+    _check_bwd(got, tfa.flash_attention_bwd_plain(*args, causal=causal),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_cross_decode_split_merge_d64(cuda, dtype):
+    """The encoder-decoder's decode cross-attention: one query a request
+    (g 1) against all 1500 cached encoder keys, non-causal, d 64. The
+    plan splits the keys and ``ops.attention`` launches the split kernel
+    and the merge; against the plain version (fp32 1e-4, bf16 1e-2)."""
+    dt = getattr(torch, dtype)
+    q = _t((4, 16, 1, 64), cuda, 0.5).to(dt)
+    k = _t((4, 16, 1500, 64), cuda, 0.5).to(dt)
+    v = _t((4, 16, 1500, 64), cuda).to(dt)
+    plan = tfa.flash_plan(4, 16, 16, 1, 1500, 1500, 64, dt, False)
+    assert plan.splits > 1
+    ops.reset_launches()
+    got = ops.attention(q, k, v, causal=False)
+    counts = ops.launches()
+    assert (counts["attention"], counts["attention_merge"]) == (1, 1)
+    want = tfa.flash_attention_plain(q, k, v, causal=False)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_gelu_mlp_with_residual_on_the_card(cuda, dtype):
+    """whisper's MLP (d 1024 -> 4096, tanh GELU in the first product's
+    store, the residual in the second's) under autograd on the card
+    against the same Function on the CPU: the output and every gradient
+    (fp32 1e-4, bf16 by relative L2), 2 + 5 GEMM launches and one
+    activation backward."""
+    dt = getattr(torch, dtype)
+    d, f, m = 1024, 4096, 64
+    ins = [_t((m, d), cuda).to(dt), _t((d, f), cuda, d ** -0.5).to(dt),
+           _t((f, d), cuda, f ** -0.5).to(dt), _t((m, d), cuda).to(dt)]
+    go = _t((m, d), cuda).to(dt)
+    outs = []
+    for dev in (cuda, "cpu"):
+        xs = [t.to(dev).requires_grad_() for t in ins]
+        ops.reset_launches()
+        out = ops.fused_mlp(xs[0], xs[1], xs[2], act="gelu", residual=xs[3])
+        grads = torch.autograd.grad(out, xs, go.to(dev))
+        outs.append((ops.launches(), out.detach().cpu(),
+                     [g.cpu() for g in grads]))
+    (counts, og, got), (_, oc, want) = outs
+    assert counts["gemm"] == 2 + 5 and counts["act_bwd"] == 1
+    for g, w in zip([og, *got], [oc, *want]):
+        assert g.dtype == dt
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            assert _rel_l2(g, w) < _GRAD_RTOL[dtype]
+
+
+def _family_small(arch):
+    """whisper or qwen2-vl narrowed to d_model 256 with the flash kernel's
+    head dims (whisper 4 heads of 64; qwen 2 / 1 heads of 128, M-RoPE
+    sections summing to 64), 2 layers (whisper 2 + 2, 128 frames; qwen
+    16 patches), fp32."""
+    from repro_torch import configs
+    narrow = {"whisper-medium": dict(n_layers=2, n_enc_layers=2, n_heads=4,
+                                     n_kv_heads=4, d_ff=512, enc_seq=128),
+              "qwen2-vl-2b": dict(n_layers=2, n_heads=2, n_kv_heads=1,
+                                  d_ff=512, n_patches=16,
+                                  mrope_sections=(16, 24, 24))}[arch]
+    return configs.get(arch).scaled(
+        d_model=256, vocab=512, compute_dtype="float32",
+        param_dtype="float32", **narrow)
+
+
+def _family_extra(cfg, b, s):
+    """The stub inputs, drawn with numpy: frames, or patches and pos3."""
+    rng = np.random.default_rng(3)
+    if cfg.encoder_decoder:
+        return {"enc_embeds": torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)) * 0.02).to(torch.bfloat16)}
+    pos = np.arange(s) + (np.arange(s) >= cfg.n_patches) * 3
+    pos3 = np.stack([pos, pos // 2, pos % 7])[:, None].repeat(b, 1)
+    return {"img_embeds": torch.from_numpy(rng.standard_normal(
+        (b, cfg.n_patches, cfg.d_model)) * 0.02).to(torch.bfloat16),
+        "pos3": torch.from_numpy(pos3)}
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-2b"])
+def test_family_serving_card_vs_cpu(cuda, arch):
+    """A small whisper and qwen2-vl (``_family_small``) through ``Model``:
+    prefill logits and every cache leaf (whisper's k, v, ck, cv), then 4
+    decode steps' logits, card against CPU from the same weights and stub
+    inputs; every attention layer a flash launch (whisper: encoder, self
+    and cross). fp32 logits at 1e-3, the bf16 cache leaves at 1e-2."""
+    import copy
+    from repro_torch.models import Model
+    cfg = _family_small(arch)
+    model = Model(cfg)
+    p_cpu = model.init(0, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    rng = np.random.default_rng(2)
+    s = 24 if cfg.encoder_decoder else cfg.n_patches + 8
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s))).long()
+    extra = _family_extra(cfg, 2, s)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2, 1))).long()
+    res = []
+    for dev, params in ((cuda, p_gpu), ("cpu", p_cpu)):
+        ops.reset_launches()
+        batch = {"tokens": toks.to(dev),
+                 **{k: v.to(dev) for k, v in extra.items()}}
+        with torch.inference_mode():
+            logits, cache, fill = model.prefill(params, batch,
+                                                cache_len=s + 8)
+            counts = ops.launches()
+            steps = [logits.cpu()]
+            cache0 = [{k: v.cpu().clone() for k, v in c.items()}
+                      for c in cache]
+            for tok in nxt:
+                logits, cache = model.decode(params, tok.to(dev), cache,
+                                             fill)
+                fill += 1
+                steps.append(logits[:, 0].cpu())
+        res.append((steps, cache0, counts))
+    (sg, cg, counts), (sc, cc, _) = res
+    n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.encoder_decoder
+              else cfg.n_layers)
+    assert counts["attention"] == n_attn
+    for a, b in zip(sg, sc):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    for a, b in zip(cg, cc):
+        assert a.keys() == b.keys()
+        for k in a:
+            torch.testing.assert_close(a[k].float(), b[k].float(), rtol=1e-2,
+                                       atol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-2b"])
+def test_family_training_card_vs_cpu(cuda, arch):
+    """The small models' loss and every leaf's gradient on the card and on
+    the CPU from the same weights and pipeline batch (fp32): the loss at
+    1e-5, each leaf within 1e-4 relative L2; the flash forward with lse
+    and its recompute, and the backward kernel, once an attention layer
+    each; the activation backward once an MLP."""
+    import copy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    cfg = _family_small(arch)
+    model = Model(cfg)
+    p_cpu = model.init(0, device="cpu", trainable=True)
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    batch = SyntheticLM(cfg, 2, 48, seed=0).batch_at(0)
+    res = []
+    for dev, params in ((cuda, p_gpu), ("cpu", p_cpu)):
+        named = dict(params.named_parameters())
+        ops.reset_launches()
+        loss, _ = model.loss(params, {k: v.to(dev) for k, v in batch.items()})
+        grads = {n: g.cpu() for n, g in zip(named, torch.autograd.grad(
+            loss, list(named.values())))}
+        res.append((float(loss.detach()), grads, ops.launches()))
+    (lg, gg, counts), (lc, gc, _) = res
+    n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.encoder_decoder
+              else cfg.n_layers)
+    n_mlp = cfg.n_layers + (cfg.n_enc_layers if cfg.encoder_decoder else 0)
+    assert (counts["attention"], counts["attention_bwd"],
+            counts["act_bwd"]) == (2 * n_attn, n_attn, n_mlp)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for n, want in gc.items():
+        assert _rel_l2(gg[n], want) <= _GRAD_RTOL["float32"], n

@@ -159,10 +159,12 @@ def test_entry_points_default_to_the_card():
     assert inspect.signature(TModel.init).parameters["device"].default == \
         "cuda"
     assert Executor().device.type == "cuda"
-    # a family not ported yet is refused (MoE and MLA are ported since
-    # deepseek-v2-lite-16b serves)
+    # every family of the registry is ported (the encoder-decoder and the
+    # VLM since whisper-medium and qwen2-vl-2b serve); a combination no
+    # family has is refused
     with pytest.raises(NotImplementedError):
-        TModel(tconfigs.get("llama3-8b").scaled(encoder_decoder=True))
+        TModel(tconfigs.get("llama3-8b").scaled(encoder_decoder=True,
+                                                 mla=True))
 
 
 def test_launch_serve_on_cpu(capsys):
