@@ -7,8 +7,11 @@
                              # and train whisper-medium and qwen2-vl-2b,
                              # train mamba2-1.3b, a 4-layer llama3-8b
                              # and the two MoE models cut in depth, run
-                             # the paper's kernel suite
+                             # the paper's kernel suite, hold the dry
+                             # run's counts against the card's
     python3 chip_smoke.py --phases 1,13   # one phase alone
+    python3 chip_smoke.py --phases 1,5,11,19   # the dry run against
+                             # phases 5 and 11 alone
     python3 chip_smoke.py --phases 1,3 --only attention:prefill_4096 \
         --src ../parent/src  # one case's check and time, another tree's
                              # kernels on the same card
@@ -159,6 +162,17 @@ Phases, one result line each:
                x 1024; the GELU GEMM and w2 + residual at m 6000; the
                GELU activation backward at 3584 and 12000 x 4096; the
                samplers' ARGMAX and AXPY -> ARGMAX at both vocabularies.
+ 19. dryrun — the card's ceilings (a bf16 torch.matmul at 8192^3, an
+               fp32 one at 4096^3 with TF32 off, a 2 GiB copy) beside the
+               data sheet's; then every workload phases 5, 7 and 11-18
+               measured, dry-run on the meta device
+               (repro_torch.launch.dryrun) in worker processes at the
+               phase's depth cut, batch, sequence and step count: its
+               kernel calls must equal the launches the phase counted on
+               the card and its hand predictor, family by family; each
+               prefill, decode step and training step's roofline at both
+               ceilings beside the measured time, and the dry run's peak
+               beside the card's (observations).
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -198,7 +212,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = set(range(1, 19))
+ALL_PHASES = set(range(1, 20))
 #: phase 12's model (MLA and MoE); phase 13 trains it at full width cut
 #: to DEEPSEEK_TRAIN_LAYERS of 27 layers (~30 bytes a parameter with the
 #: plain AdamW: 16.2 B parameters need ~490 GB), batch DENSE_BATCH x
@@ -1795,6 +1809,18 @@ def check_routing(tag: str, dtype: str, card, cpu) -> None:
          f"{dtype} MoE routing differs card vs CPU past a near-tie")
 
 
+def serve_obs(runs: dict, peak: int) -> dict:
+    """What phase 19 sets beside the dry run of a serving phase: the
+    BATCH-prompt runs' mean prefill time and mean decode-step time (each
+    step with its sampling), and the phase's peak memory."""
+    batch = [out for name, out in runs.items() if name != "long"]
+    return {"prefill_ms": 1e3 * sum(o["prefill_s"] for o in batch)
+            / len(batch),
+            "step_ms": 1e3 * sum(o["decode_s"] for o in batch)
+            / (len(batch) * NEW_TOKENS),
+            "peak": peak}
+
+
 def phase_serve(torch, np) -> dict:
     import importlib
     from repro_torch import configs
@@ -1870,7 +1896,7 @@ def phase_serve(torch, np) -> dict:
     profile_long_prefill(torch, cfg, params, long_srv, long_prompt,
                          long_out)
     profile_decode_step(torch, np, cfg, params, prompts)
-    return counts
+    return {"serve": (counts, serve_obs(runs, peak))}
 
 
 def profile_long_prefill(torch, cfg, params, srv, prompt, out,
@@ -2034,7 +2060,7 @@ def phase_deepseek(torch, np) -> dict:
     profile_decode_step(torch, np, cfg, params, prompts, "deepseek")
     del params
     gc_collect(torch)
-    return counts
+    return {"deepseek": (counts, serve_obs(runs, peak))}
 
 
 # ----------------------------------------------------------------------
@@ -2206,7 +2232,8 @@ def serve_runs(torch, np, cfg, params, tag: str, long: bool) -> tuple:
     short) and the peak memory of that run; then the prefill under
     torch.profiler (the long prompt's, or the batch's), which must launch
     ssd_scan.cu's three kernels once per Mamba-2 layer, and one decode
-    step by kernel family. Returns (the launch counts, the peak)."""
+    step by kernel family. Returns (the launch counts, the times and peak
+    that phase 19 reads)."""
     import importlib
     from repro_torch.kernels import ops
     from repro_torch.runtime import ServeConfig, Server
@@ -2264,7 +2291,7 @@ def serve_runs(torch, np, cfg, params, tag: str, long: bool) -> tuple:
              f"{by_group['ssd_scan.cu'][1]} ssd_scan.cu kernels, not 3 a "
              f"Mamba-2 layer ({n_ssm})")
     profile_decode_step(torch, np, cfg, params, prompts, tag)
-    return counts, peak
+    return counts, serve_obs(runs, peak)
 
 
 def profile_prefill(torch, np, cfg, params, prompts, tag: str):
@@ -2314,10 +2341,10 @@ def phase_mamba2(torch, np) -> dict:
     say("mamba2", f"{MAMBA2} {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
                   f"params bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} "
                   f"GB), init {time.perf_counter() - t0:.1f} s")
-    counts, _ = serve_runs(torch, np, cfg, params, "mamba2", long=True)
+    counts, obs = serve_runs(torch, np, cfg, params, "mamba2", long=True)
     del params
     gc_collect(torch)
-    return counts
+    return {"mamba2_serve": (counts, obs)}
 
 
 def phase_jamba(torch, np) -> dict:
@@ -2347,12 +2374,12 @@ def phase_jamba(torch, np) -> dict:
     # (3.76 GB) before its bf16 copy is made
     card_memory_ok(torch, init_peak, "jamba", f"initialising {cfg.n_layers} "
                                               f"of {full.n_layers} layers")
-    counts, peak = serve_runs(torch, np, cfg, params, "jamba", long=False)
-    card_memory_ok(torch, peak, "jamba", f"serving {cfg.n_layers} of "
-                                         f"{full.n_layers} layers")
+    counts, obs = serve_runs(torch, np, cfg, params, "jamba", long=False)
+    card_memory_ok(torch, obs["peak"], "jamba", f"serving {cfg.n_layers} of "
+                                                f"{full.n_layers} layers")
     del params
     gc_collect(torch)
-    return counts
+    return {"jamba": (counts, obs)}
 
 
 # ----------------------------------------------------------------------
@@ -2427,7 +2454,8 @@ def serve_family(torch, np, cfg, params, tag: str, plen: int, max_seq: int,
     the ``extra`` inputs on the card: prefill ms, decode tok/s, peak
     memory, the launches held exactly to :func:`serve_launches`, the
     samplers' launches, no engine fallback; then one decode step
-    profiled. Returns (the launch counts, the peak)."""
+    profiled. Returns (the launch counts, the times and peak that phase
+    19 reads)."""
     import importlib
     from repro_torch.kernels import ops
     from repro_torch.runtime import ServeConfig, Server
@@ -2467,7 +2495,7 @@ def serve_family(torch, np, cfg, params, tag: str, plen: int, max_seq: int,
     need(fallbacks == 0, f"{fallbacks} descriptors fell back to the engine")
     profile_decode_step(torch, np, cfg, params, prompts, tag, extra=extra,
                         max_seq=max_seq)
-    return counts, peak
+    return counts, serve_obs(runs, peak)
 
 
 def family_train(torch, cfg, batch: int, seq: int, tag: str) -> dict:
@@ -2535,14 +2563,8 @@ def family_train(torch, cfg, batch: int, seq: int, tag: str) -> dict:
              f" T a step = {flops / step_s / PEAK_OPS['bf16']:.4f} of the "
              f"989 TFLOP/s bf16 peak (observation) | card {card}")
     card_memory_ok(torch, peak, tag, f"training at batch {batch} x {seq}")
-    n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.encoder_decoder
-              else cfg.n_layers)
-    n_mlp = cfg.n_layers + (cfg.n_enc_layers if cfg.encoder_decoder else 0)
-    per_gemm = 9 if cfg.act == "gelu" else 14
     S = DENSE_STEPS
-    want = {"attention": 2 * n_attn * S, "attention_bwd": n_attn * S,
-            "act_bwd": n_mlp * S, "gemm": per_gemm * n_mlp * S,
-            "attention_merge": 0}
+    want = train_launches(cfg, S)
     say(tag, f"kernel launches in {S} steps {counts} | expected {want}")
     need(all(counts[k] == v for k, v in want.items()),
          f"{tag}: launches {counts}, expected {want}")
@@ -2550,7 +2572,30 @@ def family_train(torch, cfg, batch: int, seq: int, tag: str) -> dict:
                                      batches[DENSE_STEPS], step_s, tag)
     del params, opt, batches
     gc_collect(torch)
-    return counts
+    return counts, {"step_ms": step_s * 1e3, "peak": peak}
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The exact launches of ``steps`` dense, encoder-decoder or VLM
+    training steps: the flash forward with lse and its remat recompute an
+    attention, one backward; the activation backward an MLP; GELU 2 + 2 +
+    5 GEMMs an MLP, SwiGLU 3 + 3 + 8."""
+    n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.encoder_decoder
+              else cfg.n_layers)
+    n_mlp = cfg.n_layers + (cfg.n_enc_layers if cfg.encoder_decoder else 0)
+    per_gemm = 9 if cfg.act == "gelu" else 14
+    return {"attention": 2 * n_attn * steps, "attention_bwd": n_attn * steps,
+            "act_bwd": n_mlp * steps, "gemm": per_gemm * n_mlp * steps,
+            "attention_merge": 0}
+
+
+def moe_train_launches(cfg, steps: int) -> dict:
+    """The exact launches of ``steps`` MoE training steps: the flash
+    forward with lse and its recompute a layer and microbatch, one
+    backward; no GEMM kernel (the experts run on cuBLAS)."""
+    L = cfg.n_layers * cfg.grad_accum * steps
+    return {"attention": 2 * L, "attention_bwd": L, "attention_merge": 0,
+            "gemm": 0}
 
 
 def phase_whisper(torch, np) -> tuple:
@@ -2584,7 +2629,7 @@ def phase_whisper(torch, np) -> tuple:
     say("whisper", f"a decode step reads {step_bytes / 1e9:.3f} GB of "
                    f"weights and caches (bf16): bound "
                    f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)")
-    serve_counts, _ = serve_family(torch, np, cfg, params, "whisper",
+    serve = serve_family(torch, np, cfg, params, "whisper",
                                    PROMPT_LEN, MAX_SEQ,
                                    whisper_extra(cfg, np, PROMPT_LEN))
     del params
@@ -2597,9 +2642,9 @@ def phase_whisper(torch, np) -> tuple:
                                f"against {cfg.enc_seq} frames, "
                                f"{time.perf_counter() - t0:.1f} s ok")
     gc_collect(torch)
-    train_counts = family_train(torch, cfg, WHISPER_TRAIN_BATCH,
-                                WHISPER_TRAIN_SEQ, "whisper train")
-    return serve_counts, train_counts
+    train = family_train(torch, cfg, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ,
+                         "whisper train")
+    return {"whisper": serve, "whisper_train": train}
 
 
 def phase_qwen(torch, np) -> tuple:
@@ -2623,7 +2668,7 @@ def phase_qwen(torch, np) -> tuple:
     say("qwen", f"{QWEN} {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
                 f"params bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} GB),"
                 f" init {time.perf_counter() - t0:.1f} s")
-    serve_counts, _ = serve_family(torch, np, cfg, params, "qwen", QWEN_PLEN,
+    serve = serve_family(torch, np, cfg, params, "qwen", QWEN_PLEN,
                                    QWEN_MAX_SEQ,
                                    qwen_extra(cfg, np, QWEN_PLEN))
     del params
@@ -2635,9 +2680,9 @@ def phase_qwen(torch, np) -> tuple:
                             f"{QWEN_PATCHES + 64} ({QWEN_PATCHES} patches "
                             f"masked), {time.perf_counter() - t0:.1f} s ok")
     gc_collect(torch)
-    train_counts = family_train(torch, cfg, QWEN_TRAIN_BATCH, QWEN_TRAIN_SEQ,
-                                "qwen train")
-    return serve_counts, train_counts
+    train = family_train(torch, cfg, QWEN_TRAIN_BATCH, QWEN_TRAIN_SEQ,
+                         "qwen train")
+    return {"qwen": serve, "qwen_train": train}
 
 
 # ----------------------------------------------------------------------
@@ -2985,7 +3030,8 @@ def phase_train(torch, np) -> dict:
     # the kernels line reports the Trainer's own run for the scan and the
     # fused update's run for AdamW, never the profiled step or the
     # forward and backward that fed the fused update
-    return dict(train_counts, adamw=n_fused)
+    return {"train": (dict(train_counts, adamw=n_fused),
+                      {"step_ms": step_s * 1e3, "peak": peak})}
 
 
 #: the dense training step's kernels by source file, for kernel_split
@@ -3065,8 +3111,8 @@ def phase_dense_train(torch, np) -> dict:
     say("dense train", f"cut: layers {DENSE_LAYERS} of {full.n_layers} (~16 "
                        f"bytes a parameter: the {full.n_layers}-layer model "
                        f"needs ~128 GB)")
-    return family_train(torch, full.scaled(n_layers=DENSE_LAYERS),
-                        DENSE_BATCH, DENSE_SEQ, "dense train")
+    return {"dense": family_train(torch, full.scaled(n_layers=DENSE_LAYERS),
+                                  DENSE_BATCH, DENSE_SEQ, "dense train")}
 
 
 # ----------------------------------------------------------------------
@@ -3199,14 +3245,12 @@ def moe_train(torch, arch: str, n_layers: int, batch: int, steps: int,
              f"989 TFLOP/s bf16 peak (observation) | card {card}")
     card_memory_ok(torch, peak, tag, f"{n_layers} of {full.n_layers} layers "
                                      f"training")
-    L = n_layers * accum * steps
     per = {k: counts[k] / steps for k in ("attention", "attention_bwd")}
     dk, dv = ((cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim)
               if cfg.mla else (cfg.hd, cfg.hd))
     say(tag, f"kernel launches in {steps} steps {counts} | per step {per} "
              f"(head dims q/k {dk}, v {dv})")
-    want = {"attention": 2 * L, "attention_bwd": L, "attention_merge": 0,
-            "gemm": 0}
+    want = moe_train_launches(cfg, steps)
     need(all(counts[k] == v for k, v in want.items()),
          f"{tag} launches {counts}, expected {want} (the forward with lse "
          f"and its recompute a layer and microbatch; one backward)")
@@ -3214,7 +3258,7 @@ def moe_train(torch, arch: str, n_layers: int, batch: int, steps: int,
                                    batches[steps], step_s, tag)
     del params, opt, batches
     gc_collect(torch)
-    return counts
+    return counts, {"step_ms": step_s * 1e3, "peak": peak}
 
 
 def phase_deepseek_train(torch, np) -> dict:
@@ -3234,8 +3278,9 @@ def phase_deepseek_train(torch, np) -> dict:
                                 f"x {DENSE_WIDTH_SEQ}, "
                                 f"{time.perf_counter() - t0:.1f} s ok")
     gc_collect(torch)
-    return moe_train(torch, DEEPSEEK, DEEPSEEK_TRAIN_LAYERS, DENSE_BATCH,
-                     DENSE_STEPS, "deepseek train")
+    return {"deepseek_train": moe_train(
+        torch, DEEPSEEK, DEEPSEEK_TRAIN_LAYERS, DENSE_BATCH, DENSE_STEPS,
+        "deepseek train")}
 
 
 def phase_phi35(torch, np) -> tuple:
@@ -3310,9 +3355,10 @@ def phase_phi35(torch, np) -> tuple:
                              f"{DENSE_WIDTH_SEQ}, "
                              f"{time.perf_counter() - t0:.1f} s ok")
     gc_collect(torch)
-    train_counts = moe_train(torch, PHI35, PHI35_TRAIN_LAYERS, PHI35_BATCH,
-                             PHI35_STEPS, "phi35 train")
-    return serve_counts, train_counts
+    return {"phi35": (serve_counts, serve_obs(runs, peak)),
+            "phi35_train": moe_train(torch, PHI35, PHI35_TRAIN_LAYERS,
+                                     PHI35_BATCH, PHI35_STEPS,
+                                     "phi35 train")}
 
 
 # ----------------------------------------------------------------------
@@ -3834,6 +3880,306 @@ def phase_policies(torch, np) -> tuple:
     return counts, rows, results
 
 
+# ----------------------------------------------------------------------
+# phase 19: the dry run on the meta device against the card
+# ----------------------------------------------------------------------
+#: the kernel families with a meta route (``ops``): the dry run's calls of
+#: each must equal the card's launches in every measured workload
+DRY_FAMILIES = ("gemm", "attention", "attention_merge", "attention_bwd",
+                "act_bwd", "ssd", "ssd_state", "ssd_bwd", "adamw")
+#: H100 SXM5 80GB data sheet, the dry run's default ceilings
+SHEET = {"bf16": PEAK_OPS["bf16"], "hbm": HBM_BYTES_PER_S}
+
+
+def dry_specs() -> dict:
+    """The workloads phases 5, 7 and 11-18 measure, by their counts' key:
+    the config and its depth cut, and either the serving runs (Server.
+    generate calls of BATCH prompts, and the long prompt) or the training
+    steps, as each phase runs them."""
+    def serve(arch, cut=None, long=False, plen=PROMPT_LEN, max_seq=MAX_SEQ,
+              extra=None):
+        reqs = [(BATCH, plen, max_seq, NEW_TOKENS, 2)]
+        if long:
+            reqs.append((1, LONG_PROMPT, LONG_SEQ, LONG_NEW, 1))
+        return {"arch": arch, "cut": cut or {}, "kind": "serve",
+                "requests": reqs, "extra": extra}
+
+    def train(arch, cut, batch, seq, steps, fused_update=False):
+        return {"arch": arch, "cut": cut, "kind": "train", "batch": batch,
+                "seq": seq, "steps": steps, "fused_update": fused_update}
+
+    return {
+        "serve": serve("llama3-8b", long=True),
+        "train": train(MAMBA2, {}, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
+                       fused_update=True),
+        "dense": train("llama3-8b", {"n_layers": DENSE_LAYERS}, DENSE_BATCH,
+                       DENSE_SEQ, DENSE_STEPS),
+        "deepseek": serve(DEEPSEEK, long=True),
+        "deepseek_train": train(DEEPSEEK, {"n_layers": DEEPSEEK_TRAIN_LAYERS},
+                                DENSE_BATCH, DENSE_SEQ, DENSE_STEPS),
+        "phi35": serve(PHI35, {"n_layers": PHI35_SERVE_LAYERS}),
+        "phi35_train": train(PHI35, {"n_layers": PHI35_TRAIN_LAYERS},
+                             PHI35_BATCH, DENSE_SEQ, PHI35_STEPS),
+        "mamba2_serve": serve(MAMBA2, long=True),
+        "jamba": serve(JAMBA, {"n_layers": JAMBA_SERVE_LAYERS}),
+        "whisper": serve(WHISPER, extra="whisper"),
+        "whisper_train": train(WHISPER, {}, WHISPER_TRAIN_BATCH,
+                               WHISPER_TRAIN_SEQ, DENSE_STEPS),
+        "qwen": serve(QWEN, plen=QWEN_PLEN, max_seq=QWEN_MAX_SEQ,
+                      extra="qwen"),
+        "qwen_train": train(QWEN, {}, QWEN_TRAIN_BATCH, QWEN_TRAIN_SEQ,
+                            DENSE_STEPS),
+    }
+
+
+def dry_workload(src: str, spec: dict) -> dict:
+    """One workload of :func:`dry_specs` on the meta device, in a worker
+    process (no CUDA): its kernel calls over the whole workload (every
+    prefill and decode step, every training step, the fused update), the
+    full count (flops, bytes, peak) of one prefill and of the first decode
+    step, or of one training step, and the config's active and frame
+    weights."""
+    import collections
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch import configs
+    from repro_torch.configs.shapes import active_params
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg = configs.get(spec["arch"]).scaled(**spec["cut"])
+    calls = collections.Counter()
+    traces = {}
+
+    def add(got: dict, times: int = 1) -> None:
+        for k, v in got.items():
+            calls[k] += v * times
+
+    if spec["kind"] == "train":
+        fn, args = dryrun.train_step(cfg, spec["batch"], spec["seq"])
+        traces["step"] = dryrun.trace(fn, *args)
+        add(traces["step"]["launches"], spec["steps"])
+        if spec["fused_update"]:
+            from repro_torch.optim import AdamWConfig, apply_updates
+            params, opt = args[0], args[1]
+            named = dict(params.named_parameters())
+            grads = {n: torch.empty(p.shape, device="meta")
+                     for n, p in named.items()}
+            add(dryrun.count_calls(lambda: apply_updates(
+                AdamWConfig(), named, grads, opt, use_fused=True)))
+    else:
+        model = Model(cfg)
+        for i, (b, plen, max_seq, new, runs) in enumerate(spec["requests"]):
+            meta = lambda shape, dt: torch.empty(shape, dtype=dt,
+                                                 device="meta")
+            batch = {"tokens": meta((b, plen), torch.long)}
+            if spec["extra"] == "whisper":
+                batch["enc_embeds"] = meta((b, cfg.enc_seq, cfg.d_model),
+                                           torch.bfloat16)
+            elif spec["extra"] == "qwen":
+                batch["img_embeds"] = meta((b, cfg.n_patches, cfg.d_model),
+                                           torch.bfloat16)
+                batch["pos3"] = meta((3, b, plen), torch.long)
+            fn, args = dryrun.prefill_step(cfg, b, plen, cache_len=max_seq,
+                                           batch=batch)
+            if i == 0:
+                traces["prefill"] = dryrun.trace(fn, *args)
+                add(traces["prefill"]["launches"], runs)
+            else:
+                add(dryrun.count_calls(fn, *args), runs)
+            fn, args = dryrun.decode_step(cfg, b, max_seq, plen,
+                                          absorbed_mla=False)
+            if i == 0:
+                traces["decode"] = dryrun.trace(fn, *args)
+                add(traces["decode"]["launches"], runs)
+            else:
+                add(dryrun.count_calls(fn, *args), runs)
+            params, tokens, cache = args
+            for j in range(1, new):
+                with torch.inference_mode():
+                    add(dryrun.count_calls(model.decode, params, tokens,
+                                           cache, plen + j), runs)
+    return {"calls": dict(calls), "traces": traces,
+            "n_active": active_params(cfg), "n_frames": frame_weights(cfg),
+            "secs": time.perf_counter() - t0}
+
+
+def measure_ceilings(torch) -> dict:
+    """The card's own rates: a bf16 torch.matmul at 8192^3, an fp32 one at
+    4096^3 (TF32 off), and a 2 GiB device-to-device copy (read and
+    written), each timed by CUDA events."""
+    dev = torch.device(DEVICE)
+    a = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+    bf16 = 2 * 8192 ** 3 / (time_ms(lambda: torch.matmul(a, a), torch,
+                                    iters=10) * 1e-3)
+    a = torch.randn(4096, 4096, device=dev)
+    fp32 = 2 * 4096 ** 3 / (time_ms(lambda: torch.matmul(a, a), torch,
+                                    iters=10) * 1e-3)
+    n = 2 << 30
+    src = torch.empty(n, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    hbm = 2 * n / (time_ms(lambda: dst.copy_(src), torch, iters=10) * 1e-3)
+    del a, src, dst
+    torch.cuda.empty_cache()
+    return {"bf16": bf16, "fp32": fp32, "hbm": hbm}
+
+
+def frame_weights(cfg) -> int:
+    """The weights of an encoder-decoder that run at the encoder's
+    ``enc_seq`` frames: the encoder's, and the cross-attention's k and v
+    projections (0 for a decoder-only config)."""
+    from repro_torch.models import Model
+    return sum(p.numel() for n, p in Model(cfg).init(
+        0, device="meta").named_parameters()
+        if n.startswith("enc_") or ".cross_attn.wk" in n
+        or ".cross_attn.wv" in n)
+
+
+def step_model_flops(cfg, n_active: int, n_frames: int, part: str, b: int,
+                     s: int) -> int:
+    """The model flops of one training step ("step"), prefill or decode
+    step of b sequences of s tokens, as the port computes them: 6 (train)
+    or 2 (serve) a weight a token, but the embedding lookup multiplies
+    nothing, serving unembeds (vocab x d_model) one position a sequence,
+    and the ``n_frames`` weights (:func:`frame_weights`) run at the
+    encoder's frames in a training step or a prefill and not at all in a
+    decode step. ``gpu_roofline.model_flops`` keeps the reference's
+    6 / 2 N D, which counts every weight at every position."""
+    n_unembed = cfg.padded_vocab * cfg.d_model
+    n_body = n_active - n_frames - n_unembed * (
+        1 if cfg.tie_embeddings else 2)
+    enc = n_frames * cfg.enc_seq
+    if part == "step":
+        return 6 * b * (s * (n_body + n_unembed) + enc)
+    if part == "decode":
+        return 2 * b * (n_body + n_unembed)
+    return 2 * b * (s * n_body + n_unembed + enc)
+
+
+def hand_launches(torch, key: str, spec: dict, cfg) -> dict:
+    """The launches the measuring phase predicted by hand for ``key``,
+    where it has a predictor: :func:`serve_launches`,
+    :func:`train_launches`, :func:`moe_train_launches`, and the SSD
+    checks of phases 7 and 15-16."""
+    if spec["kind"] == "serve" and spec["extra"]:
+        b, plen, max_seq, _, runs = spec["requests"][0]
+        return serve_launches(torch, cfg, plen, max_seq, runs)[0]
+    if key in ("dense", "whisper_train", "qwen_train"):
+        return train_launches(cfg, spec["steps"])
+    if key in ("deepseek_train", "phi35_train"):
+        return moe_train_launches(cfg, spec["steps"])
+    if key == "train":
+        return {"ssd": 2 * cfg.n_layers * spec["steps"]}
+    if key in ("mamba2_serve", "jamba"):
+        n_ssm = sum(not cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+        prefills = sum(r[4] for r in spec["requests"])
+        return {"ssd_state": n_ssm * prefills, "ssd": 0, "ssd_bwd": 0}
+    return {}
+
+
+def phase_dryrun(torch, src: Path, counts: dict, obs: dict) -> None:
+    """Phase 19: (a) the card's ceilings beside the data sheet's; (b) each
+    workload that phases 5, 7 and 11-18 measured, dry-run on the meta
+    device in worker processes at the phase's own depth cut, batch,
+    sequence and step count: its kernel calls must equal the launches the
+    phase counted on the card, family by family, and the phase's hand
+    predictor where it has one. Then, as observations, each prefill,
+    decode step and training step's roofline terms at both ceilings
+    beside the measured time, the share of the bound the card reached,
+    the roofline fraction, the useful share of the counted flops, and the
+    dry run's peak beside the card's."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch import configs
+    from repro_torch.perfmodel import gpu_roofline
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    ceil = measure_ceilings(torch)
+    say("dryrun", f"ceilings measured: bf16 matmul 8192^3 "
+                  f"{ceil['bf16'] / 1e12:.1f} TFLOP/s (sheet 989), fp32 "
+                  f"4096^3 {ceil['fp32'] / 1e12:.2f} TFLOP/s (sheet 67), "
+                  f"2 GiB copy {ceil['hbm'] / 1e12:.3f} TB/s read + written "
+                  f"(sheet 3.35) | card {card}")
+    specs = {k: v for k, v in dry_specs().items() if k in counts}
+    if not specs:
+        say("dryrun", "no measured workload ran (phases 5, 7, 11-18): "
+                      "nothing to hold")
+        return
+    workers = max(1, min(len(specs), (os.cpu_count() or 2) - 1))
+    order = sorted(specs, key=lambda k: specs[k]["kind"] != "train")
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        futures = {k: ex.submit(dry_workload, str(src), specs[k])
+                   for k in order}
+        results = {}
+        for k in specs:
+            try:
+                results[k] = futures[k].result()
+            except Exception as e:        # a worker's failure is the phase's
+                raise Failed(f"dry run of {k} failed: {e!r}") from e
+    say("dryrun", f"{len(specs)} workloads dry-run on {workers} worker "
+                  f"processes in {time.perf_counter() - t_phase:.1f} s "
+                  f"(the slowest {max(r['secs'] for r in results.values()):.1f}"
+                  f" s)")
+    bad = []
+    for key, spec in specs.items():
+        cfg = configs.get(spec["arch"]).scaled(**spec["cut"])
+        dry = results[key]["calls"]
+        on_card = {f: counts[key].get(f, 0) for f in DRY_FAMILIES}
+        got = {f: dry.get(f, 0) for f in DRY_FAMILIES}
+        hand = hand_launches(torch, key, spec, cfg)
+        ok = got == on_card and all(got.get(f, 0) == v
+                                    for f, v in hand.items())
+        say("dryrun", f"{key}: dry-run calls {got} | card launches "
+                      f"{on_card} | hand predictor {hand or 'none'} "
+                      f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(key)
+        n_active = results[key]["n_active"]
+        peak_dry = 0
+        for part, rec in results[key]["traces"].items():
+            if part == "step":
+                b, s = spec["batch"], spec["seq"]
+                t_ms = obs[key]["step_ms"]
+            else:
+                b, s = spec["requests"][0][:2]
+                t_ms = obs[key]["prefill_ms" if part == "prefill"
+                                else "step_ms"]
+            mf = step_model_flops(cfg, n_active, results[key]["n_frames"],
+                                  part, b, s)
+            peak_dry = max(peak_dry, rec["memory"]["peak_bytes"])
+            cell = {"arch": key, "shape": part, "mesh": "card",
+                    "n_devices": 1, "production": rec}
+            line = []
+            for name, c in (("sheet", SHEET), ("measured", ceil)):
+                r = gpu_roofline.cell_roofline(cell, peak_flops=c["bf16"],
+                                               hbm_bw=c["hbm"])
+                bound = r["bound_time_s"] * 1e3
+                line.append(
+                    f"{name} ceilings: compute {r['t_compute_s'] * 1e3:.4f} "
+                    f"ms, memory {r['t_memory_s'] * 1e3:.4f} ms, bound_time "
+                    f"{bound:.4f} ms ({r['dominant']}), reached "
+                    f"{bound / t_ms:.4f}, roofline_fraction "
+                    f"{mf / r['bound_time_s'] / c['bf16']:.4f}, MFU "
+                    f"{mf / (t_ms * 1e-3) / c['bf16']:.4f}")
+            say("dryrun", f"{key} {part}: measured {t_ms:.3f} ms | flops "
+                          f"{rec['flops']:.4g} (kernels "
+                          f"{rec['kernel_flops']:.4g}), bytes "
+                          f"{rec['bytes_accessed']:.4g} (kernels "
+                          f"{rec['kernel_bytes']:.4g}) | {' | '.join(line)}"
+                          f" | model flops {mf:.4g}, useful_ratio "
+                          f"{mf / max(rec['flops'], 1):.4f}"
+                          f" | card {card}")
+        say("dryrun", f"{key}: dry-run peak {peak_dry / 1e9:.2f} GB | "
+                      f"card max_memory_allocated "
+                      f"{obs[key]['peak'] / 1e9:.2f} GB | card {card}")
+    need(not bad, f"dry-run calls differ from the card's launches in {bad}")
+    say("dryrun", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     global ONLY
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3900,16 +4246,20 @@ def main(argv=None) -> int:
             rows = phase_check_and_time(torch, do_time=3 in phases)
         if 4 in phases:
             phase_width(torch, np)
-        counts = {}
+        counts, obs = {}, {}
+
+        def record(measured: dict) -> None:
+            for key, (c, o) in measured.items():
+                counts[key], obs[key] = c, o
         if 5 in phases:
-            counts["serve"] = phase_serve(torch, np)
+            record(phase_serve(torch, np))
         if 3 in phases and not ONLY:
             profile_ssd_passes(torch)
             time_ssd_backward(torch)
         if 6 in phases:
             phase_train_width(torch, np)
         if 7 in phases:
-            counts["train"] = phase_train(torch, np)
+            record(phase_train(torch, np))
         if 8 in phases:
             counts["suite"] = phase_suite(torch, np)
         if 9 in phases:
@@ -3918,29 +4268,30 @@ def main(argv=None) -> int:
         if 10 in phases:
             phase_dense_width(torch, np)
         if 11 in phases:
-            counts["dense"] = phase_dense_train(torch, np)
+            record(phase_dense_train(torch, np))
         if 12 in phases:
-            counts["deepseek"] = phase_deepseek(torch, np)
+            record(phase_deepseek(torch, np))
         if 13 in phases:
-            counts["deepseek_train"] = phase_deepseek_train(torch, np)
+            record(phase_deepseek_train(torch, np))
         if 14 in phases:
-            counts["phi35"], counts["phi35_train"] = phase_phi35(torch, np)
+            record(phase_phi35(torch, np))
         if 15 in phases:
-            counts["mamba2_serve"] = phase_mamba2(torch, np)
+            record(phase_mamba2(torch, np))
         if 16 in phases:
-            counts["jamba"] = phase_jamba(torch, np)
+            record(phase_jamba(torch, np))
         if 17 in phases:
-            counts["whisper"], counts["whisper_train"] = phase_whisper(
-                torch, np)
+            record(phase_whisper(torch, np))
         if 18 in phases:
-            counts["qwen"], counts["qwen_train"] = phase_qwen(torch, np)
+            record(phase_qwen(torch, np))
+        if 19 in phases:
+            phase_dryrun(torch, src, counts, obs)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     say("done", f"phases {sorted(phases)} passed in "
                 f"{time.perf_counter() - t_start:.1f} s, the build included")
 
-    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18} <= phases:
+    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

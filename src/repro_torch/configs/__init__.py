@@ -6,7 +6,8 @@ the encoder-decoder whisper-medium, the VLM qwen2-vl-2b (M-RoPE and the
 patch stub) and the Mamba-2 stack mamba2-1.3b, which serve and train,
 and the hybrid jamba-v0.1-52b, which serves (training it at full width
 needs more than one card: ROADMAP slice G). Every module exports
-``CONFIG`` and ``reduced()``, as the reference's do.
+``CONFIG`` and ``reduced()``, as the reference's do. ``shapes.py``
+defines the assigned input-shape set and ``input_specs()``.
 """
 from __future__ import annotations
 
@@ -42,4 +43,7 @@ def get_reduced(name: str):
     return _module(name).reduced()
 
 
-__all__ = ["ARCHS", "get", "get_reduced"]
+from .shapes import SHAPES, input_specs, shape_applicable  # noqa: E402
+
+__all__ = ["ARCHS", "get", "get_reduced", "SHAPES", "input_specs",
+           "shape_applicable"]

@@ -250,6 +250,54 @@ def flash_merge_plain(ws: torch.Tensor, splits: int, b: int, hq: int,
     return out.view(b, hq, sq, d).to(dtype)
 
 
+def flash_check(q, k, v) -> None:
+    """Raise ``ValueError`` for operands the forward kernel refuses:
+    mismatched shapes, a head-dim pair outside ``HEAD_PAIRS``, mixed
+    dtypes."""
+    b, hq, _, d = q.shape
+    _, hkv, _, dk = k.shape
+    if (k.shape[:-1] != v.shape[:-1] or dk != d or k.shape[0] != b
+            or hq % hkv):
+        raise ValueError(f"flash attention shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    check_head_dims(d, v.shape[-1])
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash attention takes one dtype, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+
+
+def flash_bwd_check(q, k, v, o, lse, dout) -> None:
+    """Raise ``ValueError`` for operands the backward kernel refuses."""
+    b, hq, sq, d = q.shape
+    _, hkv, _, dk = k.shape
+    d_v = v.shape[-1]
+    if (k.shape[:-1] != v.shape[:-1] or dk != d
+            or o.shape != (b, hq, sq, d_v) or dout.shape != o.shape
+            or hq % hkv):
+        raise ValueError(f"flash backward shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} o "
+                         f"{tuple(o.shape)} dout {tuple(dout.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == o.dtype == dout.dtype):
+        raise ValueError("flash backward takes one dtype for q, k, v, o and "
+                         "dout")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 (b, hq, sq), got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    check_head_dims(d, d_v)
+
+
+def attention_pairs(sq: int, kv_len: int, causal: bool) -> int:
+    """The unmasked (query, key) pairs of one head: query i at position
+    kv_len - sq + i sees keys ``[0, min(kv_len, position + 1))`` under
+    ``causal``, else all ``kv_len``."""
+    if not causal:
+        return sq * kv_len
+    first = kv_len - sq + 1            # keys the first query sees
+    if first >= 1:
+        return sq * first + sq * (sq - 1) // 2
+    return kv_len * (kv_len + 1) // 2
+
+
 def _strides(t: torch.Tensor) -> tuple:
     return tuple(t.stride()[:3])
 
@@ -279,17 +327,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
     merge on its own. ``lse`` (an unsplit plan): return ``(o, lse)``
     with each row's fp32 log-sum-exp (b, hq, sq), as
     :func:`flash_lse_plain`."""
+    flash_check(q, k, v)
     b, hq, sq, d = q.shape
-    _, hkv, skv, dk = k.shape
+    hkv, skv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
-    if (k.shape[:-1] != v.shape[:-1] or dk != d or k.shape[0] != b
-            or hq % hkv):
-        raise ValueError(f"flash attention shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    check_head_dims(d, dv)
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"flash attention takes one dtype, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     kv_len = skv if kv_len is None else int(kv_len)
     p = plan or flash_plan(b, hq, hkv, sq, skv, kv_len, d, q.dtype,
                            bool(causal), lse, dv)
@@ -527,22 +568,10 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
     tensor maps; an operand they cannot read is copied); the gradients
     take their inputs' layouts. ``plan`` defaults to :func:`flash_bwd_plan`;
     another is passed only to test that the kernel refuses it."""
+    flash_bwd_check(q, k, v, o, lse, dout)
     b, hq, sq, d = q.shape
-    _, hkv, skv, dk_ = k.shape
+    hkv, skv = k.shape[1], k.shape[2]
     d_v = v.shape[-1]
-    if (k.shape[:-1] != v.shape[:-1] or dk_ != d
-            or o.shape != (b, hq, sq, d_v) or dout.shape != o.shape
-            or hq % hkv):
-        raise ValueError(f"flash backward shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} o "
-                         f"{tuple(o.shape)} dout {tuple(dout.shape)}")
-    if not (q.dtype == k.dtype == v.dtype == o.dtype == dout.dtype):
-        raise ValueError("flash backward takes one dtype for q, k, v, o and "
-                         "dout")
-    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be fp32 (b, hq, sq), got "
-                         f"{lse.dtype} {tuple(lse.shape)}")
-    check_head_dims(d, d_v)
     p = plan or flash_bwd_plan(b, hq, hkv, sq, skv, d, q.dtype,
                                bool(causal), d_v)
     scale = (d ** -0.5) if scale is None else scale

@@ -324,6 +324,17 @@ def _hyper(lr: float, b1: float, b2: float, eps: float, wd: float,
     return _build.ptr_array(ctypes.c_float, vals)
 
 
+def adamw_check(p, g, m, v) -> None:
+    """Raise ``ValueError`` for operands the kernel refuses: p neither
+    fp32 nor bf16, shapes that differ."""
+    if p.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"adamw takes an fp32 or bf16 p, got {p.dtype}")
+    if not (p.shape == g.shape == m.shape == v.shape):
+        raise ValueError(f"adamw shapes p {tuple(p.shape)} g "
+                         f"{tuple(g.shape)} m {tuple(m.shape)} v "
+                         f"{tuple(v.shape)}")
+
+
 def adamw_cuda(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
                wd=0.01):
     """Launch ``csrc/ntx_adamw.cu`` over same-shaped CUDA tensors: p fp32
@@ -331,12 +342,7 @@ def adamw_cuda(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
     ``(p, m, v)``, placed at p's phase modulo 16 bytes, so that operands
     that start off a 16-byte boundary together still take the vector
     route (:func:`adamw_plan`)."""
-    if p.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"adamw takes an fp32 or bf16 p, got {p.dtype}")
-    if not (p.shape == g.shape == m.shape == v.shape):
-        raise ValueError(f"adamw shapes p {tuple(p.shape)} g "
-                         f"{tuple(g.shape)} m {tuple(m.shape)} v "
-                         f"{tuple(v.shape)}")
+    adamw_check(p, g, m, v)
     hyper = _hyper(float(lr), float(b1), float(b2), float(eps), float(wd),
                    int(step))
     p = p.contiguous()
@@ -401,23 +407,29 @@ def act_bwd_plain(act: str, dh: torch.Tensor, a1: torch.Tensor,
     return (dh * dg).to(out_dtype), None, h.to(out_dtype)
 
 
-def act_bwd_cuda(act: str, dh: torch.Tensor, a1: torch.Tensor,
-                 gate: torch.Tensor | None, out_dtype=torch.float32):
-    """Launch ``csrc/ntx_act_bwd.cu``: one pass over fp32 ``dh``, ``a1``
-    and (SwiGLU) ``gate`` of one shape (copied if not contiguous), writing
-    ``(da1, dgate, h)`` in ``out_dtype`` (fp32 or bf16; GELU: ``dgate``
-    None)."""
+def act_bwd_check(act: str, dh, a1, gate, out_dtype) -> None:
+    """Raise ``ValueError`` for what the kernel refuses: another
+    activation, inputs not fp32 of one shape, another output dtype."""
     if act not in ACT_BWD:
         raise ValueError(f"activation {act!r}: the backward takes "
                          f"{sorted(ACT_BWD)}")
-    swiglu = act == "swiglu"
-    ins = (dh, a1, gate) if swiglu else (dh, a1)
+    ins = (dh, a1, gate) if act == "swiglu" else (dh, a1)
     if any(t.dtype != torch.float32 or t.shape != dh.shape for t in ins):
         raise ValueError("the activation backward takes fp32 dh, a1 and "
                          "gate of one shape")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the activation backward writes fp32 or bf16, not "
                          f"{out_dtype}")
+
+
+def act_bwd_cuda(act: str, dh: torch.Tensor, a1: torch.Tensor,
+                 gate: torch.Tensor | None, out_dtype=torch.float32):
+    """Launch ``csrc/ntx_act_bwd.cu``: one pass over fp32 ``dh``, ``a1``
+    and (SwiGLU) ``gate`` of one shape (copied if not contiguous), writing
+    ``(da1, dgate, h)`` in ``out_dtype`` (fp32 or bf16; GELU: ``dgate``
+    None)."""
+    act_bwd_check(act, dh, a1, gate, out_dtype)
+    swiglu = act == "swiglu"
     dh, a1 = dh.contiguous(), a1.contiguous()
     gate = gate.contiguous() if swiglu else None
     da1 = torch.empty(dh.shape, dtype=out_dtype, device=dh.device)

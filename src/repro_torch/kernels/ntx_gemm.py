@@ -250,6 +250,28 @@ def _lane_operand(t: torch.Tensor, shape, what: str) -> tuple:
     return t, (t.stride(0) if lanes > 1 else per)
 
 
+def gemm_check(a: torch.Tensor, b: torch.Tensor, out_dtype,
+               n_epilogue: int = 0, compensated: bool = False) -> None:
+    """Raise ``ValueError`` for a product the kernel refuses: operands not
+    both fp32 or both bf16, another output dtype, shapes that do not
+    chain, too many epilogue stages, compensated lanes."""
+    if a.dtype != b.dtype or a.dtype not in _GEMM_DTYPES:
+        raise ValueError(f"ntx_gemm takes two fp32 or two bf16 operands, "
+                         f"got {a.dtype} @ {b.dtype}")
+    if out_dtype not in _GEMM_DTYPES:
+        raise ValueError(f"ntx_gemm writes fp32 or bf16, not {out_dtype}")
+    lanes3 = a.dim() == 3
+    if (a.dim() not in (2, 3) or b.dim() != a.dim()
+            or a.shape[-1] != b.shape[-2]
+            or (lanes3 and a.shape[0] != b.shape[0])):
+        raise ValueError(f"bad GEMM shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if n_epilogue > MAX_EPILOGUE:
+        raise ValueError(f"{n_epilogue} epilogue stages > {MAX_EPILOGUE}")
+    if compensated and lanes3 and a.shape[0] > 1:
+        raise ValueError("the compensated GEMM takes one lane")
+
+
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
               epilogue=(), compensated: bool = False,
               splits: int | None = None, tile: int | None = None
@@ -275,25 +297,12 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     route (to time the choice; the ``ops`` entry points never pass it).
     ``tile`` replaces :func:`ffma_plan`'s tile on the FFMA route, only to
     test that the kernel refuses it."""
-    if a.dtype != b.dtype or a.dtype not in _GEMM_DTYPES:
-        raise ValueError(f"ntx_gemm takes two fp32 or two bf16 operands, "
-                         f"got {a.dtype} @ {b.dtype}")
-    if out_dtype not in _GEMM_DTYPES:
-        raise ValueError(f"ntx_gemm writes fp32 or bf16, not {out_dtype}")
+    gemm_check(a, b, out_dtype, len(epilogue), compensated)
     lanes3 = a.dim() == 3
-    if (a.dim() not in (2, 3) or b.dim() != a.dim()
-            or a.shape[-1] != b.shape[-2]
-            or (lanes3 and a.shape[0] != b.shape[0])):
-        raise ValueError(f"bad GEMM shapes {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    if len(epilogue) > MAX_EPILOGUE:
-        raise ValueError(f"{len(epilogue)} epilogue stages > {MAX_EPILOGUE}")
     m, k = a.shape[-2:]
     n = b.shape[-1]
     if lanes3:
         lanes = a.shape[0]
-        if compensated and lanes > 1:
-            raise ValueError("the compensated GEMM takes one lane")
         a, lda = _lane_operand(a, (lanes, m, k), "a")
         b, ldb = _lane_operand(b, (lanes, k, n), "b")
         c = torch.empty((lanes, m, n), dtype=out_dtype, device=a.device)

@@ -4,7 +4,13 @@
 There is no backend switch: the device of the tensors decides. CPU
 tensors go to the plain PyTorch version of the kernel (the CPU tests run
 these); CUDA tensors launch the hand-written Hopper kernel from
-``csrc/`` or raise. Nothing falls back from one to the other.
+``csrc/`` or raise. Meta tensors take the dry run's route
+(``repro_torch.launch.dryrun``) in the wrappers a serving or training
+step reaches (``gemm``, ``fused_mlp``, ``act_bwd``, ``attention``,
+``ssd``, ``ssd_with_state``, ``adamw_update``): the call is checked and
+planned as the card would run it, tallied in :data:`DRY` and answered
+with empty meta outputs; the other wrappers raise on meta tensors.
+Nothing falls back from one route to another.
 
 The CUDA kernels mask ragged edges themselves, so unlike the Pallas
 wrappers nothing here pads, and the Pallas-only machinery (block
@@ -35,23 +41,26 @@ import functools
 import numpy as np
 import torch
 
-from .flash_attention import (flash_attention_bwd_cuda,
+from .flash_attention import (attention_pairs, flash_attention_bwd_cuda,
                               flash_attention_bwd_plain,
                               flash_attention_cuda, flash_attention_plain,
+                              flash_bwd_check, flash_bwd_plan, flash_check,
                               flash_lse_plain, flash_plan)
-from .ntx_elementwise import (MAX_STAGES, _OPS2, act_bwd_cuda, act_bwd_plain,
-                              adamw_cuda, adamw_plain,
-                              elementwise_chain_plain, elementwise_plain,
-                              normalize_stages, stream_cuda)
+from .ntx_elementwise import (MAX_STAGES, _OPS2, act_bwd_check, act_bwd_cuda,
+                              act_bwd_plain, adamw_check, adamw_cuda,
+                              adamw_plain, elementwise_chain_plain,
+                              elementwise_plain, normalize_stages,
+                              stream_cuda)
 from .ntx_conv import check_shapes, conv2d_cuda, conv2d_plain
-from .ntx_gemm import (EPILOGUE_ARRAY_KINDS, gemm_cuda, gemm_kahan_plain,
-                       gemm_plain)
+from .ntx_gemm import (EPILOGUE_ARRAY_KINDS, _GEMM_DTYPES, ffma_plan,
+                       gemm_check, gemm_cuda, gemm_kahan_plain, gemm_plain,
+                       split_k_plan)
 from .ntx_stencil import (LAPLACE_TAPS, as_blocks, laplace_cuda,
                           laplace_plain, laplace_shape, stencil1d_cuda,
                           stencil1d_plain)
 from .ntx_reduce import REDUCE_OPS, chain_reduce_plain, reduce_plain
-from .ssd_scan import (ssd_scan_cuda, ssd_scan_plain,
-                       ssd_scan_with_state_plain)
+from .ssd_scan import (scan_plan, ssd_check, ssd_flops, ssd_scan_cuda,
+                       ssd_scan_plain, ssd_scan_with_state_plain)
 
 #: kernel launches per wrapper since the last :func:`reset_launches`;
 #: ``ssd`` counts calls of the scan, each three kernels of
@@ -83,6 +92,48 @@ def launches() -> dict:
     return dict(LAUNCHES)
 
 
+#: the dry run's tally, kept apart from :data:`LAUNCHES`: for each call on
+#: meta tensors, the wrapper's family counts what its CUDA route would add
+#: to ``LAUNCHES`` (``calls``), and the kernel's tensor-product operations
+#: (``flops``; the elementwise kernels have none) and the bytes it must
+#: move, each input read once and each output written once (``bytes``)
+DRY = {"calls": dict.fromkeys(LAUNCHES, 0),
+       "flops": dict.fromkeys(LAUNCHES, 0),
+       "bytes": dict.fromkeys(LAUNCHES, 0)}
+
+
+def reset_dry() -> None:
+    for part in DRY.values():
+        for k in part:
+            part[k] = 0
+
+
+def dry() -> dict:
+    """A copy of the tally: ``{"calls", "flops", "bytes"}``, each by
+    family."""
+    return {k: dict(v) for k, v in DRY.items()}
+
+
+def _tally(family: str, flops: int = 0, nbytes: int = 0) -> None:
+    DRY["calls"][family] += 1
+    DRY["flops"][family] += int(flops)
+    DRY["bytes"][family] += int(nbytes)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _on_meta(*tensors) -> bool:
+    """True where every tensor is on the meta device: the dry run's route,
+    which checks and plans the call as the card would, tallies it in
+    :data:`DRY` and returns empty meta outputs. A mix raises in
+    :func:`_on_card`."""
+    meta = [t.is_meta for t in tensors if t is not None]
+    return bool(meta) and all(meta)
+
+
 def _on_card(*tensors) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors
     (run the plain version); anything else, or a mix, raises."""
@@ -92,8 +143,13 @@ def _on_card(*tensors) -> bool:
     kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cpu"}:
         return False
+    if kinds == {"meta"}:
+        raise ValueError("meta tensors: this op has no meta route; the dry "
+                         "run (repro_torch.launch.dryrun) takes the ops of a "
+                         "serving or training step only")
     raise ValueError(f"tensors on {sorted(kinds)}: the NTX ops take CPU "
-                     f"tensors (plain versions) or CUDA tensors (kernels)")
+                     f"tensors (plain versions), CUDA tensors (kernels) or, "
+                     f"in the dry run, meta tensors")
 
 
 def _tracked(*tensors) -> bool:
@@ -158,6 +214,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
         raise ValueError("the compensated GEMM takes one (m, k) @ (k, n) "
                          "product, not lanes")
     epilogue = _norm_epilogue(epilogue)
+    if not compensated and _on_meta(a, b, *(op for _, _, op in epilogue)):
+        return _gemm_meta(a, b, out_dtype, epilogue)
     if not _on_card(a, b, *(op for _, _, op in epilogue)):
         plain = gemm_kahan_plain if compensated else gemm_plain
         return plain(a, b, out_dtype=out_dtype, epilogue=epilogue)
@@ -165,6 +223,30 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32,
     LAUNCHES["gemm_kahan" if compensated else "gemm"] += 1
     return gemm_cuda(a, b, out_dtype=out_dtype, epilogue=epilogue,
                      compensated=compensated)
+
+
+def _gemm_meta(a, b, out_dtype, epilogue):
+    """The meta route of :func:`gemm` (uncompensated): the kernel's checks
+    and plan, ``2 m n k`` operations a lane; A, B and the epilogue's
+    operands read (in the dtype the kernel reads them), C written, and a
+    split product's fp32 partials written and read again."""
+    _no_backward("gemm", a, b, *(op for _, _, op in epilogue))
+    gemm_check(a, b, out_dtype, len(epilogue))
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    lanes = a.shape[0] if a.dim() == 3 else 1
+    ws_bytes = 0
+    if a.dtype == torch.bfloat16:
+        ws_bytes = 2 * 4 * lanes * split_k_plan(m, n, k).workspace
+    else:
+        ffma_plan(m, n, k, False)
+    c = torch.empty((*a.shape[:-2], m, n), dtype=out_dtype, device="meta")
+    ops_bytes = sum(
+        op.numel() * (op.element_size() if op.dtype in _GEMM_DTYPES else 4)
+        for _, _, op in epilogue if op is not None)
+    _tally("gemm", 2 * lanes * m * n * k,
+           _nbytes(a, b, c) + ops_bytes + ws_bytes)
+    return c
 
 
 # ----------------------------------------------------------------------
@@ -189,6 +271,13 @@ def act_bwd(act: str, dh: torch.Tensor, a1: torch.Tensor,
     """The MLP activation's backward in one pass: ``(da1, dgate, h)`` in
     ``out_dtype`` from fp32 ``dh = dout @ w2^T``, ``a1 = x @ w1`` and
     (SwiGLU) ``gate = x @ w3`` (GELU: tanh form, ``dgate`` None)."""
+    if _on_meta(dh, a1, gate):
+        act_bwd_check(act, dh, a1, gate, out_dtype)
+        da1, h = (torch.empty(dh.shape, dtype=out_dtype, device="meta")
+                  for _ in range(2))
+        dgate = torch.empty_like(da1) if act == "swiglu" else None
+        _tally("act_bwd", 0, _nbytes(dh, a1, gate, da1, dgate, h))
+        return da1, dgate, h
     if not _on_card(dh, a1, gate):
         return act_bwd_plain(act, dh, a1, gate, out_dtype)
     LAUNCHES["act_bwd"] += 1
@@ -491,7 +580,9 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         ctx.causal, ctx.scale = causal, scale
-        if _on_card(q, k, v):
+        if _on_meta(q, k, v):
+            o, lse = _attention_meta(q, k, v, causal, None, lse=True)
+        elif _on_card(q, k, v):
             b, hq, sq, d = q.shape
             hkv, skv = k.shape[1], k.shape[2]
             plan = flash_plan(b, hq, hkv, sq, skv, skv, d, q.dtype, causal,
@@ -509,6 +600,9 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, scale=ctx.scale)
+        if _on_meta(q, k, v, do):
+            return (*_attention_bwd_meta(q, k, v, o, lse, do, ctx.causal),
+                    None, None)
         if not _on_card(q, k, v, do):
             return (*flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
                     None, None)
@@ -536,6 +630,8 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
                 f"{q.shape[2]} skv {skv} kv_len {kv_len}; run decode under "
                 f"torch.no_grad()")
         return _Attention.apply(q, k, v, bool(causal), scale)
+    if _on_meta(q, k, v):
+        return _attention_meta(q, k, v, bool(causal), kv_len)
     if not _on_card(q, k, v):
         # the reference's ref branch; its mha_blocked switch for long
         # sequences computes the same forward as mha
@@ -553,6 +649,67 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
                                 kv_len=kv_len, plan=plan)
 
 
+def _attention_meta(q, k, v, causal: bool, kv_len, lse: bool = False):
+    """The meta route of the flash forward: the kernel's checks and
+    :func:`flash_plan`; ``2 (d + dv)`` operations an unmasked (query, key)
+    pair; q and the first ``kv_len`` keys and values read. An unsplit
+    plan writes o (and ``lse``: each row's fp32 log-sum-exp); a split one
+    writes its partials, which the merge (``attention_merge``) reads and
+    turns into o."""
+    flash_check(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    kv = skv if kv_len is None else int(kv_len)
+    plan = flash_plan(b, hq, hkv, sq, skv, kv, d, q.dtype, causal, lse, dv)
+    o = torch.empty((b, hq, sq, dv), dtype=q.dtype, device="meta")
+    lse_t = (torch.empty((b, hq, sq), dtype=torch.float32, device="meta")
+             if lse else None)
+    pairs = b * hq * attention_pairs(sq, kv, causal)
+    kv_bytes = b * hkv * min(kv, skv) * (d + dv) * k.element_size()
+    ws_bytes = 4 * plan.workspace
+    out_bytes = ws_bytes if plan.splits > 1 else _nbytes(o, lse_t)
+    _tally("attention", 2 * pairs * (d + dv),
+           _nbytes(q) + kv_bytes + out_bytes)
+    if plan.splits > 1:
+        _tally("attention_merge", 0, ws_bytes + _nbytes(o))
+    return (o, lse_t) if lse else o
+
+
+def _attention_bwd_meta(q, k, v, o, lse, do, causal: bool):
+    """The meta route of the flash backward: the kernel's checks and
+    :func:`flash_bwd_plan`; 5 products an unmasked pair (S = Q K^T, dP =
+    dO V^T, dV += P^T dO, dQ += dS K, dK += dS^T Q); q, k, v, o, dO and
+    lse read, dq, dk and dv written."""
+    flash_bwd_check(q, k, v, o, lse, do)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    flash_bwd_plan(b, hq, hkv, sq, skv, d, q.dtype, causal, dv)
+    grads = tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                  for t in (q, k, v))
+    pairs = b * hq * attention_pairs(sq, skv, causal)
+    _tally("attention_bwd", 2 * pairs * (3 * d + 2 * dv),
+           _nbytes(q, k, v, o, lse, do, *grads))
+    return grads
+
+
+def _ssd_meta(x, dt, A, B, C, chunk: int, final_state: bool = False):
+    """The meta route of the SSD kernel: its checks and :func:`scan_plan`,
+    the scan's operations on this data (:func:`ssd_flops`); x, dt, A, B, C
+    read, y (and the fp32 final state) written."""
+    ssd_check(x, dt, A, B, C)
+    b, l, h, dh = x.shape
+    n = B.shape[-1]
+    scan_plan(b, l, h, dh, n, chunk, x.dtype == torch.bfloat16)
+    y = torch.empty(x.shape, dtype=x.dtype, device="meta")
+    s = (torch.empty((b, h, n, dh), dtype=torch.float32, device="meta")
+         if final_state else None)
+    _tally("ssd_state" if final_state else "ssd",
+           ssd_flops(b, l, h, dh, n, chunk), _nbytes(x, dt, A, B, C, y, s))
+    return (y, s) if final_state else y
+
+
 # ----------------------------------------------------------------------
 # SSD scan
 # ----------------------------------------------------------------------
@@ -567,6 +724,8 @@ class _SSD(torch.autograd.Function):
     def forward(ctx, x, dt, A, B, C, chunk):
         ctx.chunk = chunk
         ctx.save_for_backward(x, dt, A, B, C)
+        if _on_meta(x, dt, A, B, C):
+            return _ssd_meta(x, dt, A, B, C, chunk)
         if not _on_card(x, dt, A, B, C):
             return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
         LAUNCHES["ssd"] += 1
@@ -575,7 +734,9 @@ class _SSD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         saved = ctx.saved_tensors
-        if saved[0].is_cuda:
+        if _on_meta(*saved, gy):
+            _tally("ssd_bwd")    # its operations: the aten ops below
+        elif _on_card(*saved, gy):
             LAUNCHES["ssd_bwd"] += 1
         with torch.enable_grad(), torch.profiler.record_function("ssd_bwd"):
             ins = [t.detach().requires_grad_(need)
@@ -604,11 +765,14 @@ def ssd_with_state(x, dt, A, B, C, chunk: int = 64):
     kernel's y is bit-equal to :func:`ssd`'s; the state comes from its
     carry pass. The kernel has no backward: prefill runs under inference
     mode, and training differentiates :func:`ssd`."""
-    if not _on_card(x, dt, A, B, C):
+    meta = _on_meta(x, dt, A, B, C)
+    if not meta and not _on_card(x, dt, A, B, C):
         return ssd_scan_with_state_plain(x, dt, A, B, C, chunk=chunk)
     _no_backward("ssd_with_state", x, dt, A, B, C,
                  why="prefill runs it under inference mode; training "
                      "differentiates ops.ssd")
+    if meta:
+        return _ssd_meta(x, dt, A, B, C, chunk, final_state=True)
     LAUNCHES["ssd_state"] += 1
     return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, final_state=True)
 
@@ -622,6 +786,14 @@ def adamw_update(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
     ``(p, m, v)`` (p in its dtype, m and v fp32). ``lr`` is a float or a
     0-d tensor on the CPU and enters the kernel as a launch argument."""
     lr = float(lr)
+    if _on_meta(p, g, m, v):
+        adamw_check(p, g, m, v)
+        outs = (torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                *(torch.empty(p.shape, dtype=torch.float32, device="meta")
+                  for _ in range(2)))
+        reads = p.numel() * (p.element_size() + 12)     # p; fp32 g, m, v
+        _tally("adamw", 0, reads + _nbytes(*outs))
+        return outs
     if not _on_card(p, g, m, v):
         return adamw_plain(p, g, m, v, step, lr=lr, b1=b1, b2=b2, eps=eps,
                            wd=wd)

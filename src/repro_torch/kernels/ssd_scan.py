@@ -164,16 +164,11 @@ def ssd_scan_with_state_plain(x, dt, A, B, C, chunk: int = 64):
     return y[:, :l].to(x.dtype), s
 
 
-def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 64,
-                  plan: SSDPlan | None = None, final_state: bool = False):
-    """Launch ``csrc/ssd_scan.cu`` (three kernels). x: (b, l, h, dh) fp32
-    or bf16; B/C (b, l, n) in x's dtype; dt (b, l, h) and A (h,) fp32.
-    Returns y, or with ``final_state`` (y, the state after the last step,
-    (b, h, n, dh) fp32), which the carry pass stores as it ends; y is the
-    same either way. ``plan`` defaults to :func:`scan_plan`; another plan
-    is passed only to test that the kernel refuses it, the ``ops`` entry
-    point never does."""
-    b, l, h, dh = x.shape
+def ssd_check(x, dt, A, B, C) -> None:
+    """Raise ``ValueError`` for operands the kernel refuses: shapes that
+    do not match x (b, l, h, dh), x / B / C not all fp32 or all bf16, dt
+    or A not fp32."""
+    b, l, h, _ = x.shape
     n = B.shape[-1]
     if tuple(dt.shape) != (b, l, h) or tuple(A.shape) != (h,) or \
             tuple(B.shape) != (b, l, n) or tuple(C.shape) != (b, l, n):
@@ -186,6 +181,31 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 64,
                          f"{x.dtype}/{B.dtype}/{C.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise ValueError(f"ssd takes fp32 dt and A, got {dt.dtype}/{A.dtype}")
+
+
+def ssd_flops(b: int, l: int, h: int, dh: int, n: int, chunk: int) -> int:
+    """The scan's operations on this data: per chunk of L steps, C B^T
+    and W X over the s <= t pairs, L (L + 1) (n + dh), plus C S and the
+    state update, 4 L n dh; for every (batch, head)."""
+    def per_chunk(L):
+        return L * (L + 1) * (n + dh) + 4 * L * n * dh
+    full, rest = divmod(l, chunk)
+    return b * h * (full * per_chunk(chunk) + (per_chunk(rest) if rest
+                                               else 0))
+
+
+def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 64,
+                  plan: SSDPlan | None = None, final_state: bool = False):
+    """Launch ``csrc/ssd_scan.cu`` (three kernels). x: (b, l, h, dh) fp32
+    or bf16; B/C (b, l, n) in x's dtype; dt (b, l, h) and A (h,) fp32.
+    Returns y, or with ``final_state`` (y, the state after the last step,
+    (b, h, n, dh) fp32), which the carry pass stores as it ends; y is the
+    same either way. ``plan`` defaults to :func:`scan_plan`; another plan
+    is passed only to test that the kernel refuses it, the ``ops`` entry
+    point never does."""
+    ssd_check(x, dt, A, B, C)
+    b, l, h, dh = x.shape
+    n = B.shape[-1]
     bf16 = x.dtype == torch.bfloat16
     p = plan or scan_plan(b, l, h, dh, n, chunk, bf16)
     x, dt, A = x.contiguous(), dt.contiguous(), A.contiguous()

@@ -18,6 +18,7 @@ have no sequence axis. The VLM (qwen2-vl) adds the patch stub (the first
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -46,6 +47,25 @@ def _kind_of(cfg: ArchConfig, i: int) -> str:
     else:
         ffn = "none"
     return f"{mixer}_{ffn}"
+
+
+def period_len(cfg: ArchConfig) -> int:
+    """Shortest period of the layer-kind pattern (the dry run's delta
+    method)."""
+    p = 1
+    if cfg.attn_period:
+        p = cfg.attn_period
+    if cfg.moe and cfg.moe_every > 1:
+        p = math.lcm(p, cfg.moe_every)
+    return p
+
+
+def n_periods(cfg: ArchConfig) -> int:
+    p = period_len(cfg)
+    if cfg.n_layers % p:
+        raise ValueError(f"{cfg.n_layers} layers are not whole periods of "
+                         f"{p}")
+    return cfg.n_layers // p
 
 
 def layer_schedule(cfg: ArchConfig):

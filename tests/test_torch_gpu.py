@@ -2059,3 +2059,69 @@ def test_family_training_card_vs_cpu(cuda, arch):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for n, want in gc.items():
         assert _rel_l2(gg[n], want) <= _GRAD_RTOL["float32"], n
+
+
+def _card_legal(arch: str):
+    """The reduced config at head dims the card's kernels take (64; MLA's
+    192 / 128), two layers, one microbatch."""
+    from repro_torch import configs
+    cfg = configs.get_reduced(arch).scaled(n_layers=2, grad_accum=1)
+    if cfg.mla:
+        return cfg.scaled(nope_head_dim=128, rope_head_dim=64,
+                          v_head_dim=128)
+    return cfg.scaled(head_dim=64)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v2-lite-16b"])
+def test_dry_run_calls_equal_the_cards_launches(cuda, arch):
+    """One training step on the card launches, family by family, what
+    the dry run of the same step on the meta device tallies."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.runtime import build_step_fn
+    cfg = _card_legal(arch)
+    b, s = 2, 128
+    params = Model(cfg).init(0, device=cuda, trainable=True)
+    opt = init_opt_state(dict(params.named_parameters()))
+    batch = {k: v.to(cuda) for k, v in
+             SyntheticLM(cfg, b, s, seed=0).batch_at(0).items()}
+    ops.reset_launches()
+    ops.reset_dry()
+    build_step_fn(cfg, AdamWConfig())(params, opt, batch)
+    torch.cuda.synchronize()
+    card = {k: v for k, v in ops.launches().items() if v}
+    assert sum(ops.dry()["calls"].values()) == 0   # no call went to meta
+    fn, args = dryrun.train_step(cfg, b, s)
+    assert dryrun.trace(fn, *args)["launches"] == card
+    assert card["attention"] == 2 * cfg.n_layers and \
+        card["attention_bwd"] == cfg.n_layers
+
+
+def test_cuda_tensors_never_take_the_meta_route(cuda):
+    """Every wrapper with a meta route counts its launch on CUDA tensors
+    and leaves the dry run's tally untouched."""
+    bf = torch.bfloat16
+    ops.reset_launches()
+    ops.reset_dry()
+    a, w = _t((8, 64), cuda).to(bf), _t((64, 64), cuda, 0.1).to(bf)
+    ops.gemm(a, w)
+    ops.fused_mlp(a, w, w, w, act="swiglu")
+    dh = _t((8, 64), cuda)
+    ops.act_bwd("swiglu", dh, dh, dh, bf)
+    q = _t((1, 2, 16, 64), cuda, 0.3).to(bf)
+    ops.attention(q, q, q)
+    x = _t((1, 32, 2, 16), cuda)
+    dt = _t((1, 32, 2), cuda).abs()
+    A = -torch.ones(2, device=cuda)
+    Bm = _t((1, 32, 16), cuda, 0.3)
+    with torch.no_grad():
+        ops.ssd(x, dt, A, Bm, Bm, chunk=16)
+        ops.ssd_with_state(x, dt, A, Bm, Bm, chunk=16)
+    p = _t((8, 8), cuda)
+    ops.adamw_update(p, p, p.abs(), p.abs(), 1, lr=1e-3)
+    got = ops.launches()
+    assert (got["gemm"], got["act_bwd"], got["attention"], got["ssd"],
+            got["ssd_state"], got["adamw"]) == (4, 1, 1, 1, 1, 1)
+    assert sum(ops.dry()["calls"].values()) == 0
