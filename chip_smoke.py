@@ -12,6 +12,10 @@
     python3 chip_smoke.py --phases 1,13   # one phase alone
     python3 chip_smoke.py --phases 1,5,11,19   # the dry run against
                              # phases 5 and 11 alone
+    python3 chip_smoke.py --phases 1,20   # the mesh step alone (add 3
+                             # and --only gemm:tp8,attention:tp8,
+                             # attention_bwd:tp8,act_bwd:tp8 for the
+                             # tensor-parallel shard shapes' kernels)
     python3 chip_smoke.py --phases 1,3 --only attention:prefill_4096 \
         --src ../parent/src  # one case's check and time, another tree's
                              # kernels on the same card
@@ -173,6 +177,23 @@ Phases, one result line each:
                prefill, decode step and training step's roofline at both
                ceilings beside the measured time, and the dry run's peak
                beside the card's (observations).
+ 20. mesh   — the (data, model) mesh on the card, on a 1-rank NCCL process
+               group (one rank: no collective here crosses cards):
+               Trainer(mesh=make_mesh_for(1)) on phase 11's
+               llama3-8b (4 of 32 layers, 4 x 2048, bf16) for 3 steps,
+               its checkpoint gathered to the reference's layout and
+               written by rank 0, then build_step_fn's plain step from the
+               same seed in turn: loss and every parameter leaf within
+               phase 10's bf16 limits, the step times side by side, peak
+               memory, the launches of phase 11's step held exactly; the
+               int8 collectives on CUDA tensors bit-equal to the CPU port,
+               the ring products bit-equal to their one-rank product.
+               Phases 2/3 hold and time the kernels at the shard shapes a
+               rank of an 8-way model axis gives them (the ``tp8`` cases:
+               the MLP's products at w1 / w3 4096 x 1792 and w2 1792 x
+               4096 for m 8192, the activation backward at 8192 x 1792,
+               flash attention with lse and its backward at 4 q heads /
+               1 kv head, b 4, s 2048).
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -183,6 +204,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -212,7 +234,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = set(range(1, 20))
+ALL_PHASES = set(range(1, 21))
 #: phase 12's model (MLA and MoE); phase 13 trains it at full width cut
 #: to DEEPSEEK_TRAIN_LAYERS of 27 layers (~30 bytes a parameter with the
 #: plain AdamW: 16.2 B parameters need ~490 GB), batch DENSE_BATCH x
@@ -263,6 +285,9 @@ HEADROOM_BYTES = 5e9
 #: side took 39 s in fp32 and 61 s in bf16 on the H100's host, 2 layers)
 DENSE_LAYERS, DENSE_BATCH, DENSE_SEQ, DENSE_STEPS = 4, 4, 2048, 5
 DENSE_WIDTH_SEQ = 256
+#: phase 20: the mesh step's steps; the model axis whose rank's blocks
+#: phases 2/3 hold the kernels at (llama3-8b's 32 / 8 heads, 14336 d_ff)
+MESH_STEPS, TP_RANKS = 3, 8
 #: phase 8's shapes: the conv plane, the Laplace grids, the GEMM side
 CONV_HW, CONV_TAPS = 8192, (3, 5, 7)
 LAP_SHAPES = ((1 << 26,), (8192, 8192), (512, 512, 512))
@@ -745,6 +770,24 @@ def kernel_cases(torch):
         if wanted(name):
             gemm_case(name, m, k, n, bf, out_dt, ep, f_tol if out_dt == f32
                       else bf_tol, phase="dense")
+    # phase 20: the same products at the blocks of a rank of an 8-way
+    # model axis (d_ff 14336 / 8 = 1792 columns of w1 / w3, rows of w2;
+    # the residual is added after the sum over ranks, so w2 stores none)
+    ff8 = 14336 // TP_RANKS
+    for name, m, k, n, out_dt, ep in (
+            (f"gemm:tp8_gate_a1_dh_m{m_tr}_k4096_n{ff8}", m_tr, 4096, ff8,
+             f32, []),
+            (f"gemm:tp8_w1_silu_mul_m{m_tr}_n{ff8}", m_tr, 4096, ff8, bf,
+             [("silu",), ("mul", f32)]),
+            (f"gemm:tp8_w2_m{m_tr}_k{ff8}_n4096", m_tr, ff8, 4096, bf, []),
+            (f"gemm:tp8_dx_residual_m{m_tr}_k{ff8}_n4096", m_tr, ff8, 4096,
+             bf, [("residual", f32)]),
+            (f"gemm:tp8_dw1_dw3_m4096_k{m_tr}_n{ff8}", 4096, m_tr, ff8, f32,
+             []),
+            (f"gemm:tp8_dw2_m{ff8}_k{m_tr}_n4096", ff8, m_tr, 4096, f32, [])):
+        if wanted(name):
+            gemm_case(name, m, k, n, bf, out_dt, ep, f_tol if out_dt == f32
+                      else bf_tol, phase="mesh")
     # phase 17's GELU MLPs (d 1024, d_ff 4096): the encoder's 4 x 1500
     # frames, a decode step's 4 rows; phase 18's SwiGLU (1536 -> 8960) at
     # the 4 x 288-token prefill
@@ -889,6 +932,11 @@ def dense_cases(torch, rn, bf_tol):
 
     bwd_case(f"attention_bwd:train_b{DENSE_BATCH}_hq32_hkv8_s{DENSE_SEQ}"
              f"_bf16", DENSE_BATCH, 32, 8, DENSE_SEQ, bf, True)
+    # a rank of an 8-way model axis: 32 / 8 q heads, the one kv head they
+    # read (phase 20)
+    bwd_case(f"attention_bwd:tp8_b{DENSE_BATCH}_hq4_hkv1_s{DENSE_SEQ}_bf16",
+             DENSE_BATCH, 32 // TP_RANKS, 1, DENSE_SEQ, bf, True,
+             phase="mesh")
     bwd_case(f"attention_bwd:yi_b2_hq32_hkv4_s{DENSE_SEQ}_bf16", 2, 32, 4,
              DENSE_SEQ, bf, False)
     bwd_case("attention_bwd:b1_hq8_hkv2_s1000_fp32", 1, 8, 2, 1000, f32,
@@ -941,6 +989,8 @@ def dense_cases(torch, rn, bf_tol):
 
     lse_case(f"attention:train_lse_b{DENSE_BATCH}_s{DENSE_SEQ}_bf16",
              DENSE_BATCH, 32, 8, DENSE_SEQ, "dense")
+    lse_case(f"attention:tp8_lse_b{DENSE_BATCH}_hq4_hkv1_s{DENSE_SEQ}_bf16",
+             DENSE_BATCH, 32 // TP_RANKS, 1, DENSE_SEQ, "mesh")
     lse_case(f"attention:mla_train_lse_b1_h16_s{DENSE_SEQ}_bf16", 1, 16, 16,
              DENSE_SEQ, "deepseek_train", d=192, dv=128)
     lse_case(f"attention:phi35_train_lse_b1_hq32_hkv8_s{DENSE_SEQ}_bf16", 1,
@@ -982,6 +1032,9 @@ def dense_cases(torch, rn, bf_tol):
     for name, act, (m, n), dt, path in (
             (f"act_bwd:swiglu_{DENSE_BATCH * DENSE_SEQ}x14336_bf16",
              "swiglu", (DENSE_BATCH * DENSE_SEQ, 14336), bf, True),
+            (f"act_bwd:tp8_swiglu_{DENSE_BATCH * DENSE_SEQ}x"
+             f"{14336 // TP_RANKS}_bf16", "swiglu",
+             (DENSE_BATCH * DENSE_SEQ, 14336 // TP_RANKS), bf, True),
             ("act_bwd:gelu_4096x4095_fp32", "gelu", (4096, 4095), f32,
              False),
             # phase 17's GELU MLPs: the decoder's 8 x 448 tokens and the
@@ -1008,7 +1061,8 @@ def dense_cases(torch, rn, bf_tol):
             bytes=m * n * (4 * n_in + n_out * (2 if dt == bf else 4)),
             ops=20.0 * m * n, kind="fp32", path=path,
             phase=("whisper_train" if "whisper" in name else "qwen_train"
-                   if "qwen" in name else "dense")))
+                   if "qwen" in name else "mesh" if "tp8" in name
+                   else "dense")))
     return cases
 
 
@@ -2702,21 +2756,27 @@ def phase_train_width(torch, np) -> None:
 
 
 def step_with_grads(step_fn, params, opt_state, batch):
-    """One ``build_step_fn`` step that also returns the gradients it
-    handed to the optimizer (``apply_updates``, wrapped for the call):
-    ``(params, new_state, loss, grads)``."""
+    """One step of ``step_fn`` (``build_step_fn``'s or the mesh step's)
+    that also returns the gradients it handed to the optimizer
+    (``apply_updates``, wrapped for the call) and their global norm (the
+    mesh step's own, else ``global_norm``): ``(params, new_state, loss,
+    grads, gnorm)``."""
+    from repro_torch.optim import global_norm
     from repro_torch.runtime import train
     seen, real = {}, train.apply_updates
 
     def capture(cfg, named, grads, state, **kw):
         seen["grads"] = grads
+        seen["gnorm"] = kw.get("gnorm")
+        if seen["gnorm"] is None:
+            seen["gnorm"] = global_norm(grads)
         return real(cfg, named, grads, state, **kw)
     train.apply_updates = capture
     try:
         params, state, loss, _ = step_fn(params, opt_state, batch)
     finally:
         train.apply_updates = real
-    return params, state, loss, seen["grads"]
+    return params, state, loss, seen["grads"], seen["gnorm"]
 
 
 def width_step_check(torch, base, seq: int, tag: str) -> None:
@@ -2731,8 +2791,7 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
     every recompute must route as its forward did."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import Model
-    from repro_torch.optim import (AdamWConfig, global_norm, init_opt_state,
-                                   lr_schedule)
+    from repro_torch.optim import AdamWConfig, init_opt_state, lr_schedule
     from repro_torch.runtime import build_step_fn
 
     opt_cfg = AdamWConfig(warmup_steps=1, total_steps=10)
@@ -2761,10 +2820,9 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
             b = {k: v.to(dev) for k, v in batch.items()}
             named = dict(params.named_parameters())
             with RouteLog(torch, params, logs.get(DEVICE)) as logs[dev]:
-                _, state, loss, grads = step_with_grads(
+                _, state, loss, grads, gnorm = step_with_grads(
                     build_step_fn(cfg, opt_cfg), params,
                     init_opt_state(named), b)
-            gnorm = global_norm(grads)
             grads = {n: g.detach().float() for n, g in grads.items()}
             del state
             out.append((float(loss), float(gnorm), grads,
@@ -3113,6 +3171,224 @@ def phase_dense_train(torch, np) -> dict:
                        f"needs ~128 GB)")
     return {"dense": family_train(torch, full.scaled(n_layers=DENSE_LAYERS),
                                   DENSE_BATCH, DENSE_SEQ, "dense train")}
+
+
+# ----------------------------------------------------------------------
+# phase 20: the mesh on the card
+# ----------------------------------------------------------------------
+def check_collectives_on_card(torch, group) -> None:
+    """The int8 collectives on CUDA tensors against the CPU port on the
+    same bytes (bit-equal), and the one-rank compressed mean, mean and
+    ring products against their one-rank arithmetic on the card
+    (bit-equal)."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import overlap
+    g = torch.Generator(device=DEVICE).manual_seed(20)
+    x = torch.randn((1 << 22) + 7, generator=g, device=DEVICE) * 3.0
+    res = torch.randn(x.shape, generator=g, device=DEVICE) * 1e-3
+    xc, rc = x.cpu(), res.cpu()
+    same = lambda a, b: a.cpu().numpy().tobytes() == b.numpy().tobytes()
+    q, sc = col.quantize_int8(x)
+    qc, scc = col.quantize_int8(xc)
+    out, new = col.error_feedback(x, res, lambda t: t * 0.5)
+    outc, newc = col.error_feedback(xc, rc, lambda t: t * 0.5)
+    checks = {"quantize_int8": same(q, qc) and same(sc, scc),
+              "dequantize_int8": same(col.dequantize_int8(q, sc),
+                                      col.dequantize_int8(qc, scc)),
+              "error_feedback": same(out, outc) and same(new, newc)}
+    q2, s2 = col.quantize_int8(col.dequantize_int8(q, sc))
+    checks["compressed_psum_mean (1 rank)"] = torch.equal(
+        col.compressed_psum_mean(x, group), col.dequantize_int8(q2, s2))
+    checks["psum_mean (1 rank)"] = torch.equal(col.psum_mean(x, group), x)
+    a = torch.randn(512, 256, generator=g, device=DEVICE)
+    w = torch.randn(256, 384, generator=g, device=DEVICE)
+    want = torch.matmul(a, w)
+    checks["ring_allgather_matmul (1 rank)"] = torch.equal(
+        overlap.ring_allgather_matmul(a, w, group), want)
+    checks["ring_matmul_reducescatter (1 rank)"] = torch.equal(
+        overlap.ring_matmul_reducescatter(a, w, group), want)
+    say("mesh", "collectives on CUDA tensors: " + " | ".join(
+        f"{k} {'bit-equal' if v else 'DIFFERS'}" for k, v in checks.items()))
+    need(all(checks.values()), f"collectives on the card: {checks}")
+
+
+def phase_mesh(torch, np, obs: dict) -> dict:
+    """Trainer(mesh=make_mesh_for(1)) on a 1-rank NCCL process group
+    (rendezvous through a FileStore under $TMPDIR): llama3-8b at full
+    width cut to DENSE_LAYERS of 32 layers, batch DENSE_BATCH x DENSE_SEQ,
+    bf16, MESH_STEPS steps and a checkpoint; then build_step_fn's plain
+    steps from the same seed and batches, in turn (both states at once
+    do not fit the card). Held to phase 10's bf16 limits: the losses;
+    the global norm and every leaf of the gradients that the first step
+    of each hands its optimizer (the mesh step's kept on the host); and
+    every parameter leaf after the steps. The launches of each are held
+    to phase 11's per step."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import Model
+    from repro_torch.models.common import set_activation_sharding
+    from repro_torch.optim import AdamWConfig, init_opt_state, lr_schedule
+    from repro_torch.runtime import TrainConfig, Trainer, build_step_fn
+
+    card = card_line()
+    cfg = configs.get("llama3-8b").scaled(n_layers=DENSE_LAYERS)
+    opt_cfg = AdamWConfig(warmup_steps=10, total_steps=MESH_STEPS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh_for(1)
+        say("mesh", f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+                    f"a {dist.get_world_size()}-rank NCCL group, "
+                    f"{torch.cuda.device_count()} card(s) visible: no "
+                    f"collective here crosses cards | card {card}")
+        check_collectives_on_card(torch, mesh.get_group("data"))
+        set_activation_sharding(mesh, ("data",), "model")
+        trainer = Trainer(cfg, opt_cfg, TrainConfig(
+            steps=MESH_STEPS, log_every=0, ckpt_every=MESH_STEPS,
+            ckpt_dir=os.path.join(tmp, "ckpt"), resume="none",
+            global_batch=DENSE_BATCH, seq_len=DENSE_SEQ), mesh=mesh,
+            device=DEVICE)
+        times, real, first = [], trainer.step_fn, {}
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if times:
+                out = real(*args)
+            else:                       # step 1 hands over its gradients
+                *out, grads, gnorm = step_with_grads(real, *args)
+                out = (*out, {})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if len(times) == 1:
+                first["grads"] = {n: g.detach().cpu()
+                                  for n, g in grads.items()}
+                first["gnorm"] = float(gnorm)
+                del grads
+                torch.cuda.reset_peak_memory_stats()
+            return out
+        trainer.step_fn = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        r = trainer.run()
+        run_s = time.perf_counter() - t0
+        counts = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        m_losses = r["losses"]
+        m_params = {n: p.to_local().detach().cpu()
+                    for n, p in r["params"].named_parameters()}
+        kinds = {type(p).__name__ for p in r["params"].parameters()}
+        del r, trainer, real
+        gc_collect(torch)
+        saved = sorted(os.listdir(os.path.join(tmp, "ckpt")))
+        with open(os.path.join(tmp, "ckpt", saved[-1], "manifest.json")) as f:
+            man = {m["name"]: m for m in json.load(f)}
+        wq = man["['params']['layers']['attn_mlp']['mixer']['wq']"]
+        say("mesh", f"Trainer(mesh): {MESH_STEPS} steps, losses "
+                    f"{[round(x, 4) for x in m_losses]}, step times "
+                    f"{[round(t * 1e3, 1) for t in times]} ms, run with "
+                    f"init and checkpoint {run_s:.1f} s | parameters "
+                    f"{sorted(kinds)} | checkpoint {saved[-1]}: "
+                    f"{len(man)} leaves in the reference's stacked layout "
+                    f"(wq {wq['shape']} {wq['dtype']}), written by rank 0")
+        need(saved == [f"step_{MESH_STEPS:09d}"] and wq["shape"] == [
+            DENSE_LAYERS, 4096, 4096], f"mesh checkpoint {saved} {wq}")
+        card_memory_ok(torch, peak, "mesh", "the mesh step at batch "
+                       f"{DENSE_BATCH} x {DENSE_SEQ}")
+
+        params = Model(cfg).init(0, device=DEVICE, trainable=True)
+        opt = init_opt_state(dict(params.named_parameters()))
+        step_fn = build_step_fn(cfg, opt_cfg)
+        data = SyntheticLM(cfg, DENSE_BATCH, DENSE_SEQ, seed=0)
+        p_losses, p_times = [], []
+        ops.reset_launches()
+        for i in range(MESH_STEPS):
+            batch = {k: v.to(DEVICE) for k, v in data.batch_at(i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i:
+                params, opt, loss, _ = step_fn(params, opt, batch)
+            else:
+                params, opt, loss, grads, gnorm = step_with_grads(
+                    step_fn, params, opt, batch)
+            p_losses.append(float(loss))
+            torch.cuda.synchronize()
+            p_times.append(time.perf_counter() - t0)
+            if not i:
+                # each leaf's relative L2 error, compared on the card
+                g_err, g_leaf = 0.0, None
+                for n, want in grads.items():
+                    want = want.float()
+                    got = first["grads"].pop(n).to(DEVICE).float()
+                    err = float((got - want).norm()) / max(
+                        float(want.norm()), 1e-30)
+                    if not math.isfinite(err) or err > g_err:
+                        g_err, g_leaf = err, n
+                p_norm = float(gnorm)
+                del grads, got, want
+        p_counts = ops.launches()
+        # phase 10's bf16 limits: the loss at rtol 1e-4; a parameter within
+        # 2 lr a step (the first AdamW steps move each weight by about lr
+        # whatever its gradient) plus one bf16 ulp (2**-7 of the value)
+        lr_sum = sum(float(lr_schedule(opt_cfg, i + 1))
+                     for i in range(MESH_STEPS))
+        worst, n_diff, n_all, ok_p = 0.0, 0, 0, True
+        for n, p in params.named_parameters():
+            want = p.detach().cpu().float()
+            got = m_params[n].float()
+            diff = (got - want).abs()
+            worst = max(worst, float(diff.max()))
+            n_diff += int((diff > 0).sum())
+            n_all += diff.numel()
+            ok_p &= bool(torch.isfinite(got).all()) and bool(
+                (diff <= 2 * lr_sum + 2.0 ** -7 * want.abs()).all())
+        del params, opt, m_params
+        gc_collect(torch)
+        ok_l = all(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)
+                   for a, b in zip(m_losses, p_losses))
+        m_norm = first["gnorm"]
+        ok_n = math.isfinite(m_norm) and abs(m_norm - p_norm) <= 2e-3 * p_norm
+        ok_g = math.isfinite(g_err) and g_err <= GRAD_RTOL["bfloat16"]
+        m_ms = sum(times[1:]) / len(times[1:]) * 1e3
+        p_ms = sum(p_times[1:]) / len(p_times[1:]) * 1e3
+        p11 = obs.get("dense", {}).get("step_ms")
+        say("mesh", f"plain build_step_fn from the same seed: losses "
+                    f"{[round(x, 4) for x in p_losses]} (mesh vs plain "
+                    f"rtol 1e-4: {'ok' if ok_l else 'FAIL'}) | step 1 "
+                    f"grad norm mesh {m_norm:.6f} plain {p_norm:.6f} "
+                    f"(rtol 2e-3: {'ok' if ok_n else 'FAIL'}) | grads "
+                    f"worst leaf rel L2 {g_err:.3e} at {g_leaf} (limit "
+                    f"{GRAD_RTOL['bfloat16']:g}: "
+                    f"{'ok' if ok_g else 'FAIL'}) | params "
+                    f"after {MESH_STEPS} steps max_abs_err {worst:.3e}, "
+                    f"{n_diff} of {n_all} elements differ (limit 2 x "
+                    f"{lr_sum:.2e} + 2**-7 |p|: {'ok' if ok_p else 'FAIL'})")
+        say("mesh", f"step after step 1: mesh {m_ms:.1f} ms, plain "
+                    f"{p_ms:.1f} ms, phase 11's plain "
+                    f"{'not run' if p11 is None else f'{p11:.1f} ms'} | "
+                    f"mesh peak memory after step 1 {peak / 1e9:.2f} GB | "
+                    f"card {card}")
+        want = train_launches(cfg, MESH_STEPS)
+        say("mesh", f"launches in {MESH_STEPS} steps: mesh {counts} | plain "
+                    f"{p_counts} | expected {want}")
+        need(ok_l and ok_n and ok_g and ok_p,
+             "the mesh step disagrees with the plain step")
+        need(all(counts[k] == v == p_counts[k] for k, v in want.items()),
+             f"mesh launches {counts}, plain {p_counts}, expected {want}")
+    finally:
+        set_activation_sharding()
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"mesh": (counts, {"step_ms": m_ms, "plain_ms": p_ms,
+                              "peak": peak})}
 
 
 # ----------------------------------------------------------------------
@@ -4285,13 +4561,15 @@ def main(argv=None) -> int:
             record(phase_qwen(torch, np))
         if 19 in phases:
             phase_dryrun(torch, src, counts, obs)
+        if 20 in phases:
+            record(phase_mesh(torch, np, obs))
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     say("done", f"phases {sorted(phases)} passed in "
                 f"{time.perf_counter() - t_start:.1f} s, the build included")
 
-    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19} <= phases:
+    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

@@ -5,7 +5,7 @@ the MoE decoders deepseek-v2-lite-16b (MLA) and phi3.5-moe-42b (GQA),
 the encoder-decoder whisper-medium, the VLM qwen2-vl-2b (M-RoPE and the
 patch stub) and the Mamba-2 stack mamba2-1.3b, which serve and train,
 and the hybrid jamba-v0.1-52b, which serves (training it at full width
-needs more than one card: ROADMAP slice G). Every module exports
+needs more than one card: ROADMAP item 14b). Every module exports
 ``CONFIG`` and ``reduced()``, as the reference's do. ``shapes.py``
 defines the assigned input-shape set and ``input_specs()``.
 """

@@ -27,8 +27,9 @@ own, and adds ``launches`` and ``fits``. The reference's delta method
 corrects XLA's once-per-loop-body cost analysis; the eager trace is
 already unrolled, so here ``delta_total`` must equal the direct count, a
 check on the accounting. One card is the only mesh: ``single`` and
-``multi`` wait for the multi-device slice (ROADMAP slice G), and with
-them the collectives, whose term is 0 on one card.
+``multi`` wait for the rest of slice G (ROADMAP item 14b: a per-rank
+trace of the mesh step), and with them the collectives, whose term is 0
+on one card.
 
 Usage (no card needed):
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape decode_32k \\
@@ -310,9 +311,9 @@ def _delta(u1: dict, u2: dict, n: int):
 def _check_mesh(mesh: str) -> None:
     if mesh != "card":
         raise NotImplementedError(
-            f"mesh {mesh!r}: the production meshes wait for the "
-            f"multi-device slice (ROADMAP slice G, distributed/ and "
-            f"launch/mesh.py); the dry run takes --mesh card")
+            f"mesh {mesh!r}: the production meshes wait for the rest of "
+            f"slice G (ROADMAP item 14b: a per-rank trace of the mesh "
+            f"step and its collectives); the dry run takes --mesh card")
 
 
 def trace_cell(arch: str, shape_name: str, mesh: str,

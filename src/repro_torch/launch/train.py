@@ -10,10 +10,16 @@
         --global-batch 8 --seq 448 --steps 5
     python -m repro_torch.launch.train --arch qwen2-vl-2b \\
         --global-batch 4 --seq 1024 --steps 5
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch llama3-8b --reduced \\
+        --device cpu --mesh 2x2 --steps 2
 
-Wires the arch registry, the Trainer and checkpointing, with the
-reference launcher's flags. It trains on one device (``--device``, the
-card by default); the mesh (ROADMAP slice G) is not ported. The Trainer
+Wires the arch registry, the mesh, the activation-sharding context, the
+Trainer and checkpointing, with the reference launcher's flags. It
+trains on one device (``--device``, the card by default) or, with
+``--mesh DxM`` under ``torchrun`` (D x M ranks), on a (data, model) mesh:
+gloo with ``--device cpu``, NCCL on ``cuda:LOCAL_RANK`` otherwise; rank
+0 prints. The Trainer
 plans its optimizer update as a multistream descriptor program, as the
 reference's does. The data pipeline draws the stub inputs of the
 encoder-decoder (``--arch whisper-medium``: frame embeddings at the
@@ -22,6 +28,7 @@ qwen2-vl-2b``: ``n_patches`` patch embeddings over the first positions,
 masked out of the loss, and M-RoPE positions), so both train from here.
 """
 import argparse
+import datetime
 import os
 import sys
 import tempfile
@@ -50,9 +57,35 @@ def _parse(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (their plain "
                          "versions)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM, e.g. 2x2: a (data, model) mesh over the "
+                         "ranks torchrun starts")
     ap.add_argument("--set", nargs="*", default=[],
                     help="ArchConfig overrides key=value")
     return ap.parse_args(argv)
+
+
+def init_mesh(spec: str, device: str):
+    """The process group torchrun describes (its environment) and the
+    ``spec`` ("DxM") mesh over it: gloo for ``device`` cpu, NCCL on
+    ``cuda:LOCAL_RANK`` otherwise. Returns ``(mesh, device)``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
+
+    d, m = map(int, spec.lower().split("x"))
+    if device == "cpu":
+        backend = "gloo"
+    else:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    dist.init_process_group(backend, timeout=datetime.timedelta(minutes=10))
+    if dist.get_world_size() != d * m:
+        raise SystemExit(f"--mesh {spec} needs {d * m} ranks; torchrun "
+                         f"started {dist.get_world_size()}")
+    return make_mesh_for(d * m, m, "cpu" if device == "cpu" else "cuda"), \
+        device
 
 
 def parse_overrides(pairs) -> dict:
@@ -84,6 +117,12 @@ def main(argv=None):
     if overrides:
         cfg = cfg.scaled(**overrides)
 
+    mesh, device = None, args.device
+    if args.mesh:
+        import torch.distributed as dist
+        from repro_torch.models.common import set_activation_sharding
+        mesh, device = init_mesh(args.mesh, args.device)
+        set_activation_sharding(mesh, ("data",), "model")
     trainer = Trainer(
         cfg,
         AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 10),
@@ -92,11 +131,14 @@ def main(argv=None):
                     ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt,
                     resume=args.resume, global_batch=args.global_batch,
                     seq_len=args.seq),
-        device=args.device)
+        mesh=mesh, device=device)
     r = trainer.run()
-    print(f"done: loss {r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}, "
-          f"stragglers={r['straggler_events']}, bad={r['bad_steps']}, "
-          f"resumed_from={r['resumed_from']}")
+    if mesh is None or dist.get_rank() == 0:
+        print(f"done: loss {r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}, "
+              f"stragglers={r['straggler_events']}, bad={r['bad_steps']}, "
+              f"resumed_from={r['resumed_from']}", flush=True)
+    if mesh is not None:
+        dist.destroy_process_group()
     return 0
 
 

@@ -8,7 +8,8 @@ through ``repro_torch.kernels.ops.attention`` — the NTX MAX+MAC streaming
 reduction (the CUDA flash kernel on the card; MLA's q/k of nope + rope
 dims against v of ``v_head_dim`` takes its (192, 128) route). MLA's
 absorbed decode form is einsums and a softmax in the reference and stays
-plain PyTorch here.
+plain PyTorch here. On a mesh's model axis the dense GQA layer is
+Megatron's (:func:`gqa_forward`).
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
-from .common import (ArchConfig, _param, apply_mrope, apply_rope, dense_init,
-                     rmsnorm)
+from .common import (ArchConfig, _param, apply_mrope, apply_rope,
+                     balanced_range, dense_init, rmsnorm, tp_enter, tp_exit,
+                     tp_state)
 
 
 class GQA(nn.Module):
@@ -81,21 +83,63 @@ def gqa_forward(cfg: ArchConfig, p: GQA, x: torch.Tensor, pos,
     encoder-decoder's decoder attending to the encoder; only the query is
     projected, with ``wq`` and ``bq``, and nothing rotated); otherwise
     computed from x. Returns (out, (k, v)) with k/v in (b, hkv, s, hd)
-    layout, so prefill can populate a cache."""
-    dt = cfg.cdtype
-    b, s, _ = x.shape
+    layout, so prefill can populate a cache.
+
+    On a mesh's model axis (:class:`TensorParallel`) the layer is
+    Megatron's: the rank computes its q heads, split as evenly as they go
+    (:func:`balanced_range`), and the kv heads those q heads read;
+    ``wq`` / ``wk`` / ``wv`` (and the biases) are column-parallel and
+    ``wo`` row-parallel by heads. Where the rank's stored block of a
+    weight is not the heads it computes (kv heads that do not divide over
+    the model axis: half a head a rank), it gathers the weight and cuts
+    its heads (:meth:`TensorParallel.take`). The output is the partial
+    ``o @ wo`` summed over ``model`` (:func:`tp_exit`); k and v are the
+    rank's kv heads. Without a model axis the range is every head."""
+    tp = tp_state()
+    nm, rank = (1, 0) if tp is None else (tp.nm, tp.rank)
+    dt, hd = cfg.cdtype, cfg.hd
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    g = hq // hkv
+    q_lo, q_hi = balanced_range(hq, nm, rank)
+    k_lo, k_hi = q_lo // g, (q_hi - 1) // g + 1
+    nq, nk = q_hi - q_lo, k_hi - k_lo
+
+    def take(w, dim, heads, lo, hi):
+        if tp is not None:
+            w = tp.take(w, dim, heads * hd, lo * hd, hi * hd)
+        return w.to(dt)
+
+    def cols(w, heads, lo, hi):
+        return take(w, w.ndim - 1, heads, lo, hi)
+
+    h = tp_enter(x)
+    b, s, _ = h.shape
+    q = h @ cols(p.wq, hq, q_lo, q_hi)
     if kv is None:
-        q, k, v = _qkv(cfg, p, x)
+        k = h @ cols(p.wk, hkv, k_lo, k_hi)
+        v = h @ cols(p.wv, hkv, k_lo, k_hi)
+    if cfg.qkv_bias:
+        q = q + cols(p.bq, hq, q_lo, q_hi)
+        if kv is None:
+            k = k + cols(p.bk, hkv, k_lo, k_hi)
+            v = v + cols(p.bv, hkv, k_lo, k_hi)
+    q = q.reshape(b, s, nq, hd).transpose(1, 2)
+    if kv is None:
+        k = k.reshape(b, s, nk, hd).transpose(1, 2)
+        v = v.reshape(b, s, nk, hd).transpose(1, 2)
         q, k = _rope_qk(cfg, q, k, pos)
     else:
-        q = x @ p.wq.to(dt)
-        if cfg.qkv_bias:
-            q = q + p.bq.to(dt)
-        q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
         k, v = kv
-    o = ops.attention(q, k, v, causal=causal)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return o @ p.wo.to(dt), (k, v)
+    kv_of_q = [j // g - k_lo for j in range(q_lo, q_hi)]
+    ka, va = k, v
+    if nq % nk or kv_of_q != [j // (nq // nk) for j in range(nq)]:
+        # the local q heads do not fall into equal groups: one kv head
+        # a q head
+        idx = torch.tensor(kv_of_q, device=k.device)
+        ka, va = k[:, idx], v[:, idx]
+    o = ops.attention(q, ka, va, causal=causal)
+    o = o.transpose(1, 2).reshape(b, s, nq * hd)
+    return tp_exit(o @ take(p.wo, 0, hq, q_lo, q_hi)), (k, v)
 
 
 def gqa_init_cache(cfg: ArchConfig, batch: int, seq: int, dtype,

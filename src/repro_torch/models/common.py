@@ -3,8 +3,14 @@ LayerNorm, RoPE and M-RoPE, sinusoidal positions, the MLP, the
 embeddings (tied or not), the cross-entropy and activation
 recomputation.
 
-Counterpart of ``repro.models.common`` (all but its sharding hooks,
-which wait for the mesh, ROADMAP slice G). Parameters
+Counterpart of ``repro.models.common``, its activation-sharding hooks
+included (``set_activation_sharding``, ``sp_constrain``; the
+context-parallel ``ctx_constrain_q`` / ``ctx_replicate_kv`` wait for
+ROADMAP item 14b). On a mesh, each rank runs the model as the
+reference's SPMD partitioner would split it (:class:`TensorParallel`):
+the parameters it reads are its own blocks, and the layers call
+differentiable collectives over the mesh's ``model`` group where the
+blocks meet. Parameters
 are ``nn.Module``s whose tensors keep the reference's layouts
 ((d_in, d_out) weights used as ``x @ w``), so converted weights and the
 functions below compute what the reference computes. The QKV, WO and
@@ -13,12 +19,15 @@ through ``ops.fused_mlp`` (the GEMM kernel with fused epilogues).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -328,10 +337,16 @@ def apply_mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor,
     ``residual`` returns ``residual + mlp(x)``."""
     dt = cfg.cdtype
     x = x.to(dt)
-    return ops.fused_mlp(
-        x, p.w1.to(dt), p.w2.to(dt),
-        w3=p.w3.to(dt) if cfg.act == "swiglu" else None,
-        act=cfg.act, residual=residual)
+    w3 = p.w3.to(dt) if cfg.act == "swiglu" else None
+    tp = _TP
+    if tp is not None and tp.nm > 1:
+        # column-parallel w1 / w3, row-parallel w2 on this rank's block of
+        # d_ff; the residual is added once, after the sum over model
+        out = tp_exit(ops.fused_mlp(tp_enter(x), p.w1.to(dt), p.w2.to(dt),
+                                    w3=w3, act=cfg.act))
+        return out if residual is None else residual + out
+    return ops.fused_mlp(x, p.w1.to(dt), p.w2.to(dt), w3=w3, act=cfg.act,
+                         residual=residual)
 
 
 # ----------------------------------------------------------------------
@@ -359,10 +374,21 @@ def embed_params(cfg: ArchConfig, gen: torch.Generator) -> Embed:
 
 def embed_tokens(cfg: ArchConfig, p: Embed,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return p.embed[tokens].to(cfg.cdtype)
+    """The rows of ``tokens``. On a model axis the table is
+    vocab-parallel: each rank looks up the tokens in its block of rows,
+    zeros elsewhere, and the blocks are summed over ``model``."""
+    tp = _TP
+    if tp is None or tp.nm == 1:
+        return p.embed[tokens].to(cfg.cdtype)
+    lo, hi = shard_range(cfg.padded_vocab, tp.nm, tp.rank)
+    local = tokens - lo
+    own = ((local >= 0) & (local < hi - lo))[..., None]
+    x = p.embed[local.clamp(0, hi - lo - 1)] * own.to(p.embed.dtype)
+    return model_sum(x.to(cfg.cdtype))
 
 
 def unembed(cfg: ArchConfig, p: Embed, x: torch.Tensor) -> torch.Tensor:
+    """Logits; on a model axis, this rank's block of the vocabulary."""
     w = p.embed.t() if cfg.tie_embeddings else p.unembed
     return x.to(cfg.cdtype) @ w.to(cfg.cdtype)
 
@@ -388,22 +414,256 @@ def chunked_xent(cfg: ArchConfig, p: Embed, h: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy without materialising the full (b, s, v) logits: the
     sequence is cut into ``cfg.logits_chunk`` slices, each unembedded and
-    reduced on its own (the reference's ``lax.scan`` is a loop here)."""
-    if not cfg.logits_chunk or h.shape[1] % cfg.logits_chunk:
+    reduced on its own (the reference's ``lax.scan`` is a loop here).
+
+    On a mesh (:class:`TensorParallel`) it is this data rank's share of
+    the global mean: its tokens' summed loss over the mask's global
+    count, so the shares sum over the data axes to the reference's mean.
+    On a model axis the hidden states enter the vocab-parallel
+    unembedding whole (:func:`tp_enter`), and the log-sum-exp and the
+    label's logit are reduced over ``model``: the max (a constant of the
+    gradient) and the sum of exponentials, and the logit from the rank
+    that owns the label."""
+    tp = _TP
+    chunk = cfg.logits_chunk
+    whole = not chunk or h.shape[1] % chunk
+    if tp is None and whole:
         return softmax_xent(unembed(cfg, p, h), labels, mask)
+    split = tp is not None and tp.nm > 1
+    if split:
+        h = tp_enter(h)
+        lo, hi = shard_range(cfg.padded_vocab, tp.nm, tp.rank)
+    step = h.shape[1] if whole else chunk
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-    for s0 in range(0, h.shape[1], cfg.logits_chunk):
-        sl = slice(s0, s0 + cfg.logits_chunk)
+    for s0 in range(0, h.shape[1], step):
+        sl = slice(s0, s0 + step)
         logits = unembed(cfg, p, h[:, sl]).float()
-        lse = torch.logsumexp(logits, -1)
-        ll = torch.take_along_dim(logits, labels[:, sl, None].long(),
-                                  -1)[..., 0]
+        lab = labels[:, sl, None].long()
+        if not split:
+            lse = torch.logsumexp(logits, -1)
+            ll = torch.take_along_dim(logits, lab, -1)[..., 0]
+        else:
+            m = logits.detach().amax(-1)
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+            lse = torch.log(model_sum(torch.exp(logits - m[..., None])
+                                      .sum(-1))) + m
+            local = lab - lo
+            own = (local >= 0) & (local < hi - lo)
+            ll = model_sum((torch.take_along_dim(
+                logits, local.clamp(0, hi - lo - 1), -1) * own)[..., 0])
         mx = (mask[:, sl].float() if mask is not None
               else torch.ones_like(lse))
         tot = tot + ((lse - ll) * mx).sum()
         cnt = cnt + mx.sum()
+    if tp is not None:
+        cnt = cnt.detach().clone()
+        for g in tp.data_groups:
+            dist.all_reduce(cnt, group=g)
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+# ----------------------------------------------------------------------
+# Activation sharding and the tensor-parallel context
+# ----------------------------------------------------------------------
+_ACT_SHARDING: Dict[str, Any] = {}
+
+
+def set_activation_sharding(mesh=None, data_axes=(), model_axis=None):
+    """Enable the sequence-parallel residual (Megatron-SP) on meshes:
+    between layers each rank keeps the (b, s / model, d) block of the
+    residual stream (:func:`sp_constrain`), all-gathered before the
+    column-parallel products and reduce-scattered after the row-parallel
+    ones. Called with no args to disable. The reference's launcher turns
+    it on for every mesh; ``cfg.sp_residual`` can turn it off."""
+    global _ACT_SHARDING
+    if mesh is None:
+        _ACT_SHARDING = {}
+    else:
+        _ACT_SHARDING = {"mesh": mesh, "data_axes": tuple(data_axes),
+                         "model_axis": model_axis}
+
+
+def shard_range(total: int, n: int, r: int) -> Tuple[int, int]:
+    """[lo, hi) of block r of ``total`` in n blocks as ``torch.chunk``
+    cuts it (DTensor's rule for a sharded dimension)."""
+    size = -(-total // n)
+    lo = min(r * size, total)
+    return lo, min(lo + size, total)
+
+
+def balanced_range(total: int, n: int, r: int) -> Tuple[int, int]:
+    """[lo, hi) of part r of ``total`` in n parts that differ by at most
+    one (the attention heads a rank computes)."""
+    base, extra = divmod(total, n)
+    lo = r * base + min(r, extra)
+    return lo, lo + base + (r < extra)
+
+
+@dataclasses.dataclass
+class TensorParallel:
+    """A rank's view of its mesh for the model's layers: the ``model``
+    group (its size ``nm`` and this rank's index in it), the data
+    groups, and whether the residual between layers is sequence-sharded
+    (``sp``: the activation-sharding context set, ``cfg.sp_residual``
+    and the sequence dividing over ``model``; decided from static shapes
+    so that every rank takes the same branches, a recomputation
+    included)."""
+    mesh: Any
+    sp: bool
+
+    def __post_init__(self):
+        names = self.mesh.mesh_dim_names
+        self.nm = self.mesh.size(names.index("model"))
+        self.model_mesh = self.mesh["model"]
+        self.group = self.mesh.get_group("model")
+        self.rank = self.model_mesh.get_local_rank()
+        data_axes = [a for a in names if a != "model"]
+        self.data_groups = [self.mesh.get_group(a) for a in data_axes]
+        self.n_data = int(np.prod([self.mesh.size(names.index(a))
+                                   for a in data_axes]))
+
+    def take(self, w: torch.Tensor, dim: int, total: int, lo: int,
+             hi: int) -> torch.Tensor:
+        """Indices [lo, hi) of dimension ``dim`` of the weight whose
+        model-axis block this rank holds as ``w``: the block itself where
+        it is that range, else the weight gathered over ``model`` (a
+        DTensor redistribution, whose backward reduce-scatters the
+        gradient) and cut."""
+        if shard_range(total, self.nm, self.rank) == (lo, hi):
+            return w
+        shape = list(w.shape)
+        shape[dim] = total
+        full = DTensor.from_local(
+            w, self.model_mesh, [Shard(dim)], run_check=False,
+            shape=torch.Size(shape),
+            stride=tuple(torch.empty(shape, device="meta").stride()))
+        full = full.redistribute(self.model_mesh, [Replicate()]).to_local(
+            grad_placements=[Partial()])
+        return full.narrow(dim, lo, hi - lo)
+
+
+_TP: Optional[TensorParallel] = None
+
+
+def tp_state() -> Optional[TensorParallel]:
+    """The tensor-parallel context of the running step, or None."""
+    return _TP
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp: Optional[TensorParallel]):
+    """Run the model's layers as ``tp``'s rank (a mesh step keeps it set
+    through its backward, where remat recomputes the layers)."""
+    global _TP
+    old, _TP = _TP, tp
+    try:
+        yield tp
+    finally:
+        _TP = old
+
+
+def make_tensor_parallel(cfg: ArchConfig, mesh, seq: int) -> TensorParallel:
+    """The context of a step on ``mesh`` over sequences of ``seq``."""
+    tp = TensorParallel(mesh, sp=False)
+    tp.sp = bool(_ACT_SHARDING) and cfg.sp_residual and seq % tp.nm == 0
+    return tp
+
+
+def _seq_gather(x, tp):
+    xt = x.movedim(1, 0).contiguous()
+    out = xt.new_empty((tp.nm * xt.shape[0], *xt.shape[1:]))
+    _ALL_GATHER(out, xt, group=tp.group)
+    return out.movedim(0, 1).contiguous()
+
+
+def _seq_reduce_scatter(x, tp):
+    xt = x.movedim(1, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // tp.nm, *xt.shape[1:]))
+    _REDUCE_SCATTER(out, xt, group=tp.group)
+    return out.movedim(0, 1).contiguous()
+
+
+def _all_reduce(x, tp):
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=tp.group)
+    return x
+
+
+def _seq_split(x, tp):
+    s = x.shape[1] // tp.nm
+    return x[:, tp.rank * s:(tp.rank + 1) * s].contiguous()
+
+
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+_COMMS = {"gather": _seq_gather, "reduce_scatter": _seq_reduce_scatter,
+          "all_reduce": _all_reduce, "split": _seq_split,
+          "identity": lambda x, tp: x.view_as(x)}
+
+
+class _Comm(torch.autograd.Function):
+    """A collective over the ``model`` group in the forward and its dual
+    in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, fwd: str, bwd: str, tp: TensorParallel):
+        ctx.bwd, ctx.tp = bwd, tp
+        return _COMMS[fwd](x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _COMMS[ctx.bwd](g, ctx.tp), None, None, None
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """Into a column-parallel product: the sequence-sharded residual
+    all-gathered (backward: reduce-scattered), or the replicated one
+    as it is (backward: the gradient all-reduced over ``model``); the
+    identity without a model axis."""
+    tp = _TP
+    if tp is None or tp.nm == 1:
+        return x
+    if tp.sp:
+        return _Comm.apply(x, "gather", "reduce_scatter", tp)
+    return _Comm.apply(x, "identity", "all_reduce", tp)
+
+
+def tp_exit(x: torch.Tensor) -> torch.Tensor:
+    """Out of a row-parallel product: the partial sums reduce-scattered
+    over the sequence (backward: all-gathered), or all-reduced
+    (backward: as it is); the identity without a model axis."""
+    tp = _TP
+    if tp is None or tp.nm == 1:
+        return x
+    if tp.sp:
+        return _Comm.apply(x, "reduce_scatter", "gather", tp)
+    return _Comm.apply(x, "all_reduce", "identity", tp)
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """Partial values summed over ``model``, the result used alike on
+    every rank (backward: as it is)."""
+    return _Comm.apply(x, "all_reduce", "identity", _TP)
+
+
+def sp_constrain(x: torch.Tensor) -> torch.Tensor:
+    """Residual stream (b, s, d) -> this rank's (b, s / model, d) block
+    when the step's residual is sequence-parallel (backward: the blocks'
+    gradients all-gathered); identity otherwise, as in the reference
+    where the dims do not divide."""
+    tp = _TP
+    if tp is None or tp.nm == 1 or not tp.sp or x.ndim != 3:
+        return x
+    return _Comm.apply(x, "split", "gather", tp)
+
+
+def data_share(x: torch.Tensor) -> torch.Tensor:
+    """A batch-mean term as this data rank's share of the global mean
+    (the data ranks hold equal batches)."""
+    return x if _TP is None else x / _TP.n_data
 
 
 # ----------------------------------------------------------------------

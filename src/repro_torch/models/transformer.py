@@ -25,9 +25,9 @@ import torch
 from torch import nn
 
 from .common import (ArchConfig, Embed, Norm, _param, apply_mlp, apply_norm,
-                     check_ported, chunked_xent, embed_params, embed_tokens,
-                     make_generator, mlp_params, norm_params, remat_wrap,
-                     unembed)
+                     check_ported, chunked_xent, data_share, embed_params,
+                     embed_tokens, make_generator, mlp_params, norm_params,
+                     remat_wrap, sp_constrain, unembed)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -174,8 +174,11 @@ def backbone(cfg: ArchConfig, params: Transformer, x: torch.Tensor, pos):
     """Embedded inputs -> (final hidden states, MoE aux loss). A loop over
     the layers, each wrapped by ``remat_wrap`` (the reference's remat
     around its scan body); the aux loss, fp32, sums the MoE layers' (0
-    without them)."""
+    without them). On a mesh with the sequence-parallel residual the
+    layers carry this rank's block of the sequence (``sp_constrain``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.sp_residual:
+        x = sp_constrain(x)
     for layer in params.layers:
         x, aux = remat_wrap(cfg, lambda xx, aa, ll=layer: _apply_layer(
             cfg, ll, xx, pos, aa))(x, aux)
@@ -196,13 +199,14 @@ def embed_inputs(cfg: ArchConfig, params: Transformer,
 
 def loss_fn(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any]):
     """Mean next-token cross-entropy (+ 0.01 x MoE aux). Returns
-    ``(total, {"xent", "moe_aux"})``."""
+    ``(total, {"xent", "moe_aux"})``; on a mesh, this data rank's share
+    of the global mean."""
     x = embed_inputs(cfg, params, batch)
     pos = positions(cfg, batch)
     h, aux = backbone(cfg, params, x, pos)
     loss = chunked_xent(cfg, params.embed, h, batch["labels"],
                         batch.get("loss_mask"))
-    total = loss + 0.01 * aux
+    total = loss + 0.01 * data_share(aux)
     return total, {"xent": loss, "moe_aux": aux}
 
 

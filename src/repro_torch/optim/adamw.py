@@ -85,12 +85,14 @@ def clip_by_global_norm(grads: Named,
 
 
 def apply_updates(cfg: AdamWConfig, params: Named, grads: Named,
-                  state: dict, use_fused: bool = False):
+                  state: dict, use_fused: bool = False, gnorm=None):
     """One AdamW step. Returns ``(new_params, new_state)``: new tensors
     (params in their storage dtype), nothing updated in place. Gradients
     may be in any float dtype; each is clipped (``clip_by_global_norm``'s
     fp32 ``g * scale``) as its tensor is updated, so no second copy of
-    all the gradients is held."""
+    all the gradients is held. ``gnorm``: the global norm, where the
+    gradients given are blocks of the whole (a mesh step sums it over
+    every block); by default ``global_norm(grads)``."""
     step = int(state["step"]) + 1
     lr = lr_schedule(cfg, step)
     b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay
@@ -99,8 +101,10 @@ def apply_updates(cfg: AdamWConfig, params: Named, grads: Named,
     bc2 = 1.0 - torch.tensor(b2, dtype=_F32) ** stepf
     master, new_m, new_v = {}, {}, {}
     with torch.no_grad():
-        scale = torch.clamp(cfg.grad_clip / torch.clamp_min(
-            global_norm(grads), 1e-12), max=1.0)
+        if gnorm is None:
+            gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
+                            max=1.0)
         for n, pm in state["master"].items():
             g, m, v = grads[n].float() * scale, state["m"][n], state["v"][n]
             if use_fused and pm.ndim == 2:

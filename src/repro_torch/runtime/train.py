@@ -20,9 +20,22 @@ is differentiated by PyTorch itself), gradients
 widened to fp32 and clipped per tensor by ``apply_updates``. With ``multistream_plan`` (the default, as in the
 reference) the run also plans and prices the optimizer update as a
 multi-cluster descriptor program (:func:`plan_update_multistream`) into
-``stats["multistream"]``; the plan launches nothing. The mesh (ROADMAP
-slice G) is not ported: ``mesh`` must be None; the mesh's gradient
-compression waits with it.
+``stats["multistream"]``; the plan launches nothing.
+
+On a mesh (``Trainer(mesh=...)``, :func:`make_train_step`) every rank
+runs the same per-rank program, the counterpart of what the reference's
+``jit`` with shardings becomes per device: parameters are DTensors under
+``param_specs``, the optimizer state under ``opt_state_specs`` (ZeRO-1);
+each rank takes its block of the global batch (``batch_specs``), runs
+the model on its parameters' local blocks (the dense family's layers
+tensor-parallel over ``model``, ``models/common.py``), and its
+gradients, its share of the global mean loss's, are summed over the data
+axes onto its optimizer slice (a reduce-scatter); the clip's global norm
+sums every block once; each rank updates its slice, and the new
+parameters are all-gathered over the data axes. Checkpoints hold the
+reference's stacked layout of the whole state, written by rank 0. The
+model axis is ported for the dense family; any family trains on a
+(n, 1) mesh (ROADMAP item 14b has the rest).
 """
 from __future__ import annotations
 
@@ -31,15 +44,23 @@ import os
 import signal
 import tempfile
 import time
+import contextlib
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.elastic import reshard_checkpoint
 from repro_torch.data import SyntheticLM
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import ArchConfig, Model
-from repro_torch.models.convert import named_from_reference, to_reference
+from repro_torch.models.common import (make_tensor_parallel, shard_range,
+                                       tensor_parallel)
+from repro_torch.models.convert import (named_from_reference, reference_path,
+                                        to_reference)
 from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
 
 
@@ -120,6 +141,226 @@ def build_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig):
     return step_fn
 
 
+# ----------------------------------------------------------------------
+# The step on a mesh
+# ----------------------------------------------------------------------
+ITEM_14B = ("ROADMAP queue 1 item 14b: the model axis of the MoE, SSM, "
+            "hybrid, encoder-decoder and VLM families, and ctx_parallel")
+
+
+def check_mesh(cfg: ArchConfig, mesh) -> None:
+    """Refuse what the mesh step does not do: a model axis over 1 outside
+    the dense family (or with ``ctx_parallel``), and a model axis more
+    than the heads or blocks of d_ff and the vocabulary it splits."""
+    nm = shd.axis_sizes(mesh)["model"]
+    if nm == 1:
+        return
+    if cfg.family != "dense" or cfg.ctx_parallel:
+        what = cfg.family + (", ctx_parallel" if cfg.ctx_parallel else "")
+        raise NotImplementedError(
+            f"{cfg.name} ({what}) on a model axis of {nm}: not ported "
+            f"({ITEM_14B}); train it on a (n, 1) mesh")
+    # heads split evenly over the ranks, d_ff and the vocabulary as their
+    # stored blocks (torch.chunk, whose last blocks may be empty)
+    short = [f"n_heads {cfg.n_heads}"] if cfg.n_heads < nm else []
+    short += [f"{what} {n}" for what, n in (
+        ("d_ff", cfg.d_ff), ("padded_vocab", cfg.padded_vocab))
+        if shard_range(n, nm, nm - 1)[0] >= n]
+    if short:
+        raise ValueError(f"{cfg.name}: a model axis of {nm} leaves ranks "
+                         f"without a block of {short}")
+
+
+def grad_placements(mesh, pl, sp: bool) -> list:
+    """Placements of a parameter's gradient as autograd leaves it on a
+    rank: a share of the sum over the data axes (``Partial``); on
+    ``model`` the parameter's own block where it is sharded, and where it
+    is replicated, partial under the sequence-parallel residual (the
+    norms see one block of the sequence a rank), else whole."""
+    nm = shd.axis_sizes(mesh)["model"]
+    out = []
+    for axis, p in zip(mesh.mesh_dim_names, pl):
+        if axis != "model":
+            out.append(Partial())
+        elif isinstance(p, Shard):
+            out.append(p)
+        else:
+            out.append(Partial() if sp and nm > 1 else Replicate())
+    return out
+
+
+@contextlib.contextmanager
+def _local_params(module: torch.nn.Module, local: Mapping[str, Any]):
+    """``module``'s parameters read as ``local``'s tensors (this rank's
+    blocks) inside the block, as the model's functions read them."""
+    saved = []
+    for name, t in local.items():
+        owner, attr = shd._owner(module, name)
+        saved.append((owner, attr, owner._parameters[attr]))
+        owner._parameters[attr] = t
+    try:
+        yield module
+    finally:
+        for owner, attr, p in saved:
+            owner._parameters[attr] = p
+
+
+def local_batch(mesh, batch: Mapping[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's block of a global batch under ``batch_specs``."""
+    specs = shd.batch_specs(mesh, dict(batch))
+    return {k: shd.local_part(v, specs[k], mesh).contiguous()
+            for k, v in batch.items()}
+
+
+def init_sharded_opt_state(mesh, cfg: ArchConfig,
+                           params: torch.nn.Module) -> dict:
+    """``init_opt_state`` of a module with DTensor parameters: the fp32
+    master and zero moments as DTensors under ``named_opt_specs``."""
+    named = dict(params.named_parameters())
+    ospecs = shd.named_opt_specs(mesh, cfg, named)
+    master, m, v = {}, {}, {}
+    with torch.no_grad():
+        for n, p in named.items():
+            pl = shd.placements(ospecs[n], mesh)
+            loc = p.detach().redistribute(mesh, pl).to_local().to(
+                torch.float32, copy=True)
+            master[n] = shd.as_dtensor(loc, mesh, pl, p.shape)
+            m[n] = shd.as_dtensor(torch.zeros_like(loc), mesh, pl, p.shape)
+            v[n] = shd.as_dtensor(torch.zeros_like(loc), mesh, pl, p.shape)
+    return {"master": master, "m": m, "v": v, "step": 0}
+
+
+def _count_once(mesh, pl) -> bool:
+    """True on the one rank of each replica group of a block: coordinate
+    0 on every mesh dimension where the block is replicated."""
+    return all(c == 0 for c, p in zip(mesh.get_coordinate(), pl)
+               if not isinstance(p, Shard))
+
+
+def build_mesh_grad_fn(cfg: ArchConfig, mesh):
+    """The gradients of the mesh step: ``grad_fn(params, batch)`` with
+    ``params`` a module of DTensor parameters and the global ``batch``
+    returns ``(loss, metrics, grads, gnorm)``: this data rank's share of
+    the loss and metrics, each leaf's gradient of the global mean loss
+    as a DTensor under its optimizer state's placements (summed over the
+    data axes in the gradient's own dtype, as the plain step keeps its
+    gradients), and the global norm over every block, each counted once.
+    With ``cfg.grad_accum`` > 1 each rank accumulates its blocks'
+    gradients in fp32."""
+    check_mesh(cfg, mesh)
+    model = Model(cfg)
+    accum = max(1, cfg.grad_accum)
+
+    def grad_fn(params, batch):
+        named = dict(params.named_parameters())
+        dev = next(iter(named.values())).to_local().device
+        lb = {k: v.to(dev) for k, v in local_batch(mesh, batch).items()}
+        tp = make_tensor_parallel(cfg, mesh, lb["tokens"].shape[1])
+        gpl = {n: grad_placements(mesh, p.placements, tp.sp)
+               for n, p in named.items()}
+        ospecs = shd.named_opt_specs(mesh, cfg, named)
+        micro = [lb] if accum == 1 else [
+            {k: v[i] for k, v in microbatches(lb, accum).items()}
+            for i in range(accum)]
+        acc, lsum, metrics = {}, 0.0, {}
+        with tensor_parallel(tp):
+            for mb in micro:
+                local = {n: p.to_local(grad_placements=gpl[n])
+                         for n, p in named.items()}
+                with _local_params(params, local):
+                    loss, metrics = model.loss(params, mb)
+                    grads = torch.autograd.grad(loss, list(named.values()))
+                del local
+                for n, g in zip(named, grads):
+                    g = g.to_local()
+                    acc[n] = g if accum == 1 else (
+                        acc[n] + g.float() if n in acc else g.float())
+                del grads
+                lsum = lsum + loss.detach()
+        loss = lsum / accum
+        metrics = {} if accum > 1 else {k: v.detach()
+                                        for k, v in metrics.items()}
+        # each leaf onto its optimizer slice, one at a time
+        grads, sq = {}, torch.zeros((), dtype=torch.float32, device=dev)
+        for n, p in named.items():
+            g = acc.pop(n)
+            if accum > 1:
+                g = g / accum
+            pl = shd.placements(ospecs[n], mesh)
+            grads[n] = shd.as_dtensor(g, mesh, gpl[n], p.shape).redistribute(
+                mesh, pl)
+            del g
+            if _count_once(mesh, pl):
+                sq = sq + torch.sum(grads[n].to_local().float() ** 2)
+        dist.all_reduce(sq)
+        return loss, metrics, grads, torch.sqrt(sq)
+
+    return grad_fn
+
+
+def build_mesh_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh):
+    """The train step on ``mesh``: ``step_fn(params, opt_state, batch)``
+    with ``params`` a module of DTensor parameters (``shard_params``),
+    ``opt_state`` from :func:`init_sharded_opt_state` and the global
+    ``batch``; it updates ``params`` in place and returns ``(params,
+    new_opt_state, loss, metrics)``, the loss the global mean (on every
+    rank). The gradients come from :func:`build_mesh_grad_fn`, and
+    ``apply_updates`` widens and clips each as it goes."""
+    grad_fn = build_mesh_grad_fn(cfg, mesh)
+    data_axes = [a for a in mesh.mesh_dim_names if a != "model"]
+
+    def step_fn(params, opt_state, batch):
+        named = dict(params.named_parameters())
+        with torch.profiler.record_function("train_step.grads"):
+            loss, metrics, grads, gnorm = grad_fn(params, batch)
+        with torch.profiler.record_function("train_step.optimizer"):
+            opl = {n: t.placements for n, t in opt_state["master"].items()}
+            state = {part: {n: t.to_local()
+                            for n, t in opt_state[part].items()}
+                     for part in ("master", "m", "v")}
+            state["step"] = opt_state["step"]
+            new_params, new_state = apply_updates(
+                opt_cfg, {n: p.to_local() for n, p in named.items()},
+                {n: g.to_local() for n, g in grads.items()}, state,
+                gnorm=gnorm)
+            del grads, state
+            with torch.no_grad():
+                for n, p in named.items():
+                    new = shd.as_dtensor(new_params.pop(n), mesh, opl[n],
+                                         p.shape)
+                    p.to_local().copy_(new.redistribute(
+                        mesh, p.placements).to_local())
+            for part in ("master", "m", "v"):
+                new_state[part] = {
+                    n: shd.as_dtensor(t, mesh, opl[n], named[n].shape)
+                    for n, t in new_state[part].items()}
+        # the loss and metrics: every data rank's share summed
+        out = [loss] + [metrics[k] for k in sorted(metrics)]
+        for i, t in enumerate(out):
+            t = t.detach().clone()
+            for a in data_axes:
+                dist.all_reduce(t, group=mesh.get_group(a))
+            out[i] = t
+        loss = out[0]
+        metrics = dict(zip(sorted(metrics), out[1:]))
+        if "moe_aux" in metrics:            # a mean over the data ranks
+            n_data = int(np.prod([mesh.size(mesh.mesh_dim_names.index(a))
+                                  for a in data_axes]))
+            metrics["moe_aux"] = metrics["moe_aux"] / n_data
+        return params, new_state, loss, metrics
+
+    return step_fn
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh=None):
+    """The train step: :func:`build_step_fn` without a mesh, the per-rank
+    program of :func:`build_mesh_step_fn` on one."""
+    if mesh is None:
+        return build_step_fn(cfg, opt_cfg)
+    return build_mesh_step_fn(cfg, opt_cfg, mesh)
+
+
 def _leaves(tree):
     """The leaves of a nested mapping in the reference's order (a JAX
     pytree flattens a dict by sorted keys), or of a module in
@@ -188,15 +429,24 @@ def plan_update_multistream(params, n_clusters: Optional[int] = None,
 
 
 class Trainer:
+    """The fault-tolerant train loop on one device, or with ``mesh`` (a
+    ``DeviceMesh`` over the process group, :mod:`repro_torch.launch.mesh`)
+    every rank's part of the loop on it: the same seed's parameters on
+    every rank, sharded; the same global batches, each rank taking its
+    block; checkpoints gathered to the reference's stacked layout and
+    written by rank 0, restored on any mesh (``reshard_checkpoint``)."""
+
     def __init__(self, cfg: ArchConfig, opt_cfg: AdamWConfig,
                  tcfg: TrainConfig, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("training on a mesh is not ported yet "
-                                      "(ROADMAP queue 1, slice G)")
         self.cfg, self.opt_cfg, self.tcfg = cfg, opt_cfg, tcfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.step_fn = make_train_step(cfg, opt_cfg, mesh)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh with device "
+                             f"{device}")
         self.model = Model(cfg)
-        self.step_fn = build_step_fn(cfg, opt_cfg)
+        self.writer = mesh is None or dist.get_rank() == 0
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.data = SyntheticLM(cfg, tcfg.global_batch, tcfg.seq_len,
                                 seed=tcfg.seed)
@@ -208,13 +458,28 @@ class Trainer:
         self._stop_requested = True
 
     def _state_tree(self, params, opt_state, data_step: int,
-                    device=None) -> Dict[str, Any]:
+                    device=None) -> Optional[Dict[str, Any]]:
         """``{params, opt, data_step}`` in the reference's stacked layout,
-        the leaves moved to ``device`` if given."""
+        the leaves moved to ``device`` if given. On a mesh every rank
+        gathers each DTensor whole (a collective), and only the writer
+        keeps it: the other ranks drop each leaf as it comes and return
+        None."""
+        def leaf(t):
+            t = t.detach()
+            if isinstance(t, DTensor):
+                t = t.full_tensor()
+            return t if device is None else t.to(device)
+
+        if not self.writer:
+            for named in (dict(params.named_parameters()),
+                          *(opt_state[k] for k in ("master", "m", "v"))):
+                for t in named.values():
+                    t.detach().full_tensor()
+            return None
+
         def tree(named):
-            return to_reference({n: t.detach() if device is None else
-                                 t.detach().to(device)
-                                 for n, t in named.items()}, self.cfg)
+            return to_reference({n: leaf(t) for n, t in named.items()},
+                                self.cfg)
         return {"params": tree(dict(params.named_parameters())),
                 "opt": {"master": tree(opt_state["master"]),
                         "m": tree(opt_state["m"]), "v": tree(opt_state["v"]),
@@ -223,6 +488,8 @@ class Trainer:
                 "data_step": torch.tensor(data_step, dtype=torch.int32)}
 
     def _restore(self, params, opt_state):
+        if self.mesh is not None:
+            return self._restore_sharded(params, opt_state)
         like = self._state_tree(params, opt_state, 0, device="meta")
         restored, ck_step = self.ckpt.restore(like)
         named = dict(params.named_parameters())
@@ -239,19 +506,87 @@ class Trainer:
         self.stats["resumed_from"] = int(ck_step)
         return int(ck_step)
 
+    def _restore_sharded(self, params, opt_state):
+        """The newest checkpoint, each rank reading its blocks of the
+        stacked leaves (``reshard_checkpoint``) under the placements of
+        this mesh's parameters and optimizer state."""
+        mesh, cfg = self.mesh, self.cfg
+        named = dict(params.named_parameters())
+
+        def like(tensors):
+            """The stacked tree of empty DTensors: each stack once, its
+            leading layer axis whole, the layers' placements after it."""
+            tree: Dict[str, Any] = {}
+            depth: Dict[tuple, int] = {}
+            for n in tensors:
+                path, idx = reference_path(n, cfg)
+                if idx is not None:
+                    depth[path] = max(depth.get(path, 0), idx + 1)
+            for n, t in tensors.items():
+                path, idx = reference_path(n, cfg)
+                node = tree
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                if path[-1] in node:
+                    continue
+                shape, pl = tuple(t.shape), list(t.placements)
+                if idx is not None:
+                    shape = (depth[path], *shape)
+                    pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                          for p in pl]
+                node[path[-1]] = torch.distributed.tensor.empty(
+                    shape, dtype=t.dtype, device_mesh=mesh, placements=pl)
+            return tree
+        stacked = {"params": like(named),
+                   "opt": {part: like(opt_state[part])
+                           for part in ("master", "m", "v")},
+                   "data_step": torch.zeros((), dtype=torch.int32)}
+        stacked["opt"]["step"] = torch.zeros((), dtype=torch.int32)
+        step = self.ckpt.latest()
+        restored = reshard_checkpoint(self.ckpt._step_dir(step), stacked)
+
+        def unstack(tree_, tensors):
+            out = {}
+            for n, t in tensors.items():
+                path, idx = reference_path(n, cfg)
+                leaf = tree_
+                for key in path:
+                    leaf = leaf[key]
+                loc = leaf.to_local()
+                loc = loc if idx is None else loc[idx].contiguous()
+                out[n] = shd.as_dtensor(loc, mesh, t.placements, t.shape)
+            return out
+        with torch.no_grad():
+            for n, t in unstack(restored["params"], named).items():
+                named[n].to_local().copy_(t.to_local())
+        for part in ("master", "m", "v"):
+            opt_state[part] = unstack(restored["opt"][part], opt_state[part])
+        opt_state["step"] = int(restored["opt"]["step"])
+        self.data.state.step = int(restored["data_step"])
+        self.stats["resumed_from"] = int(step)
+        return int(step)
+
     def run(self, steps: Optional[int] = None) -> Dict[str, Any]:
         tcfg = self.tcfg
         steps = steps or tcfg.steps
+        mesh = self.mesh
         params = self.model.init(tcfg.seed, device=self.device,
                                  trainable=True)
-        opt_state = init_opt_state(dict(params.named_parameters()))
+        if mesh is None:
+            opt_state = init_opt_state(dict(params.named_parameters()))
+        else:
+            shd.shard_params(params, mesh, shd.named_param_specs(
+                self.cfg, dict(params.named_parameters())))
+            opt_state = init_sharded_opt_state(mesh, self.cfg, params)
         start = 0
         if tcfg.multistream_plan:
             # the reference's leaf order: its stacked tree, shapes only
-            tree = self._state_tree(params, opt_state, 0,
-                                    device="meta")["params"]
+            tree = to_reference({n: torch.empty(p.shape, device="meta")
+                                 for n, p in params.named_parameters()},
+                                self.cfg)
             self.stats["multistream"] = plan_update_multistream(
-                tree, device=self.device)
+                tree, n_clusters=None if mesh is None else mesh.size(),
+                device=self.device)
         if tcfg.resume == "auto" and self.ckpt.latest() is not None:
             start = self._restore(params, opt_state)
 
@@ -262,7 +597,9 @@ class Trainer:
         it = iter(self.data)
         try:
             for step in range(start, steps):
-                batch = {k: v.to(self.device) for k, v in next(it).items()}
+                batch = next(it)
+                if mesh is None:         # the mesh step takes its block
+                    batch = {k: v.to(self.device) for k, v in batch.items()}
                 t0 = time.perf_counter()
                 params, opt_state, loss, metrics = self.step_fn(
                     params, opt_state, batch)
@@ -298,8 +635,12 @@ class Trainer:
                           f"{dt * 1e3:.0f} ms", flush=True)
                 if ((step + 1) % tcfg.ckpt_every == 0
                         or self._stop_requested or step + 1 == steps):
-                    self.ckpt.save(step + 1, self._state_tree(
-                        params, opt_state, self.data.state.step))
+                    tree = self._state_tree(
+                        params, opt_state, self.data.state.step,
+                        device=None if mesh is None else "cpu")
+                    if self.writer:
+                        self.ckpt.save(step + 1, tree)
+                    del tree
                 if self._stop_requested:
                     print("preemption requested: saved and stopping",
                           flush=True)
@@ -308,5 +649,7 @@ class Trainer:
             self.data.close()
             self.ckpt.wait()
             signal.signal(signal.SIGTERM, old_handler)
+        if mesh is not None:
+            dist.barrier()               # the checkpoint is on disk
         return {"losses": losses, "params": params, "opt": opt_state,
                 **self.stats}

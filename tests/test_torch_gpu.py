@@ -2125,3 +2125,86 @@ def test_cuda_tensors_never_take_the_meta_route(cuda):
     assert (got["gemm"], got["act_bwd"], got["attention"], got["ssd"],
             got["ssd_state"], got["adamw"]) == (4, 1, 1, 1, 1, 1)
     assert sum(ops.dry()["calls"].values()) == 0
+
+
+def test_one_rank_nccl_mesh_step_matches_the_plain_step(cuda, tmp_path):
+    """The mesh step on a 1-rank NCCL process group (a FileStore under
+    tmp_path): two steps of reduced llama3-8b at a kernel-legal width in
+    bf16 with the sequence-parallel context set, against build_step_fn
+    from the same seed: the same kernel launches, losses within 1e-4
+    relative, the first batch's gradients (``build_mesh_grad_fn``
+    against autograd of the plain loss) leaf by leaf within a relative
+    L2 error of 5e-2 and their global norm within 2e-3 relative (phase
+    10's bf16 limits in chip_smoke), parameters within 2 lr a step plus
+    one bf16 ulp."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import Model
+    from repro_torch.models.common import set_activation_sharding
+    from repro_torch.optim import (AdamWConfig, global_norm, init_opt_state,
+                                   lr_schedule)
+    from repro_torch.runtime import build_step_fn
+    from repro_torch.runtime.train import (build_mesh_grad_fn,
+                                           init_sharded_opt_state,
+                                           make_train_step)
+    cfg = _card_legal("llama3-8b")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    data = SyntheticLM(cfg, 2, 128, seed=0)
+    batches = [data.batch_at(i) for i in range(2)]
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh_for(1)
+        set_activation_sharding(mesh, ("data",), "model")
+        params = Model(cfg).init(0, device=cuda, trainable=True)
+        shd.shard_params(params, mesh, shd.named_param_specs(
+            cfg, dict(params.named_parameters())))
+        opt = init_sharded_opt_state(mesh, cfg, params)
+        _, _, m_grads, m_norm = build_mesh_grad_fn(cfg, mesh)(params,
+                                                              batches[0])
+        m_grads = {n: g.full_tensor().float() for n, g in m_grads.items()}
+        step = make_train_step(cfg, opt_cfg, mesh)
+        ops.reset_launches()
+        m_losses = []
+        for b in batches:
+            params, opt, loss, _ = step(params, opt, b)
+            m_losses.append(float(loss))
+        m_counts = ops.launches()
+        got = shd.gather_params(params)
+    finally:
+        set_activation_sharding()
+        dist.destroy_process_group()
+    plain = Model(cfg).init(0, device=cuda, trainable=True)
+    named = dict(plain.named_parameters())
+    loss, _ = Model(cfg).loss(plain, {k: v.to(cuda)
+                                      for k, v in batches[0].items()})
+    p_grads = dict(zip(named, torch.autograd.grad(loss, list(
+        named.values()))))
+    p_norm = float(global_norm(p_grads))
+    assert abs(float(m_norm) - p_norm) <= 2e-3 * p_norm
+    for n, g in p_grads.items():
+        want = g.float()
+        err = float((m_grads[n] - want).norm()) / max(float(want.norm()),
+                                                       1e-30)
+        assert err <= 5e-2, (n, err)
+    del m_grads, p_grads
+    popt = init_opt_state(named)
+    pstep = build_step_fn(cfg, opt_cfg)
+    ops.reset_launches()
+    p_losses = []
+    for b in batches:
+        plain, popt, loss, _ = pstep(plain, popt,
+                                     {k: v.to(cuda) for k, v in b.items()})
+        p_losses.append(float(loss))
+    assert ops.launches() == m_counts and m_counts["attention_bwd"] > 0
+    np.testing.assert_allclose(m_losses, p_losses, rtol=1e-4)
+    lr2 = sum(float(lr_schedule(opt_cfg, i + 1)) for i in range(2))
+    for n, p in plain.named_parameters():
+        want = p.detach().float()
+        diff = (got[n].float() - want).abs()
+        assert bool((diff <= 2 * lr2 + 2.0 ** -7 * want.abs()).all()), n
