@@ -12,10 +12,10 @@
     python3 chip_smoke.py --phases 1,13   # one phase alone
     python3 chip_smoke.py --phases 1,5,11,19   # the dry run against
                              # phases 5 and 11 alone
-    python3 chip_smoke.py --phases 1,20   # the mesh step alone (add 3
+    python3 chip_smoke.py --phases 1,20   # the mesh steps alone (add 3
                              # and --only gemm:tp8,attention:tp8,
-                             # attention_bwd:tp8,act_bwd:tp8 for the
-                             # tensor-parallel shard shapes' kernels)
+                             # attention_bwd:tp8,act_bwd:tp8,ssd:tp8 for
+                             # the tensor-parallel shard shapes' kernels)
     python3 chip_smoke.py --phases 1,3 --only attention:prefill_4096 \
         --src ../parent/src  # one case's check and time, another tree's
                              # kernels on the same card
@@ -109,7 +109,7 @@ Phases, one result line each:
                expert-weight bytes bound. Phases 2/3 hold the (192, 128)
                forward at its shapes and, for phase 13, its forward with
                lse and its backward at one 2048-token row.
- 13. deepseek train — a 2-layer full-width build_step_fn step card vs
+ 13. deepseek train — a 1-layer full-width build_step_fn step card vs
                CPU at 1 x 256 (fp32: the same MoE routing on both; bf16:
                the CPU replays the card's experts; every remat recompute
                routes as its forward), then 3 of 27 layers (bf16,
@@ -188,12 +188,25 @@ Phases, one result line each:
                memory, the launches of phase 11's step held exactly; the
                int8 collectives on CUDA tensors bit-equal to the CPU port,
                the ring products bit-equal to their one-rank product.
+               Then the mesh step of two more families beside their plain
+               step, each 3 steps from the same seed, held alike and
+               their launches equal: mamba2-1.3b at full size, 8 x 1024
+               (the SSD kernel through the mesh step), and
+               deepseek-v2-lite-16b cut to 2 of 27 layers, 4 x 2048 in
+               grad_accum 4 (MLA and the expert stacks as DTensors).
                Phases 2/3 hold and time the kernels at the shard shapes a
                rank of an 8-way model axis gives them (the ``tp8`` cases:
                the MLP's products at w1 / w3 4096 x 1792 and w2 1792 x
                4096 for m 8192, the activation backward at 8192 x 1792,
                flash attention with lse and its backward at 4 q heads /
-               1 kv head, b 4, s 2048).
+               1 kv head, b 4, s 2048; the SSD scan at mamba2's 8 heads
+               and jamba's 16 heads of d_state 16, b 8, l 1024; MLA's
+               (192, 128) forward with lse and backward at 2 heads, b 1,
+               s 2048; whisper's flash at 2 heads of 64, the encoder's
+               8 x 1500 frames and the cross-attention 448 x 1500, with
+               lse and backward; the GEMMs of whisper's GELU MLP at m
+               12000, k 1024, n 512 and back and of qwen2-vl's SwiGLU at
+               m 4096, k 1536, n 1120 and back).
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -202,6 +215,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import datetime
@@ -282,12 +296,20 @@ HEADROOM_BYTES = 5e9
 #: phases 10-11: llama3-8b cut to DENSE_LAYERS of 32 layers, batch
 #: DENSE_BATCH x DENSE_SEQ for DENSE_STEPS steps; the width check's
 #: 1 layer at batch 1 x DENSE_WIDTH_SEQ (256, not 512: at 512 its CPU
-#: side took 39 s in fp32 and 61 s in bf16 on the H100's host, 2 layers)
+#: side took 39 s in fp32 and 61 s in bf16 on the H100's host, 2 layers;
+#: at 64 the CPU sides of phases 10 and 13 took 6-17 s less than at 256,
+#: since the plain AdamW over their ~1.3 B parameters dominates them)
 DENSE_LAYERS, DENSE_BATCH, DENSE_SEQ, DENSE_STEPS = 4, 4, 2048, 5
 DENSE_WIDTH_SEQ = 256
 #: phase 20: the mesh step's steps; the model axis whose rank's blocks
-#: phases 2/3 hold the kernels at (llama3-8b's 32 / 8 heads, 14336 d_ff)
+#: phases 2/3 hold the kernels at (llama3-8b's 32 / 8 heads, 14336 d_ff;
+#: mamba2's 64 / 8 SSD heads, deepseek's 16 / 8 MLA heads, whisper's and
+#: qwen2-vl's MLPs); its other families' 1-rank steps: mamba2-1.3b at
+#: full size, TRAIN_BATCH x TRAIN_SEQ, and deepseek cut to
+#: MESH_DEEPSEEK_LAYERS of 27 layers, DENSE_BATCH x DENSE_SEQ in its
+#: grad_accum 4
 MESH_STEPS, TP_RANKS = 3, 8
+MESH_DEEPSEEK_LAYERS = 2
 #: phase 8's shapes: the conv plane, the Laplace grids, the GEMM side
 CONV_HW, CONV_TAPS = 8192, (3, 5, 7)
 LAP_SHAPES = ((1 << 26,), (8192, 8192), (512, 512, 512))
@@ -810,6 +832,27 @@ def kernel_cases(torch):
         if wanted(name):
             gemm_case(name, m, k, n, bf, out_dt, ep, f_tol if out_dt == f32
                       else bf_tol, phase=phase)
+    # the GELU MLP of a rank of whisper's 8-way model axis (the encoder's
+    # 8 x 1500 frames, d_ff 4096 / 8 = 512) and qwen2-vl's SwiGLU (4 x 1024
+    # tokens, d_ff 8960 / 8 = 1120), each w2 without the residual (added
+    # after the sum over ranks); counted under their training phases
+    m_wt = WHISPER_TRAIN_BATCH * ENC_SEQ
+    m_qt = QWEN_TRAIN_BATCH * QWEN_TRAIN_SEQ
+    ff_w, ff_q = 4096 // TP_RANKS, 8960 // TP_RANKS
+    for name, m, k, n, out_dt, ep, phase in (
+            (f"gemm:tp8_whisper_w1_gelu_m{m_wt}_k1024_n{ff_w}", m_wt, 1024,
+             ff_w, bf, [("gelu",)], "whisper_train"),
+            (f"gemm:tp8_whisper_w2_m{m_wt}_k{ff_w}_n1024", m_wt, ff_w, 1024,
+             bf, [], "whisper_train"),
+            (f"gemm:tp8_qwen_w3_gate_m{m_qt}_k1536_n{ff_q}", m_qt, 1536,
+             ff_q, f32, [], "qwen_train"),
+            (f"gemm:tp8_qwen_w1_silu_mul_m{m_qt}_k1536_n{ff_q}", m_qt, 1536,
+             ff_q, bf, [("silu",), ("mul", f32)], "qwen_train"),
+            (f"gemm:tp8_qwen_w2_m{m_qt}_k{ff_q}_n1536", m_qt, ff_q, 1536, bf,
+             [], "qwen_train")):
+        if wanted(name):
+            gemm_case(name, m, k, n, bf, out_dt, ep, f_tol if out_dt == f32
+                      else bf_tol, phase=phase)
     cases += dense_cases(torch, rn, bf_tol)
     return cases
 
@@ -993,6 +1036,11 @@ def dense_cases(torch, rn, bf_tol):
              DENSE_BATCH, 32 // TP_RANKS, 1, DENSE_SEQ, "mesh")
     lse_case(f"attention:mla_train_lse_b1_h16_s{DENSE_SEQ}_bf16", 1, 16, 16,
              DENSE_SEQ, "deepseek_train", d=192, dv=128)
+    # a rank of deepseek's 8-way model axis: 16 / 8 MLA heads (phase 20's
+    # deepseek mesh step runs the unsplit shape on one card)
+    lse_case(f"attention:tp8_mla_lse_b1_h2_s{DENSE_SEQ}_bf16", 1,
+             16 // TP_RANKS, 16 // TP_RANKS, DENSE_SEQ, "mesh_deepseek",
+             d=192, dv=128)
     lse_case(f"attention:phi35_train_lse_b1_hq32_hkv8_s{DENSE_SEQ}_bf16", 1,
              32, 8, DENSE_SEQ, "phi35_train")
     # phase 17's training forward with lse: the encoder's 1500 frames and
@@ -1010,6 +1058,13 @@ def dense_cases(torch, rn, bf_tol):
     lse_case(f"attention:qwen_train_lse_b{QWEN_TRAIN_BATCH}_hq12_hkv2_s"
              f"{QWEN_TRAIN_SEQ}", QWEN_TRAIN_BATCH, 12, 2, QWEN_TRAIN_SEQ,
              "qwen_train")
+    # a rank of whisper's 8-way model axis: 16 / 8 heads of 64
+    h8 = 16 // TP_RANKS
+    lse_case(f"attention:tp8_whisper_lse_enc_b{wb}_h{h8}_s{ENC_SEQ}", wb, h8,
+             h8, ENC_SEQ, "whisper_train", causal=False, **wt)
+    lse_case(f"attention:tp8_whisper_lse_cross_b{wb}_h{h8}_sq{ws_}_skv"
+             f"{ENC_SEQ}", wb, h8, h8, ws_, "whisper_train", skv=ENC_SEQ,
+             causal=False, **wt)
     # and their backward: sq != skv non-causal (both tiles ragged: 1500 =
     # 23 x 64 + 28), the encoder's square non-causal, the decoder's causal,
     # qwen's group of 6; a small fp32 sq != skv case off the path
@@ -1025,6 +1080,17 @@ def dense_cases(torch, rn, bf_tol):
              QWEN_TRAIN_SEQ, bf, True, phase="qwen_train")
     bwd_case("attention_bwd:b1_h4_sq100_skv300_d64_fp32", 1, 4, 4, 100, f32,
              False, skv=300, causal=False, **wt)
+    # the backward at the 8-way ranks' shapes: deepseek's 2 MLA heads,
+    # whisper's 2 heads of 64 (cross-attention and the encoder)
+    bwd_case(f"attention_bwd:tp8_mla_b1_h2_s{DENSE_SEQ}_bf16", 1,
+             16 // TP_RANKS, 16 // TP_RANKS, DENSE_SEQ, bf, True, d=192,
+             dv=128, phase="mesh_deepseek")
+    bwd_case(f"attention_bwd:tp8_whisper_cross_b{wb}_h{h8}_sq{ws_}_skv"
+             f"{ENC_SEQ}_bf16", wb, h8, h8, ws_, bf, True, skv=ENC_SEQ,
+             causal=False, phase="whisper_train", **wt)
+    bwd_case(f"attention_bwd:tp8_whisper_enc_b{wb}_h{h8}_s{ENC_SEQ}_bf16",
+             wb, h8, h8, ENC_SEQ, bf, True, causal=False,
+             phase="whisper_train", **wt)
 
     act_src = "src/repro_torch/kernels/csrc/ntx_act_bwd.cu"
     act_rep = ("none: XLA autodiff of the MLP's epilogue "
@@ -1104,15 +1170,26 @@ def train_cases(torch, rn):
     # bf16 y: the kernel (every product exact on the tensor cores, its
     # fp32 operands split into three bf16 parts) and the plain version
     # agree in fp32 to ~1e-6 and then round to bf16, so they may differ
-    # by one bf16 ulp (2**-8 rel)
-    for name, b, l, dt_x, tol, path in (
+    # by one bf16 ulp (2**-8 rel). The tp8 cases: a rank of an 8-way
+    # model axis, mamba2's 64 / 8 SSD heads (phase 20's mamba2 mesh step
+    # runs the unsplit shape on one card) and jamba's 128 / 8 at d_state
+    # 16 (counted under phase 7's mamba2 step, jamba training none)
+    for name, b, l, dt_x, tol, path, h, n, phase in (
             ("ssd:train_b8_l1024_bf16", TRAIN_BATCH, TRAIN_SEQ, bf,
-             (1e-2, 1e-2), True),
+             (1e-2, 1e-2), True, 64, 128, "train"),
             ("ssd:train_b8_l1024_fp32", TRAIN_BATCH, TRAIN_SEQ,
-             torch.float32, (1e-3, 1e-3), False),
+             torch.float32, (1e-3, 1e-3), False, 64, 128, "train"),
             ("ssd:ragged_b2_l1000_fp32", 2, 1000, torch.float32,
-             (1e-3, 1e-3), False)):
-        x, dt, A, B, C = ssd_inputs(torch, rn, b, l, dt_x)
+             (1e-3, 1e-3), False, 64, 128, "train"),
+            (f"ssd:tp8_mamba2_b8_l1024_h{64 // TP_RANKS}_bf16", TRAIN_BATCH,
+             TRAIN_SEQ, bf, (1e-2, 1e-2), True, 64 // TP_RANKS, 128,
+             "mesh_mamba2"),
+            (f"ssd:tp8_jamba_b8_l1024_h{128 // TP_RANKS}_n16_bf16",
+             TRAIN_BATCH, TRAIN_SEQ, bf, (1e-2, 1e-2), True,
+             128 // TP_RANKS, 16, "train")):
+        if not wanted(name):
+            continue
+        x, dt, A, B, C = ssd_inputs(torch, rn, b, l, dt_x, h=h, n=n)
         esz = x.element_size()
         cases.append(dict(
             name=name, wrapper="ssd", source=ssd_src, replaces=ssd_rep,
@@ -1121,9 +1198,9 @@ def train_cases(torch, rn):
             library=None, mode="close", tol=tol,
             bytes=2 * x.numel() * esz + dt.numel() * 4 + A.numel() * 4
             + 2 * B.numel() * esz,
-            ops=ssd_ops(l, 64, 64, 128, b, chunk),
+            ops=ssd_ops(l, h, 64, n, b, chunk),
             kind="bf16" if dt_x == bf else "fp32", path=path,
-            phase="train"))
+            phase=phase))
 
     adamw_src = "src/repro_torch/kernels/csrc/ntx_adamw.cu"
     adamw_rep = "src/repro/kernels/ntx_elementwise.py:163"
@@ -1849,18 +1926,21 @@ def routing_gaps(card, cpu) -> list:
     return gaps
 
 
-def check_routing(tag: str, dtype: str, card, cpu) -> None:
+def check_routing(tag: str, dtype: str, card, cpu,
+                  sides=("card", "CPU")) -> None:
     """fp32: the CPU's own router picks the card's experts everywhere;
-    bf16: they may differ only at near-ties (``ROUTER_TIE``)."""
+    bf16: they may differ only at near-ties (``ROUTER_TIE``). ``sides``
+    names the two runs (the one replayed, the one replaying)."""
     gaps = routing_gaps(card, cpu)
     n_tok = sum(e.shape[0] * e.shape[1] for _, e in card.pairs())
+    a, b = sides
     say(tag, f"{dtype} MoE routing: {len(gaps)} of {n_tok} token routings "
-             f"differ card vs CPU, largest CPU probability gap ln p_a/p_b "
+             f"differ {a} vs {b}, largest {b} probability gap ln p_a/p_b "
              f"{max(gaps, default=0.0):.3e} (near-tie <= {ROUTER_TIE:g} in "
              f"bf16, none in fp32)")
     need(not gaps if dtype == "float32" else
          max(gaps, default=0.0) <= ROUTER_TIE,
-         f"{dtype} MoE routing differs card vs CPU past a near-tie")
+         f"{dtype} MoE routing differs {a} vs {b} past a near-tie")
 
 
 def serve_obs(runs: dict, peak: int) -> dict:
@@ -2568,6 +2648,7 @@ def family_train(torch, cfg, batch: int, seq: int, tag: str) -> dict:
 
     card = card_line()
     opt_cfg = AdamWConfig(warmup_steps=10, total_steps=DENSE_STEPS)
+    gc_collect(torch)                  # what earlier phases left cached
     t0 = time.perf_counter()
     params = Model(cfg).init(0, device=DEVICE, trainable=True)
     opt = init_opt_state(dict(params.named_parameters()))
@@ -2755,12 +2836,13 @@ def phase_train_width(torch, np) -> None:
                        f"{time.perf_counter() - t0:.1f} s ok")
 
 
-def step_with_grads(step_fn, params, opt_state, batch):
+def step_with_grads(step_fn, params, opt_state, batch, update=True):
     """One step of ``step_fn`` (``build_step_fn``'s or the mesh step's)
     that also returns the gradients it handed to the optimizer
     (``apply_updates``, wrapped for the call) and their global norm (the
     mesh step's own, else ``global_norm``): ``(params, new_state, loss,
-    grads, gnorm)``."""
+    grads, gnorm)``. With ``update=False`` the step ends there: the
+    parameters stay as they were and ``opt_state`` is not read."""
     from repro_torch.optim import global_norm
     from repro_torch.runtime import train
     seen, real = {}, train.apply_updates
@@ -2770,6 +2852,8 @@ def step_with_grads(step_fn, params, opt_state, batch):
         seen["gnorm"] = kw.get("gnorm")
         if seen["gnorm"] is None:
             seen["gnorm"] = global_norm(grads)
+        if not update:
+            return dict(named), state       # copy_ onto itself: a no-op
         return real(cfg, named, grads, state, **kw)
     train.apply_updates = capture
     try:
@@ -2788,10 +2872,16 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
     :class:`RouteLog` and the CPU replays the card's experts (forward and
     remat recompute alike): in fp32 the CPU's own router must pick them
     everywhere, in bf16 it may differ at near-ties only; on the card
-    every recompute must route as its forward did."""
+    every recompute must route as its forward did. The CPU's step stops
+    at its gradients: the same plain AdamW (plain PyTorch on either
+    device, no kernel of the port) steps them on the card, from the same
+    weights and clipped by the CPU's own global norm, leaf by leaf (each
+    leaf's update reads only its own state); on the CPU that update took
+    most of a side's time."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import Model
-    from repro_torch.optim import AdamWConfig, init_opt_state, lr_schedule
+    from repro_torch.optim import (AdamWConfig, apply_updates,
+                                   init_opt_state, lr_schedule)
     from repro_torch.runtime import build_step_fn
 
     opt_cfg = AdamWConfig(warmup_steps=1, total_steps=10)
@@ -2819,10 +2909,12 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
             t_side = time.perf_counter()
             b = {k: v.to(dev) for k, v in batch.items()}
             named = dict(params.named_parameters())
+            card = params is p_gpu
             with RouteLog(torch, params, logs.get(DEVICE)) as logs[dev]:
                 _, state, loss, grads, gnorm = step_with_grads(
                     build_step_fn(cfg, opt_cfg), params,
-                    init_opt_state(named), b)
+                    init_opt_state(named) if card else None, b,
+                    update=card)
             grads = {n: g.detach().float() for n, g in grads.items()}
             del state
             out.append((float(loss), float(gnorm), grads,
@@ -2838,18 +2930,20 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
             need(same and n_calls == 2 * cfg.n_layers,
                  f"{dtype}: a recompute routed other than its forward")
         # compared on the card, each CPU leaf moved there (the host's
-        # passes over the gradients and params took ~10 s a dtype)
+        # passes over the gradients and params took ~10 s a dtype); pc
+        # holds the weights before the step
         (lg, ng, gg, pg), (lc, nc, gc, pc) = out
-        g_err, g_leaf = 0.0, None
-        for n, want in gc.items():
-            want = want.to(DEVICE)
-            err = float((gg[n] - want).norm()) / max(float(want.norm()),
-                                                     1e-30)
+        norm_c = torch.tensor(nc, dtype=torch.float32, device=DEVICE)
+        g_err, g_leaf, worst, ok = 0.0, None, 0.0, True
+        for n, p0 in pc.items():
+            g = gc.pop(n).to(DEVICE)
+            err = float((gg[n] - g).norm()) / max(float(g.norm()), 1e-30)
             if not math.isfinite(err) or err > g_err:
                 g_err, g_leaf = err, n
-        worst, ok = 0.0, True
-        for n, want in pc.items():
-            got, want = pg[n].float(), want.to(DEVICE)
+            one = {n: p0.to(DEVICE)}
+            want = apply_updates(opt_cfg, one, {n: g}, init_opt_state(one),
+                                 gnorm=norm_c)[0][n]
+            got = pg[n].float()
             diff = (got - want.float()).abs()
             worst = max(worst, float(diff.max()))
             ok &= bool(torch.isfinite(got).all()) and bool(
@@ -2978,7 +3072,7 @@ def phase_train(torch, np) -> dict:
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.models import Model
-    from repro_torch.optim import AdamWConfig, apply_updates
+    from repro_torch.optim import AdamWConfig, apply_updates, global_norm
     from repro_torch.runtime import TrainConfig, Trainer
 
     cfg = configs.get("mamba2-1.3b")
@@ -3053,29 +3147,38 @@ def phase_train(torch, np) -> dict:
     grads = {n: g.float() for n, g in zip(
         named, torch.autograd.grad(loss, list(named.values())))}
     del loss
-    ops.reset_launches()
-    new_p, new_s = apply_updates(opt_cfg, named, grads, opt, use_fused=True)
-    n_fused = ops.launches()["adamw"]
-    fused = {"params": new_p, "master": new_s["master"], "m": new_s["m"],
-             "v": new_s["v"]}
-    fused = {k: {n: t.cpu() for n, t in d.items()} for k, d in fused.items()}
-    del new_p, new_s
-    torch.cuda.empty_cache()
-    new_p, new_s = apply_updates(opt_cfg, named, grads, opt, use_fused=False)
-    plain = {"params": new_p, "master": new_s["master"], "m": new_s["m"],
-             "v": new_s["v"]}
-    worst, ok = {}, True
-    for part, d in plain.items():
-        # the fused kernel multiplies by the reciprocal bias corrections
-        # where the plain path divides (the reference's 1e-5 / 1e-6);
-        # bf16 params may then round one ulp (<= 2**-7 of the value) apart
-        rtol, atol = (2.0 ** -7, 0.0) if part == "params" else (1e-5, 1e-6)
-        worst[part] = 0.0
-        for n, want in d.items():
-            got = fused[part][n].to(DEVICE)
-            diff = (got.float() - want.float()).abs()
-            worst[part] = max(worst[part], float(diff.max()))
-            ok &= bool((diff <= atol + rtol * want.float().abs()).all())
+    # leaf by leaf on the card: each leaf's update reads only its own
+    # state and the global norm's clip, so this is the whole update, with
+    # no full new state held or copied to the host
+    gnorm = global_norm(grads)
+    zero = torch.zeros((), device=DEVICE)
+    worst = {k: zero for k in ("params", "master", "m", "v")}
+    bad, n_fused = torch.zeros((), dtype=torch.bool, device=DEVICE), 0
+    for n, p in named.items():
+        one = {k: {n: opt[k][n]} for k in ("master", "m", "v")}
+        one["step"] = opt["step"]
+        runs = []
+        for use_fused in (True, False):
+            ops.reset_launches()
+            new_p, new_s = apply_updates(opt_cfg, {n: p}, {n: grads[n]}, one,
+                                         use_fused=use_fused, gnorm=gnorm)
+            n_fused += ops.launches()["adamw"]
+            runs.append({"params": new_p[n], "master": new_s["master"][n],
+                         "m": new_s["m"][n], "v": new_s["v"][n]})
+        fused, plain = runs
+        for part, want in plain.items():
+            # the fused kernel multiplies by the reciprocal bias
+            # corrections where the plain path divides (the reference's
+            # 1e-5 / 1e-6); bf16 params may then round one ulp (<= 2**-7
+            # of the value) apart
+            rtol, atol = ((2.0 ** -7, 0.0) if part == "params"
+                          else (1e-5, 1e-6))
+            diff = (fused[part].float() - want.float()).abs()
+            worst[part] = torch.maximum(worst[part], diff.max())
+            bad |= ~(diff <= atol + rtol * want.float().abs()).all()
+        del runs, fused, plain, new_p, new_s
+    worst = {k: float(v) for k, v in worst.items()}
+    ok = not bool(bad)
     n_2d = sum(1 for p in named.values() if p.ndim == 2)
     say("train", f"apply_updates fused vs plain on the final state: max_abs_"
                  f"err {worst} | adamw launches {n_fused} (2-D tensors "
@@ -3083,7 +3186,7 @@ def phase_train(torch, np) -> dict:
     need(ok, "fused AdamW update disagrees with the plain update")
     need(n_fused == n_2d, f"adamw launched {n_fused} times for {n_2d} "
                           f"2-D tensors")
-    del params, opt, fused, plain, new_p, new_s, grads, named
+    del params, opt, grads, named
     torch.cuda.empty_cache()
     # the kernels line reports the Trainer's own run for the scan and the
     # fused update's run for AdamW, never the profiled step or the
@@ -3118,7 +3221,7 @@ def profile_dense_step(torch, cfg, step_fn, params, opt, batch, wall_s,
         Model(cfg).loss(params, batch)
         torch.cuda.synchronize()
     fwd = kernel_split(fp.key_averages(), DENSE_GROUPS)
-    torch.cuda.synchronize()
+    gc_collect(torch)           # the step after it at the timed steps' peak
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3341,9 +3444,9 @@ def phase_mesh(torch, np, obs: dict) -> dict:
         lr_sum = sum(float(lr_schedule(opt_cfg, i + 1))
                      for i in range(MESH_STEPS))
         worst, n_diff, n_all, ok_p = 0.0, 0, 0, True
-        for n, p in params.named_parameters():
-            want = p.detach().cpu().float()
-            got = m_params[n].float()
+        for n, p in params.named_parameters():     # on the card
+            want = p.detach().float()
+            got = m_params[n].to(DEVICE).float()
             diff = (got - want).abs()
             worst = max(worst, float(diff.max()))
             n_diff += int((diff > 0).sum())
@@ -3383,12 +3486,180 @@ def phase_mesh(torch, np, obs: dict) -> dict:
              "the mesh step disagrees with the plain step")
         need(all(counts[k] == v == p_counts[k] for k, v in want.items()),
              f"mesh launches {counts}, plain {p_counts}, expected {want}")
+        out = {"mesh": (counts, {"step_ms": m_ms, "plain_ms": p_ms,
+                                 "peak": peak})}
+        gc_collect(torch)
+        out["mesh_mamba2"] = mesh_family_step(
+            torch, mesh, configs.get(MAMBA2), TRAIN_BATCH, TRAIN_SEQ,
+            "mesh mamba2")
+        out["mesh_deepseek"] = mesh_family_step(
+            torch, mesh, configs.get(DEEPSEEK).scaled(
+                n_layers=MESH_DEEPSEEK_LAYERS), DENSE_BATCH, DENSE_SEQ,
+            "mesh deepseek")
     finally:
         set_activation_sharding()
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"mesh": (counts, {"step_ms": m_ms, "plain_ms": p_ms,
-                              "peak": peak})}
+    return out
+
+
+@contextlib.contextmanager
+def deterministic(torch, on: bool):
+    """PyTorch's deterministic kernels where it has them (``warn_only``:
+    the rest run as they are, unwarned), memory from ``torch.empty`` left
+    unfilled; nothing where ``on`` is false."""
+    if not on:
+        yield
+        return
+    import warnings
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*determinis")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def mesh_family_step(torch, mesh, cfg, batch: int, seq: int,
+                     tag: str) -> tuple:
+    """``make_train_step(cfg, opt, mesh)`` on the 1-rank mesh (DTensor
+    parameters, ZeRO-1 state; the model's tensor-parallel layers with a
+    model axis of 1) for MESH_STEPS steps from Model.init(0), then the
+    plain ``make_train_step(cfg, opt)`` from the same seed and batches,
+    in turn (both states at once may not fit the card). Held to phase
+    10's bf16 limits: the losses; step 1's global norm and every leaf of
+    the gradients each hands its optimizer (the mesh step's kept on the
+    host); every parameter leaf after the steps. The launches of the two
+    must be equal (and not none). The MoE's combine (``index_add_``) and
+    its gradient's scatters add in atomic order on the card, so two bf16
+    runs drift apart (step 3's losses once 1.1e-4 apart, a routing parted
+    at a near-tie): with MoE layers both steps take PyTorch's
+    deterministic kernels (:func:`deterministic`; their times are those
+    kernels'), and both run under a :class:`RouteLog`, the plain step
+    replaying the mesh step's experts, its own router held to pick the
+    same but at near-ties, as in the width checks. Returns (the mesh
+    step's launches, observations)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, init_opt_state, lr_schedule
+    from repro_torch.runtime.train import (init_sharded_opt_state,
+                                           make_train_step)
+
+    card = card_line()
+    opt_cfg = AdamWConfig(warmup_steps=10, total_steps=MESH_STEPS)
+    data = SyntheticLM(cfg, batch, seq, seed=0)
+    batches = [data.batch_at(i) for i in range(MESH_STEPS)]
+    runs, logs = {}, {}
+    for kind in ("mesh", "plain"):
+        t_init = time.perf_counter()
+        params = Model(cfg).init(0, device=DEVICE, trainable=True)
+        named = dict(params.named_parameters())
+        if kind == "mesh":
+            shd.shard_params(params, mesh, shd.named_param_specs(cfg, named))
+            opt = init_sharded_opt_state(mesh, cfg, params)
+            step_fn = make_train_step(cfg, opt_cfg, mesh)
+        else:
+            opt = init_opt_state(named)
+            step_fn = make_train_step(cfg, opt_cfg)
+        del named
+        init_s = time.perf_counter() - t_init
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        routes = (RouteLog(torch, params, logs.get("mesh")) if cfg.moe
+                  else contextlib.nullcontext())
+        with routes as logs[kind], deterministic(torch, cfg.moe):
+            for i, b in enumerate(batches):
+                if kind == "plain":     # the mesh step takes its block
+                    b = {k: v.to(DEVICE) for k, v in b.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i:
+                    params, opt, loss, _ = step_fn(params, opt, b)
+                else:
+                    params, opt, loss, grads, gnorm = step_with_grads(
+                        step_fn, params, opt, b)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if not i:
+                    first = ({n: g.detach().cpu() for n, g in grads.items()},
+                             float(gnorm))
+                    del grads
+        runs[kind] = dict(
+            losses=losses, times=times, counts=ops.launches(),
+            peak=torch.cuda.max_memory_allocated(), init_s=init_s,
+            grads=first[0], gnorm=first[1],
+            params={n: (p.to_local() if hasattr(p, "to_local") else p)
+                    .detach().cpu() for n, p in params.named_parameters()})
+        del params, opt, step_fn, first
+        gc_collect(torch)
+    m, p = runs["mesh"], runs["plain"]
+    if cfg.moe:
+        check_routing(tag, cfg.compute_dtype, logs["mesh"], logs["plain"],
+                      ("mesh", "plain"))
+    g_err, g_leaf = 0.0, None
+    for n, want in p["grads"].items():
+        want, got = want.to(DEVICE).float(), m["grads"][n].to(DEVICE).float()
+        err = float((got - want).norm()) / max(float(want.norm()), 1e-30)
+        if not math.isfinite(err) or err > g_err:
+            g_err, g_leaf = err, n
+    del got, want
+    lr_sum = sum(float(lr_schedule(opt_cfg, i + 1))
+                 for i in range(MESH_STEPS))
+    worst, n_diff, n_all, ok_p = 0.0, 0, 0, True
+    for n, want in p["params"].items():                # on the card
+        want = want.to(DEVICE).float()
+        got = m["params"][n].to(DEVICE).float()
+        diff = (got - want).abs()
+        worst = max(worst, float(diff.max()))
+        n_diff += int((diff > 0).sum())
+        n_all += diff.numel()
+        ok_p &= bool(torch.isfinite(got).all()) and bool(
+            (diff <= 2 * lr_sum + 2.0 ** -7 * want.abs()).all())
+    ok_l = all(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)
+               for a, b in zip(m["losses"], p["losses"]))
+    ok_n = (math.isfinite(m["gnorm"])
+            and abs(m["gnorm"] - p["gnorm"]) <= 2e-3 * p["gnorm"])
+    ok_g = math.isfinite(g_err) and g_err <= GRAD_RTOL["bfloat16"]
+    ms = {k: sum(r["times"][1:]) / len(r["times"][1:]) * 1e3
+          for k, r in runs.items()}
+    shape = (f"{cfg.name} {cfg.n_layers} layers, batch {batch} x {seq}, "
+             f"grad_accum {cfg.grad_accum}")
+    say(tag, f"{shape}: losses mesh {[round(x, 4) for x in m['losses']]} "
+             f"plain {[round(x, 4) for x in p['losses']]} (rtol 1e-4: "
+             f"{'ok' if ok_l else 'FAIL'}) | step 1 grad norm mesh "
+             f"{m['gnorm']:.6f} plain {p['gnorm']:.6f} (rtol 2e-3: "
+             f"{'ok' if ok_n else 'FAIL'}) | grads worst leaf rel L2 "
+             f"{g_err:.3e} at {g_leaf} (limit {GRAD_RTOL['bfloat16']:g}: "
+             f"{'ok' if ok_g else 'FAIL'}) | params after {MESH_STEPS} "
+             f"steps max_abs_err {worst:.3e}, {n_diff} of {n_all} elements "
+             f"differ (limit 2 x {lr_sum:.2e} + 2**-7 |p|: "
+             f"{'ok' if ok_p else 'FAIL'})")
+    say(tag, f"step times mesh {[round(t * 1e3, 1) for t in m['times']]} "
+             f"ms, plain {[round(t * 1e3, 1) for t in p['times']]} ms | "
+             f"after step 1 mesh {ms['mesh']:.1f} ms, plain "
+             f"{ms['plain']:.1f} ms | peak memory mesh "
+             f"{m['peak'] / 1e9:.2f} GB, plain {p['peak'] / 1e9:.2f} GB | "
+             f"init mesh {m['init_s']:.1f} s, plain {p['init_s']:.1f} s | "
+             f"card {card}")
+    used = {k: v for k, v in m["counts"].items() if v}
+    say(tag, f"launches in {MESH_STEPS} steps: mesh {used} | plain "
+             f"{ {k: v for k, v in p['counts'].items() if v} }")
+    need(ok_l and ok_n and ok_g and ok_p,
+         f"{tag}: the mesh step disagrees with the plain step")
+    need(used and m["counts"] == p["counts"],
+         f"{tag}: mesh launches {m['counts']}, plain {p['counts']}")
+    card_memory_ok(torch, max(m["peak"], p["peak"]), tag, shape)
+    return m["counts"], {"step_ms": ms["mesh"], "plain_ms": ms["plain"],
+                         "peak": m["peak"]}
 
 
 # ----------------------------------------------------------------------
@@ -3538,18 +3809,20 @@ def moe_train(torch, arch: str, n_layers: int, batch: int, steps: int,
 
 
 def phase_deepseek_train(torch, np) -> dict:
-    """deepseek-v2-lite-16b's training: a 2-layer full-width step card vs
-    CPU at 1 x DENSE_WIDTH_SEQ (one microbatch), then the Trainer's step
-    at DEEPSEEK_TRAIN_LAYERS of 27 layers, 4 x 2048 in grad_accum 4. MLA's
-    attention runs the flash forward with lse and the backward kernel at
-    (q/k 192, v 128); the MoE's backward is PyTorch autograd."""
+    """deepseek-v2-lite-16b's training: a 1-layer full-width step card vs
+    CPU at 1 x DENSE_WIDTH_SEQ (one microbatch; 2 layers took 102 s of
+    CPU side, most of it the plain AdamW over 1.6 B parameters), then the
+    Trainer's step at DEEPSEEK_TRAIN_LAYERS of 27 layers, 4 x 2048 in
+    grad_accum 4. MLA's attention runs the flash forward with lse and
+    the backward kernel at (q/k 192, v 128); the MoE's backward is
+    PyTorch autograd."""
     from repro_torch import configs
     gc_collect(torch)
     t0 = time.perf_counter()
-    width_step_check(torch, configs.get(DEEPSEEK).scaled(n_layers=2,
+    width_step_check(torch, configs.get(DEEPSEEK).scaled(n_layers=1,
                                                          grad_accum=1),
                      DENSE_WIDTH_SEQ, "deepseek train width")
-    say("deepseek train width", f"{DEEPSEEK} full width, 2 of 27 layers "
+    say("deepseek train width", f"{DEEPSEEK} full width, 1 of 27 layers "
                                 f"(depth cut to fit the CPU side), batch 1 "
                                 f"x {DENSE_WIDTH_SEQ}, "
                                 f"{time.perf_counter() - t0:.1f} s ok")
@@ -4473,6 +4746,12 @@ def main(argv=None) -> int:
     phases = {int(p) for p in args.phases.split(",")}
     ONLY = tuple(p for p in args.only.split(",") if p)
 
+    # the training phases run within 10-30 GB of the card's memory, and a
+    # step's new parameters land in blocks its activations freed: with
+    # fixed segments the free memory can end up in pieces too small for a
+    # 4 GB logits block (phase 11 failed so once); growable segments keep
+    # it whole.  Read when torch first allocates on the card.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -4517,11 +4796,19 @@ def main(argv=None) -> int:
                      f" cuda {torch.version.cuda}")
         print("nvidia-smi name, power.limit:")
         print(card)
+        laps, t_lap = {"build": round(build_s, 1)}, [time.perf_counter()]
+
+        def lap(name) -> None:
+            now = time.perf_counter()
+            laps[name] = round(now - t_lap[0], 1)
+            t_lap[0] = now
         rows = []
         if phases & {2, 3}:
             rows = phase_check_and_time(torch, do_time=3 in phases)
+            lap("2-3")
         if 4 in phases:
             phase_width(torch, np)
+            lap(4)
         counts, obs = {}, {}
 
         def record(measured: dict) -> None:
@@ -4529,45 +4816,46 @@ def main(argv=None) -> int:
                 counts[key], obs[key] = c, o
         if 5 in phases:
             record(phase_serve(torch, np))
+            lap(5)
         if 3 in phases and not ONLY:
             profile_ssd_passes(torch)
             time_ssd_backward(torch)
+            lap("3 (SSD)")
         if 6 in phases:
             phase_train_width(torch, np)
+            lap(6)
         if 7 in phases:
             record(phase_train(torch, np))
+            lap(7)
         if 8 in phases:
             counts["suite"] = phase_suite(torch, np)
+            lap(8)
         if 9 in phases:
             counts["policies"], lane_rows, _ = phase_policies(torch, np)
             rows += lane_rows
-        if 10 in phases:
-            phase_dense_width(torch, np)
-        if 11 in phases:
-            record(phase_dense_train(torch, np))
-        if 12 in phases:
-            record(phase_deepseek(torch, np))
-        if 13 in phases:
-            record(phase_deepseek_train(torch, np))
-        if 14 in phases:
-            record(phase_phi35(torch, np))
-        if 15 in phases:
-            record(phase_mamba2(torch, np))
-        if 16 in phases:
-            record(phase_jamba(torch, np))
-        if 17 in phases:
-            record(phase_whisper(torch, np))
-        if 18 in phases:
-            record(phase_qwen(torch, np))
+            lap(9)
+        for n, fn in ((10, phase_dense_width), (11, phase_dense_train),
+                      (12, phase_deepseek), (13, phase_deepseek_train),
+                      (14, phase_phi35), (15, phase_mamba2),
+                      (16, phase_jamba), (17, phase_whisper),
+                      (18, phase_qwen)):
+            if n in phases:
+                out = fn(torch, np)
+                if n != 10:
+                    record(out)
+                lap(n)
         if 19 in phases:
             phase_dryrun(torch, src, counts, obs)
+            lap(19)
         if 20 in phases:
             record(phase_mesh(torch, np, obs))
+            lap(20)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     say("done", f"phases {sorted(phases)} passed in "
-                f"{time.perf_counter() - t_start:.1f} s, the build included")
+                f"{time.perf_counter() - t_start:.1f} s, the build included;"
+                f" seconds by phase {laps}")
 
     if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20} <= phases:
         table = []

@@ -122,21 +122,28 @@ def build() -> Path:
     for src in sources():
         obj = work / (src.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        # each compiler writes to a file of its own: ptxas -v fills a pipe
+        # (64 KiB) for a source with many kernels, and one left unread
+        # while another is waited on would stop that compiler
+        out = open(work / (src.stem + ".log"), "w+")
+        procs.append((src, obj, out, subprocess.Popen(
+            cmd, stdout=out, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
-    for src, _, proc in procs:
-        out, err = proc.communicate()
-        logs.append(f"== {src.name}\n{out}{err}")
+    for src, _, out, proc in procs:
+        proc.wait()
+        out.seek(0)
+        text = out.read()
+        out.close()
+        logs.append(f"== {src.name}\n{text}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {src.name} "
-                          f"(exit {proc.returncode}):\n{err}")
+                          f"(exit {proc.returncode}):\n{text}")
     build_log = "\n".join(logs)
     if failed:
         raise RuntimeError("\n".join(failed))
     tmp = work / LIB_NAME
     link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                           *[str(obj) for _, obj, _ in procs]],
+                           *[str(obj) for _, obj, _, _ in procs]],
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stderr}")

@@ -13,11 +13,15 @@
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m repro_torch.launch.train --arch llama3-8b --reduced \\
         --device cpu --mesh 2x2 --steps 2
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch mamba2-1.3b --reduced \\
+        --device cpu --mesh 2x2 --steps 2
 
 Wires the arch registry, the mesh, the activation-sharding context, the
 Trainer and checkpointing, with the reference launcher's flags. It
 trains on one device (``--device``, the card by default) or, with
-``--mesh DxM`` under ``torchrun`` (D x M ranks), on a (data, model) mesh:
+``--mesh DxM`` under ``torchrun`` (D x M ranks), on a (data, model) mesh
+(every family; the model axis splits heads, MLPs, experts and SSD heads):
 gloo with ``--device cpu``, NCCL on ``cuda:LOCAL_RANK`` otherwise; rank
 0 prints. The Trainer
 plans its optimizer update as a multistream descriptor program, as the
@@ -40,10 +44,10 @@ def _parse(argv=None):
                     help="mamba2-1.3b, a dense GQA config (llama3-8b, "
                          "yi-9b, phi3-medium-14b, granite-3-8b), a MoE "
                          "config (deepseek-v2-lite-16b, phi3.5-moe-42b), "
-                         "whisper-medium or qwen2-vl-2b; "
-                         "training takes ~30 bytes a parameter, so cut a "
-                         "full config's depth on one card (--set "
-                         "n_layers=4)")
+                         "jamba-v0.1-52b, whisper-medium or qwen2-vl-2b, "
+                         "each also on any --mesh; training takes ~30 "
+                         "bytes a parameter, so cut a full config's depth "
+                         "on one card (--set n_layers=4)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=100)

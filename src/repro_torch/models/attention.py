@@ -8,8 +8,9 @@ through ``repro_torch.kernels.ops.attention`` — the NTX MAX+MAC streaming
 reduction (the CUDA flash kernel on the card; MLA's q/k of nope + rope
 dims against v of ``v_head_dim`` takes its (192, 128) route). MLA's
 absorbed decode form is einsums and a softmax in the reference and stays
-plain PyTorch here. On a mesh's model axis the dense GQA layer is
-Megatron's (:func:`gqa_forward`).
+plain PyTorch here. On a mesh's model axis both split their heads
+Megatron-style (:func:`gqa_forward`, :func:`_mla_qkv`); MLA's shared
+latent is computed whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from .common import (ArchConfig, _param, apply_mrope, apply_rope,
-                     balanced_range, dense_init, rmsnorm, tp_enter, tp_exit,
-                     tp_state)
+                     dense_init, rank_heads, rmsnorm, take_heads, tp_copy,
+                     tp_enter, tp_exit, tp_whole)
 
 
 class GQA(nn.Module):
@@ -76,6 +77,14 @@ def _rope_qk(cfg: ArchConfig, q, k, pos):
     return q, k
 
 
+def gqa_heads(cfg: ArchConfig):
+    """(q_lo, q_hi, k_lo, k_hi): the q heads this rank computes
+    (:func:`rank_heads`) and the kv heads those q heads read."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    q_lo, q_hi = rank_heads(cfg.n_heads)
+    return q_lo, q_hi, q_lo // g, (q_hi - 1) // g + 1
+
+
 def gqa_forward(cfg: ArchConfig, p: GQA, x: torch.Tensor, pos,
                 causal: bool = True, kv=None):
     """Self- or cross-attention over a full sequence. ``kv``: (k, v)
@@ -86,31 +95,23 @@ def gqa_forward(cfg: ArchConfig, p: GQA, x: torch.Tensor, pos,
     layout, so prefill can populate a cache.
 
     On a mesh's model axis (:class:`TensorParallel`) the layer is
-    Megatron's: the rank computes its q heads, split as evenly as they go
-    (:func:`balanced_range`), and the kv heads those q heads read;
+    Megatron's: the rank computes its q heads and the kv heads those read
+    (:func:`gqa_heads`; a given ``kv`` holds those kv heads);
     ``wq`` / ``wk`` / ``wv`` (and the biases) are column-parallel and
     ``wo`` row-parallel by heads. Where the rank's stored block of a
     weight is not the heads it computes (kv heads that do not divide over
     the model axis: half a head a rank), it gathers the weight and cuts
-    its heads (:meth:`TensorParallel.take`). The output is the partial
+    its heads (:func:`take_heads`). The output is the partial
     ``o @ wo`` summed over ``model`` (:func:`tp_exit`); k and v are the
     rank's kv heads. Without a model axis the range is every head."""
-    tp = tp_state()
-    nm, rank = (1, 0) if tp is None else (tp.nm, tp.rank)
     dt, hd = cfg.cdtype, cfg.hd
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     g = hq // hkv
-    q_lo, q_hi = balanced_range(hq, nm, rank)
-    k_lo, k_hi = q_lo // g, (q_hi - 1) // g + 1
+    q_lo, q_hi, k_lo, k_hi = gqa_heads(cfg)
     nq, nk = q_hi - q_lo, k_hi - k_lo
 
-    def take(w, dim, heads, lo, hi):
-        if tp is not None:
-            w = tp.take(w, dim, heads * hd, lo * hd, hi * hd)
-        return w.to(dt)
-
     def cols(w, heads, lo, hi):
-        return take(w, w.ndim - 1, heads, lo, hi)
+        return take_heads(w, -1, heads, hd, lo, hi, dt)
 
     h = tp_enter(x)
     b, s, _ = h.shape
@@ -139,7 +140,7 @@ def gqa_forward(cfg: ArchConfig, p: GQA, x: torch.Tensor, pos,
         ka, va = k[:, idx], v[:, idx]
     o = ops.attention(q, ka, va, causal=causal)
     o = o.transpose(1, 2).reshape(b, s, nq * hd)
-    return tp_exit(o @ take(p.wo, 0, hq, q_lo, q_hi)), (k, v)
+    return tp_exit(o @ take_heads(p.wo, 0, hq, hd, q_lo, q_hi, dt)), (k, v)
 
 
 def gqa_init_cache(cfg: ArchConfig, batch: int, seq: int, dtype,
@@ -196,40 +197,52 @@ def mla_params(cfg: ArchConfig, gen: torch.Generator) -> MLA:
 
 def _mla_qkv(cfg: ArchConfig, p: MLA, x: torch.Tensor, pos):
     """(q_nope (b, h, s, dn), q_rope (b, h, s, dr), c_kv (b, s, r) normed,
-    k_rope (b, 1, s, dr)), the rope parts rotated at ``pos``."""
+    k_rope (b, 1, s, dr)), the rope parts rotated at ``pos``.
+
+    On a model axis ``h`` is this rank's heads: ``wq`` is column-parallel
+    by heads; ``wdkv`` and ``kv_norm`` are replicated, and every rank
+    computes the latent ``c_kv`` and ``k_rope`` whole (:func:`tp_whole`)
+    and hands them to its heads through :func:`tp_copy`."""
     dt = cfg.cdtype
-    b, s, _ = x.shape
-    h, r = cfg.n_heads, cfg.kv_lora_rank
+    r = cfg.kv_lora_rank
     dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
-    q = (x @ p.wq.to(dt)).reshape(b, s, h, dn + dr).transpose(1, 2)
+    lo, hi = rank_heads(cfg.n_heads)
+    x = tp_whole(x)
+    b, s, _ = x.shape
+    wq = take_heads(p.wq, 1, cfg.n_heads, dn + dr, lo, hi, dt)
+    q = (tp_copy(x) @ wq).reshape(b, s, hi - lo, dn + dr).transpose(1, 2)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     ckv = x @ p.wdkv.to(dt)                                # (b, s, r + dr)
     c_kv, k_rope = ckv[..., :r], ckv[..., r:]
     c_kv = rmsnorm(c_kv, p.kv_norm)
     k_rope = apply_rope(k_rope[:, None], pos, cfg.rope_theta)  # (b,1,s,dr)
-    return q_nope, q_rope, c_kv, k_rope
+    return q_nope, q_rope, tp_copy(c_kv), tp_copy(k_rope)
 
 
 def _mla_attend(cfg: ArchConfig, p: MLA, q_nope, q_rope, c_kv, k_rope,
                 kv_len=None):
     """Expanded-form MLA attention: the latent up-projected to per-head
     keys (nope + the broadcast rope key) and values, then
-    ``ops.attention`` at scale (dn + dr)^-0.5."""
+    ``ops.attention`` at scale (dn + dr)^-0.5. On a model axis the rank's
+    heads: ``wuk`` and ``wuv`` column-parallel, ``wo`` row-parallel, the
+    partial output summed over ``model`` (:func:`tp_exit`)."""
     dt = cfg.cdtype
     b, s = q_nope.shape[0], q_nope.shape[2]
     skv = c_kv.shape[1]
-    h = cfg.n_heads
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-    k_nope = (c_kv @ p.wuk.to(dt)).reshape(b, skv, h, dn).transpose(1, 2)
-    v = (c_kv @ p.wuv.to(dt)).reshape(b, skv, h, dv).transpose(1, 2)
+    lo, hi = rank_heads(cfg.n_heads)
+    h = hi - lo
+    cols = lambda w, size: take_heads(w, 1, cfg.n_heads, size, lo, hi, dt)
+    k_nope = (c_kv @ cols(p.wuk, dn)).reshape(b, skv, h, dn).transpose(1, 2)
+    v = (c_kv @ cols(p.wuv, dv)).reshape(b, skv, h, dv).transpose(1, 2)
     k_rope_b = k_rope.expand(b, h, skv, dr)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope_b], -1)
     o = ops.attention(q, k, v, causal=True, scale=(dn + dr) ** -0.5,
                       kv_len=kv_len)
     o = o.transpose(1, 2).reshape(b, s, h * dv)
-    return o @ p.wo.to(dt)
+    return tp_exit(o @ take_heads(p.wo, 0, cfg.n_heads, dv, lo, hi, dt))
 
 
 def mla_forward(cfg: ArchConfig, p: MLA, x: torch.Tensor, pos,

@@ -254,10 +254,36 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x * scale.float() + bias.float()).to(dt)
 
 
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, width: int,
+                  eps: float = 1e-6):
+    """:func:`rmsnorm` over a feature axis of ``width`` split over the
+    ``model`` axis, ``x`` and ``scale`` this rank's block of it: the sum
+    of squares is summed over ``model`` and divided by the full
+    ``width``, so each rank normalises its block as the whole axis would
+    be (its gradient reaches every rank's block: :func:`tp_copy`).
+    :func:`rmsnorm` without a model axis."""
+    tp = _TP
+    if tp is None or tp.nm == 1:
+        return rmsnorm(x, scale, eps)
+    dt = x.dtype
+    x = x.float()
+    ss = tp_copy(model_sum((x * x).sum(-1, keepdim=True)))
+    x = x * torch.rsqrt(ss / width + eps)
+    return (x * scale.float()).to(dt)
+
+
 def apply_norm(cfg: ArchConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's norm. Under the sequence-parallel residual a
+    rank sees its block of the sequence, so the scale and bias enter
+    through :func:`tp_copy` and their gradients come out whole."""
+    scale, bias = p.scale, p.bias
+    tp = _TP
+    if tp is not None and tp.sp:
+        scale = tp_copy(scale)
+        bias = None if bias is None else tp_copy(bias)
     if cfg.norm == "layernorm":
-        return layernorm(x, p.scale, p.bias)
-    return rmsnorm(x, p.scale)
+        return layernorm(x, scale, bias)
+    return rmsnorm(x, scale)
 
 
 # ----------------------------------------------------------------------
@@ -500,6 +526,26 @@ def balanced_range(total: int, n: int, r: int) -> Tuple[int, int]:
     return lo, lo + base + (r < extra)
 
 
+def rank_heads(n: int) -> Tuple[int, int]:
+    """[lo, hi) of the ``n`` heads (attention or SSD) this rank computes:
+    split as evenly as they go over the model axis
+    (:func:`balanced_range`); every head without one."""
+    tp = _TP
+    return (0, n) if tp is None else balanced_range(n, tp.nm, tp.rank)
+
+
+def take_heads(w: torch.Tensor, dim: int, heads: int, size: int, lo: int,
+               hi: int, dt) -> torch.Tensor:
+    """Heads [lo, hi) of ``heads`` heads of ``size`` along dimension
+    ``dim`` of the weight whose model-axis block this rank holds as
+    ``w`` (:meth:`TensorParallel.take`), in ``dt``; ``w`` itself without
+    a model axis."""
+    tp = _TP
+    if tp is not None:
+        w = tp.take(w, dim % w.ndim, heads * size, lo * size, hi * size)
+    return w.to(dt)
+
+
 @dataclasses.dataclass
 class TensorParallel:
     """A rank's view of its mesh for the model's layers: the ``model``
@@ -564,7 +610,8 @@ def tensor_parallel(tp: Optional[TensorParallel]):
 
 
 def make_tensor_parallel(cfg: ArchConfig, mesh, seq: int) -> TensorParallel:
-    """The context of a step on ``mesh`` over sequences of ``seq``."""
+    """The context of a step on ``mesh`` over sequences of ``seq`` (the
+    encoder-decoder's encoder takes its own, from its frames)."""
     tp = TensorParallel(mesh, sp=False)
     tp.sp = bool(_ACT_SHARDING) and cfg.sp_residual and seq % tp.nm == 0
     return tp
@@ -629,6 +676,30 @@ def tp_enter(x: torch.Tensor) -> torch.Tensor:
     if tp.sp:
         return _Comm.apply(x, "gather", "reduce_scatter", tp)
     return _Comm.apply(x, "identity", "all_reduce", tp)
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """A replicated tensor into a model-split region (Megatron's "f"):
+    the identity, whose backward all-reduces the rank's partial gradient
+    over ``model``, so every replicated leaf and activation upstream
+    takes its whole gradient on every rank; the identity without a model
+    axis."""
+    tp = _TP
+    if tp is None or tp.nm == 1:
+        return x
+    return _Comm.apply(x, "identity", "all_reduce", tp)
+
+
+def tp_whole(x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence of the residual stream, for work every rank
+    does alike (routing, MLA's latent, Mamba-2's B and C): the
+    sequence-sharded residual all-gathered, whose backward keeps this
+    rank's block of the (whole) gradient; as it is otherwise.
+    ``tp_copy(tp_whole(x))`` is :func:`tp_enter`."""
+    tp = _TP
+    if tp is None or tp.nm == 1 or not tp.sp:
+        return x
+    return _Comm.apply(x, "gather", "split", tp)
 
 
 def tp_exit(x: torch.Tensor) -> torch.Tensor:

@@ -24,8 +24,10 @@ from torch import nn
 
 from .common import (ArchConfig, Embed, MLP, Norm, apply_mlp, apply_norm,
                      check_ported, chunked_xent, embed_params, embed_tokens,
-                     make_generator, mlp_params, norm_params, remat_wrap,
-                     sinusoidal_pos, unembed)
+                     make_generator, make_tensor_parallel, mlp_params,
+                     norm_params, remat_wrap, sinusoidal_pos,
+                     sp_constrain, take_heads, tensor_parallel, tp_copy,
+                     tp_state, tp_whole, unembed)
 from . import attention as attn
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -102,27 +104,49 @@ def _enc_layer(cfg: ArchConfig, layer: EncBlock, x: torch.Tensor):
 def encode(cfg: ArchConfig, params: EncDec,
            enc_embeds: torch.Tensor) -> torch.Tensor:
     """(b, s_enc, d) frame embeddings -> the encoder states (b, s_enc, d)
-    in the compute dtype."""
+    in the compute dtype.
+
+    On a mesh the encoder runs under a context of its own: its residual
+    is sequence-parallel only where its frames divide over ``model``
+    (:func:`make_tensor_parallel` at s_enc; whisper's 1500 do not divide
+    by 8), whatever the decoder's tokens do. Its states come out whole on
+    every rank (:func:`tp_whole`) for the decoder's cross-attention."""
     dt = cfg.cdtype
     _, s, d = enc_embeds.shape
     x = enc_embeds.to(dt) + sinusoidal_pos(s, d, enc_embeds.device).to(
         dt)[None]
-    for layer in params.enc_layers:
-        x = remat_wrap(cfg, lambda xx, ll=layer: _enc_layer(cfg, ll, xx))(x)
-    return apply_norm(cfg, params.enc_norm, x)
+    tp = tp_state()
+    etp = None if tp is None else make_tensor_parallel(cfg, tp.mesh, s)
+    def layer(x, ll):
+        # the context set inside the layer: remat's recomputation in the
+        # backward runs under the step's context otherwise
+        with tensor_parallel(etp):
+            return _enc_layer(cfg, ll, x)
+
+    with tensor_parallel(etp):
+        if cfg.sp_residual:
+            x = sp_constrain(x)
+        for ll in params.enc_layers:
+            x = remat_wrap(cfg, lambda xx, ll=ll: layer(xx, ll))(x)
+        return tp_whole(apply_norm(cfg, params.enc_norm, x))
 
 
 def _cross_kv(cfg: ArchConfig, p: attn.GQA, enc: torch.Tensor):
     """The cross-attention's keys and values of the encoder states, in
-    (b, hkv, s_enc, hd) layout."""
+    (b, hkv, s_enc, hd) layout. On a model axis the rank projects the kv
+    heads its q heads read (:func:`attention.gqa_heads`), from the whole
+    encoder states entering through :func:`tp_copy`."""
     dt = cfg.cdtype
     b, s, _ = enc.shape
     hd, hkv = cfg.hd, cfg.n_kv_heads
-    k = (enc @ p.wk.to(dt)).reshape(b, s, hkv, hd)
-    v = (enc @ p.wv.to(dt)).reshape(b, s, hkv, hd)
+    _, _, lo, hi = attn.gqa_heads(cfg)
+    cols = lambda w: take_heads(w, -1, hkv, hd, lo, hi, dt)
+    enc = tp_copy(enc)
+    k = (enc @ cols(p.wk)).reshape(b, s, hi - lo, hd)
+    v = (enc @ cols(p.wv)).reshape(b, s, hi - lo, hd)
     if cfg.qkv_bias:
-        k = k + p.bk.to(dt).reshape(1, 1, hkv, hd)
-        v = v + p.bv.to(dt).reshape(1, 1, hkv, hd)
+        k = k + cols(p.bk).reshape(1, 1, hi - lo, hd)
+        v = v + cols(p.bv).reshape(1, 1, hi - lo, hd)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -163,6 +187,8 @@ def _decoder(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
     """The decoder over a full sequence (training): the final hidden
     states."""
     x = _embed_at(cfg, params, tokens, 0)
+    if cfg.sp_residual:
+        x = sp_constrain(x)
     for layer in params.dec_layers:
         x = remat_wrap(cfg, lambda xx, ee, ll=layer: _dec_layer(
             cfg, ll, xx, ee))(x, enc)

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import MLP, ArchConfig, _param, dense_init
+from .common import (MLP, ArchConfig, _param, dense_init, shard_range,
+                     tp_copy, tp_exit, tp_state, tp_whole)
 
 
 class MoE(nn.Module):
@@ -74,12 +75,27 @@ def route(cfg: ArchConfig, p: MoE, x: torch.Tensor):
 
 def apply_moe(cfg: ArchConfig, p: MoE,
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d) -> (y, aux_loss). Groups = batch rows."""
+    """x: (b, s, d) -> (y, aux_loss). Groups = batch rows.
+
+    On a mesh's model axis (:class:`TensorParallel`, experts sharded over
+    ``model``) every rank routes the whole data-local token set alike
+    (:func:`tp_whole`; the router is replicated), so the capacity slots
+    and the dropped tokens are the single device's, and computes the aux
+    loss whole. It fills the capacity buffers of its own experts
+    (``shard_range(n_experts)``, their stored block) and runs their
+    products; the tokens and the gates enter through :func:`tp_copy`, so
+    the router's gradient through the gates is summed over ``model``
+    while the aux loss's is counted once. Its experts' outputs, with the
+    shared experts' partial (a tensor-parallel MLP), are summed over
+    ``model`` by one :func:`tp_exit`."""
     dt = cfg.cdtype
+    tp = tp_state()
+    x = tp_whole(x.to(dt))
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    lo, hi = (0, e) if tp is None else shard_range(e, tp.nm, tp.rank)
+    ne = hi - lo
     cap = _capacity(cfg, s)
-    x = x.to(dt)
     probs, gate, expert = route(cfg, p, x)
 
     # load-balance aux loss (Switch-style): e * sum_e f_e * p_e, f_e from
@@ -87,6 +103,7 @@ def apply_moe(cfg: ArchConfig, p: MoE,
     me = probs.mean(1)                                          # (b, e)
     ce = F.one_hot(expert[..., 0], e).float().mean(1)
     aux = (me * ce).sum(-1).mean() * e
+    xs, gate = tp_copy(x), tp_copy(gate)
 
     # dispatch: sort each group's (token, choice) entries by expert
     flat_e = expert.reshape(b, s * k)
@@ -95,29 +112,30 @@ def apply_moe(cfg: ArchConfig, p: MoE,
     tok_sorted = order // k                                     # source token
     gate_sorted = torch.take_along_dim(gate.reshape(b, s * k), order, -1)
 
-    # each sorted entry's position in its expert's capacity buffer
+    # each sorted entry's position in its expert's capacity buffer; the
+    # rank keeps the entries of its experts
     arange_e = torch.arange(e, device=x.device).expand(b, e).contiguous()
     seg_start = torch.searchsorted(e_sorted, arange_e, side="left")
     pos_in_e = (torch.arange(s * k, device=x.device)[None]
                 - torch.take_along_dim(seg_start, e_sorted, -1))
-    keep = pos_in_e < cap
-    drop = torch.full_like(e_sorted, e * cap)
-    slot = torch.where(keep, e_sorted * cap + pos_in_e, drop)
+    keep = (pos_in_e < cap) & (e_sorted >= lo) & (e_sorted < hi)
+    drop = torch.full_like(e_sorted, ne * cap)
+    slot = torch.where(keep, (e_sorted - lo) * cap + pos_in_e, drop)
 
-    # gather tokens into (b, e * cap, d) expert buffers; dropped entries
-    # land on the extra row, which is cut off
-    src = torch.take_along_dim(x, tok_sorted[..., None], 1)     # (b, sk, d)
-    rows = torch.arange(b, device=x.device)[:, None] * (e * cap + 1) + slot
-    buf = x.new_zeros((b * (e * cap + 1), d))
+    # gather tokens into (b, ne * cap, d) expert buffers; dropped entries
+    # (and other ranks' experts') land on the extra row, which is cut off
+    src = torch.take_along_dim(xs, tok_sorted[..., None], 1)    # (b, sk, d)
+    rows = torch.arange(b, device=x.device)[:, None] * (ne * cap + 1) + slot
+    buf = x.new_zeros((b * (ne * cap + 1), d))
     buf[rows.reshape(-1)] = src.reshape(-1, d)
-    buf = buf.view(b, e * cap + 1, d)[:, :e * cap].reshape(b, e, cap, d)
+    buf = buf.view(b, ne * cap + 1, d)[:, :ne * cap].reshape(b, ne, cap, d)
 
     # expert FFN (batched products over the expert axis)
     h = (F.silu(torch.einsum("becd,edf->becf", buf, p.w1.to(dt)))
          * torch.einsum("becd,edf->becf", buf, p.w3.to(dt)))
     y_e = torch.einsum("becf,efd->becd", h, p.w2.to(dt))
-    y_flat = torch.cat([y_e.reshape(b, e * cap, d), x.new_zeros((b, 1, d))],
-                       1)
+    y_flat = torch.cat([y_e.reshape(b, ne * cap, d),
+                        x.new_zeros((b, 1, d))], 1)
 
     # combine: gather back, weight, scatter-add onto each source token
     out_tok = torch.take_along_dim(y_flat, slot[..., None], 1)  # (b, sk, d)
@@ -129,6 +147,6 @@ def apply_moe(cfg: ArchConfig, p: MoE,
 
     if p.shared is not None:
         sh = p.shared
-        hs = F.silu(x @ sh.w1.to(dt)) * (x @ sh.w3.to(dt))
+        hs = F.silu(xs @ sh.w1.to(dt)) * (xs @ sh.w3.to(dt))
         y = y + hs @ sh.w2.to(dt)
-    return y, aux.float()
+    return tp_exit(y), aux.float()

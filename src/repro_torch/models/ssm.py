@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
-from .common import ArchConfig, _param, dense_init, rmsnorm
+from .common import (ArchConfig, _param, dense_init, rank_heads, rmsnorm,
+                     rmsnorm_split, take_heads, tp_copy, tp_exit, tp_whole)
 
 
 class SSM(nn.Module):
@@ -82,40 +83,50 @@ def _causal_conv(w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b)
 
 
-def _project(cfg: ArchConfig, p: SSM, u: torch.Tensor):
-    cdt = cfg.cdtype
-    z = u @ p.wz.to(cdt)
-    x = u @ p.wx.to(cdt)
-    B = u @ p.wb.to(cdt)
-    C = u @ p.wc.to(cdt)
-    dt = softplus((u @ p.wdt.to(cdt)).float() + p.dt_bias.float())
-    return z, x, B, C, dt
-
-
 def ssm_forward(cfg: ArchConfig, p: SSM, u: torch.Tensor,
                 return_state: bool = False):
     """u: (bsz, l, d) -> (bsz, l, d); with ``return_state`` also the
     decode cache ``{"s": the state after the last step (bsz, nh, n, dh)
     fp32, "cx", "cb", "cc": the last d_conv - 1 pre-conv rows of x, B, C
-    (zeros before the first)}``."""
-    cdt = cfg.cdtype
-    bsz, l, _ = u.shape
+    (zeros before the first)}``.
+
+    On a mesh's model axis (:class:`TensorParallel`) the rank computes
+    its block of the SSD heads (:func:`rank_heads`): z, x, dt, the
+    x conv, A, D and the scan on its heads, ``wz`` / ``wx`` / ``wdt``
+    column-parallel, ``wo`` row-parallel (its partial output summed over
+    ``model`` by :func:`tp_exit`). B and C are computed whole on every
+    rank (:func:`tp_whole`, the replicated ``wb`` / ``wc`` and their
+    convs) and enter the scan through :func:`tp_copy`; the gated norm
+    normalises over all of d_inner (:func:`rmsnorm_split`)."""
+    cdt, f32 = cfg.cdtype, torch.float32
     di, nh, dh = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
-    u = u.to(cdt)
-    z, x_pre, B_pre, C_pre, dt = _project(cfg, p, u)
-    x = _causal_conv(p.conv_x.to(cdt), p.conv_x_b.to(cdt), x_pre)
-    B = _causal_conv(p.conv_b.to(cdt), p.conv_b_b.to(cdt), B_pre)
-    C = _causal_conv(p.conv_c.to(cdt), p.conv_c_b.to(cdt), C_pre)
-    A = -torch.exp(p.A_log.float())                             # (nh,)
-    xh = x.reshape(bsz, l, nh, dh)
+    lo, hi = rank_heads(nh)
+
+    def own(w, per_head: int, dt, dim: int = -1):
+        """This rank's heads along dimension ``dim`` of ``w``, in ``dt``."""
+        return take_heads(w, dim, nh, per_head, lo, hi, dt)
+
+    u = tp_whole(u.to(cdt))
+    bsz, l, _ = u.shape
+    us = tp_copy(u)
+    z = us @ own(p.wz, dh, cdt)
+    x_pre = us @ own(p.wx, dh, cdt)
+    B_pre = u @ p.wb.to(cdt)
+    C_pre = u @ p.wc.to(cdt)
+    dt = softplus((us @ own(p.wdt, 1, cdt)).float() + own(p.dt_bias, 1, f32))
+    x = _causal_conv(own(p.conv_x, dh, cdt), own(p.conv_x_b, dh, cdt), x_pre)
+    B = tp_copy(_causal_conv(p.conv_b.to(cdt), p.conv_b_b.to(cdt), B_pre))
+    C = tp_copy(_causal_conv(p.conv_c.to(cdt), p.conv_c_b.to(cdt), C_pre))
+    A = -torch.exp(own(p.A_log, 1, f32))                        # (nh,)
+    xh = x.reshape(bsz, l, hi - lo, dh)
     if return_state:
         y, state = ops.ssd_with_state(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
     else:
         y = ops.ssd(xh, dt, A, B, C, chunk=cfg.ssm_chunk, work_dtype=cdt)
-    y = y + p.D.to(cdt)[None, None, :, None] * xh
-    y = y.reshape(bsz, l, di)
-    y = rmsnorm(y * F.silu(z), p.norm)
-    out = y @ p.wo.to(cdt)
+    y = y + own(p.D, 1, cdt)[None, None, :, None] * xh
+    y = y.reshape(bsz, l, (hi - lo) * dh)
+    y = rmsnorm_split(y * F.silu(z), own(p.norm, dh, f32), di)
+    out = tp_exit(y @ own(p.wo, dh, cdt, dim=0))
     if not return_state:
         return out
     k = cfg.d_conv

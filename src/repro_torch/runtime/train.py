@@ -27,15 +27,15 @@ runs the same per-rank program, the counterpart of what the reference's
 ``jit`` with shardings becomes per device: parameters are DTensors under
 ``param_specs``, the optimizer state under ``opt_state_specs`` (ZeRO-1);
 each rank takes its block of the global batch (``batch_specs``), runs
-the model on its parameters' local blocks (the dense family's layers
-tensor-parallel over ``model``, ``models/common.py``), and its
+the model on its parameters' local blocks (every family's layers
+tensor-parallel over ``model``: attention heads and MLPs Megatron-style,
+MoE experts, Mamba-2's SSD heads; ``models/common.py``), and its
 gradients, its share of the global mean loss's, are summed over the data
 axes onto its optimizer slice (a reduce-scatter); the clip's global norm
 sums every block once; each rank updates its slice, and the new
 parameters are all-gathered over the data axes. Checkpoints hold the
-reference's stacked layout of the whole state, written by rank 0. The
-model axis is ported for the dense family; any family trains on a
-(n, 1) mesh (ROADMAP item 14b has the rest).
+reference's stacked layout of the whole state, written by rank 0.
+``ctx_parallel`` on a model axis waits for ROADMAP item 14b.
 """
 from __future__ import annotations
 
@@ -61,6 +61,7 @@ from repro_torch.models.common import (make_tensor_parallel, shard_range,
                                        tensor_parallel)
 from repro_torch.models.convert import (named_from_reference, reference_path,
                                         to_reference)
+from repro_torch.models.transformer import layer_schedule
 from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
 
 
@@ -144,49 +145,57 @@ def build_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig):
 # ----------------------------------------------------------------------
 # The step on a mesh
 # ----------------------------------------------------------------------
-ITEM_14B = ("ROADMAP queue 1 item 14b: the model axis of the MoE, SSM, "
-            "hybrid, encoder-decoder and VLM families, and ctx_parallel")
+ITEM_14B = ("ROADMAP queue 1 item 14b: ctx_parallel (context-parallel "
+            "attention) on a model axis")
 
 
 def check_mesh(cfg: ArchConfig, mesh) -> None:
-    """Refuse what the mesh step does not do: a model axis over 1 outside
-    the dense family (or with ``ctx_parallel``), and a model axis more
-    than the heads or blocks of d_ff and the vocabulary it splits."""
+    """Refuse what the mesh step does not do: ``ctx_parallel`` on a model
+    axis over 1, and a model axis that leaves a rank without work: fewer
+    attention heads or SSD heads than ranks (they split evenly), or an
+    empty stored block of the experts, of the SSD heads, of d_ff (where a
+    layer has an MLP), of the shared experts' d_ff_expert or of the
+    vocabulary (``torch.chunk``'s blocks, whose last ones may be
+    empty)."""
     nm = shd.axis_sizes(mesh)["model"]
     if nm == 1:
         return
-    if cfg.family != "dense" or cfg.ctx_parallel:
-        what = cfg.family + (", ctx_parallel" if cfg.ctx_parallel else "")
+    if cfg.ctx_parallel:
         raise NotImplementedError(
-            f"{cfg.name} ({what}) on a model axis of {nm}: not ported "
-            f"({ITEM_14B}); train it on a (n, 1) mesh")
-    # heads split evenly over the ranks, d_ff and the vocabulary as their
-    # stored blocks (torch.chunk, whose last blocks may be empty)
-    short = [f"n_heads {cfg.n_heads}"] if cfg.n_heads < nm else []
-    short += [f"{what} {n}" for what, n in (
-        ("d_ff", cfg.d_ff), ("padded_vocab", cfg.padded_vocab))
-        if shard_range(n, nm, nm - 1)[0] >= n]
+            f"{cfg.name} (ctx_parallel) on a model axis of {nm}: not "
+            f"ported ({ITEM_14B}); train it on a (n, 1) mesh")
+    kinds = ({"attn_mlp"} if cfg.encoder_decoder
+             else set(layer_schedule(cfg)[0]))
+    attn = any(k.startswith("attn") for k in kinds)
+    # heads split evenly over the ranks; the rest as their stored blocks
+    short = [f"{what} {n}" for what, n, on in (
+        ("n_heads", cfg.n_heads, attn), ("ssm_heads", cfg.ssm_heads, cfg.ssm))
+        if on and n < nm]
+    short += [f"{what} {n}" for what, n, on in (
+        ("padded_vocab", cfg.padded_vocab, True),
+        ("d_ff", cfg.d_ff, any(k.endswith("_mlp") for k in kinds)),
+        ("n_experts", cfg.n_experts, cfg.moe),
+        ("ssm_heads", cfg.ssm_heads, cfg.ssm and cfg.ssm_heads >= nm),
+        ("d_ff_expert x n_shared_experts",
+         cfg.d_ff_expert * cfg.n_shared_experts,
+         cfg.moe and cfg.n_shared_experts > 0))
+        if on and shard_range(n, nm, nm - 1)[0] >= n]
     if short:
         raise ValueError(f"{cfg.name}: a model axis of {nm} leaves ranks "
                          f"without a block of {short}")
 
 
-def grad_placements(mesh, pl, sp: bool) -> list:
+def grad_placements(mesh, pl) -> list:
     """Placements of a parameter's gradient as autograd leaves it on a
     rank: a share of the sum over the data axes (``Partial``); on
     ``model`` the parameter's own block where it is sharded, and where it
-    is replicated, partial under the sequence-parallel residual (the
-    norms see one block of the sequence a rank), else whole."""
-    nm = shd.axis_sizes(mesh)["model"]
-    out = []
-    for axis, p in zip(mesh.mesh_dim_names, pl):
-        if axis != "model":
-            out.append(Partial())
-        elif isinstance(p, Shard):
-            out.append(p)
-        else:
-            out.append(Partial() if sp and nm > 1 else Replicate())
-    return out
+    is replicated the whole gradient (``Replicate``): the layers hand
+    every replicated tensor to a model-split region through ``tp_copy``
+    (the residual's norms under the sequence-parallel residual too), so
+    each rank's gradient of a replicated leaf is the whole one."""
+    return [Partial() if axis != "model" else
+            p if isinstance(p, Shard) else Replicate()
+            for axis, p in zip(mesh.mesh_dim_names, pl)]
 
 
 @contextlib.contextmanager
@@ -257,7 +266,7 @@ def build_mesh_grad_fn(cfg: ArchConfig, mesh):
         dev = next(iter(named.values())).to_local().device
         lb = {k: v.to(dev) for k, v in local_batch(mesh, batch).items()}
         tp = make_tensor_parallel(cfg, mesh, lb["tokens"].shape[1])
-        gpl = {n: grad_placements(mesh, p.placements, tp.sp)
+        gpl = {n: grad_placements(mesh, p.placements)
                for n, p in named.items()}
         ospecs = shd.named_opt_specs(mesh, cfg, named)
         micro = [lb] if accum == 1 else [
@@ -281,8 +290,9 @@ def build_mesh_grad_fn(cfg: ArchConfig, mesh):
         loss = lsum / accum
         metrics = {} if accum > 1 else {k: v.detach()
                                         for k, v in metrics.items()}
-        # each leaf onto its optimizer slice, one at a time
-        grads, sq = {}, torch.zeros((), dtype=torch.float32, device=dev)
+        # each leaf onto its optimizer slice, one at a time; the squares
+        # summed as ``global_norm`` sums them (on one rank, its bits)
+        grads, parts = {}, []
         for n, p in named.items():
             g = acc.pop(n)
             if accum > 1:
@@ -292,7 +302,9 @@ def build_mesh_grad_fn(cfg: ArchConfig, mesh):
                 mesh, pl)
             del g
             if _count_once(mesh, pl):
-                sq = sq + torch.sum(grads[n].to_local().float() ** 2)
+                parts.append(torch.sum(grads[n].to_local().float() ** 2))
+        sq = (torch.sum(torch.stack(parts)) if parts
+              else torch.zeros((), dtype=torch.float32, device=dev))
         dist.all_reduce(sq)
         return loss, metrics, grads, torch.sqrt(sq)
 

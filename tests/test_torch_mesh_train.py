@@ -16,8 +16,10 @@ config whose 6 heads of 16 split unevenly over 4 ranks (q heads 2, 2, 1,
 1; one rank's q heads reading two kv heads), with qkv biases, tied
 embeddings and the chunked cross-entropy on (1, 4); reduced
 ``mamba2-1.3b`` on (4, 1) (data-parallel with ZeRO-1) against its
-single-device step; the refusals of a model axis outside the dense
-family; and the launcher under ``torchrun`` on a 2 x 2 CPU mesh.
+single-device step; what a model axis still refuses (ctx_parallel, and
+too few heads, experts or SSD heads for it); and the launcher under
+``torchrun`` on a 2 x 2 CPU mesh, reduced llama3-8b and mamba2-1.3b. The
+other families' model axis is in ``test_torch_mesh_families.py``.
 
 The gradients the mesh step hands its optimizer (``build_mesh_grad_fn``,
 gathered whole) are held leaf by leaf against ``jax.grad`` of the
@@ -254,22 +256,29 @@ def test_mesh_gradients_match_jax_grad(request, case):
 
 
 def test_model_axis_outside_dense_is_refused(world4):
-    ssm, ctx, hybrid, narrow = world4["refusals"]
-    for msg in (ssm, ctx, hybrid):
-        assert msg is not None and "item 14b" in msg
+    """Since every family splits over ``model``, only ctx_parallel (ROADMAP
+    item 14b) and a model axis that leaves a rank without heads, experts
+    or SSD heads are refused; reduced mamba2 and jamba build on (2, 2)."""
+    ssm, ctx, hybrid, narrow, experts, ssd = world4["refusals"]
+    assert ssm is None and hybrid is None
+    assert ctx is not None and "item 14b" in ctx
     assert narrow is not None and "n_heads 2" in narrow
+    assert experts is not None and "n_experts 3" in experts
+    assert ssd is not None and "ssm_heads 2" in ssd
 
 
-def test_launcher_trains_on_a_2x2_cpu_mesh(tmp_path):
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-1.3b"])
+def test_launcher_trains_on_a_2x2_cpu_mesh(tmp_path, arch):
     """``torchrun --standalone --nproc-per-node 4 -m
     repro_torch.launch.train ... --device cpu --mesh 2x2 --steps 2``:
-    finite losses, a checkpoint in the reference's layout from rank 0."""
+    finite losses, a checkpoint in the reference's layout from rank 0;
+    reduced llama3-8b and mamba2-1.3b (the SSD heads over ``model``)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-         "--arch", "llama3-8b", "--reduced", "--device", "cpu",
+         "--arch", arch, "--reduced", "--device", "cpu",
          "--mesh", "2x2", "--steps", "2", "--global-batch", "4", "--seq",
          "32", "--ckpt", str(tmp_path), "--resume", "none"],
         env=env, capture_output=True, text=True, timeout=300)

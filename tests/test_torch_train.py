@@ -392,11 +392,12 @@ def test_straggler_watchdog_counts(tmp_path, monkeypatch):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, tc = _cfgs()
-    # the mesh is ported (slice G); an SSM's model axis is not (item 14b)
+    # the mesh is ported (slice G), every family's model axis too;
+    # ctx_parallel on a model axis is not (item 14b)
     mesh = types.SimpleNamespace(device_type="cpu", shape=(1, 2),
                                  mesh_dim_names=("data", "model"))
     with pytest.raises(NotImplementedError, match="item 14b"):
-        Trainer(tc, AdamWConfig(), TrainConfig(
+        Trainer(tc.scaled(ctx_parallel=True), AdamWConfig(), TrainConfig(
             ckpt_dir=str(tmp_path), multistream_plan=False), mesh=mesh,
             device="cpu")
     # the multistream update plan is ported: on by default, as in the

@@ -1,6 +1,7 @@
 """Worlds of gloo ranks on the CPU for the port's mesh tests.
 
-``run_world(fn, world, workdir, *args)`` starts ``world`` spawned
+``run_world(fn, world, workdir, *args)`` (or ``start_world`` and
+``join_world``, to work while the ranks run) starts ``world`` spawned
 processes, each a rank of a gloo process group rendezvousing through a
 ``FileStore`` under ``workdir`` (no ports), runs ``fn(*args)`` in every
 rank with one CPU thread, and returns each rank's result (pickled through
@@ -44,15 +45,24 @@ def _entry(fn, rank: int, world: int, workdir: str, args) -> None:
         raise
 
 
-def run_world(fn, world: int, workdir: str, *args, timeout: float = 240):
-    """``[fn(*args) on rank r for r in range(world)]``; raises with a
-    rank's traceback if any failed or the world outlived ``timeout``."""
+def start_world(fn, world: int, workdir: str, *args):
+    """Start ``world`` ranks running ``fn(*args)``; :func:`join_world`
+    collects them (the caller may work meanwhile)."""
     os.makedirs(workdir, exist_ok=True)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(fn, r, world, workdir, args))
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs, workdir
+
+
+def join_world(handle, timeout: float = 240):
+    """Each rank's result of a :func:`start_world`; raises with a rank's
+    traceback if any failed or the world outlived ``timeout`` seconds
+    from now."""
+    procs, workdir = handle
+    world = len(procs)
     deadline = time.monotonic() + timeout
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
@@ -75,6 +85,12 @@ def run_world(fn, world: int, workdir: str, *args, timeout: float = 240):
         raise RuntimeError(f"world of {world}: hung ranks {hung} after "
                            f"{timeout} s; " + "\n".join(errors[:2]))
     return [v for _, v in results]
+
+
+def run_world(fn, world: int, workdir: str, *args, timeout: float = 240):
+    """``[fn(*args) on rank r for r in range(world)]``; raises with a
+    rank's traceback if any failed or the world outlived ``timeout``."""
+    return join_world(start_world(fn, world, workdir, *args), timeout)
 
 
 # ----------------------------------------------------------------------
@@ -201,9 +217,12 @@ def mesh_steps_rank(cases, refusals: bool = False):
 
 
 def mesh_refusals():
-    """The refusals of a (2, 2) mesh: mamba2 (the SSM family) and a
-    dense config with ctx_parallel name ROADMAP item 14b; a dense config
-    whose heads are fewer than the model axis is refused too."""
+    """What ``make_train_step`` does with a model axis over 1: reduced
+    mamba2 (SSM) and jamba (hybrid) build on a (2, 2) mesh (None); a
+    dense config with ctx_parallel names ROADMAP item 14b; on a (1, 4)
+    mesh a dense config with fewer heads than the model axis, a MoE
+    config whose 3 experts leave a rank without one, and a Mamba-2
+    config with 2 SSD heads are refused (ValueError)."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.train import make_train_step
@@ -218,13 +237,15 @@ def mesh_refusals():
         except NotImplementedError as e:
             msgs.append(str(e))
     wide = make_mesh_for(4, 4, device_type="cpu")
-    try:
-        make_train_step(_cfg("llama3-8b", {"n_heads": 2, "n_kv_heads": 1,
-                                           "head_dim": 64}),
-                        AdamWConfig(), wide)
-        msgs.append(None)
-    except ValueError as e:
-        msgs.append(str(e))
+    for arch, over in (("llama3-8b", {"n_heads": 2, "n_kv_heads": 1,
+                                      "head_dim": 64}),
+                       ("phi3.5-moe-42b-a6.6b", {"n_experts": 3}),
+                       ("mamba2-1.3b", {"ssm_headdim": 128})):
+        try:
+            make_train_step(_cfg(arch, over), AdamWConfig(), wide)
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
     return msgs
 
 
