@@ -12,6 +12,8 @@
     python3 chip_smoke.py --phases 1,13   # one phase alone
     python3 chip_smoke.py --phases 1,5,11,19   # the dry run against
                              # phases 5 and 11 alone
+    python3 chip_smoke.py --phases 1,21   # context and cache
+                             # parallelism alone
     python3 chip_smoke.py --phases 1,20   # the mesh steps alone (add 3
                              # and --only gemm:tp8,attention:tp8,
                              # attention_bwd:tp8,act_bwd:tp8,ssd:tp8 for
@@ -207,6 +209,20 @@ Phases, one result line each:
                lse and backward; the GEMMs of whisper's GELU MLP at m
                12000, k 1024, n 512 and back and of qwen2-vl's SwiGLU at
                m 4096, k 1536, n 1120 and back).
+ 21. ctx    — context and cache parallelism on the card: flash attention
+               with lse and its backward at llama3-8b's context-parallel
+               rank shapes (b 1, 32 q / 8 kv heads, a 8192-token sequence
+               over 8 ranks: queries 1024, keys 1024 / 4096 / 8192, the
+               causal diagonal bottom-right) against their plain versions,
+               timed beside SDPA with a lower-right causal mask; the
+               split merge's lse on its own; a 32768-slot decode cut into
+               8 blocks, each block's (o, lse) through the split kernel
+               and the merge's lse, merged as a sequence-sharded cache's
+               ranks merge them, against the whole-cache call; then
+               build_mesh_prefill_fn / build_mesh_decode_fn on a 1-rank
+               NCCL mesh (llama3-8b cut to 4 layers at full width, the
+               cache as cache_specs places it: split by the sequence)
+               against Model.prefill / decode, with equal launches.
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -248,7 +264,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 #: (a gradient pointing the wrong way is off by 1 or more)
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEVICE = "cuda"
-ALL_PHASES = set(range(1, 21))
+ALL_PHASES = set(range(1, 22))
 #: phase 12's model (MLA and MoE); phase 13 trains it at full width cut
 #: to DEEPSEEK_TRAIN_LAYERS of 27 layers (~30 bytes a parameter with the
 #: plain AdamW: 16.2 B parameters need ~490 GB), batch DENSE_BATCH x
@@ -310,6 +326,17 @@ DENSE_WIDTH_SEQ = 256
 #: grad_accum 4
 MESH_STEPS, TP_RANKS = 3, 8
 MESH_DEEPSEEK_LAYERS = 2
+#: phase 21: the sequence of a context-parallel rank's shapes (over
+#: TP_RANKS ranks), the sharded decode cache and its blocks, the mesh
+#: serving check's prompt and decode steps (tokens a step: the 2-token
+#: step's queries see the cache with two kv_lens)
+CTX_SEQ, CTX_CACHE, CTX_BLOCKS = 8192, 32768, 8
+CTX_PROMPT, CTX_STEPS = 2048, (1, 2, 1, 1)
+#: the sharded decode's filled slots (6.5 of its 8 blocks: the last one
+#: empty) and each block's key scale (a block's lse grows with its
+#: square, so the blocks' lse differ by units)
+CTX_FILL = CTX_CACHE - CTX_CACHE // CTX_BLOCKS * 3 // 2
+CTX_KEY_SCALES = (0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0)
 #: phase 8's shapes: the conv plane, the Laplace grids, the GEMM side
 CONV_HW, CONV_TAPS = 8192, (3, 5, 7)
 LAP_SHAPES = ((1 << 26,), (8192, 8192), (512, 512, 512))
@@ -3503,6 +3530,311 @@ def phase_mesh(torch, np, obs: dict) -> dict:
     return out
 
 
+def ctx_cases(torch, rn) -> list:
+    """Phase 21's kernel cases: the flash forward with lse and its
+    backward at a context-parallel rank's shapes (b 1, hq 32, hkv 8, d
+    128, bf16; queries CTX_SEQ / TP_RANKS, keys up to the end of the
+    rank's block: the first, the middle and the last rank), the library
+    call SDPA with a lower-right causal mask (K and V repeated to the 32
+    heads outside the timed call); and the split merge with lse at a
+    block of phase 21's sharded decode (b BATCH, hq 32, hkv 8, 1 query,
+    CTX_CACHE / CTX_BLOCKS keys)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    flash_rep = "src/repro/kernels/flash_attention.py:77"
+    bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    bwd_rep = "src/repro/kernels/ref.py:250 _mha_blocked_bwd"
+    b, hq, hkv, d = 1, 32, 8, 128
+    sq = CTX_SEQ // TP_RANKS
+    cases = []
+
+    def lse_check(got, want, o_plain_route, what):
+        """o bit-equal to ``what`` (the same work without lse), lse within
+        1e-4 (1 + max|lse|) of the plain version's, as phase 2's
+        ``lse_case``."""
+        same = torch.equal(got[0], o_plain_route)
+        err = float((got[1] - want[1]).abs().max())
+        ok = same and err <= 1e-4 * (1.0 + float(want[1].abs().max()))
+        return ok, (f"o bit-equal to {what} {same} | lse max_abs_err "
+                    f"{err:.3e} (<= 1e-4 (1 + max|lse|))")
+    for skv in (sq, CTX_SEQ // 2, CTX_SEQ):
+        q = rn(b, sq, hq, d, dt=bf, std=0.5).transpose(1, 2)
+        k = rn(b, skv, hkv, d, dt=bf, std=0.5).transpose(1, 2)
+        v = rn(b, skv, hkv, d, dt=bf).transpose(1, 2)
+        do = rn(b, sq, hq, d, dt=bf).transpose(1, 2)
+        plan = fa.flash_plan(b, hq, hkv, sq, skv, skv, d, bf, True,
+                             lse=True)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True, plan=plan,
+                                         lse=True)
+        o_serve = fa.flash_attention_cuda(q, k, v, causal=True, plan=plan)
+        g = hq // hkv
+        kr, vr = (t.repeat_interleave(g, 1) for t in (k, v))
+        mask = causal_lower_right(sq, skv)
+        sdpa = lambda q=q, kr=kr, vr=vr, mask=mask: (
+            F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask))
+        lib_in = [t.detach().clone().requires_grad_() for t in (q, kr, vr)]
+        lib_fwd = lambda lib_in=lib_in, mask=mask: (
+            F.scaled_dot_product_attention(*lib_in, attn_mask=mask))
+        pairs = b * hq * fa.attention_pairs(sq, skv, True)
+        tag = f"b{b}_hq{hq}_hkv{hkv}_sq{sq}_skv{skv}_bf16"
+        cases.append(dict(
+            name=f"attention:ctx8_lse_{tag}", wrapper="attention",
+            source=flash_src, replaces=flash_rep,
+            kernel=lambda q=q, k=k, v=v, plan=plan: fa.flash_attention_cuda(
+                q, k, v, causal=True, plan=plan, lse=True),
+            plain=lambda q=q, k=k, v=v: (
+                fa.flash_attention_plain(q, k, v, causal=True),
+                fa.flash_lse_plain(q, k, causal=True)),
+            library=sdpa, backend=sdpa, mode="close", tol=(1e-2, 1e-2),
+            check_vs=lambda got, want, o_serve=o_serve: lse_check(
+                got, want, o_serve, "the call without lse"),
+            bytes=(q.numel() + k.numel() + v.numel() + o.numel()) * 2
+            + lse.numel() * 4,
+            ops=4.0 * d * pairs, kind="bf16", path=True, phase="ctx"))
+        cases.append(dict(
+            name=f"attention_bwd:ctx8_{tag}", wrapper="attention_bwd",
+            source=bwd_src, replaces=bwd_rep,
+            kernel=lambda q=q, k=k, v=v, o=o, lse=lse, do=do: (
+                fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                            causal=True)),
+            plain=lambda q=q, k=k, v=v, o=o, lse=lse, do=do: (
+                fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=True)),
+            library=lambda lib_fwd=lib_fwd, lib_in=lib_in, do=do: (
+                torch.autograd.grad(lib_fwd(), lib_in, do)),
+            library_minus=lib_fwd, backend=lib_fwd,
+            mode="rel_l2", tol=(GRAD_RTOL["bfloat16"], 0.0),
+            bytes=(b * (hq * sq + hkv * skv) * 4 * d) * 2 + lse.numel() * 4,
+            ops=2.0 * 5 * d * pairs, kind="bf16", path=True, phase="mesh"))
+    blk = CTX_CACHE // CTX_BLOCKS
+    mq = rn(BATCH, hq, 1, d, dt=bf)
+    mk, mv = (rn(BATCH, hkv, blk, d, dt=bf) for _ in range(2))
+    plan = fa.flash_plan(BATCH, hq, hkv, 1, blk, blk, d, bf, True)
+    need(plan.splits > 1, f"a {blk}-key block's decode plan does not split")
+    ws, mo = fa.flash_attention_cuda(mq, mk, mv, causal=True, plan=plan,
+                                     partials=True)
+    lse_buf = torch.empty((BATCH, hq, 1), dtype=torch.float32,
+                          device=mq.device)
+    mo_serve = fa.flash_merge_cuda(ws, torch.empty_like(mo), plan.splits)
+    cases.append(dict(
+        name=f"attention_merge:ctx_lse_b{BATCH}_kv{blk}_{plan.splits}_"
+             f"splits", wrapper="attention_merge", source=flash_src,
+        replaces=flash_rep,
+        kernel=lambda: fa.flash_merge_cuda(ws, mo, plan.splits, lse_buf),
+        plain=lambda: fa.flash_merge_plain(ws, plan.splits, BATCH, hq, 1,
+                                           d, bf, lse=True),
+        library=None, mode="close", tol=(1e-2, 1e-2),
+        check_vs=lambda got, want: lse_check(got, want, mo_serve,
+                                             "the merge without lse"),
+        bytes=ws.numel() * 4 + mo.numel() * 2 + lse_buf.numel() * 4,
+        ops=3.0 * ws.numel(), kind="fp32", path=True, phase="ctx"))
+    return cases
+
+
+def sharded_decode_check(torch) -> dict:
+    """A CTX_CACHE-slot decode step (b BATCH, 32 / 8 heads, d 128, bf16)
+    cut into CTX_BLOCKS blocks as a sequence-sharded cache's ranks hold
+    it. The cache is filled to CTX_FILL slots (the last block empty, the
+    one before it half full) and block z's keys are scaled by CTX_KEY_
+    SCALES[z], so that the blocks' lse differ by units. Each block's (o,
+    lse) comes from the mesh's own ``attend_block``
+    (``ops.attention(return_lse=True)`` on a split plan: the merge writes
+    lse; the empty block launches nothing) and is merged by
+    ``combine_partials`` (the body of ``merge_partials``). The merged o
+    is held against the plain attention over the whole cache at two bf16
+    epsilons of max|o| (each block's o and the merged o are rounded to
+    bf16, the plain o once), the logsumexp of the blocks' lse against
+    ``flash_lse_plain`` at 1e-4 (1 + max|lse|); timed beside the
+    whole-cache call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attend_block
+    from repro_torch.models.common import combine_partials
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device=DEVICE)
+    blk = CTX_CACHE // CTX_BLOCKS
+    q = rn(BATCH, 32, 1, 128).to(bf)
+    k = (rn(BATCH, 8, CTX_CACHE, 128) * torch.tensor(
+        CTX_KEY_SCALES, device=DEVICE).repeat_interleave(blk)[:, None]
+         ).to(bf)
+    v = rn(BATCH, 8, CTX_CACHE, 128).to(bf)
+    q_pos = CTX_FILL - 1
+    ranges = [(z * blk, (z + 1) * blk) for z in range(CTX_BLOCKS)]
+    # the calls attend_block makes: a block past the query none, the one
+    # holding it causal up to it, the ones before it whole
+    calls = [(hi - lo, False) if hi <= q_pos else (q_pos + 1 - lo, True)
+             for lo, hi in ranges if lo <= q_pos]
+    merges = sum(fa.flash_plan(BATCH, 32, 8, 1, blk, n, 128, bf,
+                               causal).splits > 1 for n, causal in calls)
+
+    def blocks():
+        parts = [attend_block(q, k[:, :, lo:hi], v[:, :, lo:hi], lo, hi,
+                              q_pos) for lo, hi in ranges]
+        lse = torch.stack([p[1] for p in parts])
+        return combine_partials(torch.stack([p[0] for p in parts]), lse), lse
+    whole = lambda: ops.attention(q, k, v, causal=True, kv_len=CTX_FILL)
+    ops.reset_launches()
+    got, lse = blocks()
+    n = ops.launches()
+    want = fa.flash_attention_plain(q, k, v, causal=True, kv_len=CTX_FILL)
+    want_lse = fa.flash_lse_plain(q, k, causal=True, kv_len=CTX_FILL)
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2.0 ** -6 * float(want.float().abs().max())
+    lse_err = float((torch.logsumexp(lse, 0) - want_lse).abs().max())
+    lse_tol = 1e-4 * (1 + float(want_lse.abs().max()))
+    spread = [round(float(t.max()), 3) for t in lse]
+    ok = (bool(torch.isfinite(got).all()) and err <= tol
+          and lse_err <= lse_tol and bool(torch.isneginf(lse[-1]).all()))
+    counts = {k_: n[k_] for k_ in ("attention", "attention_merge")}
+    need(ok and counts == {"attention": len(calls),
+                           "attention_merge": merges} and merges > 0,
+         f"sharded decode: o max_abs_err {err:.3e} (tol {tol:.3e}), lse "
+         f"max_abs_err {lse_err:.3e} (tol {lse_tol:.3e}), launches {counts}"
+         f" (want {len(calls)} / {merges})")
+    blocks_ms = time_ms(blocks, torch)
+    whole_ms = time_ms(whole, torch)
+    kv_bytes = 2 * BATCH * 8 * CTX_FILL * 128 * 2
+    bound = kv_bytes / HBM_BYTES_PER_S * 1e3
+    say("ctx", f"decode over {CTX_FILL} of {CTX_CACHE} slots in "
+               f"{CTX_BLOCKS} blocks (b {BATCH}, hq 32, hkv 8, d 128, bf16; "
+               f"keys scaled {list(CTX_KEY_SCALES)} a block): blocks' max "
+               f"lse {spread} | merged o vs plain max_abs_err {err:.3e} "
+               f"(<= 2^-6 max|o| {tol:.3e}) | logsumexp of the blocks' lse "
+               f"vs flash_lse_plain {lse_err:.3e} (<= {lse_tol:.3e}) ok | "
+               f"launches {counts} | {CTX_BLOCKS} block calls + merge "
+               f"{blocks_ms:.4f} ms, whole-cache call {whole_ms:.4f} ms, "
+               f"bound (the valid K and V read once) {bound:.4f} ms | card "
+               f"{card_line()}")
+    return {"blocks_ms": blocks_ms, "whole_ms": whole_ms, "bound_ms": bound,
+            "max_abs_err": err, "lse_err": lse_err}
+
+
+def phase_ctx(torch, np) -> tuple:
+    """Phase 21: the kernels at the context-parallel rank's shapes and the
+    split merge's lse (:func:`ctx_cases`, checked and timed), the
+    sharded decode (:func:`sharded_decode_check`), then the mesh prefill
+    and decode steps on a 1-rank NCCL mesh: llama3-8b cut to
+    DENSE_LAYERS of 32 layers at full width, bf16, BATCH prompts of
+    CTX_PROMPT tokens into a cache of CTX_PROMPT + 8 slots, CTX_STEPS
+    decode steps, against ``Model.prefill`` / ``decode`` from the same
+    weights (the plain steps first, twice: the second is timed): logits
+    (the mesh's gathered) within
+    bf16 limits, every cache leaf, and the launches of each equal.
+    Returns (the kernel rows, {"ctx": (the mesh steps' launches,
+    observations)})."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import Model
+    from repro_torch.runtime.serve import (build_mesh_decode_fn,
+                                           build_mesh_prefill_fn)
+
+    card = card_line()
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rn = lambda *s, dt=torch.float32, std=1.0: (
+        torch.randn(*s, generator=g, device=dev) * std).to(dt)
+    rows = check_and_time(torch, ctx_cases(torch, rn), True, "ctx", "ctx")
+    decode = sharded_decode_check(torch)
+    gc_collect(torch)
+
+    cfg = configs.get("llama3-8b").scaled(n_layers=DENSE_LAYERS)
+    cache_len = CTX_PROMPT + 8
+    rng = np.random.default_rng(21)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, CTX_PROMPT)),
+                             device=dev)
+    steps = [torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, n)),
+                             device=dev) for n in CTX_STEPS]
+    model = Model(cfg)
+    params = model.init(0, device=DEVICE)
+
+    def run(prefill, decode_fn, gather):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, fill = prefill()
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        out = [gather(logits).float()]
+        t0 = time.perf_counter()
+        for tok in steps:
+            logits, cache = decode_fn(tok, cache, fill)
+            fill += tok.shape[1]
+            out.append(gather(logits).float())
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        leaves = [{k: gather(t) for k, t in c.items()} for c in cache]
+        return out, leaves, ops.launches(), pre_s, dec_s
+
+    with deterministic(torch, True), torch.no_grad():
+        for _ in range(2):              # the first warms the card up
+            p_out, p_cache, p_counts, p_pre, p_dec = run(
+                lambda: model.prefill(params, {"tokens": tokens},
+                                      cache_len=cache_len),
+                lambda tok, c, f: model.decode(params, tok, c, f),
+                lambda t: t)
+    p_cache = [{k: t.cpu() for k, t in c.items()} for c in p_cache]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ctx_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh_for(1)
+        shd.shard_params(params, mesh, shd.named_param_specs(
+            cfg, dict(params.named_parameters())))
+        pre = build_mesh_prefill_fn(cfg, mesh)
+        dec = build_mesh_decode_fn(cfg, mesh)
+        with deterministic(torch, True):
+            m_out, m_cache, m_counts, m_pre, m_dec = run(
+                lambda: pre(params, {"tokens": tokens}, cache_len),
+                lambda tok, c, f: dec(params, tok, c, f),
+                lambda t: t.full_tensor())
+        specs = shd.layer_cache_specs(mesh, m_cache, cfg)
+        layout = sorted({str(tuple(sp)) for sp in specs[0].values()})
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst_l, worst_c = 0.0, 0.0
+    for a, b_ in zip(m_out, p_out):
+        worst_l = max(worst_l, float((a - b_).abs().max()))
+    ok_l = all(torch.allclose(a, b_, rtol=1e-2, atol=1e-2)
+               for a, b_ in zip(m_out, p_out))
+    for mc, pc in zip(m_cache, p_cache):
+        for k, t in mc.items():
+            worst_c = max(worst_c, float((t.cpu().float()
+                                          - pc[k].float()).abs().max()))
+    ok_c = worst_c <= 2 ** -7 * max(
+        float(t.float().abs().max()) for c in p_cache for t in c.values())
+    say("ctx", f"mesh prefill + {len(CTX_STEPS)} decode steps "
+               f"({list(CTX_STEPS)} tokens) of llama3-8b "
+               f"{DENSE_LAYERS} of 32 layers, batch {BATCH} x prompt "
+               f"{CTX_PROMPT}, cache {cache_len} slots, leaf specs "
+               f"{layout}: logits max_abs_err {worst_l:.3e} (rtol/atol "
+               f"1e-2: {'ok' if ok_l else 'FAIL'}) | cache leaves "
+               f"max_abs_err {worst_c:.3e} ({'ok' if ok_c else 'FAIL'}) | "
+               f"prefill {m_pre * 1e3:.1f} ms mesh / {p_pre * 1e3:.1f} ms "
+               f"plain, decode steps {m_dec * 1e3:.1f} / {p_dec * 1e3:.1f} "
+               f"ms | card {card}")
+    say("ctx", f"launches mesh {m_counts} | plain {p_counts}")
+    need(ok_l and ok_c, "the mesh prefill / decode disagree with the plain "
+                        "steps")
+    need(m_counts == p_counts and m_counts["attention"] > 0
+         and m_counts["attention_merge"] > 0,
+         f"mesh launches {m_counts}, plain {p_counts}")
+    del params
+    gc_collect(torch)
+    return rows, {"ctx": (m_counts, {"decode": decode,
+                                     "prefill_ms": m_pre * 1e3,
+                                     "decode_ms": m_dec * 1e3})}
+
+
 @contextlib.contextmanager
 def deterministic(torch, on: bool):
     """PyTorch's deterministic kernels where it has them (``warn_only``:
@@ -4850,6 +5182,11 @@ def main(argv=None) -> int:
         if 20 in phases:
             record(phase_mesh(torch, np, obs))
             lap(20)
+        if 21 in phases:
+            ctx_rows, measured = phase_ctx(torch, np)
+            rows += ctx_rows
+            record(measured)
+            lap(21)
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -4857,7 +5194,8 @@ def main(argv=None) -> int:
                 f"{time.perf_counter() - t_start:.1f} s, the build included;"
                 f" seconds by phase {laps}")
 
-    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20} <= phases:
+    if {3, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
+            21} <= phases:
         table = []
         for case in rows:
             if not case["path"]:

@@ -284,9 +284,14 @@ def layer_specs(cfg, names: Sequence[str], stacked: Any) -> Dict[str, P]:
 
 
 def named_param_specs(cfg, named: Mapping[str, torch.Tensor],
-                      replicate_attn: bool = False) -> Dict[str, P]:
+                      replicate_attn=None) -> Dict[str, P]:
     """``{name: P}`` for a module's ``named_parameters()`` (full
-    shapes), from the stacked rules."""
+    shapes), from the stacked rules. ``replicate_attn`` None: the
+    config's layout, as the reference's dry run places the parameters
+    (``cfg.ctx_parallel and cfg.ctx_replicate_weights``: the attention
+    projections replicated)."""
+    if replicate_attn is None:
+        replicate_attn = cfg.ctx_parallel and cfg.ctx_replicate_weights
     return layer_specs(cfg, list(named), param_specs(
         _stacked_tree(named, cfg), replicate_attn))
 
@@ -295,15 +300,41 @@ def named_opt_specs(mesh, cfg, named: Mapping[str, torch.Tensor]
                     ) -> Dict[str, P]:
     """ZeRO-1 specs of the per-layer optimizer state: each leaf's param
     spec (:func:`named_param_specs`) with its own first evenly divisible
-    unsharded dimension sharded over the data axes. (The reference's
+    unsharded dimension sharded over the data axes; the attention
+    projections keep their sharded specs under ``ctx_parallel``, as
+    ``opt_state_specs`` does in the reference's dry run. (The reference's
     stacked rule may pick the layer axis instead; a rank then holds whole
     layers' state where here it holds a slice of each layer's, the same
     bytes either way.)"""
     da = _data_axes(mesh)
     n_data = _axes_size(mesh, da)
-    pspecs = named_param_specs(cfg, named)
+    pspecs = named_param_specs(cfg, named, replicate_attn=False)
     return {n: _zero1(tuple(t.shape), pspecs[n], da, n_data)
             for n, t in named.items()}
+
+
+class _Shape:
+    """A leaf of a shape tree: ``shape`` alone."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+def layer_cache_specs(mesh, cache: Sequence[Mapping[str, Any]],
+                      cfg) -> list:
+    """``cache_specs`` of the port's cache, a list of per-layer dicts
+    (``models/transformer.py:init_cache``; leaves with a ``shape``). The
+    reference's specs index its layer-stacked leaves (L|NP, B, ...); a
+    spec never splits the layer axis, so each per-layer leaf's spec is
+    that of its leaf stacked one layer deep, ``(1, *shape)``, without the
+    leading entry: the stacked sequence axis 3 of ``k`` is axis 2 of a
+    layer's."""
+    out = []
+    for layer in cache:
+        stacked = {k: _Shape((1, *v.shape)) for k, v in layer.items()}
+        out.append({k: P(*spec[1:]) for k, spec in
+                    cache_specs(mesh, stacked, cfg).items()})
+    return out
 
 
 # ----------------------------------------------------------------------

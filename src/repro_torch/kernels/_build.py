@@ -55,7 +55,7 @@ _SIGNATURES = {
     # (dh, a1, gate, da1, dgate, h, n, act, out_bf16, stream)
     "ntx_act_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     # (ws, o, o_strides, b, hq, sq, d, splits, bf16, stream)
-    "ntx_flash_merge": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ntx_flash_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (x, ldx, out, ldo, rows, n, n_valid, n_stages, ops, imms, ys, ldys,
     #  tail, red, red_int, chunk, counters, part, stream)
     "ntx_stream": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,

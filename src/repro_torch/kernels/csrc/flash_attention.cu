@@ -68,11 +68,15 @@
 //   a workspace the wrapper allocates; flash_merge then combines them in
 //   split order, applies the guard and rounds once. No float atomics: two
 //   calls give the same bits.
-// * lse (training): with an unsplit plan the kernel can also write each
-//   row's natural log-sum-exp of the scaled logits, m ln 2 + log(max(l,
-//   1e-30)) (m in base 2), as the reference's mha_blocked forward saves it
-//   for its backward (csrc/flash_attention_bwd.cu). Only when asked: the
-//   serving path passes no lse and its o is the same either way.
+// * lse: the kernel can also write each row's natural log-sum-exp of the
+//   scaled logits, m ln 2 + log(max(l, 1e-30)) (m in base 2), as the
+//   reference's mha_blocked forward saves it for its backward
+//   (csrc/flash_attention_bwd.cu; training takes unsplit plans). With
+//   splits, flash_merge writes it beside o from the merged row:
+//   m* ln 2 + log(max(sum_z l_z 2^(m_z - m*), 1e-30)), m* the splits'
+//   largest m. A decode over a sequence-sharded cache merges such
+//   (o, lse) pairs across ranks (models/common.py:merge_partials). Only
+//   when asked: o is the same either way.
 // Left for later: a register-tiled fp32 route; wgmma with TMA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -559,9 +563,9 @@ flash_f32(const Args a) {
 // ---------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(256)
-flash_merge(const float* __restrict__ ws, T* __restrict__ o, long long os0,
-            long long os1, long long os2, int b, int hq, int sq, int d,
-            int splits) {
+flash_merge(const float* __restrict__ ws, T* __restrict__ o,
+            float* __restrict__ lse, long long os0, long long os1,
+            long long os2, int b, int hq, int sq, int d, int splits) {
   const long long rows = (long long)b * hq * sq;
   const float* wacc = ws + 2 * (long long)splits * rows;
   const long long total = rows * d;
@@ -581,17 +585,20 @@ flash_merge(const float* __restrict__ ws, T* __restrict__ o, long long os0,
     const int i = (int)(row % sq), h = (int)(row / sq % hq);
     const long long bi = row / ((long long)sq * hq);
     store(o + bi * os0 + h * os1 + i * os2 + c, aa / (ll == 0.0f ? 1.0f : ll));
+    if (lse != nullptr && c == 0)
+      lse[row] = mm * kLn2 + logf(fmaxf(ll, 1e-30f));
   }
 }
 
 template <typename T>
-cudaError_t launch_merge(const float* ws, void* o, const long long* os, int b,
-                         int hq, int sq, int d, int splits, cudaStream_t s) {
+cudaError_t launch_merge(const float* ws, void* o, float* lse,
+                         const long long* os, int b, int hq, int sq, int d,
+                         int splits, cudaStream_t s) {
   const long long total = (long long)b * hq * sq * d;
   const long long need = (total + 255) / 256;
   const int blocks = (int)(need < 132 * 16 ? need : 132 * 16);
-  flash_merge<T><<<blocks, 256, 0, s>>>(ws, static_cast<T*>(o), os[0], os[1],
-                                        os[2], b, hq, sq, d, splits);
+  flash_merge<T><<<blocks, 256, 0, s>>>(ws, static_cast<T*>(o), lse, os[0],
+                                        os[1], os[2], b, hq, sq, d, splits);
   return cudaGetLastError();
 }
 
@@ -661,8 +668,9 @@ extern "C" {
 // each block's key tiles, and merge; then dv. hq % hkv == 0, (d, dv) one
 // of (64, 64), (128, 128), (192, 128). With splits > 1, ws holds splits *
 // b * hq * sq * (dv + 2) fp32 and merge = 1 adds the merge launch (merge =
-// 0 leaves the partials in ws and o untouched). lse (b * hq * sq fp32,
-// unsplit plans only) receives each row's log-sum-exp when not null.
+// 0 leaves the partials in ws and o untouched). lse (b * hq * sq fp32)
+// receives each row's log-sum-exp when not null: from the kernel with one
+// split, from the merge with several (merge = 0 then refuses it).
 // Anything else is refused.
 int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
                         float* ws, float* lse, const long long* p,
@@ -688,7 +696,7 @@ int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
   const size_t smem = bf16 ? tc_smem(d, dv, wr) : f32_smem(d, dv);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > kMaxSplits || (splits > 1 && ws == nullptr) ||
-      (splits > 1 && lse != nullptr))
+      (splits > 1 && !merge && lse != nullptr))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return (int)cudaGetLastError();
   const int q_tiles = (sq + qn - 1) / qn;
@@ -701,7 +709,7 @@ int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
   a.v = v;
   a.o = o;
   a.ws = ws;
-  a.lse = lse;
+  a.lse = splits == 1 ? lse : nullptr;
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];
     a.ks[i] = strides[3 + i];
@@ -731,26 +739,28 @@ int ntx_flash_attention(const void* q, const void* k, const void* v, void* o,
       : d == 128 ? launch_pair<128, 128>(a, bf16, vec, wr, grid, s)
                  : launch_pair<192, 128>(a, bf16, vec, wr, grid, s);
   if (err != cudaSuccess || splits == 1 || !merge) return (int)err;
-  return (int)(bf16 ? launch_merge<__nv_bfloat16>(ws, o, strides + 9, b, hq,
-                                                  sq, dv, splits, s)
-                    : launch_merge<float>(ws, o, strides + 9, b, hq, sq, dv,
-                                          splits, s));
+  return (int)(bf16 ? launch_merge<__nv_bfloat16>(ws, o, lse, strides + 9, b,
+                                                  hq, sq, dv, splits, s)
+                    : launch_merge<float>(ws, o, lse, strides + 9, b, hq, sq,
+                                          dv, splits, s));
 }
 
 // The merge alone, on partials ntx_flash_attention left in ws (merge = 0):
 // o (b, hq, sq, d) at element strides os[0..2], fp32 or bf16 (d: v's head
-// dim).
-int ntx_flash_merge(const float* ws, void* o, const long long* os, int b,
-                    int hq, int sq, int d, int splits, int bf16,
+// dim), and each row's log-sum-exp into lse (b * hq * sq fp32) when not
+// null.
+int ntx_flash_merge(const float* ws, void* o, float* lse, const long long* os,
+                    int b, int hq, int sq, int d, int splits, int bf16,
                     void* stream) {
   if (b < 0 || hq <= 0 || sq < 0 || d <= 0 || splits < 2 ||
       splits > kMaxSplits || ws == nullptr)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_merge<__nv_bfloat16>(ws, o, os, b, hq, sq, d,
-                                                  splits, s)
-                    : launch_merge<float>(ws, o, os, b, hq, sq, d, splits, s));
+  return (int)(bf16 ? launch_merge<__nv_bfloat16>(ws, o, lse, os, b, hq, sq,
+                                                  d, splits, s)
+                    : launch_merge<float>(ws, o, lse, os, b, hq, sq, d, splits,
+                                          s));
 }
 
 }  // extern "C"

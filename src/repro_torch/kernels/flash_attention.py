@@ -40,6 +40,8 @@ PAD = 8
 #: shared memory one block may use on the H100, and without opting in (the
 #: fp32 route opts in above it: 53 KB at (192, 128))
 MAX_SMEM, STATIC_SMEM = 232448, 48 * 1024
+#: ln 2 in fp32: the kernels keep m in base 2 (``kLn2``)
+LN2 = 0.6931471805599453
 #: fewest key tiles a split takes, and most splits
 MIN_SPLIT_TILES = 4
 MAX_SPLITS = 64
@@ -234,11 +236,13 @@ def flash_lse_plain(q, k, *, causal: bool = True, scale=None,
 
 
 def flash_merge_plain(ws: torch.Tensor, splits: int, b: int, hq: int,
-                      sq: int, d: int, dtype=torch.float32) -> torch.Tensor:
+                      sq: int, d: int, dtype=torch.float32,
+                      lse: bool = False):
     """Plain version of ``flash_merge``: the splits' fp32 partials (m in
     base 2, l, acc) combined in split order, the guard, one rounding; d is
     v's head dim (the accumulator's width). Returns (b, hq, sq, d) in
-    ``dtype``."""
+    ``dtype``; with ``lse`` also each row's fp32 log-sum-exp (b, hq, sq),
+    ``m* ln 2 + log(max(sum_z l_z 2^(m_z - m*), 1e-30))``."""
     rows = b * hq * sq
     ml = ws[:2 * splits * rows].view(splits, rows, 2)
     acc = ws[2 * splits * rows:splits * rows * (d + 2)].view(splits, rows, d)
@@ -247,7 +251,11 @@ def flash_merge_plain(ws: torch.Tensor, splits: int, b: int, hq: int,
     ll = (ml[..., 1] * f).sum(0)
     aa = (acc * f[..., None]).sum(0)
     out = aa / torch.where(ll == 0, torch.ones_like(ll), ll)[:, None]
-    return out.view(b, hq, sq, d).to(dtype)
+    out = out.view(b, hq, sq, d).to(dtype)
+    if not lse:
+        return out
+    lse_t = mm * LN2 + torch.log(torch.clamp_min(ll, 1e-30))
+    return out, lse_t.view(b, hq, sq)
 
 
 def flash_check(q, k, v) -> None:
@@ -324,9 +332,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
     ``plan`` defaults to :func:`flash_plan`; another plan is passed only
     to test that the kernel refuses it. ``partials`` (a split plan only):
     return the splits' workspace and the output, unmerged, to time the
-    merge on its own. ``lse`` (an unsplit plan): return ``(o, lse)``
-    with each row's fp32 log-sum-exp (b, hq, sq), as
-    :func:`flash_lse_plain`."""
+    merge on its own. ``lse``: return ``(o, lse)`` with each row's fp32
+    log-sum-exp (b, hq, sq), as :func:`flash_lse_plain` (with a split
+    plan the merge writes it, as :func:`flash_merge_plain` with
+    ``lse``); without ``plan`` it plans unsplit, as training does."""
     flash_check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -336,8 +345,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
                            bool(causal), lse, dv)
     if partials and p.splits == 1:
         raise ValueError("partials needs a plan with more than one split")
-    if lse and p.splits > 1:
-        raise ValueError("lse needs an unsplit plan")
+    if lse and partials:
+        raise ValueError("lse comes from the merge; partials skips it")
     scale = (d ** -0.5) if scale is None else scale
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q) if dv == d else q.new_empty((b, hq, sq, dv))
@@ -360,19 +369,26 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale=None,
     return (o, lse_t) if lse else o
 
 
-def flash_merge_cuda(ws: torch.Tensor, o: torch.Tensor,
-                     splits: int) -> torch.Tensor:
+def flash_merge_cuda(ws: torch.Tensor, o: torch.Tensor, splits: int,
+                     lse: torch.Tensor | None = None):
     """Launch ``flash_merge`` alone: the partials of ``splits`` splits in
     ``ws`` (as ``flash_attention_cuda(partials=True)`` leaves them) into
-    ``o`` (b, hq, sq, dv), fp32 or bf16, dv contiguous."""
+    ``o`` (b, hq, sq, dv), fp32 or bf16, dv contiguous; with ``lse``
+    (b, hq, sq) fp32 contiguous, each row's log-sum-exp into it too, and
+    returns ``(o, lse)``."""
     b, hq, sq, d = o.shape
     os_ = _build.ptr_array(ctypes.c_longlong, _strides(o))
+    if lse is not None and (lse.shape != (b, hq, sq)
+                            or lse.dtype != torch.float32
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous fp32 {(b, hq, sq)}")
     with _build.on_device(o):
         code = _build.library().ntx_flash_merge(
-            ws.data_ptr(), o.data_ptr(), os_, b, hq, sq, d, splits,
-            int(o.dtype == torch.bfloat16), _build.stream_of(o))
+            ws.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None, os_, b, hq, sq, d,
+            splits, int(o.dtype == torch.bfloat16), _build.stream_of(o))
     _build.check(code, "ntx_flash_merge")
-    return o
+    return o if lse is None else (o, lse)
 
 
 # ----------------------------------------------------------------------

@@ -612,14 +612,24 @@ class _Attention(torch.autograd.Function):
 
 
 def attention(q, k, v, *, causal: bool = True, scale=None,
-              kv_len: int | None = None) -> torch.Tensor:
+              kv_len: int | None = None, return_lse: bool = False):
     """q: (b, hq, sq, d); k: (b, hkv, skv, d); v: (b, hkv, skv, dv), dv
     equal to d or, for MLA, (d, dv) = (192, 128) on the card
     (``flash_attention.HEAD_PAIRS``; another pair raises ``ValueError``
     there, as the reference computes any pair with its plain attention on
     every backend). Under autograd the call is :class:`_Attention` and
     takes the training shapes: ``kv_len`` None (or skv) and, if causal,
-    sq <= skv; anything else raises."""
+    sq <= skv; anything else raises.
+
+    ``return_lse`` (outside autograd only): return ``(o, lse)``, each
+    row's fp32 natural log-sum-exp of the scaled logits (b, hq, sq) beside
+    o, from the same plan (a split one writes it in the merge), so that
+    partial results over blocks of the keys can be merged
+    (``models.common.merge_partials``). CPU tensors: the plain attention
+    and :func:`flash_lse_plain`. ``kv_len`` must be at least 1: a block
+    without a valid key is the caller's (o 0, lse -inf)."""
+    if return_lse:
+        return _attention_lse(q, k, v, bool(causal), scale, kv_len)
     if _tracked(q, k, v):
         skv = k.shape[2]
         if (kv_len is not None and kv_len != skv) or (
@@ -649,19 +659,51 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
                                 kv_len=kv_len, plan=plan)
 
 
-def _attention_meta(q, k, v, causal: bool, kv_len, lse: bool = False):
+def _attention_lse(q, k, v, causal: bool, scale, kv_len):
+    """``attention(..., return_lse=True)``: (o, lse) by the serving plan
+    (splits allowed; the merge writes lse)."""
+    if _tracked(q, k, v):
+        raise NotImplementedError("attention's lse output is for decode "
+                                  "merges; run it under torch.no_grad()")
+    skv = k.shape[2]
+    kv = skv if kv_len is None else int(kv_len)
+    if kv < 1:
+        raise ValueError(f"attention with lse over kv_len {kv}: a block "
+                         f"without keys has o 0 and lse -inf")
+    if _on_meta(q, k, v):
+        return _attention_meta(q, k, v, causal, kv_len, lse=True,
+                               split=True)
+    if not _on_card(q, k, v):
+        return (flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                      kv_len=kv_len),
+                flash_lse_plain(q, k, causal=causal, scale=scale,
+                                kv_len=kv_len))
+    b, hq, sq, d = q.shape
+    plan = flash_plan(b, hq, k.shape[1], sq, skv, kv, d, q.dtype, causal,
+                      dv=v.shape[-1])
+    LAUNCHES["attention"] += 1
+    if plan.splits > 1:
+        LAUNCHES["attention_merge"] += 1
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                kv_len=kv_len, plan=plan, lse=True)
+
+
+def _attention_meta(q, k, v, causal: bool, kv_len, lse: bool = False,
+                    split: bool = False):
     """The meta route of the flash forward: the kernel's checks and
     :func:`flash_plan`; ``2 (d + dv)`` operations an unmasked (query, key)
     pair; q and the first ``kv_len`` keys and values read. An unsplit
     plan writes o (and ``lse``: each row's fp32 log-sum-exp); a split one
     writes its partials, which the merge (``attention_merge``) reads and
-    turns into o."""
+    turns into o (and lse). ``split``: plan as serving does, splits
+    allowed, even with ``lse`` (training's lse plans unsplit)."""
     flash_check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     kv = skv if kv_len is None else int(kv_len)
-    plan = flash_plan(b, hq, hkv, sq, skv, kv, d, q.dtype, causal, lse, dv)
+    plan = flash_plan(b, hq, hkv, sq, skv, kv, d, q.dtype, causal,
+                      lse and not split, dv)
     o = torch.empty((b, hq, sq, dv), dtype=q.dtype, device="meta")
     lse_t = (torch.empty((b, hq, sq), dtype=torch.float32, device="meta")
              if lse else None)
@@ -672,7 +714,7 @@ def _attention_meta(q, k, v, causal: bool, kv_len, lse: bool = False):
     _tally("attention", 2 * pairs * (d + dv),
            _nbytes(q) + kv_bytes + out_bytes)
     if plan.splits > 1:
-        _tally("attention_merge", 0, ws_bytes + _nbytes(o))
+        _tally("attention_merge", 0, ws_bytes + _nbytes(o, lse_t))
     return (o, lse_t) if lse else o
 
 

@@ -4,13 +4,16 @@ embeddings (tied or not), the cross-entropy and activation
 recomputation.
 
 Counterpart of ``repro.models.common``, its activation-sharding hooks
-included (``set_activation_sharding``, ``sp_constrain``; the
-context-parallel ``ctx_constrain_q`` / ``ctx_replicate_kv`` wait for
-ROADMAP item 14b). On a mesh, each rank runs the model as the
-reference's SPMD partitioner would split it (:class:`TensorParallel`):
-the parameters it reads are its own blocks, and the layers call
-differentiable collectives over the mesh's ``model`` group where the
-blocks meet. Parameters
+included (``set_activation_sharding``, ``sp_constrain``, and the
+context-parallel ``ctx_constrain_q`` / ``ctx_replicate_kv``). On a mesh,
+each rank runs the model as the reference's SPMD partitioner would split
+it (:class:`TensorParallel`): the parameters it reads are its own
+blocks, and the layers call differentiable collectives over the mesh's
+``model`` group where the blocks meet. Serving on a mesh keeps each
+layer's cache as DTensors under the reference's ``cache_specs``
+(:func:`cache_split`, :func:`cache_take`, :func:`cache_write`), and a
+decode over a sequence-sharded cache merges the ranks' partial
+attention by their log-sum-exps (:func:`merge_partials`). Parameters
 are ``nn.Module``s whose tensors keep the reference's layouts
 ((d_in, d_out) weights used as ``x @ w``), so converted weights and the
 functions below compute what the reference computes. The QKV, WO and
@@ -575,7 +578,13 @@ class TensorParallel:
         model-axis block this rank holds as ``w``: the block itself where
         it is that range, else the weight gathered over ``model`` (a
         DTensor redistribution, whose backward reduce-scatters the
-        gradient) and cut."""
+        gradient) and cut. A weight stored replicated (``w`` already
+        whole) is cut, its gradient summed over ``model``."""
+        if self.nm > 1 and w.shape[dim] == total:
+            # stored replicated (the context-parallel layout): the rank's
+            # share of the gradient summed over model, as tp_copy does
+            return _Comm.apply(w, "identity", "all_reduce", self).narrow(
+                dim, lo, hi - lo)
         if shard_range(total, self.nm, self.rank) == (lo, hi):
             return w
         shape = list(w.shape)
@@ -729,6 +738,275 @@ def sp_constrain(x: torch.Tensor) -> torch.Tensor:
     if tp is None or tp.nm == 1 or not tp.sp or x.ndim != 3:
         return x
     return _Comm.apply(x, "split", "gather", tp)
+
+
+# ----------------------------------------------------------------------
+# Context parallelism (the reference's ctx_constrain_q / ctx_replicate_kv)
+# ----------------------------------------------------------------------
+def ctx_parallel_on(cfg: ArchConfig, x: torch.Tensor) -> bool:
+    """True where a self-attention layer on the residual ``x`` takes the
+    context-parallel path: ``cfg.ctx_parallel`` on a model axis over 1
+    and a whole sequence (this rank's block times the model axis under
+    the sequence-parallel residual) that divides over it, the
+    reference's own test (``ctx_constrain_q``)."""
+    tp = _TP
+    if not cfg.ctx_parallel or tp is None or tp.nm == 1:
+        return False
+    s = x.shape[1] * (tp.nm if tp.sp else 1)
+    return s % tp.nm == 0
+
+
+def ctx_constrain_q(x: torch.Tensor) -> torch.Tensor:
+    """(b, s, d) -> this rank's block of the sequence, where the
+    attention's queries are computed: the sequence-parallel residual is
+    that block already; a replicated one is split (backward: the
+    blocks' gradients all-gathered)."""
+    tp = _TP
+    if tp.sp:
+        return x
+    return _Comm.apply(x, "split", "gather", tp)
+
+
+def ctx_replicate_kv(x: torch.Tensor) -> torch.Tensor:
+    """(b, h, s / model, d) keys or values of this rank's block -> the
+    whole sequence on every rank (backward: reduce-scattered, each
+    block's gradient summed over the ranks whose queries read it)."""
+    tp = _TP
+    return _Comm.apply(x.transpose(1, 2), "gather", "reduce_scatter",
+                       tp).transpose(1, 2)
+
+
+def ctx_constrain_out(x: torch.Tensor) -> torch.Tensor:
+    """A context-parallel layer's output block (b, s / model, d) back to
+    the residual's layout: as it is under the sequence-parallel residual,
+    else all-gathered (backward: this rank's block)."""
+    tp = _TP
+    if tp.sp:
+        return x
+    return _Comm.apply(x, "gather", "split", tp)
+
+
+def whole_weight(w: torch.Tensor, dim: int, total: int, dt) -> torch.Tensor:
+    """All ``total`` entries of dimension ``dim`` of a weight whose
+    model-axis block this rank holds as ``w``, in ``dt``: a replicated
+    weight entering through :func:`tp_copy` (its gradient, a partial over
+    the rank's block of the sequence, summed over ``model`` once), a
+    sharded one gathered (:meth:`TensorParallel.take`, backward:
+    reduce-scattered)."""
+    tp = _TP
+    if tp is not None and tp.nm > 1:
+        w = (tp_copy(w) if w.shape[dim] == total
+             else tp.take(w, dim % w.ndim, total, 0, total))
+    return w.to(dt)
+
+
+# ----------------------------------------------------------------------
+# Partial attention over blocks of the keys, and caches on a mesh
+# ----------------------------------------------------------------------
+def combine_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Plain merge of attention over n blocks of the keys: ``o`` (n, b,
+    h, s, d) each block's normalised output, ``lse`` (n, b, h, s) fp32
+    its rows' log-sum-exp (-inf and o 0 for a block without a valid
+    key) -> (b, h, s, d) in o's dtype: ``sum_z w_z o_z / sum_z w_z``,
+    ``w_z = exp(lse_z - max_z lse_z)``, in fp32. :func:`merge_partials`
+    runs it on every rank's pair. A block without a valid key weighs 0,
+    and a row without one in any block comes out 0, not NaN."""
+    m = lse.amax(0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.where(torch.isfinite(lse), torch.exp(lse - m),
+                    torch.zeros_like(lse))
+    num = (o.float() * w[..., None]).sum(0)
+    den = w.sum(0)
+    return (num / torch.where(den == 0, torch.ones_like(den),
+                              den)[..., None]).to(o.dtype)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over every model rank's block of the keys, on every
+    rank, from this rank's ``(o, lse)`` (b, h, s, d) and (b, h, s): every
+    rank's pair all-gathered over ``model`` (a decode step's rows: small)
+    and merged by :func:`combine_partials` (no TPU kernel computes it,
+    the reference gets it from its partitioner). ``o`` without a model
+    axis."""
+    tp = _TP
+    if tp is None or tp.nm == 1:
+        return o
+    pack = torch.cat([o.float().reshape(-1), lse.float().reshape(-1)])
+    out = pack.new_empty((tp.nm * pack.numel(),))
+    _ALL_GATHER(out, pack, group=tp.group)
+    out = out.view(tp.nm, -1)
+    n = o.numel()
+    return combine_partials(out[:, :n].reshape(tp.nm, *o.shape),
+                            out[:, n:].reshape(tp.nm, *lse.shape)
+                            ).to(o.dtype)
+
+
+def rank_ranges(n: int, per: int = 1) -> list:
+    """Every model rank's [lo, hi) of ``n`` heads of ``per`` entries
+    (:func:`rank_heads`), in rank order; one range without a model
+    axis."""
+    tp = _TP
+    if tp is None:
+        return [(0, n * per)]
+    return [(lo * per, hi * per) for lo, hi in
+            (balanced_range(n, tp.nm, r) for r in range(tp.nm))]
+
+
+def gather_part(x: torch.Tensor, axis: int, ranges) -> torch.Tensor:
+    """Dimension ``axis`` whole on every rank from each model rank's
+    ``[lo, hi)`` part of it (``ranges``: every rank's, in rank order;
+    parts may differ in size and overlap, as kv heads shared by two
+    ranks' q heads do): a padded all-gather over ``model``, then the parts
+    placed in rank order (an overlap takes the later rank's copy), so
+    every rank holds the same bytes. Serving only (no backward)."""
+    tp = _TP
+    if tp is None or tp.nm == 1:
+        return x
+    total = max(hi for _, hi in ranges)
+    w = max(hi - lo for lo, hi in ranges)
+    xt = x.movedim(axis, 0)
+    pad = xt.new_zeros((w, *xt.shape[1:]))
+    pad[:xt.shape[0]] = xt
+    out = pad.new_empty((tp.nm * w, *xt.shape[1:]))
+    _ALL_GATHER(out, pad, group=tp.group)
+    whole = xt.new_empty((total, *xt.shape[1:]))
+    for r, (lo, hi) in enumerate(ranges):
+        whole[lo:hi] = out[r * w:r * w + hi - lo]
+    return whole.movedim(0, axis)
+
+
+def cache_local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a cache leaf: a mesh's DTensor's local tensor
+    (written in place), the tensor itself otherwise."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def cache_split(t: torch.Tensor):
+    """``(dim, lo, hi)``: the dimension of a cache leaf that the
+    ``model`` axis splits (its spec from ``cache_specs``) and this rank's
+    range of it; None for a leaf whole on every model rank (or off a
+    mesh)."""
+    tp = _TP
+    if tp is None or not isinstance(t, DTensor):
+        return None
+    pl = t.placements[t.device_mesh.mesh_dim_names.index("model")]
+    if not isinstance(pl, Shard):
+        return None
+    return (pl.dim, *shard_range(t.shape[pl.dim], tp.nm, tp.rank))
+
+
+def cache_take(t: torch.Tensor, axis: int, lo: int, hi: int):
+    """Entries [lo, hi) of dimension ``axis`` of a cache leaf (the other
+    dimensions as this rank holds them): the rank's block where it is
+    that range, a cut of it where the leaf is whole, else the leaf
+    gathered over ``model`` and cut."""
+    if _TP is None:
+        return t.narrow(axis, lo, hi - lo)
+    loc = cache_local(t)
+    split = cache_split(t)
+    if split is None:
+        return loc.narrow(axis, lo, hi - lo)
+    dim, blo, bhi = split
+    if dim == axis and (blo, bhi) == (lo, hi):
+        return loc
+    tp = _TP
+    whole = gather_part(loc, dim, [shard_range(t.shape[dim], tp.nm, r)
+                                   for r in range(tp.nm)])
+    return whole.narrow(axis, lo, hi - lo)
+
+
+def _blocks_in_order(ranges, total: int) -> bool:
+    """True where ``ranges`` are equal, disjoint, in rank order and cover
+    [0, total): each rank's part is its own block."""
+    w = ranges[0][1] - ranges[0][0]
+    return all(r == (i * w, (i + 1) * w) for i, r in enumerate(ranges)) \
+        and ranges[-1][1] == total
+
+
+def _parts_to_seq(loc, src, axis: int, seq_axis: int, start: int,
+                  total_seq: int) -> None:
+    """The heads-to-sequence exchange of a prefill (an all-to-all over
+    ``model``): ``src`` holds this rank's block of dimension ``axis``
+    (every rank's the same size, in rank order) at positions [start,
+    start + n) of ``seq_axis``; the rank sends each rank the positions of
+    that rank's block of the sequence and writes what it receives, every
+    rank's block of ``axis`` side by side, into its block ``loc``."""
+    tp = _TP
+    n = src.shape[seq_axis]
+    blocks = [shard_range(total_seq, tp.nm, r) for r in range(tp.nm)]
+
+    def span(lo, hi):
+        a = max(start, lo)
+        return a, max(0, min(start + n, hi) - a)
+    sends = [span(lo, hi) for lo, hi in blocks]
+    mine_at, mine = sends[tp.rank]
+    xt = src.movedim(seq_axis, 0)
+    inp = torch.cat([xt[a - start:a - start + m] for a, m in sends])
+    ax = axis + 1 if axis < seq_axis else axis
+    out = xt.new_empty((tp.nm * mine, *xt.shape[1:]))
+    dist.all_to_all_single(out, inp.contiguous(),
+                           output_split_sizes=[mine] * tp.nm,
+                           input_split_sizes=[m for _, m in sends],
+                           group=tp.group)
+    if not mine:
+        return
+    got = torch.cat(out.split(mine), dim=ax).movedim(0, seq_axis)
+    lo = blocks[tp.rank][0]
+    loc.narrow(seq_axis, mine_at - lo, mine).copy_(got.to(loc.dtype))
+
+
+def cache_write(t: torch.Tensor, src: torch.Tensor, seq_axis=None,
+                start: int = 0, part=None) -> None:
+    """Write ``src`` into the cache leaf ``t`` in place, cast to its
+    dtype: ``src``'s dimension ``seq_axis`` holds positions ``[start,
+    start + n)`` of ``t``'s (None: ``src`` is all of ``t``). ``part``
+    ``(axis, ranges)``: ``src`` holds only this rank's ``ranges[rank]``
+    of that dimension (``ranges``: every model rank's); else it is
+    whole. The rank writes its block of ``t``: a part as it is where
+    ``t`` splits that dimension at that range, otherwise gathered whole
+    first (:func:`gather_part`), so that every rank holding a replicated
+    leaf writes the same bytes; positions outside the rank's block of a
+    sequence-split leaf are dropped. A sequence-split leaf written from
+    parts that are every rank's own block (kv heads that divide over
+    ``model``) takes the heads-to-sequence all-to-all instead
+    (:func:`_parts_to_seq`). Off a mesh ``src`` is the leaf's own
+    positions, copied in directly."""
+    if _TP is None:
+        if seq_axis is not None:
+            t = t.narrow(seq_axis, start, src.shape[seq_axis])
+        t.copy_(src.to(t.dtype))
+        return
+    loc = cache_local(t)
+    split = cache_split(t)
+    if part is not None:
+        axis, ranges = part
+        tp = _TP
+        mine = ranges[0] if tp is None else ranges[tp.rank]
+        if (split is not None and seq_axis is not None
+                and split[0] == seq_axis and tp.nm > 1
+                and _blocks_in_order(ranges, t.shape[axis])):
+            _parts_to_seq(loc, src, axis, seq_axis, start,
+                          t.shape[seq_axis])
+            return
+        if split is None or split[0] != axis or split[1:] != tuple(mine):
+            src = gather_part(src, axis, ranges)
+        else:
+            split = None                  # src is the block already
+    if seq_axis is not None:
+        n = src.shape[seq_axis]
+        blo, bhi = ((split[1], split[2]) if split and split[0] == seq_axis
+                    else (0, loc.shape[seq_axis]))
+        a, b = max(start, blo), min(start + n, bhi)
+        if a >= b:
+            return
+        src = src.narrow(seq_axis, a - start, b - a)
+        loc = loc.narrow(seq_axis, a - blo, b - a)
+        if split and split[0] == seq_axis:
+            split = None
+    if split is not None:
+        dim, lo, hi = split
+        src = src.narrow(dim, lo, hi - lo)
+    loc.copy_(src.to(loc.dtype))
 
 
 def data_share(x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ from .common import (ArchConfig, Embed, MLP, Norm, apply_mlp, apply_norm,
                      sp_constrain, take_heads, tensor_parallel, tp_copy,
                      tp_state, tp_whole, unembed)
 from . import attention as attn
+from .transformer import write_kv
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -173,11 +174,8 @@ def _dec_layer(cfg: ArchConfig, layer: DecBlock, x: torch.Tensor,
                             kv=(ck, cv))
     x = x + o
     if cache is not None:
-        s = k.shape[2]
-        cache["k"][:, :, :s] = k.to(torch.bfloat16)
-        cache["v"][:, :, :s] = v.to(torch.bfloat16)
-        cache["ck"].copy_(ck)
-        cache["cv"].copy_(cv)
+        write_kv(cfg, cache, "k", "v", (k, v))
+        write_kv(cfg, cache, "ck", "cv", (ck, cv))
     h = apply_norm(cfg, layer.norm2, x)
     return apply_mlp(cfg, layer.ffn, h, residual=x)
 
@@ -222,17 +220,19 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int,
 
 
 def prefill(cfg: ArchConfig, params: EncDec, batch: Dict[str, Any],
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, cache: Optional[Cache] = None):
     """Encode ``batch["enc_embeds"]``, run the decoder over
     ``batch["tokens"]`` and fill a new bf16 cache of ``cache_len`` slots
-    (the cross-attention's keys and values at the encoder's length).
-    Returns (last-position logits, cache, fill)."""
+    (the cross-attention's keys and values at the encoder's length), or
+    the given empty ``cache`` (the mesh's). Returns (last-position
+    logits, cache, fill)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache_len = cache_len or s
     enc = encode(cfg, params, batch["enc_embeds"])
-    cache = init_cache(cfg, b, cache_len, torch.bfloat16, tokens.device,
-                       enc_seq=enc.shape[1])
+    if cache is None:
+        cache = init_cache(cfg, b, cache_len, torch.bfloat16, tokens.device,
+                           enc_seq=enc.shape[1])
     x = _embed_at(cfg, params, tokens, 0)
     for layer, c in zip(params.dec_layers, cache):
         x = _dec_layer(cfg, layer, x, enc, c)
@@ -246,17 +246,14 @@ def decode_step(cfg: ArchConfig, params: EncDec, tokens: torch.Tensor,
     """tokens: (b, s_new) -> (logits (b, s_new, vocab), cache). The
     self-attention's new keys and values are written into ``cache`` in
     place at ``fill``; the cross-attention reads the cached encoder keys
-    and values in the compute dtype."""
-    dt = cfg.cdtype
+    and values in the compute dtype (:func:`attention.cross_decode`)."""
     x = _embed_at(cfg, params, tokens, fill)
     for layer, c in zip(params.dec_layers, cache):
         h = apply_norm(cfg, layer.norm1, x)
         o, _ = attn.gqa_decode(cfg, layer.self_attn, h, None, c, fill)
         x = x + o
         h = apply_norm(cfg, layer.norm_x, x)
-        o, _ = attn.gqa_forward(cfg, layer.cross_attn, h, None, causal=False,
-                                kv=(c["ck"].to(dt), c["cv"].to(dt)))
-        x = x + o
+        x = x + attn.cross_decode(cfg, layer.cross_attn, h, c)
         h = apply_norm(cfg, layer.norm2, x)
         x = apply_mlp(cfg, layer.ffn, h, residual=x)
     h = apply_norm(cfg, params.dec_norm, x)

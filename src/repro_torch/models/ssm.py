@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
-from .common import (ArchConfig, _param, dense_init, rank_heads, rmsnorm,
+from .common import (ArchConfig, _param, cache_local, cache_take,
+                     cache_write, dense_init, rank_heads, rank_ranges,
                      rmsnorm_split, take_heads, tp_copy, tp_exit, tp_whole)
 
 
@@ -156,31 +157,52 @@ def ssm_decode(cfg: ArchConfig, p: SSM, u: torch.Tensor, cache):
     """One recurrent step. u: (bsz, 1, d) -> ((bsz, 1, d), cache): the
     state advances by s <- exp(dt A) s + dt B (x) x in fp32 and the conv
     tails shift by one row, both written into ``cache`` in place (the
-    tails cast to its dtype)."""
+    tails cast to its dtype).
+
+    On a mesh's model axis the rank steps its SSD heads, as
+    :func:`ssm_forward` splits them: the state's heads and the x conv
+    tail's channels of d_inner are its own (``cache_specs`` splits them
+    over ``model``; a leaf left whole is cut, and every rank writes the
+    same bytes back into it), B, C and their tails are whole on every
+    rank, the gated norm normalises over all of d_inner and ``wo`` is
+    row-parallel."""
     cdt = cfg.cdtype
     bsz = u.shape[0]
     di, nh, dh = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
+    lo, hi = rank_heads(nh)
+    heads = (1, rank_ranges(nh))
+    chans = (2, rank_ranges(nh, dh))
+
+    def own(w, per_head: int, dt, dim: int = -1):
+        return take_heads(w, dim, nh, per_head, lo, hi, dt)
+
     u1 = u.to(cdt)[:, 0]
-    z = u1 @ p.wz.to(cdt)
-    hist = [torch.cat([cache[c].to(cdt), (u1 @ w.to(cdt))[:, None]], 1)
-            for c, w in (("cx", p.wx), ("cb", p.wb), ("cc", p.wc))]
-    x, B, C = (_conv_step(w.to(cdt), b.to(cdt), h) for w, b, h in zip(
-        (p.conv_x, p.conv_b, p.conv_c), (p.conv_x_b, p.conv_b_b, p.conv_c_b),
+    z = u1 @ own(p.wz, dh, cdt)
+    tails = {"cx": cache_take(cache["cx"], 2, lo * dh, hi * dh),
+             "cb": cache_local(cache["cb"]), "cc": cache_local(cache["cc"])}
+    hist = [torch.cat([tails[c].to(cdt), (u1 @ w)[:, None]], 1)
+            for c, w in (("cx", own(p.wx, dh, cdt)), ("cb", p.wb.to(cdt)),
+                         ("cc", p.wc.to(cdt)))]
+    x, B, C = (_conv_step(w, b, h) for w, b, h in zip(
+        (own(p.conv_x, dh, cdt), p.conv_b.to(cdt), p.conv_c.to(cdt)),
+        (own(p.conv_x_b, dh, cdt), p.conv_b_b.to(cdt), p.conv_c_b.to(cdt)),
         hist))
-    dt = softplus((u1 @ p.wdt.to(cdt)).float() + p.dt_bias.float())
-    A = -torch.exp(p.A_log.float())
+    dt = softplus((u1 @ own(p.wdt, 1, cdt)).float()
+                  + own(p.dt_bias, 1, torch.float32))
+    A = -torch.exp(own(p.A_log, 1, torch.float32))
     # the recurrence: s <- e^{dt A} s + dt B (outer) x; y = C . s
     decay = torch.exp(dt * A)                                    # (bsz, nh)
-    xh = x.reshape(bsz, nh, dh).float()
+    xh = x.reshape(bsz, hi - lo, dh).float()
     upd = dt[..., None] * xh                                     # (bsz,nh,dh)
-    s = decay[..., None, None] * cache["s"] + \
+    s = decay[..., None, None] * cache_take(cache["s"], 1, lo, hi) + \
         B.float()[:, None, :, None] * upd[:, :, None, :]
     y = torch.einsum("bn,bhnd->bhd", C.float(), s)
-    y = y + p.D.float()[None, :, None] * xh
-    y = y.reshape(bsz, di).to(cdt)
-    y = rmsnorm(y * F.silu(z), p.norm)
-    out = (y @ p.wo.to(cdt))[:, None]
-    cache["s"].copy_(s)
-    for c, h in zip(("cx", "cb", "cc"), hist):
-        cache[c].copy_(h[:, 1:])
+    y = y + own(p.D, 1, torch.float32)[None, :, None] * xh
+    y = y.reshape(bsz, (hi - lo) * dh).to(cdt)
+    y = rmsnorm_split(y * F.silu(z), own(p.norm, dh, torch.float32), di)
+    out = tp_exit(y @ own(p.wo, dh, cdt, dim=0))[:, None]
+    cache_write(cache["s"], s, part=heads)
+    cache_write(cache["cx"], hist[0][:, 1:], part=chans)
+    for c, h in zip(("cb", "cc"), hist[1:]):
+        cache_write(cache[c], h[:, 1:])
     return out, cache

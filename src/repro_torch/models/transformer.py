@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from .common import (ArchConfig, Embed, Norm, _param, apply_mlp, apply_norm,
-                     check_ported, chunked_xent, data_share, embed_params,
+                     cache_write, check_ported, chunked_xent, data_share,
+                     embed_params, rank_ranges,
                      embed_tokens, make_generator, mlp_params, norm_params,
                      remat_wrap, sp_constrain, unembed)
 from . import attention as attn
@@ -265,26 +266,46 @@ def decode_step(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
     return unembed(cfg, params.embed, h), cache
 
 
-def _write_cache(c: Dict[str, torch.Tensor], entries, s: int) -> None:
+def _write_cache(cfg: ArchConfig, c: Dict[str, torch.Tensor],
+                 entries) -> None:
     """A prefilled layer's cache entries, in the cache's dtypes: into the
     first s slots (k, v) (b, hkv, s, hd) for GQA, (c_kv (b, s, r), k_rope
     (b, 1, s, dr)) for MLA, in bf16; a Mamba-2 layer's dict as a whole,
-    the state staying fp32 and the conv tails cast to bf16."""
+    the state staying fp32 and the conv tails cast to bf16. On a mesh
+    each rank writes its block of each leaf as ``cache_specs`` places it
+    (:func:`~.common.cache_write`): the entries are the rank's kv heads
+    (GQA's head split), SSD heads and d_inner channels (the state, the x
+    conv tail), or whole (MLA's latent, B and C's tails, the
+    context-parallel k and v), and a part is exchanged where the leaf
+    splits another dimension."""
     if "s" in c:
-        for k, v in entries.items():
-            c[k].copy_(v)
+        nh, dh = cfg.ssm_heads, cfg.ssm_headdim
+        cache_write(c["s"], entries["s"], part=(1, rank_ranges(nh)))
+        cache_write(c["cx"], entries["cx"], part=(2, rank_ranges(nh, dh)))
+        for name in ("cb", "cc"):
+            cache_write(c[name], entries[name])
     elif "c_kv" in c:
         c_kv, k_rope = entries
-        c["c_kv"][:, :s] = c_kv.to(torch.bfloat16)
-        c["k_rope"][:, :, :s] = k_rope.to(torch.bfloat16)
+        cache_write(c["c_kv"], c_kv, 1, 0)
+        cache_write(c["k_rope"], k_rope, 2, 0)
     else:
-        k, v = entries
-        c["k"][:, :, :s] = k.to(torch.bfloat16)
-        c["v"][:, :, :s] = v.to(torch.bfloat16)
+        write_kv(cfg, c, "k", "v", entries)
+
+
+def write_kv(cfg: ArchConfig, c: Dict[str, torch.Tensor], kname: str,
+             vname: str, kv) -> None:
+    """Prefilled GQA keys and values (b, heads, s, hd) into the cache's
+    first s slots: the rank's kv heads (:func:`attention.gqa_heads`), or
+    every head."""
+    k, v = kv
+    part = (None if k.shape[1] == cfg.n_kv_heads
+            else (1, attn.gqa_head_ranges(cfg)))
+    cache_write(c[kname], k, 2, 0, part=part)
+    cache_write(c[vname], v, 2, 0, part=part)
 
 
 def prefill(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any],
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, cache: Optional[Cache] = None):
     """Full-sequence forward that also fills a new cache of ``cache_len``
     slots. Returns (last-position logits, cache, fill). With
     ``cfg.prefill_microbatch`` mb > 1 dividing the batch, the requests are
@@ -292,11 +313,13 @@ def prefill(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any],
     batch, as the reference's chunked prefill does (each batch row is its
     own MoE routing group, so the chunks compute what one batch would;
     every cache leaf, a Mamba-2 state included, has the batch first).
-    ``pos3`` (3, b, s) is split along its batch axis, 1."""
+    ``pos3`` (3, b, s) is split along its batch axis, 1. ``cache``: an
+    empty cache to fill instead (the mesh's, its leaves DTensors under
+    ``cache_specs``; in one piece)."""
     mb = max(1, cfg.prefill_microbatch)
     b = batch["tokens"].shape[0]
-    if mb == 1 or b % mb:
-        return _prefill_impl(cfg, params, batch, cache_len)
+    if mb == 1 or b % mb or cache is not None:
+        return _prefill_impl(cfg, params, batch, cache_len, cache)
     parts = [_prefill_impl(cfg, params, {
         k: v.chunk(mb, dim=1 if k == "pos3" else 0)[i]
         for k, v in batch.items()}, cache_len) for i in range(mb)]
@@ -307,13 +330,15 @@ def prefill(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any],
 
 
 def _prefill_impl(cfg: ArchConfig, params: Transformer,
-                  batch: Dict[str, Any], cache_len: Optional[int] = None):
+                  batch: Dict[str, Any], cache_len: Optional[int] = None,
+                  cache: Optional[Cache] = None):
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache_len = cache_len or s
     x = embed_inputs(cfg, params, batch)
     pos = positions(cfg, batch)
-    cache = init_cache(cfg, b, cache_len, torch.bfloat16, tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, b, cache_len, torch.bfloat16, tokens.device)
     aux = None
     for layer, c in zip(params.layers, cache):
         h = apply_norm(cfg, layer.norm1, x)
@@ -322,7 +347,7 @@ def _prefill_impl(cfg: ArchConfig, params: Transformer,
                                              return_state=True)
         else:
             o, entries = _mixer_forward(cfg, layer.mixer, h, pos)
-        _write_cache(c, entries, s)
+        _write_cache(cfg, c, entries)
         x, aux = _apply_ffn(cfg, layer, x + o, aux)
     h = apply_norm(cfg, params.final_norm, x)
     logits = unembed(cfg, params.embed, h[:, -1:])

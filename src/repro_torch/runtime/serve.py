@@ -29,6 +29,7 @@ bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional
@@ -37,7 +38,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import ExecutionPolicy, Executor, Program
-from repro_torch.models import ArchConfig, Model
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import ArchConfig, Model, encdec, transformer
+from repro_torch.models.attention import (GQA_LATENT_ITEM,
+                                           gqa_cache_by_head_dim)
+from repro_torch.models.common import TensorParallel, tensor_parallel
+from .train import check_mesh, local_batch, local_params
 
 
 @dataclasses.dataclass
@@ -286,3 +292,126 @@ class Server:
                 "prefill_s": prefill_s,
                 "decode_s": decode_s,
                 "decode_tok_per_s": (steps * b / decode_s) if decode_s else 0.0}
+
+
+# ----------------------------------------------------------------------
+# Prefill and decode steps on a mesh
+# ----------------------------------------------------------------------
+def check_mesh_serve(cfg: ArchConfig, mesh) -> None:
+    """Refuse what the mesh steps do not do: what the train step refuses
+    (``runtime.train.check_mesh``), and a GQA cache split by head_dim
+    (``cache_shard="latent"`` where head_dim divides over ``model``),
+    which no flash call can contract."""
+    check_mesh(cfg, mesh)
+    attn = cfg.encoder_decoder or any(
+        k.startswith("attn") for k in transformer.layer_schedule(cfg)[1])
+    if attn and gqa_cache_by_head_dim(cfg, shd.axis_sizes(mesh)["model"]):
+        raise NotImplementedError(f"{cfg.name}: {GQA_LATENT_ITEM}")
+
+
+def mesh_cache(cfg: ArchConfig, mesh, batch: int, seq: int, device,
+               enc_seq: Optional[int] = None) -> list:
+    """An empty cache of ``seq`` slots for a global ``batch`` on ``mesh``:
+    each layer's dict of bf16 DTensors (the Mamba-2 state fp32) under the
+    reference's ``cache_specs`` (``sharding.layer_cache_specs``), each
+    rank allocating only its block."""
+    if cfg.encoder_decoder:
+        shapes = encdec.init_cache(cfg, batch, seq, torch.bfloat16, "meta",
+                                   enc_seq=enc_seq)
+    else:
+        shapes = transformer.init_cache(cfg, batch, seq, torch.bfloat16,
+                                        "meta")
+    specs = shd.layer_cache_specs(mesh, shapes, cfg)
+    coord = list(mesh.get_coordinate())
+    out = []
+    for layer, lspec in zip(shapes, specs):
+        leaves = {}
+        for name, t in layer.items():
+            pl = shd.placements(lspec[name], mesh)
+            sl = shd.local_slices(t.shape, pl, mesh.shape, coord)
+            local = torch.zeros([s.stop - s.start for s in sl],
+                                dtype=t.dtype, device=device)
+            leaves[name] = shd.as_dtensor(local, mesh, pl, t.shape)
+        out.append(leaves)
+    return out
+
+
+def _mesh_context(cfg: ArchConfig, mesh, params):
+    """The serving step's context on ``mesh``: no gradients, the model's
+    layers as this rank (:class:`~repro_torch.models.common.
+    TensorParallel`, the residual replicated: serving never shards it),
+    the parameters read as this rank's blocks."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.no_grad())
+    stack.enter_context(tensor_parallel(TensorParallel(mesh, sp=False)))
+    stack.enter_context(local_params(params, {
+        n: p.to_local() for n, p in params.named_parameters()}))
+    return stack
+
+
+def _mesh_logits(cfg: ArchConfig, mesh, logits: torch.Tensor,
+                 batch: int):
+    """This rank's logits (b, ..., its block of the vocabulary) as a
+    DTensor of the global batch: the batch over the data axes where it
+    divides, the vocabulary over ``model`` (the reference's
+    ``P(data, "model")`` / ``P(data, None, "model")``)."""
+    da = shd._data_axes(mesh)
+    bspec = da if batch % shd._axes_size(mesh, da) == 0 else None
+    spec = shd.P(bspec, *([None] * (logits.ndim - 2)), "model")
+    shape = (batch, *logits.shape[1:-1], cfg.padded_vocab)
+    return shd.as_dtensor(logits.contiguous(), mesh,
+                          shd.placements(spec, mesh), shape)
+
+
+def build_mesh_prefill_fn(cfg: ArchConfig, mesh):
+    """The prefill step on a ``(data, model)`` or ``(pod, data, model)``
+    mesh, the counterpart of the reference's dry-run ``prefill_step``:
+    ``prefill_fn(params, batch, cache_len=None)`` with ``params`` a
+    module of DTensor parameters (``shard_params`` under
+    ``named_param_specs``) and the global ``batch``; each rank takes its
+    block of the batch (``batch_specs``) and returns ``(logits, cache,
+    fill)``: the last position's logits as a DTensor, the batch over the
+    data axes and the vocabulary over ``model``, and the cache, each
+    layer's leaves DTensors under ``cache_specs`` (:func:`mesh_cache`).
+    The layers run tensor-parallel over ``model`` as in training (GQA
+    self-attention context-parallel with ``cfg.ctx_parallel``), each
+    handing its cache entries out in the cache's layout (a GQA prefill's
+    kv heads exchanged into the sequence blocks of a ``"seq"`` cache)."""
+    check_mesh_serve(cfg, mesh)
+    model = Model(cfg)
+
+    def prefill_fn(params, batch, cache_len: Optional[int] = None):
+        dev = next(params.parameters()).to_local().device
+        b, s = batch["tokens"].shape
+        lb = {k: v.to(dev) for k, v in local_batch(mesh, batch).items()}
+        enc = batch["enc_embeds"].shape[1] if cfg.encoder_decoder else None
+        cache = mesh_cache(cfg, mesh, b, cache_len or s, dev, enc)
+        with _mesh_context(cfg, mesh, params):
+            logits, cache, fill = model._mod.prefill(cfg, params, lb,
+                                                     cache_len, cache=cache)
+        return _mesh_logits(cfg, mesh, logits, b), cache, fill
+
+    return prefill_fn
+
+
+def build_mesh_decode_fn(cfg: ArchConfig, mesh):
+    """The decode step on a mesh, the counterpart of the reference's
+    dry-run ``serve_step``: ``decode_fn(params, tokens, cache, fill)``
+    with the global ``tokens`` (b, s_new) and the cache of
+    :func:`build_mesh_prefill_fn` (or :func:`mesh_cache`), updated in
+    place (the reference donates it) and returned beside the logits
+    (b, s_new, vocab), a DTensor as prefill's. ``cfg.mla_absorb``
+    selects MLA's absorbed form, as the reference's step does."""
+    check_mesh_serve(cfg, mesh)
+    model = Model(cfg)
+
+    def decode_fn(params, tokens, cache, fill: int):
+        dev = next(params.parameters()).to_local().device
+        spec = shd.batch_specs(mesh, {"tokens": tokens})["tokens"]
+        lt = shd.local_part(tokens, spec, mesh).to(dev)
+        with _mesh_context(cfg, mesh, params):
+            logits, cache = model.decode(params, lt, cache, fill,
+                                         absorbed_mla=cfg.mla_absorb)
+        return _mesh_logits(cfg, mesh, logits, tokens.shape[0]), cache
+
+    return decode_fn

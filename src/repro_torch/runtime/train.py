@@ -35,7 +35,11 @@ axes onto its optimizer slice (a reduce-scatter); the clip's global norm
 sums every block once; each rank updates its slice, and the new
 parameters are all-gathered over the data axes. Checkpoints hold the
 reference's stacked layout of the whole state, written by rank 0.
-``ctx_parallel`` on a model axis waits for ROADMAP item 14b.
+With ``cfg.ctx_parallel`` GQA self-attention is context-parallel over
+``model`` (``models/attention.py``), its projections stored replicated
+(``ctx_replicate_weights``, the reference's default) or sharded and
+gathered each layer; their optimizer state keeps the sharded specs
+(ZeRO-1 over ``opt_state_specs``, as the reference's dry run places it).
 """
 from __future__ import annotations
 
@@ -145,14 +149,10 @@ def build_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig):
 # ----------------------------------------------------------------------
 # The step on a mesh
 # ----------------------------------------------------------------------
-ITEM_14B = ("ROADMAP queue 1 item 14b: ctx_parallel (context-parallel "
-            "attention) on a model axis")
-
-
 def check_mesh(cfg: ArchConfig, mesh) -> None:
-    """Refuse what the mesh step does not do: ``ctx_parallel`` on a model
-    axis over 1, and a model axis that leaves a rank without work: fewer
-    attention heads or SSD heads than ranks (they split evenly), or an
+    """Refuse what the mesh step does not do: a model axis that leaves a
+    rank without work: fewer attention heads or SSD heads than ranks
+    (they split evenly), or an
     empty stored block of the experts, of the SSD heads, of d_ff (where a
     layer has an MLP), of the shared experts' d_ff_expert or of the
     vocabulary (``torch.chunk``'s blocks, whose last ones may be
@@ -160,10 +160,6 @@ def check_mesh(cfg: ArchConfig, mesh) -> None:
     nm = shd.axis_sizes(mesh)["model"]
     if nm == 1:
         return
-    if cfg.ctx_parallel:
-        raise NotImplementedError(
-            f"{cfg.name} (ctx_parallel) on a model axis of {nm}: not "
-            f"ported ({ITEM_14B}); train it on a (n, 1) mesh")
     kinds = ({"attn_mlp"} if cfg.encoder_decoder
              else set(layer_schedule(cfg)[0]))
     attn = any(k.startswith("attn") for k in kinds)
@@ -199,7 +195,7 @@ def grad_placements(mesh, pl) -> list:
 
 
 @contextlib.contextmanager
-def _local_params(module: torch.nn.Module, local: Mapping[str, Any]):
+def local_params(module: torch.nn.Module, local: Mapping[str, Any]):
     """``module``'s parameters read as ``local``'s tensors (this rank's
     blocks) inside the block, as the model's functions read them."""
     saved = []
@@ -277,7 +273,7 @@ def build_mesh_grad_fn(cfg: ArchConfig, mesh):
             for mb in micro:
                 local = {n: p.to_local(grad_placements=gpl[n])
                          for n, p in named.items()}
-                with _local_params(params, local):
+                with local_params(params, local):
                     loss, metrics = model.loss(params, mb)
                     grads = torch.autograd.grad(loss, list(named.values()))
                 del local

@@ -2208,3 +2208,191 @@ def test_one_rank_nccl_mesh_step_matches_the_plain_step(cuda, tmp_path):
         want = p.detach().float()
         diff = (got[n].float() - want).abs()
         assert bool((diff <= 2 * lr2 + 2.0 ** -7 * want.abs()).all()), n
+
+
+# ----------------------------------------------------------------------
+# Context and cache parallelism: the split merge's lse, the rectangular
+# causal shapes, the mesh serving steps on one rank
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,skv,kv_len", [(4, 4000, 4000), (2, 3000, 1777)])
+def test_merge_lse_of_a_split_decode(cuda, dtype, b, skv, kv_len):
+    """A decode step whose plan splits the keys: with lse the merge writes
+    each row's log-sum-exp beside o (``flash_attention_cuda(lse=True)``
+    on a split plan), held against ``flash_lse_plain``; o keeps the bits
+    of the call without lse; the merge alone with lse
+    (``flash_merge_cuda``) gives the same o and lse and agrees with
+    ``flash_merge_plain(lse=True)``."""
+    dt = getattr(torch, dtype)
+    q = _t((b, 32, 1, 128), cuda, 0.3).to(dt)
+    k = _t((b, 8, skv, 128), cuda, 0.3).to(dt)
+    v = _t((b, 8, skv, 128), cuda).to(dt)
+    plan = tfa.flash_plan(b, 32, 8, 1, skv, kv_len, 128, dt, True)
+    assert plan.splits > 1
+    o, lse = tfa.flash_attention_cuda(q, k, v, kv_len=kv_len, plan=plan,
+                                      lse=True)
+    o_plain = tfa.flash_attention_cuda(q, k, v, kv_len=kv_len, plan=plan)
+    assert torch.equal(o, o_plain)
+    torch.testing.assert_close(lse, tfa.flash_lse_plain(q, k, kv_len=kv_len),
+                               rtol=1e-5, atol=1e-4)
+    ws, mo = tfa.flash_attention_cuda(q, k, v, kv_len=kv_len, plan=plan,
+                                      partials=True)
+    buf = torch.empty_like(lse)
+    mo, mlse = tfa.flash_merge_cuda(ws, mo, plan.splits, buf)
+    assert torch.equal(mo, o) and torch.equal(mlse, lse)
+    want_o, want_lse = tfa.flash_merge_plain(ws, plan.splits, b, 32, 1, 128,
+                                             dt, lse=True)
+    torch.testing.assert_close(mo.float(), want_o.float(),
+                               rtol=1e-2 if dtype == "bfloat16" else 1e-5,
+                               atol=1e-2 if dtype == "bfloat16" else 1e-5)
+    torch.testing.assert_close(mlse, want_lse, rtol=1e-6, atol=1e-5)
+    with pytest.raises(ValueError, match="partials"):
+        tfa.flash_attention_cuda(q, k, v, kv_len=kv_len, plan=plan,
+                                 partials=True, lse=True)
+
+
+@pytest.mark.parametrize("sq", [1, 2])
+def test_merge_lse_blocks_of_a_sharded_cache(cuda, sq):
+    """A decode step over a cache cut into 8 blocks of 1024 slots, as a
+    sequence-sharded cache's ranks hold it, filled to 6.5 blocks (the
+    last one empty), block z's keys scaled by 0.5 (z + 1) so that the
+    blocks' lse differ by units: each block's (o, lse) by
+    ``attend_block`` (split plans: the merge writes lse) merged by
+    ``combine_partials`` (``merge_partials``' body) equals the plain
+    attention over the whole cache within two bf16 epsilons of max|o|,
+    and the logsumexp of the blocks' lse is ``flash_lse_plain``'s."""
+    from repro_torch.models.attention import attend_block
+    from repro_torch.models.common import combine_partials
+    dt, blk, fill = torch.bfloat16, 1024, 6656
+    scale = (0.5 * torch.arange(1, 9, device=cuda)).repeat_interleave(blk)
+    q = _t((4, 32, sq, 128), cuda).to(dt)
+    k = (_t((4, 8, 8 * blk, 128), cuda) * scale[:, None]).to(dt)
+    v = _t((4, 8, 8 * blk, 128), cuda).to(dt)
+    ops.reset_launches()
+    parts = [attend_block(q, k[:, :, lo:lo + blk], v[:, :, lo:lo + blk],
+                          lo, lo + blk, fill - sq)
+             for lo in range(0, 8 * blk, blk)]
+    assert ops.launches()["attention_merge"] >= 6
+    lse = torch.stack([p[1] for p in parts])
+    assert torch.isneginf(lse[-1]).all()
+    top = lse[:7].amax(dim=(1, 2, 3))
+    assert float(top.max() - top.min()) > 2, top
+    got = combine_partials(torch.stack([p[0] for p in parts]), lse)
+    want = tfa.flash_attention_plain(q, k, v, kv_len=fill)
+    assert torch.isfinite(got).all()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -6 * float(want.float().abs().max()), err
+    want_lse = tfa.flash_lse_plain(q, k, kv_len=fill)
+    torch.testing.assert_close(torch.logsumexp(lse, 0), want_lse, rtol=0,
+                               atol=1e-4 * (1 + float(want_lse.abs().max())))
+
+
+@pytest.mark.parametrize("sq,skv", [(64, 64), (64, 128), (64, 256),
+                                    (100, 300)])
+def test_ctx_parallel_rectangular_causal_forward_and_backward(cuda, sq,
+                                                               skv):
+    """A context-parallel rank's shapes: its query block against the keys
+    up to the end of its block, the causal diagonal bottom-right. The
+    forward with lse against the plain versions, the backward's dQ, dK,
+    dV by relative L2 against ``flash_attention_bwd_plain`` (bf16,
+    32 / 8 heads)."""
+    dt = torch.bfloat16
+    q = _t((1, 32, sq, 128), cuda, 0.5).to(dt)
+    k = _t((1, 8, skv, 128), cuda, 0.5).to(dt)
+    v = _t((1, 8, skv, 128), cuda).to(dt)
+    do = _t((1, 32, sq, 128), cuda).to(dt)
+    plan = tfa.flash_plan(1, 32, 8, sq, skv, skv, 128, dt, True, lse=True)
+    o, lse = tfa.flash_attention_cuda(q, k, v, plan=plan, lse=True)
+    torch.testing.assert_close(o.float(), tfa.flash_attention_plain(
+        q, k, v).float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, tfa.flash_lse_plain(q, k), rtol=1e-5,
+                               atol=1e-4)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel < 5e-2, rel
+
+
+def test_ctx_parallel_attention_return_lse_counts_its_launches(cuda):
+    """``ops.attention(return_lse=True)`` on the card: the kernel's (o,
+    lse), the merge counted where the plan splits, nothing launched for
+    kv_len 0 (refused)."""
+    dt = torch.bfloat16
+    q = _t((4, 32, 1, 128), cuda, 0.3).to(dt)
+    k = _t((4, 8, 4096, 128), cuda, 0.3).to(dt)
+    v = _t((4, 8, 4096, 128), cuda).to(dt)
+    ops.reset_launches()
+    o, lse = ops.attention(q, k, v, kv_len=4000, return_lse=True)
+    n = ops.launches()
+    assert n["attention"] == 1 and n["attention_merge"] == 1
+    torch.testing.assert_close(o.float(), tfa.flash_attention_plain(
+        q, k, v, kv_len=4000).float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, tfa.flash_lse_plain(q, k, kv_len=4000),
+                               rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="kv_len 0"):
+        ops.attention(q, k, v, kv_len=0, return_lse=True)
+    assert ops.launches() == n
+
+
+def test_ctx_parallel_one_rank_nccl_mesh_serving(cuda, tmp_path):
+    """``build_mesh_prefill_fn`` / ``build_mesh_decode_fn`` on a 1-rank
+    NCCL mesh (the cache split by the sequence over the 1-rank model
+    axis): a card-legal reduced llama3-8b in bf16, prompt 100 into a
+    cache of 200, steps of 1, 2 and 1 tokens, against ``Model.prefill`` /
+    ``decode`` from the same weights: the same launches, logits and
+    every cache leaf within one bf16 rounding."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import Model
+    from repro_torch.runtime.serve import (build_mesh_decode_fn,
+                                           build_mesh_prefill_fn)
+    cfg = _card_legal("llama3-8b")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 100)),
+                           device=cuda)
+    steps = [torch.as_tensor(rng.integers(0, cfg.vocab, (2, n)),
+                             device=cuda) for n in (1, 2, 1)]
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+
+    def run(prefill, decode, whole):
+        ops.reset_launches()
+        logits, cache, fill = prefill()
+        out = [whole(logits)]
+        for t in steps:
+            logits, cache = decode(t, cache, fill)
+            fill += t.shape[1]
+            out.append(whole(logits))
+        return out, [{k: whole(v) for k, v in c.items()} for c in cache], \
+            ops.launches()
+    with torch.no_grad():
+        want = run(lambda: model.prefill(params, {"tokens": toks},
+                                         cache_len=200),
+                   lambda t, c, f: model.decode(params, t, c, f),
+                   lambda x: x)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh_for(1)
+        shd.shard_params(params, mesh, shd.named_param_specs(
+            cfg, dict(params.named_parameters())))
+        pre, dec = build_mesh_prefill_fn(cfg, mesh), build_mesh_decode_fn(
+            cfg, mesh)
+        got = run(lambda: pre(params, {"tokens": toks}, 200),
+                  lambda t, c, f: dec(params, t, c, f),
+                  lambda x: x.full_tensor())
+    finally:
+        dist.destroy_process_group()
+    assert got[2] == want[2] and got[2]["attention"] > 0
+    for g, w in zip(got[0], want[0]):
+        torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
+                                   atol=1e-2)
+    for gc_, wc in zip(got[1], want[1]):
+        for k in wc:
+            torch.testing.assert_close(gc_[k].float(), wc[k].float(),
+                                       rtol=2 ** -7, atol=1e-3)

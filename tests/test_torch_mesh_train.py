@@ -16,8 +16,9 @@ config whose 6 heads of 16 split unevenly over 4 ranks (q heads 2, 2, 1,
 1; one rank's q heads reading two kv heads), with qkv biases, tied
 embeddings and the chunked cross-entropy on (1, 4); reduced
 ``mamba2-1.3b`` on (4, 1) (data-parallel with ZeRO-1) against its
-single-device step; what a model axis still refuses (ctx_parallel, and
-too few heads, experts or SSD heads for it); and the launcher under
+single-device step; what a model axis still refuses (too few heads,
+experts or SSD heads for it; a GQA decode cache split by head_dim);
+and the launcher under
 ``torchrun`` on a 2 x 2 CPU mesh, reduced llama3-8b and mamba2-1.3b. The
 other families' model axis is in ``test_torch_mesh_families.py``.
 
@@ -256,15 +257,18 @@ def test_mesh_gradients_match_jax_grad(request, case):
 
 
 def test_model_axis_outside_dense_is_refused(world4):
-    """Since every family splits over ``model``, only ctx_parallel (ROADMAP
-    item 14b) and a model axis that leaves a rank without heads, experts
-    or SSD heads are refused; reduced mamba2 and jamba build on (2, 2)."""
-    ssm, ctx, hybrid, narrow, experts, ssd = world4["refusals"]
-    assert ssm is None and hybrid is None
-    assert ctx is not None and "item 14b" in ctx
+    """Since every family splits over ``model`` and ctx_parallel is
+    context-parallel attention (``test_torch_ctx_parallel.py``), the
+    train step refuses only a model axis that leaves a rank without
+    heads, experts or SSD heads; reduced mamba2, jamba and a dense
+    config with ctx_parallel build on (2, 2). The mesh decode step
+    refuses a GQA cache split by head_dim (ROADMAP item 14b)."""
+    ssm, ctx, hybrid, narrow, experts, ssd, latent = world4["refusals"]
+    assert ssm is None and hybrid is None and ctx is None
     assert narrow is not None and "n_heads 2" in narrow
     assert experts is not None and "n_experts 3" in experts
     assert ssd is not None and "ssm_heads 2" in ssd
+    assert latent is not None and "item 14b" in latent
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-1.3b"])

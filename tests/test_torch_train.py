@@ -42,6 +42,8 @@ from repro_torch.models.convert import (from_reference, named_from_reference,
                                         to_reference)
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.runtime import TrainConfig, Trainer, build_step_fn
+from repro_torch.runtime.serve import check_mesh_serve
+from repro_torch.runtime.train import make_train_step
 
 ARCH = "mamba2-1.3b"
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
@@ -392,14 +394,15 @@ def test_straggler_watchdog_counts(tmp_path, monkeypatch):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, tc = _cfgs()
-    # the mesh is ported (slice G), every family's model axis too;
-    # ctx_parallel on a model axis is not (item 14b)
+    # the mesh is ported (slice G), every family's model axis too, and
+    # ctx_parallel on a model axis; serving with a GQA cache split by
+    # head_dim is not (item 14b)
     mesh = types.SimpleNamespace(device_type="cpu", shape=(1, 2),
                                  mesh_dim_names=("data", "model"))
+    make_train_step(tc.scaled(ctx_parallel=True), AdamWConfig(), mesh)
+    dense = tconfigs.get_reduced("llama3-8b").scaled(cache_shard="latent")
     with pytest.raises(NotImplementedError, match="item 14b"):
-        Trainer(tc.scaled(ctx_parallel=True), AdamWConfig(), TrainConfig(
-            ckpt_dir=str(tmp_path), multistream_plan=False), mesh=mesh,
-            device="cpu")
+        check_mesh_serve(dense, mesh)
     # the multistream update plan is ported: on by default, as in the
     # reference, and both values construct
     assert TrainConfig().multistream_plan is True

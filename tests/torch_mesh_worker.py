@@ -160,11 +160,14 @@ def mesh_step(arch: str, overrides: dict, mesh_shape, tree, batch,
     the global ``batch``: ``(loss, new params, optimizer step, grads,
     global norm)``, the params and the gradients the step's
     (``build_mesh_grad_fn`` on the same parameters and batch) gathered
-    whole in the stacked layout as numpy on every rank."""
+    whole in the stacked layout as numpy on every rank. With
+    ``cfg.ctx_parallel`` also ``{"ctx_calls": the context-parallel
+    attention layers the gradient pass ran, "replicated": the names of
+    the parameters stored whole on every model rank}``."""
     import numpy as np
     import torch
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import attention
     from repro_torch.models.common import set_activation_sharding
     from repro_torch.models.convert import from_reference, to_reference
     from repro_torch.optim import AdamWConfig
@@ -173,13 +176,7 @@ def mesh_step(arch: str, overrides: dict, mesh_shape, tree, batch,
                                            make_train_step)
 
     cfg = _cfg(arch, overrides)
-    if len(mesh_shape) == 3:                 # the multi-pod layout
-        from torch.distributed.device_mesh import DeviceMesh
-        mesh = DeviceMesh("cpu", torch.arange(8).reshape(mesh_shape),
-                          mesh_dim_names=("pod", "data", "model"))
-    else:
-        d, m = mesh_shape
-        mesh = make_mesh_for(d * m, m, device_type="cpu")
+    mesh = _mesh_of(mesh_shape)
     if sp:
         set_activation_sharding(mesh, tuple(mesh.mesh_dim_names[:-1]),
                                 "model")
@@ -189,7 +186,18 @@ def mesh_step(arch: str, overrides: dict, mesh_shape, tree, batch,
             cfg, dict(params.named_parameters())))
         state = init_sharded_opt_state(mesh, cfg, params)
         batch = {k: torch.from_numpy(v) for k, v in batch.items()}
-        _, _, grads, gnorm = build_mesh_grad_fn(cfg, mesh)(params, batch)
+        calls = [0]
+        ctx = attention._gqa_ctx
+
+        def counted(*a, **k):
+            calls[0] += 1
+            return ctx(*a, **k)
+        attention._gqa_ctx = counted
+        try:
+            _, _, grads, gnorm = build_mesh_grad_fn(cfg, mesh)(params,
+                                                               batch)
+        finally:
+            attention._gqa_ctx = ctx
         grads = to_reference({n: g.full_tensor() for n, g in grads.items()},
                              cfg)
         step = make_train_step(cfg, AdamWConfig(**opt), mesh)
@@ -202,8 +210,14 @@ def mesh_step(arch: str, overrides: dict, mesh_shape, tree, batch,
         if isinstance(t, dict):
             return {k: host(v) for k, v in t.items()}
         return t.detach().float().numpy()
-    return (float(loss), host(full), state["step"], host(grads),
-            float(gnorm))
+    res = (float(loss), host(full), state["step"], host(grads),
+           float(gnorm))
+    if cfg.ctx_parallel:
+        model = mesh.mesh_dim_names.index("model")
+        res += ({"ctx_calls": calls[0], "replicated": sorted(
+            n for n, p in params.named_parameters()
+            if not isinstance(p.placements[model], shd.Shard))},)
+    return res
 
 
 def mesh_steps_rank(cases, refusals: bool = False):
@@ -218,13 +232,15 @@ def mesh_steps_rank(cases, refusals: bool = False):
 
 def mesh_refusals():
     """What ``make_train_step`` does with a model axis over 1: reduced
-    mamba2 (SSM) and jamba (hybrid) build on a (2, 2) mesh (None); a
-    dense config with ctx_parallel names ROADMAP item 14b; on a (1, 4)
-    mesh a dense config with fewer heads than the model axis, a MoE
-    config whose 3 experts leave a rank without one, and a Mamba-2
-    config with 2 SSD heads are refused (ValueError)."""
+    mamba2 (SSM), a dense config with ctx_parallel and jamba (hybrid)
+    build on a (2, 2) mesh (None); on a (1, 4) mesh a dense config with
+    fewer heads than the model axis, a MoE config whose 3 experts leave
+    a rank without one, and a Mamba-2 config with 2 SSD heads are refused
+    (ValueError); and the mesh decode step refuses a GQA cache split by
+    head_dim (``cache_shard="latent"``), naming ROADMAP item 14b."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.serve import build_mesh_decode_fn
     from repro_torch.runtime.train import make_train_step
     mesh = make_mesh_for(4, 2, device_type="cpu")
     msgs = []
@@ -246,6 +262,12 @@ def mesh_refusals():
             msgs.append(None)
         except ValueError as e:
             msgs.append(str(e))
+    try:
+        build_mesh_decode_fn(_cfg("llama3-8b", {"cache_shard": "latent"}),
+                             mesh)
+        msgs.append(None)
+    except NotImplementedError as e:
+        msgs.append(str(e))
     return msgs
 
 
@@ -310,4 +332,68 @@ def elastic_rank(workdir: str, ref_ckpt: str):
     out["r_restored"], out["r_step"] = _restored(_trainer((2, 4), r, 2))
     res = _trainer((2, 4), r, 2).run()
     out["r_losses"], out["r_resumed"] = res["losses"], res["resumed_from"]
+    return out if dist.get_rank() == 0 else None
+
+
+def _mesh_of(mesh_shape):
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import make_mesh_for
+    if len(mesh_shape) == 3:                 # the multi-pod layout
+        return DeviceMesh("cpu", torch.arange(8).reshape(mesh_shape),
+                          mesh_dim_names=("pod", "data", "model"))
+    d, m = mesh_shape
+    return make_mesh_for(d * m, m, device_type="cpu")
+
+
+def mesh_serve(arch: str, overrides: dict, mesh_shape, tree, batch,
+               steps, cache_len: int):
+    """The port's mesh prefill of the global ``batch`` into a cache of
+    ``cache_len`` slots, then one decode step for each (b, s_new) array
+    of ``steps`` (teacher-forced tokens), from the reference's
+    parameters ``tree``: ``{"logits": [prefill's, each step's],
+    "caches": [after prefill, after each step], each layer's leaves
+    gathered whole, "layout": for each leaf whether its placements are
+    those of ``layer_cache_specs``, "local": each leaf's shape on this
+    rank}``, numpy, on every rank."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.convert import from_reference
+    from repro_torch.runtime.serve import (build_mesh_decode_fn,
+                                           build_mesh_prefill_fn)
+
+    cfg = _cfg(arch, overrides)
+    mesh = _mesh_of(mesh_shape)
+    params = from_reference(tree, cfg, device="cpu")
+    shd.shard_params(params, mesh, shd.named_param_specs(
+        cfg, dict(params.named_parameters())))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def whole(cache):
+        return [{k: t.full_tensor().float().numpy() for k, t in c.items()}
+                for c in cache]
+    logits, cache, fill = build_mesh_prefill_fn(cfg, mesh)(
+        params, batch, cache_len)
+    out = {"logits": [logits.full_tensor().float().numpy()],
+           "caches": [whole(cache)]}
+    decode = build_mesh_decode_fn(cfg, mesh)
+    for toks in steps:
+        logits, cache = decode(params, torch.from_numpy(toks), cache, fill)
+        fill += toks.shape[1]
+        out["logits"].append(logits.full_tensor().float().numpy())
+        out["caches"].append(whole(cache))
+    specs = shd.layer_cache_specs(mesh, cache, cfg)
+    out["layout"] = [{k: list(t.placements) == shd.placements(specs[i][k],
+                                                              mesh)
+                      for k, t in c.items()} for i, c in enumerate(cache)]
+    out["local"] = [{k: tuple(t.to_local().shape) for k, t in c.items()}
+                    for c in cache]
+    return out
+
+
+def mesh_serve_rank(cases):
+    """:func:`mesh_serve` for each case dict; rank 0 returns the
+    results."""
+    import torch.distributed as dist
+    out = [mesh_serve(**case) for case in cases]
     return out if dist.get_rank() == 0 else None
