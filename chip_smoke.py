@@ -209,6 +209,15 @@ Phases, one result line each:
                lse and backward; the GEMMs of whisper's GELU MLP at m
                12000, k 1024, n 512 and back and of qwen2-vl's SwiGLU at
                m 4096, k 1536, n 1120 and back).
+               While the card trains, worker processes dry-run the mesh
+               step (repro_torch.launch.dryrun under PyTorch's fake
+               process group): phase 20's llama3-8b step as rank 0 of a
+               fake (1, 1) mesh, whose kernel calls times the steps must
+               equal the launches the mesh step counted, family by
+               family, its peak beside max_memory_allocated; and, as
+               observations, rank 0's records of llama3-8b train_4k on
+               16x16 and deepseek-v2-lite-16b decode_32k on 2x16x16:
+               peak, fit, wire bytes by kind and the roofline's terms.
  21. ctx    — context and cache parallelism on the card: flash attention
                with lse and its backward at llama3-8b's context-parallel
                rank shapes (b 1, 32 q / 8 kv heads, a 8192-token sequence
@@ -3342,7 +3351,7 @@ def check_collectives_on_card(torch, group) -> None:
     need(all(checks.values()), f"collectives on the card: {checks}")
 
 
-def phase_mesh(torch, np, obs: dict) -> dict:
+def phase_mesh(torch, np, obs: dict, src: Path) -> dict:
     """Trainer(mesh=make_mesh_for(1)) on a 1-rank NCCL process group
     (rendezvous through a FileStore under $TMPDIR): llama3-8b at full
     width cut to DENSE_LAYERS of 32 layers, batch DENSE_BATCH x DENSE_SEQ,
@@ -3364,6 +3373,7 @@ def phase_mesh(torch, np, obs: dict) -> dict:
     from repro_torch.runtime import TrainConfig, Trainer, build_step_fn
 
     card = card_line()
+    dry_runs = mesh_dry_runs(src)
     cfg = configs.get("llama3-8b").scaled(n_layers=DENSE_LAYERS)
     opt_cfg = AdamWConfig(warmup_steps=10, total_steps=MESH_STEPS)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
@@ -3513,6 +3523,7 @@ def phase_mesh(torch, np, obs: dict) -> dict:
              "the mesh step disagrees with the plain step")
         need(all(counts[k] == v == p_counts[k] for k, v in want.items()),
              f"mesh launches {counts}, plain {p_counts}, expected {want}")
+        check_mesh_dry_runs(dry_runs, counts, peak, card)
         out = {"mesh": (counts, {"step_ms": m_ms, "plain_ms": p_ms,
                                  "peak": peak})}
         gc_collect(torch)
@@ -4887,6 +4898,102 @@ def dry_workload(src: str, spec: dict) -> dict:
             "secs": time.perf_counter() - t0}
 
 
+#: phase 20's dry-run observations: rank 0 of (arch, shape, mesh)
+MESH_DRY_CELLS = (("llama3-8b", "train_4k", "single"),
+                  ("deepseek-v2-lite-16b", "decode_32k", "multi"))
+
+
+def dry_mesh(src: str, spec: dict) -> dict:
+    """In a worker process (no CUDA, no process group of its own: the
+    dry run starts PyTorch's fake one): ``{"step": ...}`` traces phase
+    20's mesh step (llama3-8b cut to ``spec["layers"]`` layers, a
+    ``spec["batch"]`` x ``spec["seq"]`` batch) as rank 0 of a fake (1, 1)
+    mesh; ``{"cell": (arch, shape, mesh)}`` is that production record
+    (``skip_delta``)."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    if "cell" in spec:
+        arch, shape, mesh = spec["cell"]
+        rec = dryrun.trace_cell(arch, shape, mesh, {}, skip_delta=True)
+    else:
+        cfg = configs.get("llama3-8b").scaled(n_layers=spec["layers"])
+        with dryrun.fake_mesh((1, 1)) as mesh:
+            fn, args = dryrun.mesh_train_step(cfg, mesh, spec["batch"],
+                                              spec["seq"])
+            rec = dryrun.trace(fn, *args, mesh=mesh)
+    return {"rec": rec, "secs": time.perf_counter() - t0}
+
+
+def mesh_dry_runs(src: Path):
+    """Start phase 20's dry runs (:func:`dry_mesh`) in spawned worker
+    processes, to run while the card trains: ``(executor, futures)``."""
+    import concurrent.futures
+    import multiprocessing
+    specs = {"step": {"layers": DENSE_LAYERS, "batch": DENSE_BATCH,
+                      "seq": DENSE_SEQ}}
+    specs.update({f"{a} {sh} {m}": {"cell": (a, sh, m)}
+                  for a, sh, m in MESH_DRY_CELLS})
+    ex = concurrent.futures.ProcessPoolExecutor(
+        len(specs), mp_context=multiprocessing.get_context("spawn"))
+    return ex, {k: ex.submit(dry_mesh, str(src), v)
+                for k, v in specs.items()}
+
+
+def check_mesh_dry_runs(runs, counts: dict, peak: int, card: str) -> None:
+    """Phase 20's dry runs: the fake (1, 1) trace's kernel calls, times
+    the steps, must equal the launches the mesh step counted on the card,
+    family by family; its peak beside the card's; then, as
+    observations, the production records: rank 0's peak and fit, the
+    wire bytes by kind and the roofline's three terms at the data
+    sheet's rates (the collective term at NVLink's, a lower bound across
+    nodes)."""
+    from repro_torch.perfmodel import gpu_roofline
+    ex, futures = runs
+    try:
+        got = {}
+        for k, f in futures.items():
+            try:
+                got[k] = f.result()
+            except Exception as e:        # a worker's failure is the phase's
+                raise Failed(f"mesh dry run {k} failed: {e!r}") from e
+    finally:
+        ex.shutdown()
+    step = got.pop("step")
+    rec = step["rec"]
+    dry = {f: rec["launches"].get(f, 0) * MESH_STEPS for f in DRY_FAMILIES}
+    on_card = {f: counts.get(f, 0) for f in DRY_FAMILIES}
+    ok = dry == on_card
+    say("mesh", f"dry run of the mesh step on a fake (1, 1) mesh "
+                f"({step['secs']:.1f} s): calls x {MESH_STEPS} steps {dry} "
+                f"| card launches {on_card} {'ok' if ok else 'FAIL'} | "
+                f"wire bytes "
+                f"{rec['collectives']['total_wire_bytes_per_device']:g} | "
+                f"dry-run peak {rec['memory']['peak_bytes'] / 1e9:.2f} GB, "
+                f"card max_memory_allocated after step 1 {peak / 1e9:.2f} "
+                f"GB | card {card}")
+    need(ok, f"mesh dry-run calls {dry} differ from the card's {on_card}")
+    for key, res in got.items():
+        cell = res["rec"]
+        r = gpu_roofline.cell_roofline(cell)
+        col = cell["production"]["collectives"]
+        wire = ", ".join(f"{k} {v / 1e9:.4f} GB"
+                         for k, v in sorted(
+                             col["wire_bytes_per_device"].items()))
+        say("mesh", f"dry run {key} rank {cell['rank']} of "
+                    f"{cell['n_devices']} ({res['secs']:.1f} s): peak "
+                    f"{cell['production']['memory']['peak_bytes'] / 1e9:.2f}"
+                    f" GB fits {cell['fits']} | wire bytes a device {wire} "
+                    f"| compute {r['t_compute_s'] * 1e3:.3f} ms, memory "
+                    f"{r['t_memory_s'] * 1e3:.3f} ms, collective "
+                    f"{r['t_collective_s'] * 1e3:.3f} ms ({r['dominant']}) "
+                    f"at the sheet's rates (observation) | card {card}")
+
+
 def measure_ceilings(torch) -> dict:
     """The card's own rates: a bf16 torch.matmul at 8192^3, an fp32 one at
     4096^3 (TF32 off), and a 2 GiB device-to-device copy (read and
@@ -5180,7 +5287,7 @@ def main(argv=None) -> int:
             phase_dryrun(torch, src, counts, obs)
             lap(19)
         if 20 in phases:
-            record(phase_mesh(torch, np, obs))
+            record(phase_mesh(torch, np, obs, src))
             lap(20)
         if 21 in phases:
             ctx_rows, measured = phase_ctx(torch, np)

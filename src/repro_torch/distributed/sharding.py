@@ -230,14 +230,23 @@ def cache_specs(mesh, cache_shape: Any, cfg) -> Any:
     return _map(spec, cache_shape)
 
 
+def _zero1_dim(shape, spec: P, n_data: int):
+    """The first unsharded dimension of ``shape`` under ``spec`` that
+    ``n_data`` ranks divide evenly, or None."""
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (d, s) in enumerate(zip(shape, dims)):
+        if s is None and d % n_data == 0 and d >= n_data:
+            return i
+    return None
+
+
 def _zero1(shape, spec: P, da, n_data: int) -> P:
     """The param spec with its first evenly divisible unsharded dimension
     also sharded over the data axes."""
     dims = list(spec) + [None] * (len(shape) - len(spec))
-    for i, (d, s) in enumerate(zip(shape, dims)):
-        if s is None and d % n_data == 0 and d >= n_data:
-            dims[i] = da
-            break
+    i = _zero1_dim(shape, spec, n_data)
+    if i is not None:
+        dims[i] = da
     return P(*dims)
 
 
@@ -296,21 +305,67 @@ def named_param_specs(cfg, named: Mapping[str, torch.Tensor],
         _stacked_tree(named, cfg), replicate_attn))
 
 
-def named_opt_specs(mesh, cfg, named: Mapping[str, torch.Tensor]
-                    ) -> Dict[str, P]:
-    """ZeRO-1 specs of the per-layer optimizer state: each leaf's param
-    spec (:func:`named_param_specs`) with its own first evenly divisible
+def opt_layout(mesh, cfg, named: Mapping[str, torch.Tensor]
+               ) -> Tuple[Dict[str, P], Dict[str, list]]:
+    """ZeRO-1 specs of the per-layer optimizer state and the stacks it
+    keeps, ``(specs, stacks)``. A leaf's spec is its param spec
+    (:func:`named_param_specs`) with its own first evenly divisible
     unsharded dimension sharded over the data axes; the attention
     projections keep their sharded specs under ``ctx_parallel``, as
-    ``opt_state_specs`` does in the reference's dry run. (The reference's
-    stacked rule may pick the layer axis instead; a rank then holds whole
+    ``opt_state_specs`` does in the reference's dry run. The reference's
+    stacked rule may pick the layer axis instead: a rank then holds whole
     layers' state where here it holds a slice of each layer's, the same
-    bytes either way.)"""
+    bytes, except where a layer's leaf has no dimension that the data
+    axes divide (1-D leaves already split over ``model``: Mamba-2's
+    ``A_log``, ``D``, ``dt_bias``, the qkv biases). Split per layer,
+    every data rank would hold each layer's block; so where the data
+    axes hold more than one rank and the reference's rule splits such a
+    leaf's layer axis, its state stays stacked as the reference keeps
+    it: ``stacks`` maps the stacked leaf's path
+    (``"layers.ssm_none.mixer.A_log"``) to its layers' names in order,
+    and ``specs`` holds that key under the reference's spec, the layer
+    axis over the data axes."""
+    from repro_torch.models.convert import reference_path
     da = _data_axes(mesh)
     n_data = _axes_size(mesh, da)
     pspecs = named_param_specs(cfg, named, replicate_attn=False)
-    return {n: _zero1(tuple(t.shape), pspecs[n], da, n_data)
-            for n, t in named.items()}
+    layers: Dict[tuple, Dict[int, str]] = {}
+    for n in (named if n_data > 1 else ()):
+        path, idx = reference_path(n, cfg)
+        if idx is not None:
+            layers.setdefault(path, {})[idx] = n
+    stacks = {}
+    for path, by_idx in layers.items():
+        names = [by_idx[i] for i in sorted(by_idx)]
+        first = names[0]
+        if (_zero1_dim(tuple(named[first].shape), pspecs[first], n_data)
+                is None and len(names) % n_data == 0):
+            stacks[".".join(path)] = names
+    stacked = {n for names in stacks.values() for n in names}
+    specs = {n: _zero1(tuple(t.shape), pspecs[n], da, n_data)
+             for n, t in named.items() if n not in stacked}
+    specs.update({key: P(da, *pspecs[names[0]])
+                  for key, names in stacks.items()})
+    return specs, stacks
+
+
+def named_opt_specs(mesh, cfg, named: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, P]:
+    """The optimizer state's specs by its keys (:func:`opt_layout`)."""
+    return opt_layout(mesh, cfg, named)[0]
+
+
+def unstack_opt(leaves: Mapping[str, Any], stacks: Mapping[str, list]
+                ) -> Dict[str, Any]:
+    """Optimizer leaves (or gradients) keyed by parameter name: each
+    stack's (:func:`opt_layout`) layers under their own names."""
+    out = {}
+    for key, t in leaves.items():
+        if key in stacks:
+            out.update(zip(stacks[key], t.unbind(0)))
+        else:
+            out[key] = t
+    return out
 
 
 class _Shape:

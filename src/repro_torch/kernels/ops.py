@@ -580,7 +580,9 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         ctx.causal, ctx.scale = causal, scale
-        if _on_meta(q, k, v):
+        if not q.shape[1]:
+            o, lse = _no_heads(q, v)
+        elif _on_meta(q, k, v):
             o, lse = _attention_meta(q, k, v, causal, None, lse=True)
         elif _on_card(q, k, v):
             b, hq, sq, d = q.shape
@@ -600,6 +602,9 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, scale=ctx.scale)
+        if not q.shape[1]:
+            return (torch.zeros_like(q), torch.zeros_like(k),
+                    torch.zeros_like(v), None, None)
         if _on_meta(q, k, v, do):
             return (*_attention_bwd_meta(q, k, v, o, lse, do, ctx.causal),
                     None, None)
@@ -611,6 +616,14 @@ class _Attention(torch.autograd.Function):
                 None, None)
 
 
+def _no_heads(q, v):
+    """(o, lse) of a call without heads (a model rank holding none): empty,
+    and nothing launched (a grid with a 0 dimension is a CUDA error)."""
+    b, _, sq, _ = q.shape
+    return (q.new_empty((b, 0, sq, v.shape[-1])),
+            torch.empty((b, 0, sq), dtype=torch.float32, device=q.device))
+
+
 def attention(q, k, v, *, causal: bool = True, scale=None,
               kv_len: int | None = None, return_lse: bool = False):
     """q: (b, hq, sq, d); k: (b, hkv, skv, d); v: (b, hkv, skv, dv), dv
@@ -619,7 +632,8 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
     there, as the reference computes any pair with its plain attention on
     every backend). Under autograd the call is :class:`_Attention` and
     takes the training shapes: ``kv_len`` None (or skv) and, if causal,
-    sq <= skv; anything else raises.
+    sq <= skv; anything else raises. A q without heads (a model rank
+    that holds none) gives an empty output and launches nothing.
 
     ``return_lse`` (outside autograd only): return ``(o, lse)``, each
     row's fp32 natural log-sum-exp of the scaled logits (b, hq, sq) beside
@@ -640,6 +654,8 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
                 f"{q.shape[2]} skv {skv} kv_len {kv_len}; run decode under "
                 f"torch.no_grad()")
         return _Attention.apply(q, k, v, bool(causal), scale)
+    if not q.shape[1]:
+        return _no_heads(q, v)[0]
     if _on_meta(q, k, v):
         return _attention_meta(q, k, v, bool(causal), kv_len)
     if not _on_card(q, k, v):
@@ -665,6 +681,8 @@ def _attention_lse(q, k, v, causal: bool, scale, kv_len):
     if _tracked(q, k, v):
         raise NotImplementedError("attention's lse output is for decode "
                                   "merges; run it under torch.no_grad()")
+    if not q.shape[1]:
+        return _no_heads(q, v)
     skv = k.shape[2]
     kv = skv if kv_len is None else int(kv_len)
     if kv < 1:

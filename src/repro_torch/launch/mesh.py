@@ -33,13 +33,18 @@ def _mesh(shape, axes, device_type: str) -> DeviceMesh:
                       mesh_dim_names=tuple(axes))
 
 
+def make_mesh(shape, device_type: str = "cuda") -> DeviceMesh:
+    """A mesh of ``shape``: (data, model) over ("data", "model"), or
+    (pod, data, model) over ("pod", "data", "model")."""
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}[len(shape)]
+    return _mesh(tuple(shape), axes, device_type)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda") -> DeviceMesh:
     """(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod",
     "data", "model") with ``multi_pod``: 256 or 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, device_type)
+    return make_mesh((2, 16, 16) if multi_pod else (16, 16), device_type)
 
 
 def make_mesh_for(n_devices: int, model_parallel: int = 1,

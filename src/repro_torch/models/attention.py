@@ -149,6 +149,8 @@ def _kv_for_q(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor):
     g = cfg.n_heads // cfg.n_kv_heads
     q_lo, q_hi, k_lo, k_hi = gqa_heads(cfg)
     nq, nk = q_hi - q_lo, k_hi - k_lo
+    if not nq:                      # a rank without heads
+        return k, v
     kv_of_q = [j // g - k_lo for j in range(q_lo, q_hi)]
     if nq % nk or kv_of_q != [j // (nq // nk) for j in range(nq)]:
         idx = torch.tensor(kv_of_q, device=k.device)
@@ -240,11 +242,11 @@ def gqa_forward(cfg: ArchConfig, p: GQA, x: torch.Tensor, pos,
     return _gqa_out(cfg, p, o), (k, v)
 
 
-def gqa_init_cache(cfg: ArchConfig, batch: int, seq: int, dtype,
-                   device) -> Dict[str, torch.Tensor]:
+def gqa_cache_shapes(cfg: ArchConfig, batch: int, seq: int,
+                     dtype) -> Dict[str, tuple]:
+    """A GQA layer's cache leaves as ``{name: (shape, dtype)}``."""
     shape = (batch, cfg.n_kv_heads, seq, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": (shape, dtype), "v": (shape, dtype)}
 
 
 def attend_block(q, k, v, lo: int, hi: int, q_pos: int, causal: bool = True,
@@ -442,12 +444,11 @@ def mla_forward(cfg: ArchConfig, p: MLA, x: torch.Tensor, pos,
     return _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope), (c_kv, k_rope)
 
 
-def mla_init_cache(cfg: ArchConfig, batch: int, seq: int, dtype,
-                   device) -> Dict[str, torch.Tensor]:
-    return {"c_kv": torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dtype,
-                                device=device),
-            "k_rope": torch.zeros((batch, 1, seq, cfg.rope_head_dim),
-                                  dtype=dtype, device=device)}
+def mla_cache_shapes(cfg: ArchConfig, batch: int, seq: int,
+                     dtype) -> Dict[str, tuple]:
+    """An MLA layer's cache leaves as ``{name: (shape, dtype)}``."""
+    return {"c_kv": ((batch, seq, cfg.kv_lora_rank), dtype),
+            "k_rope": ((batch, 1, seq, cfg.rope_head_dim), dtype)}
 
 
 def mla_decode(cfg: ArchConfig, p: MLA, x: torch.Tensor, pos,

@@ -211,6 +211,12 @@ def embed_init(shape, gen: torch.Generator,
     return _trunc_normal(shape, 0.02, dtype, gen)
 
 
+def cache_zeros(shapes: Dict[str, tuple], device) -> Dict[str, torch.Tensor]:
+    """A cache layer's zero leaves from their ``{name: (shape, dtype)}``."""
+    return {n: torch.zeros(shape, dtype=dt, device=device)
+            for n, (shape, dt) in shapes.items()}
+
+
 def _param(t: torch.Tensor, requires_grad: bool = False) -> nn.Parameter:
     """A parameter, frozen unless asked: serving never needs gradients;
     ``Model.init(..., trainable=True)`` and the Trainer turn them on."""
@@ -592,7 +598,8 @@ class TensorParallel:
         full = DTensor.from_local(
             w, self.model_mesh, [Shard(dim)], run_check=False,
             shape=torch.Size(shape),
-            stride=tuple(torch.empty(shape, device="meta").stride()))
+            stride=tuple(int(np.prod(shape[i + 1:], dtype=np.int64))
+                         for i in range(len(shape))))
         full = full.redistribute(self.model_mesh, [Replicate()]).to_local(
             grad_placements=[Partial()])
         return full.narrow(dim, lo, hi - lo)

@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from .common import (ArchConfig, Embed, MLP, Norm, apply_mlp, apply_norm,
-                     check_ported, chunked_xent, embed_params, embed_tokens,
+                     cache_zeros, check_ported, chunked_xent, embed_params,
+                     embed_tokens,
                      make_generator, make_tensor_parallel, mlp_params,
                      norm_params, remat_wrap, sinusoidal_pos,
                      sp_constrain, take_heads, tensor_parallel, tp_copy,
@@ -206,17 +207,24 @@ def loss_fn(cfg: ArchConfig, params: EncDec, batch: Dict[str, Any]):
                                          device=h.device)}
 
 
+def cache_shapes(cfg: ArchConfig, batch: int, seq: int,
+                 dtype=torch.bfloat16,
+                 enc_seq: Optional[int] = None) -> List[Dict[str, tuple]]:
+    """Each decoder layer's cache leaves as ``{name: (shape, dtype)}``:
+    ``k``, ``v`` (batch, hkv, seq, hd) and ``ck``, ``cv`` (batch, hkv,
+    enc_seq, hd), ``enc_seq`` defaulting to the config's."""
+    enc_seq = cfg.enc_seq if enc_seq is None else enc_seq
+    kv = lambda s: ((batch, cfg.n_kv_heads, s, cfg.hd), dtype)
+    return [{"k": kv(seq), "v": kv(seq), "ck": kv(enc_seq),
+             "cv": kv(enc_seq)} for _ in range(cfg.n_layers)]
+
+
 def init_cache(cfg: ArchConfig, batch: int, seq: int,
                dtype=torch.bfloat16, device="cuda",
                enc_seq: Optional[int] = None) -> Cache:
-    """Each decoder layer's empty cache: ``k``, ``v`` (batch, hkv, seq,
-    hd) and ``ck``, ``cv`` (batch, hkv, enc_seq, hd), ``enc_seq``
-    defaulting to the config's."""
-    enc_seq = cfg.enc_seq if enc_seq is None else enc_seq
-    z = lambda s: torch.zeros((batch, cfg.n_kv_heads, s, cfg.hd),
-                              dtype=dtype, device=device)
-    return [{"k": z(seq), "v": z(seq), "ck": z(enc_seq), "cv": z(enc_seq)}
-            for _ in range(cfg.n_layers)]
+    """Each decoder layer's empty cache (:func:`cache_shapes`)."""
+    return [cache_zeros(layer, device)
+            for layer in cache_shapes(cfg, batch, seq, dtype, enc_seq)]
 
 
 def prefill(cfg: ArchConfig, params: EncDec, batch: Dict[str, Any],

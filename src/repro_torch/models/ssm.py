@@ -20,8 +20,9 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from .common import (ArchConfig, _param, cache_local, cache_take,
-                     cache_write, dense_init, rank_heads, rank_ranges,
-                     rmsnorm_split, take_heads, tp_copy, tp_exit, tp_whole)
+                     cache_write, cache_zeros, dense_init, rank_heads,
+                     rank_ranges, rmsnorm_split, take_heads, tp_copy, tp_exit,
+                     tp_whole)
 
 
 class SSM(nn.Module):
@@ -136,15 +137,18 @@ def ssm_forward(cfg: ArchConfig, p: SSM, u: torch.Tensor,
                  "cc": tail(C_pre)}
 
 
-def ssm_init_cache(cfg: ArchConfig, batch: int, dtype, device="cuda"):
-    """An empty decode cache: the fp32 state and the conv tails in
-    ``dtype``."""
+def ssm_cache_shapes(cfg: ArchConfig, batch: int, dtype):
+    """A Mamba-2 layer's cache leaves as ``{name: (shape, dtype)}``: the
+    fp32 state and the conv tails in ``dtype``."""
     nh, n, dh, k = cfg.ssm_heads, cfg.d_state, cfg.ssm_headdim, cfg.d_conv
-    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt,
-                                                 device=device)
-    return {"s": zeros(batch, nh, n, dh, dt=torch.float32),
-            "cx": zeros(batch, k - 1, cfg.d_inner),
-            "cb": zeros(batch, k - 1, n), "cc": zeros(batch, k - 1, n)}
+    return {"s": ((batch, nh, n, dh), torch.float32),
+            "cx": ((batch, k - 1, cfg.d_inner), dtype),
+            "cb": ((batch, k - 1, n), dtype), "cc": ((batch, k - 1, n), dtype)}
+
+
+def ssm_init_cache(cfg: ArchConfig, batch: int, dtype, device="cuda"):
+    """An empty decode cache (:func:`ssm_cache_shapes`)."""
+    return cache_zeros(ssm_cache_shapes(cfg, batch, dtype), device)
 
 
 def _conv_step(w: torch.Tensor, b: torch.Tensor,

@@ -18,6 +18,7 @@ have no sequence axis. The VLM (qwen2-vl) adds the patch stub (the first
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
@@ -25,8 +26,8 @@ import torch
 from torch import nn
 
 from .common import (ArchConfig, Embed, Norm, _param, apply_mlp, apply_norm,
-                     cache_write, check_ported, chunked_xent, data_share,
-                     embed_params, rank_ranges,
+                     cache_write, cache_zeros, check_ported, chunked_xent,
+                     data_share, embed_params, rank_ranges,
                      embed_tokens, make_generator, mlp_params, norm_params,
                      remat_wrap, sp_constrain, unembed)
 from . import attention as attn
@@ -72,6 +73,13 @@ def n_periods(cfg: ArchConfig) -> int:
 def layer_schedule(cfg: ArchConfig):
     """Returns (sched, kinds, idx_in_kind): per-layer kind name, the ordered
     unique kinds, and each layer's index within its kind's stack."""
+    return tuple(list(x) for x in _layer_schedule(cfg))
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_schedule(cfg: ArchConfig):
+    """:func:`layer_schedule` as tuples, once a config (it is read for
+    every parameter name, ``convert.reference_path``)."""
     sched = [_kind_of(cfg, i) for i in range(cfg.n_layers)]
     kinds = list(dict.fromkeys(sched))
     counters = {k: 0 for k in kinds}
@@ -79,7 +87,7 @@ def layer_schedule(cfg: ArchConfig):
     for k in sched:
         idx_in_kind.append(counters[k])
         counters[k] += 1
-    return sched, kinds, idx_in_kind
+    return tuple(sched), tuple(kinds), tuple(idx_in_kind)
 
 
 class Block(nn.Module):
@@ -211,17 +219,25 @@ def loss_fn(cfg: ArchConfig, params: Transformer, batch: Dict[str, Any]):
     return total, {"xent": loss, "moe_aux": aux}
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq: int,
-               dtype=torch.bfloat16, device="cuda") -> Cache:
-    """Each layer's empty cache by its mixer, as the reference's
-    ``_kind_cache`` builds them (``seq`` slots for attention; a Mamba-2
-    layer's state and conv tails have no sequence axis)."""
+def cache_shapes(cfg: ArchConfig, batch: int, seq: int,
+                 dtype=torch.bfloat16) -> List[Dict[str, tuple]]:
+    """Each layer's cache leaves by its mixer as ``{name: (shape,
+    dtype)}``, as the reference's ``_kind_cache`` builds them (``seq``
+    slots for attention; a Mamba-2 layer's state and conv tails have no
+    sequence axis)."""
     def one(kind: str):
         if kind.startswith("ssm"):
-            return ssm_mod.ssm_init_cache(cfg, batch, dtype, device)
-        make = attn.mla_init_cache if cfg.mla else attn.gqa_init_cache
-        return make(cfg, batch, seq, dtype, device)
+            return ssm_mod.ssm_cache_shapes(cfg, batch, dtype)
+        make = attn.mla_cache_shapes if cfg.mla else attn.gqa_cache_shapes
+        return make(cfg, batch, seq, dtype)
     return [one(kind) for kind in layer_schedule(cfg)[0]]
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int,
+               dtype=torch.bfloat16, device="cuda") -> Cache:
+    """Each layer's empty cache (:func:`cache_shapes`)."""
+    return [cache_zeros(layer, device)
+            for layer in cache_shapes(cfg, batch, seq, dtype)]
 
 
 def positions(cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:

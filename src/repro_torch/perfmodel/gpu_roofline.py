@@ -6,14 +6,25 @@ in place of the reference's TPU roofline:
     collective term = collective bytes / (chips * link bytes/s)
 
 flops and bytes are the dry run's counts per device (its ``delta_total``
-where present, which equals the direct count on one card). The default
-ceilings are the H100 SXM5 80GB data sheet's: 989 TFLOP/s dense bf16 on
-the tensor cores (the compute term's one peak: every cell computes in
-bf16; fp32 outside the tensor cores is 67 TFLOP/s), 3.35 TB/s of HBM3,
-450 GB/s of NVLink a direction. They are not measurements:
-``cell_roofline`` takes other compute and memory ceilings as arguments,
-so a card's own measured rates (``chip_smoke.py`` phase 19) can take
-their place.
+where present, which equals the direct count), on a mesh rank 0's; the
+collective bytes are its wire bytes per device, 0 on one card (the
+global counts are rank 0's times the ranks: on a mesh of uneven blocks
+an upper bound). The
+default ceilings are the H100 SXM5 80GB data sheet's: 989 TFLOP/s dense
+bf16 on the tensor cores (the compute term's one peak: every cell
+computes in bf16; fp32 outside the tensor cores is 67 TFLOP/s), 3.35
+TB/s of HBM3, 450 GB/s of NVLink a direction. They are not
+measurements: ``cell_roofline`` takes other compute and memory ceilings
+as arguments, so a card's own measured rates (``chip_smoke.py`` phase
+19) can take their place.
+
+The collective term charges every wire byte at NVLink's one rate, as
+the reference charges its one ICI rate, so on the production meshes it
+is a lower bound: a 16-rank model axis spans two 8-GPU NVLink nodes and
+the data axes span many nodes, between which a GPU's rate is its
+InfiniBand link's, about 50 GB/s on a DGX H100. A row keeps the record's
+wire bytes by mesh axis (``collective_bytes_by_axis``), so a reader can
+price each axis at its own rate.
 """
 from __future__ import annotations
 
@@ -67,6 +78,8 @@ def cell_roofline(rec: dict, peak_flops: float = PEAK_FLOPS,
         "bound_time_s": max(terms.values()),
         "memory_fit": rec["production"]["memory"],
         "fits": rec.get("fits"),
+        "collective_bytes_by_axis": rec["production"].get(
+            "collectives", {}).get("wire_bytes_by_axis", {}),
     }
 
 
@@ -80,9 +93,10 @@ def load_all(directory: str) -> List[dict]:
 
 
 def roofline_table(directory: str, mesh: str = "card") -> List[dict]:
-    """Every cell of ``mesh`` in ``directory`` with its terms, its model
-    flops, the useful share of the counted flops, and the roofline
-    fraction: model flops over the bound time against the peak."""
+    """Every cell of ``mesh`` (``"card"``, ``"16x16"`` or ``"2x16x16"``)
+    in ``directory`` with its terms, its model flops, the useful share of
+    the counted flops, and the roofline fraction: model flops over the
+    bound time against the peak."""
     from repro_torch import configs
     from repro_torch.configs.shapes import SHAPES
     rows = []
@@ -106,4 +120,39 @@ def roofline_table(directory: str, mesh: str = "card") -> List[dict]:
         r["roofline_fraction"] = (mf / r["bound_time_s"]) / (
             r["chips"] * PEAK_FLOPS)
         rows.append(r)
+    return rows
+
+
+_SHORT = {"all-gather": "AG", "reduce-scatter": "RS", "all-reduce": "AR",
+          "all-to-all": "A2A", "collective-permute": "CP"}
+
+
+def mesh_rows(directory: str, meshes=("16x16", "2x16x16")) -> List[str]:
+    """A markdown row for each (arch, shape) of the mesh records in
+    ``directory``: for each mesh, rank 0's peak (GB) and fit, its wire
+    bytes a device by kind (GB), and the bound (ms) at the data sheet's
+    rates with its dominant term."""
+    cells = {}
+    for rec in load_all(directory):
+        if rec.get("mesh") in meshes and not rec.get("overrides"):
+            cells.setdefault((rec["arch"], rec["shape"]), {})[
+                rec["mesh"]] = rec
+    rows = []
+    for (arch, shape), by_mesh in sorted(cells.items()):
+        parts = [arch, shape]
+        for m in meshes:
+            rec = by_mesh.get(m)
+            r = cell_roofline(rec) if rec else None
+            if r is None:
+                parts.append((rec or {}).get("reason", (rec or {}).get(
+                    "error", "—"))[:40] or "—")
+                continue
+            wire = rec["production"]["collectives"]["wire_bytes_per_device"]
+            parts.append(
+                f"{rec['production']['memory']['peak_bytes'] / 1e9:.2f}"
+                f"{'' if rec['fits'] else ' (no fit)'}; "
+                + " ".join(f"{_SHORT[k]} {v / 1e9:.3g}"
+                           for k, v in sorted(wire.items()))
+                + f"; {r['bound_time_s'] * 1e3:.4g} ({r['dominant']})")
+        rows.append("| " + " | ".join(parts) + " |")
     return rows

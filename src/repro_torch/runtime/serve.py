@@ -316,22 +316,23 @@ def mesh_cache(cfg: ArchConfig, mesh, batch: int, seq: int, device,
     reference's ``cache_specs`` (``sharding.layer_cache_specs``), each
     rank allocating only its block."""
     if cfg.encoder_decoder:
-        shapes = encdec.init_cache(cfg, batch, seq, torch.bfloat16, "meta",
-                                   enc_seq=enc_seq)
+        shapes = encdec.cache_shapes(cfg, batch, seq, torch.bfloat16,
+                                     enc_seq=enc_seq)
     else:
-        shapes = transformer.init_cache(cfg, batch, seq, torch.bfloat16,
-                                        "meta")
-    specs = shd.layer_cache_specs(mesh, shapes, cfg)
+        shapes = transformer.cache_shapes(cfg, batch, seq, torch.bfloat16)
+    specs = shd.layer_cache_specs(mesh, [
+        {k: shd._Shape(shape) for k, (shape, _) in layer.items()}
+        for layer in shapes], cfg)
     coord = list(mesh.get_coordinate())
     out = []
     for layer, lspec in zip(shapes, specs):
         leaves = {}
-        for name, t in layer.items():
+        for name, (shape, dtype) in layer.items():
             pl = shd.placements(lspec[name], mesh)
-            sl = shd.local_slices(t.shape, pl, mesh.shape, coord)
+            sl = shd.local_slices(shape, pl, mesh.shape, coord)
             local = torch.zeros([s.stop - s.start for s in sl],
-                                dtype=t.dtype, device=device)
-            leaves[name] = shd.as_dtensor(local, mesh, pl, t.shape)
+                                dtype=dtype, device=device)
+            leaves[name] = shd.as_dtensor(local, mesh, pl, shape)
         out.append(leaves)
     return out
 
@@ -407,8 +408,7 @@ def build_mesh_decode_fn(cfg: ArchConfig, mesh):
 
     def decode_fn(params, tokens, cache, fill: int):
         dev = next(params.parameters()).to_local().device
-        spec = shd.batch_specs(mesh, {"tokens": tokens})["tokens"]
-        lt = shd.local_part(tokens, spec, mesh).to(dev)
+        lt = local_batch(mesh, {"tokens": tokens})["tokens"].to(dev)
         with _mesh_context(cfg, mesh, params):
             logits, cache = model.decode(params, lt, cache, fill,
                                          absorbed_mla=cfg.mla_absorb)

@@ -151,22 +151,21 @@ def build_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig):
 # ----------------------------------------------------------------------
 def check_mesh(cfg: ArchConfig, mesh) -> None:
     """Refuse what the mesh step does not do: a model axis that leaves a
-    rank without work: fewer attention heads or SSD heads than ranks
-    (they split evenly), or an
-    empty stored block of the experts, of the SSD heads, of d_ff (where a
-    layer has an MLP), of the shared experts' d_ff_expert or of the
-    vocabulary (``torch.chunk``'s blocks, whose last ones may be
-    empty)."""
+    rank without work it cannot skip: fewer SSD heads than ranks (they
+    split evenly), or an empty stored block of the experts, of the SSD
+    heads, of d_ff (where a layer has an MLP), of the shared experts'
+    d_ff_expert or of the vocabulary (``torch.chunk``'s blocks, whose
+    last ones may be empty). Fewer attention heads than ranks build: a
+    rank without heads computes no q, k or v columns, attends nothing
+    and adds a zero partial to ``wo``'s sum, while it takes part in every
+    collective of the layer."""
     nm = shd.axis_sizes(mesh)["model"]
     if nm == 1:
         return
     kinds = ({"attn_mlp"} if cfg.encoder_decoder
              else set(layer_schedule(cfg)[0]))
-    attn = any(k.startswith("attn") for k in kinds)
-    # heads split evenly over the ranks; the rest as their stored blocks
-    short = [f"{what} {n}" for what, n, on in (
-        ("n_heads", cfg.n_heads, attn), ("ssm_heads", cfg.ssm_heads, cfg.ssm))
-        if on and n < nm]
+    short = [f"ssm_heads {cfg.ssm_heads}"] if (
+        cfg.ssm and cfg.ssm_heads < nm) else []
     short += [f"{what} {n}" for what, n, on in (
         ("padded_vocab", cfg.padded_vocab, True),
         ("d_ff", cfg.d_ff, any(k.endswith("_mlp") for k in kinds)),
@@ -212,21 +211,53 @@ def local_params(module: torch.nn.Module, local: Mapping[str, Any]):
 
 def local_batch(mesh, batch: Mapping[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-    """This rank's block of a global batch under ``batch_specs``."""
+    """This rank's block of a global batch under ``batch_specs``: of a
+    tensor every rank holds whole, or a DTensor's own block (a loader
+    that hands each rank its block, as the dry run's arguments do)."""
     specs = shd.batch_specs(mesh, dict(batch))
-    return {k: shd.local_part(v, specs[k], mesh).contiguous()
+    return {k: v.to_local() if isinstance(v, DTensor) else
+            shd.local_part(v, specs[k], mesh).contiguous()
             for k, v in batch.items()}
+
+
+def _stacked(pl) -> list:
+    """A layer's placements as its stack's (a leading layer axis)."""
+    return [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in pl]
+
+
+def opt_params(mesh, named: Mapping[str, DTensor],
+               stacks: Mapping[str, list]) -> Dict[str, DTensor]:
+    """The parameters by the optimizer state's keys: each leaf, and each
+    stack (``sharding.opt_layout``) as one DTensor of its layers'
+    leaves (a copy)."""
+    stacked = {n for names in stacks.values() for n in names}
+    out = {n: p for n, p in named.items() if n not in stacked}
+    with torch.no_grad():
+        for key, names in stacks.items():
+            ts = [named[n].detach() for n in names]
+            out[key] = shd.as_dtensor(
+                torch.stack([t.to_local() for t in ts]), mesh,
+                _stacked(ts[0].placements), (len(ts), *ts[0].shape))
+    return out
+
+
+def mesh_opt_layout(cfg: ArchConfig, mesh):
+    """``sharding.opt_layout`` of the model's parameters on ``mesh``:
+    their names and shapes alone (a meta model)."""
+    return shd.opt_layout(mesh, cfg, dict(
+        Model(cfg).init(0, device="meta").named_parameters()))
 
 
 def init_sharded_opt_state(mesh, cfg: ArchConfig,
                            params: torch.nn.Module) -> dict:
     """``init_opt_state`` of a module with DTensor parameters: the fp32
-    master and zero moments as DTensors under ``named_opt_specs``."""
+    master and zero moments as DTensors under ``named_opt_specs``, keyed
+    by :func:`opt_params`."""
     named = dict(params.named_parameters())
-    ospecs = shd.named_opt_specs(mesh, cfg, named)
+    ospecs, stacks = shd.opt_layout(mesh, cfg, named)
     master, m, v = {}, {}, {}
     with torch.no_grad():
-        for n, p in named.items():
+        for n, p in opt_params(mesh, named, stacks).items():
             pl = shd.placements(ospecs[n], mesh)
             loc = p.detach().redistribute(mesh, pl).to_local().to(
                 torch.float32, copy=True)
@@ -243,28 +274,47 @@ def _count_once(mesh, pl) -> bool:
                if not isinstance(p, Shard))
 
 
-def build_mesh_grad_fn(cfg: ArchConfig, mesh):
+def mesh_accum(grad_accum: int, rows: int) -> int:
+    """The microbatches a mesh rank splits its ``rows`` of the batch
+    into: ``grad_accum`` where they divide; one row each where
+    ``grad_accum`` is a multiple of the rows (jamba's 16 over a rank's 8
+    rows of 256 on 32 data ranks, where the reference's microbatches are
+    split over more data ranks than they have rows). Anything else
+    raises."""
+    accum = max(1, grad_accum)
+    if rows % accum == 0:
+        return accum
+    if accum % rows == 0:
+        return rows
+    raise ValueError(f"grad_accum {accum} does not split a rank's {rows} "
+                     f"rows of the batch into microbatches, nor is it a "
+                     f"multiple of them")
+
+
+def build_mesh_grad_fn(cfg: ArchConfig, mesh, layout=None):
     """The gradients of the mesh step: ``grad_fn(params, batch)`` with
     ``params`` a module of DTensor parameters and the global ``batch``
     returns ``(loss, metrics, grads, gnorm)``: this data rank's share of
     the loss and metrics, each leaf's gradient of the global mean loss
-    as a DTensor under its optimizer state's placements (summed over the
-    data axes in the gradient's own dtype, as the plain step keeps its
-    gradients), and the global norm over every block, each counted once.
-    With ``cfg.grad_accum`` > 1 each rank accumulates its blocks'
-    gradients in fp32."""
+    as a DTensor under its optimizer state's placements and key
+    (:func:`opt_params`; summed over the data axes in the gradient's own
+    dtype, as the plain step keeps its gradients), and the global norm
+    over every block, each counted once. With ``cfg.grad_accum`` > 1
+    each rank accumulates its blocks' gradients in fp32 over
+    microbatches of its block of the batch (:func:`mesh_accum`).
+    ``layout``: :func:`mesh_opt_layout`, worked out here if not given."""
     check_mesh(cfg, mesh)
     model = Model(cfg)
-    accum = max(1, cfg.grad_accum)
+    ospecs, stacks = layout or mesh_opt_layout(cfg, mesh)
 
     def grad_fn(params, batch):
         named = dict(params.named_parameters())
         dev = next(iter(named.values())).to_local().device
         lb = {k: v.to(dev) for k, v in local_batch(mesh, batch).items()}
+        accum = mesh_accum(cfg.grad_accum, lb["tokens"].shape[0])
         tp = make_tensor_parallel(cfg, mesh, lb["tokens"].shape[1])
         gpl = {n: grad_placements(mesh, p.placements)
                for n, p in named.items()}
-        ospecs = shd.named_opt_specs(mesh, cfg, named)
         micro = [lb] if accum == 1 else [
             {k: v[i] for k, v in microbatches(lb, accum).items()}
             for i in range(accum)]
@@ -284,21 +334,27 @@ def build_mesh_grad_fn(cfg: ArchConfig, mesh):
                 del grads
                 lsum = lsum + loss.detach()
         loss = lsum / accum
-        metrics = {} if accum > 1 else {k: v.detach()
-                                        for k, v in metrics.items()}
-        # each leaf onto its optimizer slice, one at a time; the squares
-        # summed as ``global_norm`` sums them (on one rank, its bits)
+        metrics = {} if cfg.grad_accum > 1 else {k: v.detach()
+                                                 for k, v in metrics.items()}
+        # each leaf (or stack) onto its optimizer slice, one at a time;
+        # the squares summed as ``global_norm`` sums them (on one rank,
+        # its bits)
         grads, parts = {}, []
-        for n, p in named.items():
-            g = acc.pop(n)
+        for k in ospecs:
+            names = stacks.get(k, [k])
+            g = (torch.stack([acc.pop(n) for n in names]) if k in stacks
+                 else acc.pop(k))
             if accum > 1:
                 g = g / accum
-            pl = shd.placements(ospecs[n], mesh)
-            grads[n] = shd.as_dtensor(g, mesh, gpl[n], p.shape).redistribute(
+            gp, shape = gpl[names[0]], named[names[0]].shape
+            if k in stacks:
+                gp, shape = _stacked(gp), (len(names), *shape)
+            pl = shd.placements(ospecs[k], mesh)
+            grads[k] = shd.as_dtensor(g, mesh, gp, shape).redistribute(
                 mesh, pl)
             del g
             if _count_once(mesh, pl):
-                parts.append(torch.sum(grads[n].to_local().float() ** 2))
+                parts.append(torch.sum(grads[k].to_local().float() ** 2))
         sq = (torch.sum(torch.stack(parts)) if parts
               else torch.zeros((), dtype=torch.float32, device=dev))
         dist.all_reduce(sq)
@@ -315,7 +371,9 @@ def build_mesh_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh):
     new_opt_state, loss, metrics)``, the loss the global mean (on every
     rank). The gradients come from :func:`build_mesh_grad_fn`, and
     ``apply_updates`` widens and clips each as it goes."""
-    grad_fn = build_mesh_grad_fn(cfg, mesh)
+    layout = mesh_opt_layout(cfg, mesh)
+    stacks = layout[1]
+    grad_fn = build_mesh_grad_fn(cfg, mesh, layout)
     data_axes = [a for a in mesh.mesh_dim_names if a != "model"]
 
     def step_fn(params, opt_state, batch):
@@ -323,25 +381,28 @@ def build_mesh_step_fn(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh):
         with torch.profiler.record_function("train_step.grads"):
             loss, metrics, grads, gnorm = grad_fn(params, batch)
         with torch.profiler.record_function("train_step.optimizer"):
+            oparams = opt_params(mesh, named, stacks)
             opl = {n: t.placements for n, t in opt_state["master"].items()}
             state = {part: {n: t.to_local()
                             for n, t in opt_state[part].items()}
                      for part in ("master", "m", "v")}
             state["step"] = opt_state["step"]
             new_params, new_state = apply_updates(
-                opt_cfg, {n: p.to_local() for n, p in named.items()},
+                opt_cfg, {n: p.to_local() for n, p in oparams.items()},
                 {n: g.to_local() for n, g in grads.items()}, state,
                 gnorm=gnorm)
             del grads, state
             with torch.no_grad():
-                for n, p in named.items():
+                for n, p in oparams.items():
                     new = shd.as_dtensor(new_params.pop(n), mesh, opl[n],
-                                         p.shape)
-                    p.to_local().copy_(new.redistribute(
-                        mesh, p.placements).to_local())
+                                         p.shape).redistribute(
+                        mesh, p.placements).to_local()
+                    for name, row in (zip(stacks[n], new) if n in stacks
+                                      else [(n, new)]):
+                        named[name].to_local().copy_(row)
             for part in ("master", "m", "v"):
                 new_state[part] = {
-                    n: shd.as_dtensor(t, mesh, opl[n], named[n].shape)
+                    n: shd.as_dtensor(t, mesh, opl[n], oparams[n].shape)
                     for n, t in new_state[part].items()}
         # the loss and metrics: every data rank's share summed
         out = [loss] + [metrics[k] for k in sorted(metrics)]
@@ -485,10 +546,14 @@ class Trainer:
                     t.detach().full_tensor()
             return None
 
-        def tree(named):
-            return to_reference({n: leaf(t) for n, t in named.items()},
-                                self.cfg)
-        return {"params": tree(dict(params.named_parameters())),
+        named = dict(params.named_parameters())
+        stacks = ({} if self.mesh is None else
+                  shd.opt_layout(self.mesh, self.cfg, named)[1])
+
+        def tree(leaves):
+            return to_reference(shd.unstack_opt(
+                {n: leaf(t) for n, t in leaves.items()}, stacks), self.cfg)
+        return {"params": tree(named),
                 "opt": {"master": tree(opt_state["master"]),
                         "m": tree(opt_state["m"]), "v": tree(opt_state["v"]),
                         "step": torch.tensor(opt_state["step"],
@@ -520,6 +585,14 @@ class Trainer:
         this mesh's parameters and optimizer state."""
         mesh, cfg = self.mesh, self.cfg
         named = dict(params.named_parameters())
+        stacks = shd.opt_layout(mesh, cfg, named)[1]
+
+        def path_of(n):
+            """A key's stacked path and layer index; a stack of the
+            optimizer state (``opt_layout``) is its stacked leaf whole."""
+            if n in stacks:
+                return reference_path(stacks[n][0], cfg)[0], None
+            return reference_path(n, cfg)
 
         def like(tensors):
             """The stacked tree of empty DTensors: each stack once, its
@@ -527,11 +600,11 @@ class Trainer:
             tree: Dict[str, Any] = {}
             depth: Dict[tuple, int] = {}
             for n in tensors:
-                path, idx = reference_path(n, cfg)
+                path, idx = path_of(n)
                 if idx is not None:
                     depth[path] = max(depth.get(path, 0), idx + 1)
             for n, t in tensors.items():
-                path, idx = reference_path(n, cfg)
+                path, idx = path_of(n)
                 node = tree
                 for key in path[:-1]:
                     node = node.setdefault(key, {})
@@ -556,7 +629,7 @@ class Trainer:
         def unstack(tree_, tensors):
             out = {}
             for n, t in tensors.items():
-                path, idx = reference_path(n, cfg)
+                path, idx = path_of(n)
                 leaf = tree_
                 for key in path:
                     leaf = leaf[key]

@@ -424,12 +424,3 @@ def test_full_size_cell_record_reads_into_the_table(tmp_path):
     sh = shapes.SHAPES["decode_32k"]
     assert r["model_flops"] == 2 * shapes.active_params(
         configs.get("llama3-8b")) * sh.global_batch
-
-
-@pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_production_meshes_wait_for_slice_g(mesh, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice G"):
-        dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k",
-                     "--mesh", mesh, "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="slice G"):
-        dryrun.trace_cell("llama3-8b", "decode_32k", mesh, {})

@@ -11,7 +11,9 @@ continuation's loss within the reference's 2.5e-2 of the (4, 2)
 continuation's (``tests/test_optimized_layouts.py``) and, tighter, within
 1e-4; the sharded Trainer's checkpoint restored by the reference's
 single-device ``CheckpointManager``, and the reference Trainer's
-checkpoint resumed by the sharded one, both bit-exact."""
+checkpoint resumed by the sharded one, both bit-exact; reduced mamba2's
+checkpoint, its 1-D leaves' optimizer state stacked over the data
+ranks, saved on (4, 2) and restored onto (2, 4) bit-exact."""
 import json
 import os
 
@@ -113,6 +115,19 @@ def test_restore_onto_another_mesh_is_bit_exact(world):
     got = _flat(world["b_restored"])
     assert world["b_step"] == 1
     assert set(got) == set(saved)
+    for k, v in saved.items():
+        assert got[k].tobytes() == v.astype(got[k].dtype).tobytes(), k
+
+
+def test_stacked_optimizer_state_restores_onto_another_mesh(world):
+    """Reduced mamba2's one-step (4, 2) checkpoint, whose 1-D Mamba-2
+    leaves' optimizer state is stacked over 4 data ranks, restored onto
+    (2, 4), stacked over 2: every leaf equal to the stored one."""
+    saved = _stored(os.path.join(world["work"], "s", "step_000000001"))
+    got = _flat(world["s_restored"])
+    assert world["s_step"] == 1
+    assert set(got) == set(saved)
+    assert any("A_log" in k for k in saved)
     for k, v in saved.items():
         assert got[k].tobytes() == v.astype(got[k].dtype).tobytes(), k
 

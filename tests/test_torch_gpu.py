@@ -81,6 +81,22 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     assert ops.launches()["elementwise_chain"] == 2    # 10 stages: 8 + 2
 
 
+def test_attention_without_heads_launches_nothing(cuda):
+    """A model rank holding no heads (more ranks than heads): empty
+    outputs, no launch (a grid with a 0 dimension is a CUDA error), and
+    under autograd empty gradients that keep the graph whole."""
+    q = torch.zeros((2, 0, 16, 128), device=cuda, dtype=torch.bfloat16)
+    k, v = q.clone(), q.clone()
+    ops.reset_launches()
+    assert ops.attention(q, k, v).shape == (2, 0, 16, 128)
+    o, lse = ops.attention(q, k, v, kv_len=9, return_lse=True)
+    assert o.shape == (2, 0, 16, 128) and lse.shape == (2, 0, 16)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ops.attention(qg, kg, vg).sum().backward()
+    assert qg.grad.shape == q.shape and kg.grad.shape == k.shape
+    assert not any(ops.launches().values())
+
+
 def test_dispatch_engine_fallback_stays_on_the_card(cuda):
     """A nest no kernel matches runs on the torch engine on the card and
     agrees with the numpy engine; so does a prefix-store nest (running

@@ -14,9 +14,12 @@ not divide over the model axis while the 32 decoder tokens do: the
 encoder's residual is replicated, the decoder's sequence-parallel, as
 whisper's 1500 frames over 8 ranks) and qwen2-vl-2b (M-RoPE on drawn
 positions, the patch stub, the loss mask); jamba on a (2, 2, 2) mesh
-over ("pod", "data", "model"); and deepseek with 8 MLA heads and mamba2
-on (1, 8), one expert and one SSD head a rank. All cases run in one
-world of 8 ranks.
+over ("pod", "data", "model"); deepseek with 8 MLA heads and mamba2
+on (1, 8), one expert and one SSD head a rank; and qwen2-vl's 4 heads
+(2 kv heads) on (1, 8), where ranks 4-7 hold no head: they compute no
+q, k or v columns, attend nothing and add a zero partial to ``wo``'s
+sum, while taking part in every collective. All cases run in one world
+of 8 ranks.
 
 One step of the port's mesh step from the reference's ``Model.init(0)``
 weights (``models/convert.py``) and the batch drawn from numpy seed 0
@@ -62,6 +65,7 @@ CASES = {
                                               grad_accum=2), (2, 2, 2)),
     "deepseek_1x8": ("deepseek-v2-lite-16b", dict(F32, n_heads=8), (1, 8)),
     "mamba2_1x8": ("mamba2-1.3b", F32, (1, 8)),
+    "qwen2_vl_1x8": ("qwen2-vl-2b", F32, (1, 8)),
 }
 
 

@@ -12,7 +12,8 @@ split by the sequence and by its feature axes (``"latent"``), each in the
 expanded and the absorbed form; mamba2 (the SSM state split by heads, the
 x conv tail by d_inner); jamba cut to one period of 8 layers; whisper
 (the cross-attention's keys and values split by frames) and qwen2-vl
-(M-RoPE, the patch stub). A prompt of 30 tokens fills a cache of 64, so
+(M-RoPE, the patch stub), also on (1, 8), where 4 of its ranks hold no
+head. A prompt of 30 tokens fills a cache of 64, so
 with 4 model ranks the blocks are [0, 16), [16, 32), [32, 48), [48, 64):
 the decode steps cross the boundary at 32, and the last block stays
 empty; llama3-8b's steps include a 2-token step across it (its queries
@@ -92,6 +93,7 @@ CASES = {
               (1, 1, 1, 1)),
     "whisper": ("whisper-medium", F32, (2, 4), (1, 1, 1, 1)),
     "qwen2_vl": ("qwen2-vl-2b", F32, (2, 4), (1, 1, 1, 1)),
+    "qwen2_vl_1x8": ("qwen2-vl-2b", F32, (1, 8), (1, 1, 1, 1)),
 }
 
 

@@ -11,14 +11,17 @@ device run stands in for here), and of the port's ``build_step_fn``. The
 same on (2, 4) with a 30-token sequence, which does not divide over the
 model axis (the replicated residual), and on a (2, 2, 2) mesh over
 ("pod", "data", "model"), the batch and the optimizer state over pod
-and data together; ``grad_accum`` 2 on (2, 2); a
+and data together; ``grad_accum`` 2 on (2, 2), and 8 (more microbatches
+than a rank's 4 rows: it takes 4 of one row); a
 config whose 6 heads of 16 split unevenly over 4 ranks (q heads 2, 2, 1,
 1; one rank's q heads reading two kv heads), with qkv biases, tied
 embeddings and the chunked cross-entropy on (1, 4); reduced
 ``mamba2-1.3b`` on (4, 1) (data-parallel with ZeRO-1) against its
-single-device step; what a model axis still refuses (too few heads,
-experts or SSD heads for it; a GQA decode cache split by head_dim);
-and the launcher under
+single-device step; what a model axis still refuses (too few experts
+or SSD heads for it; a GQA decode cache split by head_dim) and that
+fewer heads than model ranks build; the collectives that ranks 0 and 7
+issue in a (2, 4) step, against the dry run's trace of the same ranks
+under the fake process group; and the launcher under
 ``torchrun`` on a 2 x 2 CPU mesh, reduced llama3-8b and mamba2-1.3b. The
 other families' model axis is in ``test_torch_mesh_families.py``.
 
@@ -147,22 +150,33 @@ CASES8 = {"2x4": ((2, 4), 32), "4x2": ((4, 2), 32), "1x8": ((1, 8), 32),
           "2x4_seq30": ((2, 4), 30), "pod2x2x2": ((2, 2, 2), 32)}
 
 
+#: the case whose ranks log their collectives: the dry run's head dims
+LOGGED = dict(F32, head_dim=64)
+
+
 @pytest.fixture(scope="module")
 def dense8(tmp_path_factory):
     """Each 8-rank case: the reference's and the port's single-device
-    step and the port's mesh step."""
+    step and the port's mesh step; then the logged case's step on (2, 4),
+    whose collectives every rank logs (``"logs"``: each rank's)."""
     refs = {s: _reference("llama3-8b", F32, s) for s in (32, 30)}
     cases, out = [], {}
     for name, (shape, s) in CASES8.items():
         tree, batch = refs[s][:2]
         cases.append(dict(arch="llama3-8b", overrides=F32, mesh_shape=shape,
                           tree=tree, batch=batch, opt=OPT))
-    got = run_world(mesh_steps_rank, 8, str(tmp_path_factory.mktemp("w8")),
-                    cases)[0]
+    lcfg = jconfigs.get_reduced("llama3-8b").scaled(**LOGGED)
+    cases.append(dict(arch="llama3-8b", overrides=LOGGED, mesh_shape=(2, 4),
+                      tree=_np(jax.jit(lambda: JModel(lcfg).init(0))()),
+                      batch=_batch(lcfg, 32), opt=OPT, log=True))
+    ranks = run_world(mesh_steps_rank, 8, str(tmp_path_factory.mktemp("w8")),
+                      cases)
+    got = ranks[0]
     singles = {s: _single("llama3-8b", F32, refs[s][0], refs[s][1])
                for s in refs}
     for (name, (_, s)), res in zip(CASES8.items(), got):
         out[name] = (res, refs[s], singles[s])
+    out["logs"] = [got[-1][-1]] + [r[-1] for r in ranks[1:]]
     return out
 
 
@@ -173,6 +187,8 @@ def world4(tmp_path_factory):
     single-device step, and the refusals."""
     acc = dict(F32, grad_accum=2)
     ref_acc = _reference("llama3-8b", acc, 32)
+    acc8 = dict(F32, grad_accum=8)
+    ref_acc8 = _reference("llama3-8b", acc8, 32)
     ref_uneven = _reference("llama3-8b", UNEVEN, 32)
     mcfg = jconfigs.get_reduced("mamba2-1.3b").scaled(**F32)
     mparams = jax.jit(lambda: JModel(mcfg).init(0))()
@@ -185,11 +201,13 @@ def world4(tmp_path_factory):
              dict(arch="llama3-8b", overrides=UNEVEN, mesh_shape=(1, 4),
                   tree=ref_uneven[0], batch=ref_uneven[1], opt=OPT),
              dict(arch="mamba2-1.3b", overrides=F32, mesh_shape=(4, 1),
-                  tree=mtree, batch=mbatch, opt=OPT)]
+                  tree=mtree, batch=mbatch, opt=OPT),
+             dict(arch="llama3-8b", overrides=acc8, mesh_shape=(2, 2),
+                  tree=ref_acc8[0], batch=ref_acc8[1], opt=OPT)]
     *got, refusals = run_world(mesh_steps_rank, 4,
                                str(tmp_path_factory.mktemp("w4")), cases,
                                True)[0]
-    return {"accum": (got[0], ref_acc),
+    return {"accum": (got[0], ref_acc), "accum8": (got[3], ref_acc8),
             "uneven": (got[1], ref_uneven,
                        _single("llama3-8b", UNEVEN, *ref_uneven[:2])),
             "mamba": (got[2], _single("mamba2-1.3b", F32, mtree, mbatch),
@@ -218,6 +236,30 @@ def test_grad_accum_on_a_2x2_mesh(world4):
     _close(params, ref_params)
 
 
+def test_grad_accum_over_more_microbatches_than_rows(world4):
+    """grad_accum 8 on (2, 2): a rank's 4 rows of the batch of 8 make 4
+    microbatches of one row; against the reference's grad_accum 8 step,
+    8 microbatches of one row."""
+    (loss, params, *_), (_, _, ref_loss, ref_params, _) = world4["accum8"]
+    assert abs(loss - ref_loss) < TOL
+    _close(params, ref_params)
+
+
+@pytest.mark.parametrize("grad_accum,rows,want", [
+    (1, 8, 1), (2, 8, 2), (8, 4, 4), (16, 8, 8), (3, 8, None), (4, 6, None)])
+def test_mesh_accum_splits_a_ranks_rows_or_refuses(grad_accum, rows, want):
+    """A mesh rank's microbatches: ``grad_accum`` where its rows divide
+    into them, one row each where ``grad_accum`` is a multiple of its
+    rows, else a ValueError naming both."""
+    from repro_torch.runtime.train import mesh_accum
+    if want is None:
+        with pytest.raises(ValueError, match=f"grad_accum {grad_accum} .* "
+                                             f"{rows} rows"):
+            mesh_accum(grad_accum, rows)
+    else:
+        assert mesh_accum(grad_accum, rows) == want
+
+
 def test_uneven_heads_bias_tied_chunked(world4):
     """6 heads over 4 ranks (stored blocks of 1.5 heads: the rank
     gathers wq / wo and its kv heads), qkv biases, tied embeddings, the
@@ -238,8 +280,8 @@ def test_mamba2_data_parallel_zero1(world4):
     _close(params, s_params)
 
 
-@pytest.mark.parametrize("case", list(CASES8) + ["accum", "uneven",
-                                                  "mamba"])
+@pytest.mark.parametrize("case", list(CASES8) + ["accum", "accum8",
+                                                  "uneven", "mamba"])
 def test_mesh_gradients_match_jax_grad(request, case):
     """The gradients the mesh step hands its optimizer, gathered whole,
     against ``jax.grad`` of the reference's loss: every leaf within a
@@ -256,16 +298,39 @@ def test_mesh_gradients_match_jax_grad(request, case):
     _grads_close(grads, gnorm, want)
 
 
+@pytest.mark.parametrize("rank", [0, 7])
+def test_fake_trace_issues_the_real_steps_collectives(dense8, rank):
+    """The dry run's trace of rank 0 and rank 7 of the (2, 4) step under
+    the fake process group issues the collectives the same rank of the
+    gloo world issued in its step: the same multiset of (kind, dtype,
+    numel, group size, mesh axis)."""
+    from collections import Counter
+    from repro_torch.launch import dryrun
+    cfg = configs.get_reduced("llama3-8b").scaled(**LOGGED)
+    with dryrun.fake_mesh((2, 4), rank) as mesh:
+        fn, args = dryrun.mesh_train_step(cfg, mesh, 8, 32)
+        rec = dryrun.trace(fn, *args, mesh=mesh)
+    fake = Counter({tuple(op[:5]): op[5]
+                    for op in rec["collectives"]["ops"]})
+    real = Counter(tuple(op) for op in dense8["logs"][rank])
+    assert fake == real
+    assert {op[0] for op in fake} >= {"all-gather", "reduce-scatter",
+                                      "all-reduce"}
+
+
 def test_model_axis_outside_dense_is_refused(world4):
     """Since every family splits over ``model`` and ctx_parallel is
     context-parallel attention (``test_torch_ctx_parallel.py``), the
     train step refuses only a model axis that leaves a rank without
-    heads, experts or SSD heads; reduced mamba2, jamba and a dense
-    config with ctx_parallel build on (2, 2). The mesh decode step
-    refuses a GQA cache split by head_dim (ROADMAP item 14b)."""
+    experts or SSD heads; reduced mamba2, jamba and a dense config with
+    ctx_parallel build on (2, 2), and a dense config with fewer heads
+    than the model axis builds on (1, 4) (a rank without heads adds a
+    zero partial: ``test_torch_mesh_families.py``'s qwen2-vl on (1, 8)).
+    The mesh decode step refuses a GQA cache split by head_dim (ROADMAP
+    item 14b)."""
     ssm, ctx, hybrid, narrow, experts, ssd, latent = world4["refusals"]
     assert ssm is None and hybrid is None and ctx is None
-    assert narrow is not None and "n_heads 2" in narrow
+    assert narrow is None
     assert experts is not None and "n_experts 3" in experts
     assert ssd is not None and "ssm_heads 2" in ssd
     assert latent is not None and "item 14b" in latent

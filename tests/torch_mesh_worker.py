@@ -11,6 +11,7 @@ run live here; this module imports torch and the port, never JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -154,7 +155,7 @@ def _cfg(arch: str, overrides: dict):
 
 
 def mesh_step(arch: str, overrides: dict, mesh_shape, tree, batch,
-              opt: dict, sp: bool = True):
+              opt: dict, sp: bool = True, log: bool = False):
     """One step of the port's mesh step on a ``mesh_shape`` mesh over all
     ranks from the reference's parameters ``tree`` (numpy, stacked) and
     the global ``batch``: ``(loss, new params, optimizer step, grads,
@@ -163,7 +164,10 @@ def mesh_step(arch: str, overrides: dict, mesh_shape, tree, batch,
     whole in the stacked layout as numpy on every rank. With
     ``cfg.ctx_parallel`` also ``{"ctx_calls": the context-parallel
     attention layers the gradient pass ran, "replicated": the names of
-    the parameters stored whole on every model rank}``."""
+    the parameters stored whole on every model rank}``. With ``log``
+    also the collectives the step issued on this rank, as the dry run's
+    ``ByteCounter`` logs them: ``(kind, dtype, numel, group size,
+    axis)`` each."""
     import numpy as np
     import torch
     from repro_torch.distributed import sharding as shd
@@ -198,10 +202,17 @@ def mesh_step(arch: str, overrides: dict, mesh_shape, tree, batch,
                                                                batch)
         finally:
             attention._gqa_ctx = ctx
-        grads = to_reference({n: g.full_tensor() for n, g in grads.items()},
-                             cfg)
+        grads = to_reference(shd.unstack_opt(
+            {n: g.full_tensor() for n, g in grads.items()},
+            shd.opt_layout(mesh, cfg, dict(params.named_parameters()))[1]),
+            cfg)
         step = make_train_step(cfg, AdamWConfig(**opt), mesh)
-        params, state, loss, _ = step(params, state, batch)
+        counter = contextlib.nullcontext()
+        if log:
+            from repro_torch.launch.dryrun import ByteCounter, mesh_groups
+            counter = ByteCounter(mesh_groups(mesh))
+        with counter:
+            params, state, loss, _ = step(params, state, batch)
     finally:
         set_activation_sharding()
     full = to_reference(shd.gather_params(params), cfg)
@@ -217,27 +228,34 @@ def mesh_step(arch: str, overrides: dict, mesh_shape, tree, batch,
         res += ({"ctx_calls": calls[0], "replicated": sorted(
             n for n, p in params.named_parameters()
             if not isinstance(p.placements[model], shd.Shard))},)
+    if log:
+        res += (counter.collectives,)
     return res
 
 
 def mesh_steps_rank(cases, refusals: bool = False):
     """``mesh_step`` for each case dict (and, with ``refusals``, then
-    :func:`mesh_refusals`); rank 0 returns the results."""
+    :func:`mesh_refusals`); rank 0 returns the results, every other rank
+    the collective logs of the cases with ``log`` (None for the rest)."""
     import torch.distributed as dist
     out = [mesh_step(**case) for case in cases]
     if refusals:
         out.append(mesh_refusals())
-    return out if dist.get_rank() == 0 else None
+    if dist.get_rank() == 0:
+        return out
+    return [res[-1] if case.get("log") else None
+            for case, res in zip(cases, out)]
 
 
 def mesh_refusals():
     """What ``make_train_step`` does with a model axis over 1: reduced
     mamba2 (SSM), a dense config with ctx_parallel and jamba (hybrid)
     build on a (2, 2) mesh (None); on a (1, 4) mesh a dense config with
-    fewer heads than the model axis, a MoE config whose 3 experts leave
-    a rank without one, and a Mamba-2 config with 2 SSD heads are refused
-    (ValueError); and the mesh decode step refuses a GQA cache split by
-    head_dim (``cache_shard="latent"``), naming ROADMAP item 14b."""
+    fewer heads than the model axis builds (None), a MoE config whose 3
+    experts leave a rank without one and a Mamba-2 config with 2 SSD
+    heads are refused (ValueError); and the mesh decode step refuses a
+    GQA cache split by head_dim (``cache_shard="latent"``), naming
+    ROADMAP item 14b."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.serve import build_mesh_decode_fn
@@ -271,7 +289,8 @@ def mesh_refusals():
     return msgs
 
 
-def _trainer(mesh_shape, ckpt_dir: str, steps: int, resume: str = "auto"):
+def _trainer(mesh_shape, ckpt_dir: str, steps: int, resume: str = "auto",
+             arch: str = "llama3-8b"):
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models.common import set_activation_sharding
     from repro_torch.optim import AdamWConfig
@@ -279,8 +298,7 @@ def _trainer(mesh_shape, ckpt_dir: str, steps: int, resume: str = "auto"):
     d, m = mesh_shape
     mesh = make_mesh_for(d * m, m, device_type="cpu")
     set_activation_sharding(mesh, ("data",), "model")
-    cfg = _cfg("llama3-8b", {"compute_dtype": "float32",
-                             "param_dtype": "float32"})
+    cfg = _cfg(arch, {"compute_dtype": "float32", "param_dtype": "float32"})
     return Trainer(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
                                     total_steps=10),
                    TrainConfig(steps=steps, log_every=0, ckpt_every=1,
@@ -312,8 +330,10 @@ def _host_tree(t):
 
 def elastic_rank(workdir: str, ref_ckpt: str):
     """Save on (4, 2), restore onto (2, 4) and continue, continue on
-    (4, 2); resume the reference's single-device checkpoint on (2, 4).
-    Rank 0 returns what it saw."""
+    (4, 2); resume the reference's single-device checkpoint on (2, 4);
+    reduced mamba2, whose 1-D Mamba-2 leaves keep their optimizer state
+    stacked on both meshes (``sharding.opt_layout``), saved on (4, 2)
+    and restored onto (2, 4). Rank 0 returns what it saw."""
     import shutil
     import torch.distributed as dist
     a, b, c, r = (os.path.join(workdir, x) for x in "abcr")
@@ -332,6 +352,10 @@ def elastic_rank(workdir: str, ref_ckpt: str):
     out["r_restored"], out["r_step"] = _restored(_trainer((2, 4), r, 2))
     res = _trainer((2, 4), r, 2).run()
     out["r_losses"], out["r_resumed"] = res["losses"], res["resumed_from"]
+    s = os.path.join(workdir, "s")
+    _trainer((4, 2), s, 1, resume="none", arch="mamba2-1.3b").run()
+    out["s_restored"], out["s_step"] = _restored(
+        _trainer((2, 4), s, 2, arch="mamba2-1.3b"))
     return out if dist.get_rank() == 0 else None
 
 
