@@ -231,7 +231,18 @@ Phases, one result line each:
                build_mesh_prefill_fn / build_mesh_decode_fn on a 1-rank
                NCCL mesh (llama3-8b cut to 4 layers at full width, the
                cache as cache_specs places it: split by the sequence)
-               against Model.prefill / decode, with equal launches.
+               against Model.prefill / decode, with equal launches; the
+               two kernels of a decode over a GQA cache split by head_dim
+               (csrc/ntx_attn_split.cu) at llama3-8b decode_32k's 16- and
+               4-way rank blocks and whisper's cross-attention block
+               against their plain versions, timed beside one
+               torch.matmul; a 32768-slot cache cut into 16 head_dim
+               blocks, the blocks' partial logits summed and each block's
+               softmax-PV side by side, against the whole-cache call; and
+               the mesh steps again with cache_shard="latent" (k and v
+               Shard(3)), which must launch both kernels every layer of
+               every decode step and no flash call, against the plain
+               steps at phase 4's bf16 limits (two attention routes).
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 The script needs a CUDA device and the repository's src/ beside it; it
@@ -346,6 +357,12 @@ CTX_PROMPT, CTX_STEPS = 2048, (1, 2, 1, 1)
 #: square, so the blocks' lse differ by units)
 CTX_FILL = CTX_CACHE - CTX_CACHE // CTX_BLOCKS * 3 // 2
 CTX_KEY_SCALES = (0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0)
+#: phase 21's decode over a cache split by head_dim: the rank blocks of
+#: llama3-8b decode_32k (b 8 = 128 over 16 data ranks, 32 / 8 heads, 32768
+#: keys) on 16 and 4 model ranks, whisper-medium's cross-attention block
+#: on 16 (16 / 16 heads, 1500 frames, db 4); the one-card stand-in's
+#: blocks of head_dim 128 and its filled slots
+SPLIT_BATCH, SPLIT_RANKS, SPLIT_FILL = 8, (16, 4), 32768 - 200
 #: phase 8's shapes: the conv plane, the Laplace grids, the GEMM side
 CONV_HW, CONV_TAPS = 8192, (3, 5, 7)
 LAP_SHAPES = ((1 << 26,), (8192, 8192), (512, 512, 512))
@@ -3645,6 +3662,122 @@ def ctx_cases(torch, rn) -> list:
     return cases
 
 
+def split_cases(torch, rn) -> list:
+    """Phase 21's cases of ``csrc/ntx_attn_split.cu``: the logits kernel
+    and the softmax-PV kernel at llama3-8b decode_32k's rank blocks on 16
+    and 4 model ranks (b SPLIT_BATCH, hq 32, hkv 8, 1 query, 32768 keys,
+    db 8 / 32, causal at the last position) and whisper-medium's
+    cross-attention block on 16 (hq 16, hkv 16, 1500 frames, db 4, not
+    causal), bf16, each against its plain version; the library call of
+    the logits is one ``torch.matmul`` of (b, hkv, g s, db) @ (b, hkv,
+    db, kv_len) (no PyTorch call computes the softmax-PV of given
+    logits)."""
+    from repro_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
+    src = "src/repro_torch/kernels/csrc/ntx_attn_split.cu"
+    rep = ("none: the reference partitions its decode step's einsums "
+           "with XLA (src/repro/launch/dryrun.py:110 serve_step)")
+    shapes = [(f"llama3_8b_tp{nm}", 32, 8, 32768, 128, nm, True)
+              for nm in SPLIT_RANKS]
+    shapes.append(("whisper_cross_tp16", 16, 16, 1500, 64, 16, False))
+    b, cases = SPLIT_BATCH, []
+    for tag, hq, hkv, kv, hd, nm, causal in shapes:
+        g, db = hq // hkv, hd // nm
+        q = rn(b, hq, 1, db, dt=bf)
+        k, v = (rn(b, hkv, kv, db, dt=bf) for _ in range(2))
+        logits = fa.attention_split_logits_plain(q, k, kv)
+        scale = hd ** -0.5              # the whole head's, not the block's
+        q_pos = kv - 1 if causal else 0
+        ops_n = 2.0 * b * hq * kv * db
+        name = f"b{b}_hq{hq}_hkv{hkv}_kv{kv}_db{db}_bf16"
+        cases.append(dict(
+            name=f"attention_split_logits:{tag}_{name}",
+            wrapper="attention_split_logits", source=src, replaces=rep,
+            kernel=lambda q=q, k=k, kv=kv: fa.attention_split_logits_cuda(
+                q, k, kv),
+            plain=lambda q=q, k=k, kv=kv: fa.attention_split_logits_plain(
+                q, k, kv),
+            library=lambda q=q, k=k, hkv=hkv, g=g, db=db: torch.matmul(
+                q.view(b, hkv, g, db), k.transpose(-1, -2)),
+            mode="close", tol=(1e-5, 1e-4),
+            bytes=(q.numel() + k.numel()) * 2 + logits.numel() * 4,
+            ops=ops_n, kind="fp32", path=True, phase="latent"))
+        # the softmax-PV's logits sharpened to a std of 4 after the scale
+        # (random blocks of db columns give 0.25-0.5: a near-uniform P whose
+        # o is about the mean of v, which a kernel that drops the softmax
+        # also returns), held at one bf16 step of max|o|
+        sharp = logits * (4.0 / (scale * db ** 0.5))
+        pv_atol = 2.0 ** -7 * float(fa.attention_split_softmax_pv_plain(
+            sharp, v, q_pos, scale, causal).float().abs().max())
+        cases.append(dict(
+            name=f"attention_split_softmax_pv:{tag}_{name}",
+            wrapper="attention_split_softmax_pv", source=src, replaces=rep,
+            kernel=lambda lg=sharp, v=v, p=q_pos, sc=scale, c=causal: (
+                fa.attention_split_softmax_pv_cuda(lg, v, p, sc, c)),
+            plain=lambda lg=sharp, v=v, p=q_pos, sc=scale, c=causal: (
+                fa.attention_split_softmax_pv_plain(lg, v, p, sc, c)),
+            library=None, mode="close", tol=(0.0, pv_atol),
+            bytes=logits.numel() * 4 + v.numel() * 2 + q.numel() * 2,
+            ops=ops_n, kind="fp32", path=True, phase="latent",
+            note=f" | split plan {fa.split_pv_plan(b, hq, hkv, 1, kv, db)}"))
+    return cases
+
+
+def head_dim_split_check(torch) -> dict:
+    """The decode over a cache split by head_dim as SPLIT_RANKS[0] ranks
+    compute it, on one card: a 32768-slot cache (b SPLIT_BATCH, 32 / 8
+    heads, head_dim 128, bf16) filled to SPLIT_FILL slots, cut into
+    blocks of 128 / SPLIT_RANKS[0] head_dim columns; each block's partial
+    logits (``ops.attention_split_logits``) summed in PyTorch (the sum
+    the all-reduce takes), each block's softmax-PV
+    (``ops.attention_split_softmax_pv``) at the whole head's scale, the
+    blocks side by side, against ``ops.attention`` over the whole cache
+    at two bf16 epsilons of max|o| (each block's o rounded to bf16 once,
+    the flash kernel's P in bf16); timed beside the whole-cache call."""
+    from repro_torch.kernels import ops
+    bf = torch.bfloat16
+    nm, hd = SPLIT_RANKS[0], 128
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device=DEVICE).to(bf)
+    q = rn(SPLIT_BATCH, 32, 1, hd)
+    k, v = (rn(SPLIT_BATCH, 8, 32768, hd) for _ in range(2))
+    db = hd // nm
+    cols = [(r * db, (r + 1) * db) for r in range(nm)]
+
+    def split():
+        logits = sum(ops.attention_split_logits(q[..., lo:hi], k[..., lo:hi],
+                                                SPLIT_FILL)
+                     for lo, hi in cols)
+        return torch.cat([ops.attention_split_softmax_pv(
+            logits, v[..., lo:hi], SPLIT_FILL - 1, hd ** -0.5, True)
+            for lo, hi in cols], -1)
+    whole = lambda: ops.attention(q, k, v, causal=True, kv_len=SPLIT_FILL)
+    ops.reset_launches()
+    got = split()
+    n = ops.launches()
+    want = whole()
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2.0 ** -6 * float(want.float().abs().max())
+    counts = {k_: n[k_] for k_ in ("attention_split_logits",
+                                   "attention_split_softmax_pv")}
+    need(bool(torch.isfinite(got).all()) and err <= tol
+         and counts == dict.fromkeys(counts, nm),
+         f"head_dim split: o max_abs_err {err:.3e} (tol {tol:.3e}), "
+         f"launches {counts} (want {nm} each)")
+    split_ms = time_ms(split, torch)
+    whole_ms = time_ms(whole, torch)
+    bound = 2 * SPLIT_BATCH * 8 * SPLIT_FILL * hd * 2 / HBM_BYTES_PER_S * 1e3
+    say("ctx", f"decode over {SPLIT_FILL} of 32768 slots split by head_dim "
+               f"into {nm} blocks of {db} (b {SPLIT_BATCH}, hq 32, hkv 8, "
+               f"bf16): o vs ops.attention over the whole cache max_abs_err "
+               f"{err:.3e} (<= 2^-6 max|o| {tol:.3e}) ok | launches {counts}"
+               f" | {nm} x 2 kernel calls and the sum {split_ms:.4f} ms, "
+               f"whole-cache call {whole_ms:.4f} ms, bound (the valid K and V"
+               f" read once) {bound:.4f} ms | card {card_line()}")
+    return {"split_ms": split_ms, "whole_ms": whole_ms, "bound_ms": bound,
+            "max_abs_err": err}
+
+
 def sharded_decode_check(torch) -> dict:
     """A CTX_CACHE-slot decode step (b BATCH, 32 / 8 heads, d 128, bf16)
     cut into CTX_BLOCKS blocks as a sequence-sharded cache's ranks hold
@@ -3734,9 +3867,14 @@ def phase_ctx(torch, np) -> tuple:
     decode steps, against ``Model.prefill`` / ``decode`` from the same
     weights (the plain steps first, twice: the second is timed): logits
     (the mesh's gathered) within
-    bf16 limits, every cache leaf, and the launches of each equal.
-    Returns (the kernel rows, {"ctx": (the mesh steps' launches,
-    observations)})."""
+    bf16 limits, every cache leaf, and the launches of each equal; then
+    the same mesh steps with the cache split by head_dim
+    (``cache_shard="latent"``; :func:`split_cases` and
+    :func:`head_dim_split_check` hold its kernels first), against the
+    plain steps at :func:`phase_width`'s bf16 limits, both kernels
+    launched once a layer a decode step.
+    Returns (the kernel rows, {"ctx" / "latent": (the mesh steps'
+    launches, observations)})."""
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.distributed import sharding as shd
@@ -3752,7 +3890,9 @@ def phase_ctx(torch, np) -> tuple:
     rn = lambda *s, dt=torch.float32, std=1.0: (
         torch.randn(*s, generator=g, device=dev) * std).to(dt)
     rows = check_and_time(torch, ctx_cases(torch, rn), True, "ctx", "ctx")
+    rows += check_and_time(torch, split_cases(torch, rn), True, "ctx", "ctx")
     decode = sharded_decode_check(torch)
+    head_dim = head_dim_split_check(torch)
     gc_collect(torch)
 
     cfg = configs.get("llama3-8b").scaled(n_layers=DENSE_LAYERS)
@@ -3772,6 +3912,7 @@ def phase_ctx(torch, np) -> tuple:
         logits, cache, fill = prefill()
         torch.cuda.synchronize()
         pre_s = time.perf_counter() - t0
+        run.prefill_counts = ops.launches()
         out = [gather(logits).float()]
         t0 = time.perf_counter()
         for tok in steps:
@@ -3780,6 +3921,8 @@ def phase_ctx(torch, np) -> tuple:
             out.append(gather(logits).float())
         torch.cuda.synchronize()
         dec_s = time.perf_counter() - t0
+        run.placements = [[getattr(t, "placements", None)
+                           for t in c.values()] for c in cache]
         leaves = [{k: gather(t) for k, t in c.items()} for c in cache]
         return out, leaves, ops.launches(), pre_s, dec_s
 
@@ -3809,6 +3952,19 @@ def phase_ctx(torch, np) -> tuple:
                 lambda t: t.full_tensor())
         specs = shd.layer_cache_specs(mesh, m_cache, cfg)
         layout = sorted({str(tuple(sp)) for sp in specs[0].values()})
+        # the same steps on a cache split by head_dim: this slice's path
+        lat = cfg.scaled(cache_shard="latent")
+        pre_l = build_mesh_prefill_fn(lat, mesh)
+        dec_l = build_mesh_decode_fn(lat, mesh)
+        with deterministic(torch, True):
+            l_out, l_cache, l_counts, l_pre, l_dec = run(
+                lambda: pre_l(params, {"tokens": tokens}, cache_len),
+                lambda tok, c, f: dec_l(params, tok, c, f),
+                lambda t: t.full_tensor())
+        l_pre_counts = run.prefill_counts
+        model_dim = mesh.mesh_dim_names.index("model")
+        l_dims = sorted({getattr(pl[model_dim], "dim", None)
+                         for c in run.placements for pl in c})
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3839,11 +3995,44 @@ def phase_ctx(torch, np) -> tuple:
     need(m_counts == p_counts and m_counts["attention"] > 0
          and m_counts["attention_merge"] > 0,
          f"mesh launches {m_counts}, plain {p_counts}")
+    # the head_dim split: the prefill's flash calls, then both kernels of
+    # csrc/ntx_attn_split.cu once a layer a decode step, and no flash call
+    want = dict(p_counts, attention=l_pre_counts["attention"],
+                attention_merge=l_pre_counts["attention_merge"],
+                attention_split_logits=DENSE_LAYERS * len(CTX_STEPS),
+                attention_split_softmax_pv=DENSE_LAYERS * len(CTX_STEPS))
+    # two attention routes of one bf16 model (the split's fp32 softmax
+    # against the flash kernel's bf16 P): phase_width's bf16 limits
+    worst_ll = max(float((a - b_).abs().max())
+                   for a, b_ in zip(l_out, p_out))
+    ok_ll = all(torch.allclose(a, b_, rtol=2e-2, atol=6e-2)
+                for a, b_ in zip(l_out, p_out))
+    worst_lc = max(float((t.cpu().float() - pc[k].float()).abs().max())
+                   for lc, pc in zip(l_cache, p_cache) for k, t in lc.items())
+    ok_lc = all(torch.allclose(t.cpu().float(), pc[k].float(), rtol=2e-2,
+                               atol=6e-2)
+                for lc, pc in zip(l_cache, p_cache) for k, t in lc.items())
+    say("ctx", f"mesh prefill + {len(CTX_STEPS)} decode steps, cache split "
+               f"by head_dim (the leaves' dims over model {l_dims}): logits "
+               f"max_abs_err {worst_ll:.3e} vs the plain steps (rtol 2e-2 "
+               f"atol 6e-2: {'ok' if ok_ll else 'FAIL'}) | cache leaves "
+               f"max_abs_err {worst_lc:.3e} ({'ok' if ok_lc else 'FAIL'}) | "
+               f"prefill {l_pre * 1e3:.1f} ms, decode steps "
+               f"{l_dec * 1e3:.1f} ms | launches {l_counts} | card {card}")
+    need(ok_ll and ok_lc and l_dims == [3],
+         "the head_dim split's mesh steps disagree with the plain steps, "
+         f"or its leaves are not split by head_dim ({l_dims})")
+    need(l_counts == want and l_pre_counts["attention"] == DENSE_LAYERS,
+         f"head_dim split launches {l_counts} (prefill "
+         f"{l_pre_counts}), want {want}")
     del params
     gc_collect(torch)
     return rows, {"ctx": (m_counts, {"decode": decode,
                                      "prefill_ms": m_pre * 1e3,
-                                     "decode_ms": m_dec * 1e3})}
+                                     "decode_ms": m_dec * 1e3}),
+                  "latent": (l_counts, {"head_dim": head_dim,
+                                        "prefill_ms": l_pre * 1e3,
+                                        "decode_ms": l_dec * 1e3})}
 
 
 @contextlib.contextmanager

@@ -75,6 +75,11 @@ _SIGNATURES = {
     # (p, g, m, v, p_out, m_out, v_out, n, hyper (lr, b1, 1 - b1, b2,
     #  1 - b2, eps, wd, bc1, bc2), p_bf16, head, vecs, blocks, stream)
     "ntx_adamw": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _L, _L, _I, _P],
+    # (q, k, out, params (strides, shapes, n), stream)
+    "ntx_attn_split_logits": [_P, _P, _P, _P, _P],
+    # (logits, v, o, ws, params (strides, shapes, plan), scale log2 e,
+    #  stream)
+    "ntx_attn_split_pv": [_P, _P, _P, _P, _P, _F, _P],
 }
 
 

@@ -610,3 +610,204 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
             _build.stream_of(q))
     _build.check(code, "ntx_flash_attention_bwd")
     return dq, dk, dv
+
+
+# ----------------------------------------------------------------------
+# Decode over a cache split by head_dim: csrc/ntx_attn_split.cu
+# ----------------------------------------------------------------------
+#: threads a block, logits rows a pass and keys a thread of the logits
+#: kernel, the keys a split of the softmax-PV kernel is a multiple of
+#: (``kThreads``, ``kRowsA``, ``kKeysA``, ``kChunk``), the logits kernel's
+#: shared memory for the group's query rows (``kSmemA``)
+SPLIT_THREADS, SPLIT_ROWS_A, SPLIT_KEYS_A, SPLIT_CHUNK = 256, 8, 4, 512
+SPLIT_SMEM_A = 48 * 1024
+#: widest head_dim block the softmax-PV kernel takes (32 threads of 8)
+SPLIT_MAX_DB = 256
+
+
+def attention_split_logits_plain(q, k, kv_len: int) -> torch.Tensor:
+    """Plain version of the logits kernel: each query row's fp32 dot
+    products with the first ``kv_len`` keys over the slice of head_dim
+    that q (b, hq, s, db) and k (b, hkv, S, db) hold, unscaled: (b, hq,
+    s, kv_len), query head h reading kv head h // (hq / hkv). Summed over
+    the slices (the model ranks), they are the whole logits."""
+    b, hq, s, db = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, s, db).float()
+    out = torch.einsum("bhgqd,bhkd->bhgqk", qg, k[:, :, :kv_len].float())
+    return out.reshape(b, hq, s, kv_len)
+
+
+def attention_split_softmax_pv_plain(logits, v, q_pos: int, scale: float,
+                                     causal: bool = True) -> torch.Tensor:
+    """Plain version of the softmax-PV kernel: the fp32 softmax of
+    ``logits`` (b, hq, s, kv_len) times ``scale`` over the first kv_len
+    rows of the slice of v (b, hkv, S, db): query row i sees keys <=
+    ``q_pos + i`` when ``causal``, the others masked with -1e30; rows
+    normalised by their sum (0 taken as 1), in v's dtype."""
+    b, hq, s, kv = logits.shape
+    hkv, db = v.shape[1], v.shape[-1]
+    x = logits.float() * f32(scale)
+    if causal:
+        qpos = q_pos + torch.arange(s, device=x.device)[:, None]
+        kpos = torch.arange(kv, device=x.device)[None, :]
+        x = torch.where(kpos <= qpos, x, torch.full_like(x, -1e30))
+    p = torch.exp(x - x.amax(-1, keepdim=True))
+    den = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.reshape(b, hkv, hq // hkv, s, kv),
+                     v[:, :, :kv].float()).reshape(b, hq, s, db)
+    return (o / torch.where(den == 0, torch.ones_like(den), den)).to(v.dtype)
+
+
+def attention_split_check(q, k, kv_len: int) -> None:
+    """Raise ``ValueError`` for what the logits kernel refuses: shapes
+    that do not pair, ``kv_len`` outside [1, S], a head_dim block that is
+    not a multiple of 4, another dtype, more query rows of a group than
+    its shared memory holds."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"split logits take 4-D q and k, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)}")
+    b, hq, s, db = q.shape
+    if (k.shape[0] != b or k.shape[-1] != db or hq % k.shape[1]
+            or not 1 <= kv_len <= k.shape[2] or s < 1):
+        raise ValueError(f"split logits shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} kv_len {kv_len}")
+    if db % 4:
+        raise ValueError(f"split logits take a head_dim block that is a "
+                         f"multiple of 4, got {db}")
+    if q.dtype != k.dtype or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"split logits take fp32 or bf16 q and k of one "
+                         f"dtype, got {q.dtype}/{k.dtype}")
+    if hq // k.shape[1] * s * db * 4 > SPLIT_SMEM_A:
+        raise ValueError(f"split logits: a group's {hq // k.shape[1] * s} "
+                         f"rows of {db} exceed {SPLIT_SMEM_A} bytes")
+
+
+def attention_split_pv_check(logits, v, q_pos: int, causal: bool) -> None:
+    """Raise ``ValueError`` for what the softmax-PV kernel refuses."""
+    if logits.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"split softmax-PV takes 4-D logits and v, got "
+                         f"{tuple(logits.shape)} {tuple(v.shape)}")
+    b, hq, s, kv = logits.shape
+    if (v.shape[0] != b or hq % v.shape[1] or not 1 <= kv <= v.shape[2]
+            or s < 1 or v.shape[-1] > SPLIT_MAX_DB
+            or (causal and q_pos < 0)):
+        raise ValueError(f"split softmax-PV shapes logits "
+                         f"{tuple(logits.shape)} v {tuple(v.shape)} q_pos "
+                         f"{q_pos}")
+    if v.shape[-1] % (8 if v.shape[-1] > 128 else 4):
+        raise ValueError(f"split softmax-PV takes a head_dim block that is "
+                         f"a multiple of 4 (of 8 past 128: 32 threads a "
+                         f"row), got {v.shape[-1]}")
+    if logits.dtype != torch.float32 or v.dtype not in (torch.float32,
+                                                        torch.bfloat16):
+        raise ValueError(f"split softmax-PV takes fp32 logits and fp32 or "
+                         f"bf16 v, got {logits.dtype}/{v.dtype}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPvPlan:
+    """How the softmax-PV kernel cuts one call: blocks of ``rb`` rows (4,
+    8 or 16) of a (batch, kv head) group's g s rows, ``row_groups`` a
+    group; the keys cut into ``splits`` ranges of ``chunk`` (a multiple
+    of ``SPLIT_CHUNK``), merged by :func:`flash_merge_cuda` through
+    ``workspace`` fp32 values (each split's (m, l) and db-wide accumulator
+    a row, as the flash kernel's splits leave them) where there are
+    several."""
+
+    rb: int
+    row_groups: int
+    splits: int
+    chunk: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=1024)
+def split_pv_plan(b: int, hq: int, hkv: int, s: int, kv_len: int,
+                  db: int) -> SplitPvPlan:
+    """The softmax-PV kernel's plan, a pure function of the shapes: the
+    fewest rows a block that hold a group's (up to 16), and the keys
+    split into as many ranges as one wave of two blocks an SM holds (its
+    registers allow two), each at least ``MIN_SPLIT_TILES`` chunks of
+    ``SPLIT_CHUNK``, at most ``MAX_SPLITS`` (the merge's limit)."""
+    rows = hq // hkv * s
+    rb = next(r for r in (4, 8, 16) if rows <= r or r == 16)
+    row_groups = -(-rows // rb)
+    tiles = -(-kv_len // SPLIT_CHUNK)
+    base = max(1, b * hkv * row_groups)
+    splits = max(1, min(2 * SMS // base, tiles // MIN_SPLIT_TILES,
+                        MAX_SPLITS))
+    per = -(-tiles // splits)
+    splits = -(-tiles // per)
+    return SplitPvPlan(rb=rb, row_groups=row_groups, splits=splits,
+                       chunk=per * SPLIT_CHUNK,
+                       workspace=(splits * b * hq * s * (db + 2)
+                                  if splits > 1 else 0))
+
+
+def _split_vec(t: torch.Tensor) -> tuple:
+    """``(t, n)``: ``t`` (d contiguous, its row a multiple of 4) and the
+    elements of a row a thread loads at once, 8 or 4, the most that divide
+    the row and the strides at a base aligned to them (at most 16 bytes);
+    a view that allows neither is copied."""
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    for n in (8, 4):
+        if (t.shape[-1] % n == 0 and all(st % n == 0 for st in t.stride()[:3])
+                and t.data_ptr() % min(16, n * t.element_size()) == 0):
+            return t, n
+    return _split_vec(t.clone(memory_format=torch.contiguous_format))
+
+
+def attention_split_logits_cuda(q, k, kv_len: int) -> torch.Tensor:
+    """Launch the logits kernel of ``csrc/ntx_attn_split.cu`` (see
+    :func:`attention_split_logits_plain`): q (b, hq, s, db) and k (b, hkv,
+    S, db) fp32 or bf16, read by strides with d contiguous (copied where
+    not); out (b, hq, s, kv_len) fp32."""
+    attention_split_check(q, k, kv_len)
+    q = q if q.stride(-1) == 1 else q.contiguous()
+    k, n = _split_vec(k)
+    b, hq, s, db = q.shape
+    out = torch.empty((b, hq, s, kv_len), dtype=torch.float32,
+                      device=q.device)
+    params = _build.ptr_array(ctypes.c_longlong, (
+        *_strides(q), *_strides(k), b, hq, k.shape[1], s, kv_len, db,
+        int(q.dtype == torch.bfloat16), n))
+    with _build.on_device(q):
+        code = _build.library().ntx_attn_split_logits(
+            q.data_ptr(), k.data_ptr(), out.data_ptr(), params,
+            _build.stream_of(q))
+    _build.check(code, "ntx_attn_split_logits")
+    return out
+
+
+def attention_split_softmax_pv_cuda(logits, v, q_pos: int, scale: float,
+                                    causal: bool = True) -> torch.Tensor:
+    """Launch the softmax-PV kernel of ``csrc/ntx_attn_split.cu`` (and
+    :func:`flash_merge_cuda` where :func:`split_pv_plan` splits the keys; see
+    :func:`attention_split_softmax_pv_plain`): logits (b, hq, s, kv_len)
+    fp32 (copied if not contiguous), v (b, hkv, S, db) fp32 or bf16 read
+    by strides with d contiguous; o (b, hq, s, db) in v's dtype."""
+    attention_split_pv_check(logits, v, q_pos, causal)
+    logits = logits.contiguous()
+    b, hq, s, kv = logits.shape
+    hkv, db = v.shape[1], v.shape[-1]
+    v, n = _split_vec(v)
+    if db // n > 32:                 # a row read in pieces too small
+        v, n = _split_vec(v.clone(memory_format=torch.contiguous_format))
+    dc = 1 << (db // n - 1).bit_length()
+    plan = split_pv_plan(b, hq, hkv, s, kv, db)
+    o = torch.empty((b, hq, s, db), dtype=v.dtype, device=v.device)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=v.device)
+          if plan.splits > 1 else None)
+    params = _build.ptr_array(ctypes.c_longlong, (
+        *_strides(v), b, hq, hkv, s, kv, db, dc, plan.row_groups,
+        plan.chunk, int(q_pos), int(bool(causal)),
+        int(v.dtype == torch.bfloat16), n, plan.rb, plan.splits))
+    with _build.on_device(v):
+        code = _build.library().ntx_attn_split_pv(
+            logits.data_ptr(), v.data_ptr(), o.data_ptr(),
+            ws.data_ptr() if ws is not None else None, params,
+            f32(f32(scale) * 1.4426950408889634), _build.stream_of(v))
+    _build.check(code, "ntx_attn_split_pv")
+    return flash_merge_cuda(ws, o, plan.splits) if plan.splits > 1 else o

@@ -7,7 +7,8 @@ these); CUDA tensors launch the hand-written Hopper kernel from
 ``csrc/`` or raise. Meta tensors take the dry run's route
 (``repro_torch.launch.dryrun``) in the wrappers a serving or training
 step reaches (``gemm``, ``fused_mlp``, ``act_bwd``, ``attention``,
-``ssd``, ``ssd_with_state``, ``adamw_update``): the call is checked and
+``attention_split_logits``, ``attention_split_softmax_pv``, ``ssd``,
+``ssd_with_state``, ``adamw_update``): the call is checked and
 planned as the card would run it, tallied in :data:`DRY` and answered
 with empty meta outputs; the other wrappers raise on meta tensors.
 Nothing falls back from one route to another.
@@ -28,7 +29,8 @@ forward's row log-sum-exp; the MLP's backward runs every product on the
 ``ntx_gemm`` kernel and the activation's derivative on
 ``csrc/ntx_act_bwd.cu``; the SSD's is PyTorch autograd of the masked
 chunked form. ``gemm`` called directly, ``ssd_with_state`` (prefill),
-the streaming commands, conv and the stencils have no backward (the
+the two kernels of a decode over a cache split by head_dim, the
+streaming commands, conv and the stencils have no backward (the
 reference has none for conv, the stencil pass or the compensated GEMM
 either, and no training path calls the others), so their CUDA routes
 raise under autograd rather than return results that no gradient
@@ -41,11 +43,17 @@ import functools
 import numpy as np
 import torch
 
-from .flash_attention import (attention_pairs, flash_attention_bwd_cuda,
+from .flash_attention import (attention_pairs, attention_split_check,
+                              attention_split_logits_cuda,
+                              attention_split_logits_plain,
+                              attention_split_pv_check,
+                              attention_split_softmax_pv_cuda,
+                              attention_split_softmax_pv_plain,
+                              flash_attention_bwd_cuda,
                               flash_attention_bwd_plain,
                               flash_attention_cuda, flash_attention_plain,
                               flash_bwd_check, flash_bwd_plan, flash_check,
-                              flash_lse_plain, flash_plan)
+                              flash_lse_plain, flash_plan, split_pv_plan)
 from .ntx_elementwise import (MAX_STAGES, _OPS2, act_bwd_check, act_bwd_cuda,
                               act_bwd_plain, adamw_check, adamw_cuda,
                               adamw_plain, elementwise_chain_plain,
@@ -74,9 +82,14 @@ from .ssd_scan import (scan_plan, ssd_check, ssd_flops, ssd_scan_cuda,
 #: ``attention_bwd`` counts attention backward calls, each three kernels of
 #: ``csrc/flash_attention_bwd.cu`` (D, dK/dV, dQ); ``act_bwd`` the fused
 #: MLP's activation backward (the MLP backward's products count under
-#: ``gemm``)
+#: ``gemm``); ``attention_split_logits`` and ``attention_split_softmax_pv``
+#: the two kernels of a decode over a cache split by head_dim
+#: (``csrc/ntx_attn_split.cu``; the second's split merge, where its plan
+#: splits the keys, counts with it)
 LAUNCHES = {"gemm": 0, "gemm_kahan": 0, "attention": 0,
-            "attention_merge": 0, "attention_bwd": 0, "act_bwd": 0,
+            "attention_merge": 0, "attention_bwd": 0,
+            "attention_split_logits": 0, "attention_split_softmax_pv": 0,
+            "act_bwd": 0,
             "elementwise": 0,
             "elementwise_chain": 0, "chain_reduce": 0, "reduce": 0,
             "ssd": 0, "ssd_state": 0, "ssd_bwd": 0, "adamw": 0, "conv2d": 0,
@@ -752,6 +765,61 @@ def _attention_bwd_meta(q, k, v, o, lse, do, causal: bool):
     _tally("attention_bwd", 2 * pairs * (3 * d + 2 * dv),
            _nbytes(q, k, v, o, lse, do, *grads))
     return grads
+
+
+_SPLIT_DECODE = "a decode step runs it under torch.no_grad()"
+
+
+def attention_split_logits(q: torch.Tensor, k: torch.Tensor,
+                           kv_len: int) -> torch.Tensor:
+    """The partial logits of a decode over a cache split by head_dim: q
+    (b, hq, s, db) and k (b, hkv, S, db), this rank's block of head_dim,
+    -> fp32 (b, hq, s, kv_len), ``sum_d q k`` over the block for the first
+    ``kv_len`` keys, unscaled (summed over the model ranks, the whole
+    logits). On the card ``csrc/ntx_attn_split.cu``'s logits kernel."""
+    if _on_meta(q, k):
+        attention_split_check(q, k, kv_len)
+        b, hq, s, db = q.shape
+        out = torch.empty((b, hq, s, kv_len), dtype=torch.float32,
+                          device="meta")
+        _tally("attention_split_logits", 2 * b * hq * s * kv_len * db,
+               _nbytes(q, out) + b * k.shape[1] * kv_len * db
+               * k.element_size())
+        return out
+    if not _on_card(q, k):
+        return attention_split_logits_plain(q, k, kv_len)
+    _no_backward("attention_split_logits", q, k, why=_SPLIT_DECODE)
+    LAUNCHES["attention_split_logits"] += 1
+    return attention_split_logits_cuda(q, k, kv_len)
+
+
+def attention_split_softmax_pv(logits: torch.Tensor, v: torch.Tensor,
+                               q_pos: int, scale: float,
+                               causal: bool = True) -> torch.Tensor:
+    """The attention output over this rank's block of head_dim from the
+    whole logits (b, hq, s, kv_len) fp32 (:func:`attention_split_logits`
+    summed over the model ranks): the softmax of ``logits * scale``, query
+    row i seeing keys <= ``q_pos + i`` when ``causal``, times the first
+    kv_len rows of v (b, hkv, S, db) -> (b, hq, s, db) in v's dtype. On
+    the card ``csrc/ntx_attn_split.cu``'s softmax-PV kernel (and its
+    split merge)."""
+    if _on_meta(logits, v):
+        attention_split_pv_check(logits, v, q_pos, causal)
+        b, hq, s, kv = logits.shape
+        db = v.shape[-1]
+        o = torch.empty((b, hq, s, db), dtype=v.dtype, device="meta")
+        ws = split_pv_plan(b, hq, v.shape[1], s, kv, db).workspace
+        _tally("attention_split_softmax_pv", 2 * b * hq * s * kv * db,
+               _nbytes(logits, o) + b * v.shape[1] * kv * db
+               * v.element_size() + 2 * 4 * ws)
+        return o
+    if not _on_card(logits, v):
+        return attention_split_softmax_pv_plain(logits, v, q_pos, scale,
+                                                causal)
+    _no_backward("attention_split_softmax_pv", logits, v,
+                 why=_SPLIT_DECODE)
+    LAUNCHES["attention_split_softmax_pv"] += 1
+    return attention_split_softmax_pv_cuda(logits, v, q_pos, scale, causal)
 
 
 def _ssd_meta(x, dt, A, B, C, chunk: int, final_state: bool = False):

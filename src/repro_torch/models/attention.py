@@ -22,7 +22,9 @@ training; one split by the sequence (``"seq"``) has every rank attend
 every head over its block of the keys (:func:`attend_block`) and merge
 the partials by their log-sum-exps (:func:`~.common.merge_partials`);
 MLA's latent split by its feature axes (``"latent"``) sums the partial
-logits of the absorbed form over ``model``.
+logits of the absorbed form over ``model``, and so does a GQA cache split
+by head_dim (``"latent"``: :func:`_attend_head_dim`, the two kernels of
+``csrc/ntx_attn_split.cu``).
 """
 from __future__ import annotations
 
@@ -41,21 +43,6 @@ from .common import (ArchConfig, _param, apply_mrope, apply_rope,
                      gather_part, merge_partials, rank_heads, rank_ranges,
                      rmsnorm, shard_range, take_heads, tp_copy, tp_enter,
                      tp_exit, tp_state, tp_whole, whole_weight)
-
-#: the ROADMAP item a GQA cache split by head_dim waits for
-GQA_LATENT_ITEM = ("ROADMAP queue 1 item 14b: a GQA decode cache split by "
-                   "head_dim (cache_shard='latent')")
-
-
-def gqa_cache_by_head_dim(cfg: ArchConfig, nm: int) -> bool:
-    """True where ``cache_specs`` splits a GQA cache's head_dim over a
-    model axis of ``nm`` ranks (``cache_shard="latent"`` and head_dim
-    dividing), which no flash call can contract: the mesh's decode step
-    refuses it (``runtime.serve.check_mesh_serve``), naming
-    :data:`GQA_LATENT_ITEM`."""
-    return (not cfg.mla and cfg.cache_shard == "latent" and nm > 1
-            and cfg.hd % nm == 0)
-
 
 class GQA(nn.Module):
     def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
@@ -307,23 +294,28 @@ def gqa_decode(cfg: ArchConfig, p: GQA, x: torch.Tensor, pos,
     rank owning position ``fill + i`` writes that slot, every rank
     attends every head over its block (:func:`attend_block`) and the
     partials are merged over ``model``; then ``o @ wo`` is row-parallel
-    over the rank's heads (:func:`tp_exit`). A cache split by head_dim
-    (:func:`gqa_cache_by_head_dim`) is refused before the step runs."""
+    over the rank's heads (:func:`tp_exit`). Split by head_dim
+    (``"latent"``), the new entries are gathered over heads and each rank
+    writes its block of their head_dim, and every head attends by partial
+    logits summed over ``model`` (:func:`_attend_head_dim`)."""
     dt = cfg.cdtype
     s = x.shape[1]
     q, k_new, v_new = _gqa_proj(cfg, p, x, pos)
     split = cache_split(cache["k"])
     kv_part = (1, gqa_head_ranges(cfg))
-    if split is None or split[0] == 1:
-        _, _, k_lo, k_hi = gqa_heads(cfg)
+    if split is None or split[0] != 2:
         for name, new in (("k", k_new), ("v", v_new)):
             cache_write(cache[name], new, 2, fill, part=kv_part)
-        k = cache_take(cache["k"], 1, k_lo, k_hi).to(dt)
-        v = cache_take(cache["v"], 1, k_lo, k_hi).to(dt)
-        o = ops.attention(q, *_kv_for_q(cfg, k, v), causal=True,
-                          kv_len=fill + s)
+        if split is not None and split[0] == 3:
+            o = _attend_head_dim(cfg, q, cache["k"], cache["v"], fill + s,
+                                 fill, causal=True)
+        else:
+            _, _, k_lo, k_hi = gqa_heads(cfg)
+            k = cache_take(cache["k"], 1, k_lo, k_hi).to(dt)
+            v = cache_take(cache["v"], 1, k_lo, k_hi).to(dt)
+            o = ops.attention(q, *_kv_for_q(cfg, k, v), causal=True,
+                              kv_len=fill + s)
         return _gqa_out(cfg, p, o), cache
-    assert split[0] == 2, GQA_LATENT_ITEM        # check_mesh_serve's
     _, lo, hi = split
     qa = gather_part(q, 1, rank_ranges(cfg.n_heads))
     for name, new in (("k", k_new), ("v", v_new)):
@@ -342,7 +334,9 @@ def cross_decode(cfg: ArchConfig, p: GQA, x: torch.Tensor,
     kv heads where the cache is split by heads or whole; split by the
     sequence (``cache_specs`` where the frames divide over ``model``),
     every head over the rank's block of the frames, merged over
-    ``model``."""
+    ``model``; split by head_dim, every head over every frame by partial
+    logits summed over ``model`` (:func:`_attend_head_dim`, not
+    causal)."""
     dt = cfg.cdtype
     split = cache_split(cache["ck"])
     if split is None or split[0] == 1:
@@ -350,15 +344,49 @@ def cross_decode(cfg: ArchConfig, p: GQA, x: torch.Tensor,
         kv = (cache_take(cache["ck"], 1, k_lo, k_hi).to(dt),
               cache_take(cache["cv"], 1, k_lo, k_hi).to(dt))
         return gqa_forward(cfg, p, x, None, causal=False, kv=kv)[0]
-    assert split[0] == 2, GQA_LATENT_ITEM        # check_mesh_serve's
-    _, lo, hi = split
     q, _, _ = _gqa_proj(cfg, p, x, None, kv=(None, None))
+    if split[0] == 3:
+        o = _attend_head_dim(cfg, q, cache["ck"], cache["cv"],
+                             cache["ck"].shape[2], 0, causal=False)
+        return _gqa_out(cfg, p, o)
+    _, lo, hi = split
     qa = gather_part(q, 1, rank_ranges(cfg.n_heads))
     o, lse = attend_block(qa, cache_local(cache["ck"]).to(dt),
                           cache_local(cache["cv"]).to(dt), lo, hi, 0,
                           causal=False)
     q_lo, q_hi = rank_heads(cfg.n_heads)
     return _gqa_out(cfg, p, merge_partials(o, lse)[:, q_lo:q_hi])
+
+
+def _attend_head_dim(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, kv_len: int, q_pos: int,
+                     causal: bool) -> torch.Tensor:
+    """Attention of the rank's q heads (b, nq, s, hd), rotated whole, over
+    cache leaves ``k`` / ``v`` whose head_dim is split over ``model``
+    (``cache_specs`` with ``cache_shard="latent"``), of which the rank
+    holds [d_lo, d_hi) of every kv head: every head's q gathered and cut
+    to the block, the partial fp32 logits over the block's first
+    ``kv_len`` keys (:func:`~repro_torch.kernels.ops.
+    attention_split_logits`) summed over ``model``, the softmax at the
+    whole head's scale ``hd ** -0.5`` times the rank's block of v
+    (:func:`~repro_torch.kernels.ops.attention_split_softmax_pv`; query i
+    at position ``q_pos + i`` when causal), the blocks gathered over
+    head_dim and cut to the rank's heads: (b, nq, s, hd). A rank without
+    q heads computes every head's partials all the same and joins every
+    collective."""
+    dt, tp = cfg.cdtype, tp_state()
+    hd = cfg.hd
+    _, d_lo, d_hi = cache_split(k)
+    q_all = gather_part(q, 1, rank_ranges(cfg.n_heads))[..., d_lo:d_hi]
+    logits = ops.attention_split_logits(q_all, cache_local(k).to(dt),
+                                        kv_len)
+    if tp.nm > 1:
+        dist.all_reduce(logits, group=tp.group)
+    o = ops.attention_split_softmax_pv(logits, cache_local(v).to(dt),
+                                       q_pos, hd ** -0.5, causal)
+    o = gather_part(o, 3, [shard_range(hd, tp.nm, r) for r in range(tp.nm)])
+    q_lo, q_hi = rank_heads(cfg.n_heads)
+    return o[:, q_lo:q_hi]
 
 
 # ----------------------------------------------------------------------

@@ -127,14 +127,17 @@ _SHORT = {"all-gather": "AG", "reduce-scatter": "RS", "all-reduce": "AR",
           "all-to-all": "A2A", "collective-permute": "CP"}
 
 
-def mesh_rows(directory: str, meshes=("16x16", "2x16x16")) -> List[str]:
+def mesh_rows(directory: str, meshes=("16x16", "2x16x16"),
+              overrides=None) -> List[str]:
     """A markdown row for each (arch, shape) of the mesh records in
-    ``directory``: for each mesh, rank 0's peak (GB) and fit, its wire
-    bytes a device by kind (GB), and the bound (ms) at the data sheet's
-    rates with its dominant term."""
+    ``directory`` written with ``overrides`` (``--set``; default none):
+    for each mesh, rank 0's peak (GB) and fit, its wire bytes a device by
+    kind (GB), and the bound (ms) at the data sheet's rates with its
+    dominant term."""
     cells = {}
     for rec in load_all(directory):
-        if rec.get("mesh") in meshes and not rec.get("overrides"):
+        if rec.get("mesh") in meshes and \
+                (rec.get("overrides") or {}) == (overrides or {}):
             cells.setdefault((rec["arch"], rec["shape"]), {})[
                 rec["mesh"]] = rec
     rows = []

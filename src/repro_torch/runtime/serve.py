@@ -40,8 +40,6 @@ import torch
 from repro_torch.core import ExecutionPolicy, Executor, Program
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import ArchConfig, Model, encdec, transformer
-from repro_torch.models.attention import (GQA_LATENT_ITEM,
-                                           gqa_cache_by_head_dim)
 from repro_torch.models.common import TensorParallel, tensor_parallel
 from .train import check_mesh, local_batch, local_params
 
@@ -299,14 +297,9 @@ class Server:
 # ----------------------------------------------------------------------
 def check_mesh_serve(cfg: ArchConfig, mesh) -> None:
     """Refuse what the mesh steps do not do: what the train step refuses
-    (``runtime.train.check_mesh``), and a GQA cache split by head_dim
-    (``cache_shard="latent"`` where head_dim divides over ``model``),
-    which no flash call can contract."""
+    (``runtime.train.check_mesh``). Every cache layout of ``cache_specs``
+    serves, a GQA cache split by head_dim too."""
     check_mesh(cfg, mesh)
-    attn = cfg.encoder_decoder or any(
-        k.startswith("attn") for k in transformer.layer_schedule(cfg)[1])
-    if attn and gqa_cache_by_head_dim(cfg, shd.axis_sizes(mesh)["model"]):
-        raise NotImplementedError(f"{cfg.name}: {GQA_LATENT_ITEM}")
 
 
 def mesh_cache(cfg: ArchConfig, mesh, batch: int, seq: int, device,

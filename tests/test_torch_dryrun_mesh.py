@@ -341,17 +341,35 @@ def test_production_mesh_record(mesh, tmp_path):
         32 * 2 * (128 // n_data) * 8 * 2048 * 128 * 2
 
 
-def test_gqa_latent_cache_is_an_error_record(tmp_path):
-    """``--set cache_shard=latent`` on a GQA arch writes an error record
-    that names the ROADMAP item; MLA's latent cache traces."""
-    with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k",
-                     "--mesh", "single", "--skip-delta", "--set",
-                     "cache_shard=latent", "--out", str(tmp_path)])
+def test_gqa_latent_cache_traces(tmp_path):
+    """``--set cache_shard=latent`` on a GQA arch traces: llama3-8b's
+    decode_32k rank on 16x16 launches both kernels of the head_dim split
+    once a layer and all-reduces each layer's fp32 partial logits (b 8,
+    hq 32, 1 query, 32768 keys) over the 16 model ranks, at least 32 x 2
+    x 15 / 16 x 33.5 MB = 2.01 GB of all-reduce wire a device, so the
+    roofline's collective term bounds the step (``mesh_rows`` with the
+    record's overrides); MLA's latent cache traces too."""
+    dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k",
+                 "--mesh", "single", "--skip-delta", "--set",
+                 "cache_shard=latent", "--out", str(tmp_path)])
     with open(tmp_path / "llama3-8b_decode_32k_single_cache_shard-latent"
               ".json") as f:
         rec = json.load(f)
-    assert rec["mesh"] == "16x16" and "item 14b" in rec["error"]
+    assert rec["mesh"] == "16x16" and "error" not in rec
+    assert rec["launches"]["attention_split_logits"] == 32
+    assert rec["launches"]["attention_split_softmax_pv"] == 32
+    assert "attention" not in rec["launches"]
+    col = rec["production"]["collectives"]
+    logits = 8 * 32 * 32768
+    assert ["all-reduce", "float32", logits, 16, "model", 32] in col["ops"]
+    want = 32 * 2 * 15 / 16 * logits * 4
+    assert want == pytest.approx(2.01e9, rel=2e-3)
+    assert col["wire_bytes_per_device"]["all-reduce"] >= want
+    # the wire at NVLink's rate (~4.5 ms) bounds the step, not its bytes
+    rows = gpu_roofline.mesh_rows(str(tmp_path), ("16x16",),
+                                  {"cache_shard": "latent"})
+    assert len(rows) == 1 and rows[0].endswith("(collective) |")
+    assert gpu_roofline.mesh_rows(str(tmp_path), ("16x16",)) == []
     rec = dryrun.trace_cell("deepseek-v2-lite-16b", "decode_32k", "single",
                             {"cache_shard": "latent"}, skip_delta=True)
     assert "error" not in rec and rec["launches"]

@@ -2412,3 +2412,72 @@ def test_ctx_parallel_one_rank_nccl_mesh_serving(cuda, tmp_path):
         for k in wc:
             torch.testing.assert_close(gc_[k].float(), wc[k].float(),
                                        rtol=2 ** -7, atol=1e-3)
+
+
+#: (b, hq, hkv, s, S, kv_len, db, causal) of a decode over a cache split
+#: by head_dim: llama3-8b's 16-way rank block with one split and with
+#: five, qwen2-vl's group of 6 over 2 queries (16 rows a block), the
+#: 1-rank block of head_dim 128, whisper's cross-attention, blocks of 20
+#: and 5 (4- and 1-element loads), 36 rows in three row groups
+SPLIT_SHAPES = [(2, 32, 8, 1, 3000, 2999, 8, True),
+                (8, 32, 8, 1, 32768, 32768, 8, True),
+                (2, 12, 2, 2, 5000, 4001, 16, True),
+                (1, 32, 8, 2, 4100, 4100, 128, True),
+                (3, 16, 16, 1, 1500, 1500, 4, False),
+                (1, 8, 2, 1, 700, 650, 4, True),
+                (1, 48, 4, 3, 2100, 2100, 12, True),
+                (1, 4, 1, 1, 200000, 199990, 8, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_attn_split_kernels(cuda, dtype, shape):
+    """``csrc/ntx_attn_split.cu``'s logits kernel against its plain
+    version (fp32 sums of db products: rtol 1e-5, atol 1e-4) and its
+    softmax-PV kernel (and split merge) on the plain logits (fp32 1e-5;
+    bf16 o rounded once, 1e-2)."""
+    b, hq, hkv, s, S, kv_len, db, causal = shape
+    dt = getattr(torch, dtype)
+    q = _t((b, hq, s, db), cuda).to(dt)
+    k, v = _t((b, hkv, S, db), cuda).to(dt), _t((b, hkv, S, db), cuda).to(dt)
+    got = tfa.attention_split_logits_cuda(q, k, kv_len)
+    want = tfa.attention_split_logits_plain(q, k, kv_len)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    q_pos, scale = (kv_len - s if causal else 0), (db * 16) ** -0.5
+    got = tfa.attention_split_softmax_pv_cuda(want * 4, v, q_pos, scale,
+                                              causal)
+    ref = tfa.attention_split_softmax_pv_plain(want * 4, v, q_pos, scale,
+                                               causal)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert got.dtype == dt
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_attn_split_kernels_on_strided_blocks(cuda):
+    """A block of head_dim cut from a whole cache (row stride 128, d
+    contiguous) is read in place, the result that of a contiguous copy,
+    as is a block whose base fits no load width (copied); the wrappers
+    count one launch each and refuse autograd."""
+    big = _t((2, 8, 3000, 128), cuda).to(torch.bfloat16)
+    q = _t((2, 32, 1, 8), cuda).to(torch.bfloat16)
+    k = big[..., 16:24]
+    ops.reset_launches()
+    lg = ops.attention_split_logits(q, k, 2500)
+    torch.testing.assert_close(lg, tfa.attention_split_logits_cuda(
+        q, k.contiguous(), 2500), rtol=0, atol=0)
+    o = ops.attention_split_softmax_pv(lg, big[..., 40:48], 2499, 0.1)
+    torch.testing.assert_close(o, tfa.attention_split_softmax_pv_cuda(
+        lg, big[..., 40:48].contiguous(), 2499, 0.1), rtol=0, atol=0)
+    assert ops.launches()["attention_split_logits"] == 1
+    assert ops.launches()["attention_split_softmax_pv"] == 1
+    torch.testing.assert_close(
+        tfa.attention_split_logits_cuda(q, big[..., 2:10], 2500),
+        tfa.attention_split_logits_cuda(q, big[..., 2:10].contiguous(), 2500),
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        tfa.attention_split_softmax_pv_cuda(lg, big[..., 2:10], 2499, 0.1),
+        tfa.attention_split_softmax_pv_cuda(lg, big[..., 2:10].contiguous(),
+                                            2499, 0.1), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.attention_split_logits(q.float().requires_grad_(),
+                                   k.float(), 100)

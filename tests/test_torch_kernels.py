@@ -60,6 +60,20 @@ def test_gemm_sweep(m, k, n, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol * 10)
 
 
+def test_reference_gemm_kernel_has_no_gradient():
+    """The reference's Pallas GEMM has no backward: ``jax.grad`` of
+    ``ops.gemm`` under ``pallas_interpret`` raises (an AssertionError in
+    Pallas's JVP rule), and the port's kernel refuses autograd likewise
+    (``ops._no_backward``, which its CUDA route calls), so a direct GEMM
+    backward is nothing the reference's kernel path has to port."""
+    ja, ta = _both(_np((16, 16)))
+    with jops.backend("pallas_interpret"):
+        with pytest.raises(AssertionError):
+            jax.grad(lambda a: jops.gemm(a, a).sum())(ja)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tops._no_backward("gemm", ta.requires_grad_())
+
+
 EPILOGUES = [("bias",), ("residual",), ("mul",), ("sub",), ("mask",),
              ("scale", 0.7), ("relu",), ("thresh", 0.2), ("silu",),
              ("gelu",)]

@@ -13,7 +13,12 @@ expanded and the absorbed form; mamba2 (the SSM state split by heads, the
 x conv tail by d_inner); jamba cut to one period of 8 layers; whisper
 (the cross-attention's keys and values split by frames) and qwen2-vl
 (M-RoPE, the patch stub), also on (1, 8), where 4 of its ranks hold no
-head. A prompt of 30 tokens fills a cache of 64, so
+head; and the GQA caches split by head_dim (``cache_shard="latent"``:
+llama3-8b on (2, 4), 2 kv heads on 4 ranks, 4 of its 16 head_dim
+columns a rank, with the 2-token step; whisper's k / v and ck / cv on (2,
+4); qwen2-vl on (1, 8), whose ranks without heads still compute every
+head's partial logits), each leaf asserted ``Shard(3)``. A prompt of 30
+tokens fills a cache of 64, so
 with 4 model ranks the blocks are [0, 16), [16, 32), [32, 48), [48, 64):
 the decode steps cross the boundary at 32, and the last block stays
 empty; llama3-8b's steps include a 2-token step across it (its queries
@@ -94,7 +99,16 @@ CASES = {
     "whisper": ("whisper-medium", F32, (2, 4), (1, 1, 1, 1)),
     "qwen2_vl": ("qwen2-vl-2b", F32, (2, 4), (1, 1, 1, 1)),
     "qwen2_vl_1x8": ("qwen2-vl-2b", F32, (1, 8), (1, 1, 1, 1)),
+    "llama_latent": ("llama3-8b", dict(F32, cache_shard="latent"), (2, 4),
+                     (1, 2, 1, 1)),
+    "whisper_latent": ("whisper-medium", dict(F32, cache_shard="latent"),
+                       (2, 4), (1, 1, 1, 1)),
+    "qwen2_vl_1x8_latent": ("qwen2-vl-2b", dict(F32, cache_shard="latent"),
+                            (1, 8), (1, 1, 1, 1)),
 }
+#: the GQA cases whose k / v (and whisper's ck / cv) split head_dim
+LATENT = [c for c, (_, over, _, _) in CASES.items()
+          if over.get("cache_shard") == "latent" and "deepseek" not in c]
 
 
 def _inputs(cfg, steps):
@@ -156,6 +170,18 @@ def _to_ref(layers, like, cfg):
                                      if kk == kind]) for kind in like}
 
 
+def _check_head_dim_split(res, case):
+    """A GQA latent case's k / v (ck / cv) leaves are split by head_dim
+    (``Shard(3)`` over ``model``), so the steps took the head_dim path,
+    not the sequence split that ``cache_specs`` falls back to."""
+    if case not in LATENT:
+        return
+    for i, dims in enumerate(res["model_dim"]):
+        for k in ("k", "v", "ck", "cv"):
+            if k in dims:
+                assert dims[k] == 3, (case, i, k, dims[k])
+
+
 def _check_cache(got, want, what):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
@@ -202,6 +228,7 @@ def test_mesh_prefill_matches_reference(served, case):
     """The prefill's logits within 1e-4 of the reference's and its cache,
     gathered, against the reference's cache."""
     res, (cfg, _, _, _), (jl, jcache, jfill) = served[case]
+    _check_head_dim_split(res, case)
     assert res["logits"][0].shape == jl.shape
     np.testing.assert_allclose(res["logits"][0], jl, rtol=0, atol=TOL)
     _check_cache(res["caches"][0], _ref_layers(jcache, cfg), "prefill")
@@ -214,6 +241,7 @@ def test_mesh_decode_matches_reference(served, case):
     (jitted, the fill traced) from the same cache bytes: logits within
     1e-4, every leaf of the updated cache."""
     res, (cfg, params, _, toks), (_, jcache, _) = served[case]
+    _check_head_dim_split(res, case)
     jm = JModel(cfg)
     decode = jax.jit(lambda p, tok, c, f: jm.decode(
         p, tok, c, f, absorbed_mla=cfg.mla_absorb))
@@ -237,6 +265,7 @@ def test_mesh_cache_layout(served, case):
     axes, one dimension over ``model`` (the sequence, the kv heads, the
     latent's feature axes, the SSM heads or d_inner)."""
     res, (cfg, _, _, _), _ = served[case]
+    _check_head_dim_split(res, case)
     arch, over, shape, _ = CASES[case]
     axes = (("pod", "data", "model") if len(shape) == 3
             else ("data", "model"))

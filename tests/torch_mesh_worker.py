@@ -253,9 +253,8 @@ def mesh_refusals():
     build on a (2, 2) mesh (None); on a (1, 4) mesh a dense config with
     fewer heads than the model axis builds (None), a MoE config whose 3
     experts leave a rank without one and a Mamba-2 config with 2 SSD
-    heads are refused (ValueError); and the mesh decode step refuses a
-    GQA cache split by head_dim (``cache_shard="latent"``), naming
-    ROADMAP item 14b."""
+    heads are refused (ValueError); and the mesh decode step builds for
+    a GQA cache split by head_dim (``cache_shard="latent"``: None)."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.serve import build_mesh_decode_fn
@@ -379,7 +378,8 @@ def mesh_serve(arch: str, overrides: dict, mesh_shape, tree, batch,
     "caches": [after prefill, after each step], each layer's leaves
     gathered whole, "layout": for each leaf whether its placements are
     those of ``layer_cache_specs``, "local": each leaf's shape on this
-    rank}``, numpy, on every rank."""
+    rank, "model_dim": the dimension each leaf's ``model`` placement
+    shards (None: whole)}``, numpy, on every rank."""
     import torch
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.convert import from_reference
@@ -412,6 +412,9 @@ def mesh_serve(arch: str, overrides: dict, mesh_shape, tree, batch,
                       for k, t in c.items()} for i, c in enumerate(cache)]
     out["local"] = [{k: tuple(t.to_local().shape) for k, t in c.items()}
                     for c in cache]
+    model = mesh.mesh_dim_names.index("model")
+    out["model_dim"] = [{k: getattr(t.placements[model], "dim", None)
+                         for k, t in c.items()} for c in cache]
     return out
 
 
