@@ -47,7 +47,9 @@ Phases, one result line each:
                a decode step over 4000 keys, the split-kv merge alone,
                the fp32 FFMA GEMM at 4096^3 against torch.matmul (TF32
                off); the SSD call's three kernels under torch.profiler;
-               the PyTorch SSD backward on its own, with its bound;
+               the SSD backward kernel's passes under torch.profiler, and
+               the kernel beside autograd of the plain forward (the
+               backward before ssd_scan_bwd.cu);
                the flash backward against SDPA's backward (its forward
                and backward less its forward), with its plan (group
                splits, ring stages, grids).
@@ -1208,13 +1210,48 @@ def ssd_ops(l, h, dh, n, b, chunk) -> float:
     return float(per_seq * b * h)
 
 
+#: the reference's backward, which the SSD backward kernel takes the place
+#: of: no Pallas kernel, jax.grad of the jnp chunked form
+SSD_BWD_REPLACES = "src/repro/kernels/ref.py:333 ssd_scan_chunked (XLA VJP)"
+
+
+def ssd_bwd_limit(torch, ins):
+    """The SSD backward kernel's limits against its plain version, one
+    gradient (part 0-4: dx, d dt, dA, dB, dC) at a time: stored in fp32
+    (all five in the fp32 route, d dt in both), max abs error <= 1e-4 of
+    its largest entry (exact products, fp32 sums in another order); dA, a
+    sum over b l terms dt d(dt A) recovered from the plain version's d dt
+    and dx, within 1e-5 of the sum of |terms|; dx, dB, dC of the bf16
+    route, rounded once at the store, relative L2 <= 1e-2 and max abs <=
+    2**-7 of the largest entry."""
+    x, dt, A = ins[0], ins[1], ins[2]
+    bf16 = x.dtype == torch.bfloat16
+
+    def limit(part, got, want, wants):
+        err = (got - want).abs()
+        top = float(want.abs().max()) if want.numel() else 0.0
+        if part == 2:
+            du = wants[0].float() / dt[..., None]
+            terms = (dt * wants[1] - (x.float() * du * dt[..., None]).sum(-1)
+                     ) / A
+            return bool((err <= 1e-5 * terms.abs().sum((0, 1))).all())
+        if bf16 and part != 1:
+            rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+            return rel <= 1e-2 and float(err.max()) <= 2.0 ** -7 * top
+        return float(err.max()) <= 1e-4 * top
+    return limit
+
+
 def train_cases(torch, rn):
     """The training path's kernels: the SSD scan at mamba2-1.3b's full
     width (batch 8, seq 1024, as phase 7 trains) and the fused AdamW step
     at a layer matrix's and the embedding's shape."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ntx_elementwise as ew
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (ssd_bwd_flops,
+                                              ssd_scan_bwd_cuda,
+                                              ssd_scan_bwd_plain,
+                                              ssd_scan_plain)
     cases = []
     bf = torch.bfloat16
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
@@ -1252,6 +1289,47 @@ def train_cases(torch, rn):
             bytes=2 * x.numel() * esz + dt.numel() * 4 + A.numel() * 4
             + 2 * B.numel() * esz,
             ops=ssd_ops(l, h, 64, n, b, chunk),
+            kind="bf16" if dt_x == bf else "fp32", path=path,
+            phase=phase))
+
+    # the SSD backward (csrc/ssd_scan_bwd.cu) at the training shape in both
+    # routes, a ragged length and the tp8 shards, at ssd_bwd_limit's
+    # limits, a second call bit-equal
+    for name, b, l, dt_x, path, h, n, phase in (
+            ("ssd_bwd:train_b8_l1024_bf16", TRAIN_BATCH, TRAIN_SEQ, bf, True,
+             64, 128, "train"),
+            ("ssd_bwd:train_b8_l1024_fp32", TRAIN_BATCH, TRAIN_SEQ,
+             torch.float32, False, 64, 128, "train"),
+            ("ssd_bwd:ragged_b2_l1000_bf16", 2, 1000, bf, False, 64, 128,
+             "train"),
+            (f"ssd_bwd:tp8_mamba2_b8_l1024_h{64 // TP_RANKS}_bf16",
+             TRAIN_BATCH, TRAIN_SEQ, bf, True, 64 // TP_RANKS, 128,
+             "mesh_mamba2"),
+            (f"ssd_bwd:tp8_jamba_b8_l1024_h{128 // TP_RANKS}_n16_bf16",
+             TRAIN_BATCH, TRAIN_SEQ, bf, True, 128 // TP_RANKS, 16,
+             "train")):
+        if not wanted(name):
+            continue
+        ins = (*ssd_inputs(torch, rn, b, l, dt_x, h=h, n=n),
+               rn(b, l, h, 64, dt=dt_x))
+        esz = ins[0].element_size()
+
+        def again(got, want, a=ins):
+            second = ssd_scan_bwd_cuda(*a, chunk=chunk)
+            same = all(torch.equal(p, q) for p, q in zip(got, second))
+            return same, f"a second call bit-equal {same}"
+        cases.append(dict(
+            name=name, wrapper="ssd_bwd",
+            source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            replaces=SSD_BWD_REPLACES,
+            kernel=lambda a=ins: ssd_scan_bwd_cuda(*a, chunk=chunk),
+            plain=lambda a=ins: ssd_scan_bwd_plain(*a, chunk=chunk),
+            library=None, mode="limit", limit=ssd_bwd_limit(torch, ins),
+            check_vs=again,
+            # x, gy, dt, A, B, C read; dx, d dt, dA, dB, dC written
+            bytes=3 * ins[0].numel() * esz + 2 * ins[1].numel() * 4
+            + 2 * h * 4 + 4 * ins[3].numel() * esz,
+            ops=float(ssd_bwd_flops(b, l, h, 64, n, chunk)),
             kind="bf16" if dt_x == bf else "fp32", path=path,
             phase=phase))
 
@@ -1566,60 +1644,78 @@ def suite_cases(torch, rn):
     return cases
 
 
+def ssd_kernel_ms(torch, fn, reps: int = 5) -> str:
+    """Device ms of each ``ssd_*`` kernel (by name, template arguments
+    kept) per call of ``fn``, torch.profiler over ``reps`` calls after one
+    warm-up."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"ssd_\w+(<\w+>)?", e.key)
+            name = m.group(0) if m else e.key[:40]
+            per[name] = (per.get(name, 0.0)
+                         + e.self_device_time_total / (1e3 * reps))
+    return " | ".join(f"{k} {v:.4f} ms" for k, v in per.items()) or (
+        "profiler saw no device time: not measured")
+
+
 def time_ssd_backward(torch) -> dict:
-    """The SSD backward (PyTorch autograd of the plain version, which
-    ``ops.ssd``'s backward recomputes; no kernel of this package yet) at
-    the training shape, timed alone."""
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    """The SSD backward at the training shape in bf16, timed alone: the
+    kernel (``csrc/ssd_scan_bwd.cu``) beside PyTorch autograd of the plain
+    forward, which ``ops.ssd``'s backward ran on the card before the
+    kernel (the earlier number), on the same inputs; and the kernel's
+    passes by torch.profiler."""
+    from repro_torch.kernels.ssd_scan import (ssd_bwd_flops,
+                                              ssd_scan_bwd_cuda,
+                                              ssd_scan_plain)
     g = torch.Generator(device=DEVICE).manual_seed(1)
     rn = lambda *s, dt=torch.float32, std=1.0: (
         torch.randn(*s, generator=g, device=DEVICE) * std).to(dt)
     ins = [t.requires_grad_() for t in ssd_inputs(
         torch, rn, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)]
     gy = rn(*ins[0].shape, dt=torch.bfloat16)
+    plain_in = [t.detach() for t in ins]
 
-    def bwd():
+    def kernel():
+        return ssd_scan_bwd_cuda(*plain_in, gy, chunk=128)
+
+    def autograd():
         y = ssd_scan_plain(*ins, chunk=128)
         return torch.autograd.grad(y, ins, gy)
-    ms = time_ms(bwd, torch, warmup=1, iters=5)
-    # the bound: read the inputs and gy once, write each input's gradient
-    # once; about twice the forward's operations, at the inputs' bf16 rate
+    ms = time_ms(kernel, torch)
+    ms_auto = time_ms(autograd, torch, warmup=1, iters=5)
     nbytes = gy.numel() * gy.element_size() + 2 * sum(
         t.numel() * t.element_size() for t in ins)
-    b_ms, b_by = bound_ms(nbytes, 2 * ssd_ops(TRAIN_SEQ, 64, 64, 128,
-                                              TRAIN_BATCH, 128), "bf16")
-    say("time", f"ssd_bwd:train_b8_l1024_bf16 (PyTorch autograd, not a "
-                f"kernel): {ms:.4f} ms per layer | bound {b_ms:.4f} ms "
-                f"({b_by}: {nbytes / 1e6:.1f} MB) | card {card_line()}")
-    return {"name": "ssd_bwd", "ms": ms}
+    b_ms, b_by = bound_ms(nbytes, ssd_bwd_flops(TRAIN_BATCH, TRAIN_SEQ, 64,
+                                                64, 128, 128), "bf16")
+    say("time", f"ssd_bwd:train_b8_l1024_bf16: kernel {ms:.4f} ms | PyTorch "
+                f"autograd of ssd_scan_plain (the earlier backward) "
+                f"{ms_auto:.4f} ms | bound {b_ms:.4f} ms ({b_by}: "
+                f"{nbytes / 1e6:.1f} MB) | card {card_line()}")
+    say("time", f"ssd_bwd passes, b8 l1024 bf16 (device ms per call): "
+                f"{ssd_kernel_ms(torch, kernel)}")
+    return {"name": "ssd_bwd", "ms": ms, "autograd_ms": ms_auto}
 
 
 def profile_ssd_passes(torch) -> None:
     """Device time of each of the three kernels of one ``ops.ssd`` call
     at the training shape, bf16 and fp32 (torch.profiler over 5 calls)."""
-    import re
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     g = torch.Generator(device=DEVICE).manual_seed(2)
     rn = lambda *s, dt=torch.float32, std=1.0: (
         torch.randn(*s, generator=g, device=DEVICE) * std).to(dt)
     for dt_x in (torch.bfloat16, torch.float32):
         ins = ssd_inputs(torch, rn, TRAIN_BATCH, TRAIN_SEQ, dt_x)
-        ops.ssd(*ins, chunk=128)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                ops.ssd(*ins, chunk=128)
-            torch.cuda.synchronize()
-        per = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                m = re.search(r"ssd_\w+", e.key)
-                name = m.group(0) if m else e.key[:40]
-                per[name] = per.get(name, 0.0) + e.self_device_time_total / 5e3
-        msg = " | ".join(f"{k} {v:.4f} ms" for k, v in per.items()) or (
-            "profiler saw no device time: not measured")
+        msg = ssd_kernel_ms(torch, lambda: ops.ssd(*ins, chunk=128))
         say("time", f"ssd passes, b8 l1024 {str(dt_x)[6:]} (device ms per "
                     f"call): {msg}")
         del ins
@@ -1680,6 +1776,9 @@ def compare(torch, case, got, want) -> tuple:
             ok &= bool((diff.double() <= case["tol"][0] * scale).all())
         elif case["mode"] == "sum":       # relative to the sum of |x|
             ok &= bool((diff <= case["tol"][0] * case["scale"]).all())
+        elif case["mode"] == "limit":     # the case's own limit a part
+            ok &= bool(torch.isfinite(gg).all()) and case["limit"](
+                part, gg, ww, wants)
         elif case["mode"] == "rel_l2":    # a gradient, by its L2 error
             rel = float(diff.norm() / ww.norm().clamp_min(1e-30))
             worst_l2 = max(worst_l2, rel)
@@ -1811,6 +1910,7 @@ def check_and_time(torch, cases, do_time: bool, check: str,
                if case["mode"] in ("sum", "lanesum")
                else f"worst rel L2 <= {case['tol'][0]:g}"
                if case["mode"] == "rel_l2"
+               else "ssd_bwd_limit's limits" if case["mode"] == "limit"
                else f"rtol {case['tol'][0]:g} atol {case['tol'][1]:g}")
         rel_name = ("worst_rel_l2" if case["mode"] == "rel_l2"
                     else "max_rel_err")
@@ -1889,7 +1989,7 @@ def check_and_time(torch, cases, do_time: bool, check: str,
     for case in rows:            # free the inputs the closures hold
         for key in ("kernel", "plain", "library", "scale", "check",
                     "aside", "splits", "plans", "backend", "singles",
-                    "check_vs", "library_minus", "beside"):
+                    "check_vs", "library_minus", "beside", "limit"):
             case.pop(key, None)
     torch.cuda.empty_cache()
     return rows
@@ -2947,8 +3047,9 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
     # gradients are held leaf by leaf, by the worst leaf's relative L2
     # error, since the first AdamW step moves every element by about
     # +-lr whatever its gradient. So the params after the step are only
-    # held to 2 lr plus rounding (bf16: one ulp, <= 2**-7 of the value),
-    # and to be finite.
+    # held to 2 lr plus rounding (bf16: one ulp, <= 2**-7 of the larger of
+    # the two values: where a tiny gradient's sign differs, each side
+    # moves lr its own way and rounds its own result), and to be finite.
     for dtype, loss_rtol, norm_rtol, grad_rtol, p_rtol in (
             ("float32", 1e-5, 1e-5, GRAD_RTOL["float32"], 1e-5),
             ("bfloat16", 1e-4, 2e-3, GRAD_RTOL["bfloat16"], 2.0 ** -7)):
@@ -2987,7 +3088,7 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
         # holds the weights before the step
         (lg, ng, gg, pg), (lc, nc, gc, pc) = out
         norm_c = torch.tensor(nc, dtype=torch.float32, device=DEVICE)
-        g_err, g_leaf, worst, ok = 0.0, None, 0.0, True
+        g_err, g_leaf, worst, ok, bad = 0.0, None, 0.0, True, []
         for n, p0 in pc.items():
             g = gc.pop(n).to(DEVICE)
             err = float((gg[n] - g).norm()) / max(float(g.norm()), 1e-30)
@@ -2999,8 +3100,21 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
             got = pg[n].float()
             diff = (got - want.float()).abs()
             worst = max(worst, float(diff.max()))
-            ok &= bool(torch.isfinite(got).all()) and bool(
-                (diff <= 2 * lr1 + p_rtol * want.float().abs()).all())
+            # each side rounds its own result: one ulp of the larger
+            over = ~(diff <= 2 * lr1 + p_rtol * torch.maximum(
+                want.float().abs(), got.abs()))
+            if bool(over.any()) or not bool(torch.isfinite(got).all()):
+                ok = False
+                i = int(over.flatten().nonzero()[0]) if over.any() else 0
+                bad.append(f"{n}: {int(over.sum())} elements over the "
+                           f"limit, {int((~torch.isfinite(got)).sum())} "
+                           f"card / {int((~torch.isfinite(want)).sum())} "
+                           f"plain not finite; the first at {i}: before "
+                           f"{float(p0.flatten()[i]):.6e}, card "
+                           f"{float(got.flatten()[i]):.6e} (gradient "
+                           f"{float(gg[n].flatten()[i]):.3e}), plain "
+                           f"{float(want.flatten()[i]):.6e} (gradient "
+                           f"{float(g.flatten()[i]):.3e})")
         ok_loss = math.isfinite(lg) and abs(lg - lc) <= loss_rtol * abs(lc)
         ok_norm = math.isfinite(ng) and abs(ng - nc) <= norm_rtol * abs(nc)
         ok_grad = math.isfinite(g_err) and g_err <= grad_rtol
@@ -3011,8 +3125,9 @@ def width_step_check(torch, base, seq: int, tag: str) -> None:
                  f"leaf rel L2 {g_err:.3e} at {g_leaf} (limit "
                  f"{grad_rtol:g}) | params after one step "
                  f"max_abs_err {worst:.3e} (2 lr {2 * lr1:.1e} + "
-                 f"{p_rtol:g} |p|) | card side {side_s[DEVICE]:.1f} s, "
-                 f"CPU side {side_s['cpu']:.1f} s {verdict}")
+                 f"{p_rtol:g} max |p|) | card side {side_s[DEVICE]:.1f} s, "
+                 f"CPU side {side_s['cpu']:.1f} s {verdict}"
+                 + (f" | params off: {bad[:4]}" if bad else ""))
         need(ok_loss and ok_norm and ok_grad and ok,
              f"{dtype} full-width training step disagrees card vs CPU")
         del p_cpu, p_gpu, out, gg, pg, gc, pc
@@ -3097,7 +3212,16 @@ def profile_step(torch, cfg, step_fn, params, opt):
     evs = prof.key_averages()
     span = {e.key: e.device_time_total / 1e3 for e in evs
             if e.key in ranges and e.device_type == DeviceType.CPU}
-    split = kernel_split(evs, {"ssd_scan.cu": ("ssd_state_", "ssd_carry",
+    bwd_host = sum(e.cpu_time_total / 1e3 for e in evs
+                   if e.key == "ssd_bwd" and e.device_type == DeviceType.CPU)
+    # the backward's own passes; its recompute of the states (pass (a))
+    # runs the forward's kernels and counts under ssd_scan.cu
+    split = kernel_split(evs, {"ssd_scan_bwd.cu": (
+                                   "ssd_bwd_", "ssd_state_mma<true>",
+                                   "ssd_state_f32<true>",
+                                   "ssd_carry<float4, true>",
+                                   "ssd_carry<float, true>"),
+                               "ssd_scan.cu": ("ssd_state_", "ssd_carry",
                                                "ssd_out_"),
                                "cuBLAS/cuDNN matmul": CUBLAS_KEYS},
                          skip=ranges)
@@ -3107,8 +3231,10 @@ def profile_step(torch, cfg, step_fn, params, opt):
     busy, by_group, top = split
     say("train", f"profiled step: wall {wall_ms:.1f} ms (profiler on) | "
                  f"device busy {busy:.1f} ms ({busy / wall_ms:.3f} of "
-                 f"wall) | ranges (device ms) "
-                 f"{ {k: round(v, 1) for k, v in span.items()} } | "
+                 f"wall) | ranges (device ms of their PyTorch ops; the "
+                 f"kernels' ctypes launches are not attributed) "
+                 f"{ {k: round(v, 1) for k, v in span.items()} } | ssd_bwd "
+                 f"range host ms {bwd_host:.1f} | "
                  f"kernels by group (ms) "
                  f"{ {k: round(v[0], 1) for k, v in by_group.items()} } | "
                  f"card {card_line()}")
@@ -3177,7 +3303,9 @@ def phase_train(torch, np) -> dict:
                  f"989 TFLOP/s bf16 peak (observation) | peak memory "
                  f"{peak / 1e9:.2f} GB | card {card}")
     say("train", f"kernel launches in {TRAIN_STEPS} steps {train_counts} "
-                 f"({train_counts['ssd'] / TRAIN_STEPS:g} ssd per step) | "
+                 f"({train_counts['ssd'] / TRAIN_STEPS:g} ssd, "
+                 f"{train_counts['ssd_bwd'] / TRAIN_STEPS:g} ssd_bwd per "
+                 f"step) | "
                  f"checkpoint {saved[-1]} with {len(manifest)} leaves")
     plan = r["multistream"]
     say("train", f"multistream update plan (priced, not launched): "
@@ -3187,6 +3315,9 @@ def phase_train(torch, np) -> dict:
     need(train_counts["ssd"] == 2 * cfg.n_layers * TRAIN_STEPS,
          f"ssd launched {train_counts['ssd']} times, expected "
          f"{2 * cfg.n_layers} per step (forward and recompute)")
+    need(train_counts["ssd_bwd"] == cfg.n_layers * TRAIN_STEPS,
+         f"the SSD backward kernel launched {train_counts['ssd_bwd']} "
+         f"times, expected {cfg.n_layers} per step")
     need(r["bad_steps"] == 0, "NaN fuse tripped")
     need(saved == [f"step_{TRAIN_STEPS:09d}"], f"checkpoints {saved}")
     params, opt = profile_step(torch, cfg, step_fn, params, opt)
@@ -5248,7 +5379,8 @@ def hand_launches(torch, key: str, spec: dict, cfg) -> dict:
     if key in ("deepseek_train", "phi35_train"):
         return moe_train_launches(cfg, spec["steps"])
     if key == "train":
-        return {"ssd": 2 * cfg.n_layers * spec["steps"]}
+        return {"ssd": 2 * cfg.n_layers * spec["steps"],
+                "ssd_bwd": cfg.n_layers * spec["steps"]}
     if key in ("mamba2_serve", "jamba"):
         n_ssm = sum(not cfg.is_attn_layer(i) for i in range(cfg.n_layers))
         prefills = sum(r[4] for r in spec["requests"])

@@ -64,6 +64,10 @@ _SIGNATURES = {
     #  lp, np, dtile, heads, stream)
     "ntx_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _P],
+    # (x, dt, A, B, C, gy, dx, ddt, dA, dB, dC, S, R, dec, dBp, dCp, dAp,
+    #  b, l, h, dh, n, chunk, bf16, lp, np, dtile, heads, glp, dp, nb,
+    #  gheads, stream)
+    "ntx_ssd_scan_bwd": [_P] * 17 + [_I] * 15 + [_P],
     # (img, ker, out, h, w, kh, kw, in_bf16, tx, ty, rpt, ci, cj, blocks,
     #  stream)
     "ntx_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -27,8 +27,8 @@ Gradients: ``attention``, ``fused_mlp`` and ``ssd`` are
 flash backward kernel (``csrc/flash_attention_bwd.cu``) from the
 forward's row log-sum-exp; the MLP's backward runs every product on the
 ``ntx_gemm`` kernel and the activation's derivative on
-``csrc/ntx_act_bwd.cu``; the SSD's is PyTorch autograd of the masked
-chunked form. ``gemm`` called directly, ``ssd_with_state`` (prefill),
+``csrc/ntx_act_bwd.cu``; the SSD's is ``csrc/ssd_scan_bwd.cu`` from the
+saved inputs. ``gemm`` called directly, ``ssd_with_state`` (prefill),
 the two kernels of a decode over a cache split by head_dim, the
 streaming commands, conv and the stencils have no backward (the
 reference has none for conv, the stencil pass or the compensated GEMM
@@ -67,15 +67,19 @@ from .ntx_stencil import (LAPLACE_TAPS, as_blocks, laplace_cuda,
                           laplace_plain, laplace_shape, stencil1d_cuda,
                           stencil1d_plain)
 from .ntx_reduce import REDUCE_OPS, chain_reduce_plain, reduce_plain
-from .ssd_scan import (scan_plan, ssd_check, ssd_flops, ssd_scan_cuda,
-                       ssd_scan_plain, ssd_scan_with_state_plain)
+from .ssd_scan import (scan_plan, ssd_bwd_check, ssd_bwd_flops,
+                       ssd_bwd_plan, ssd_check, ssd_flops,
+                       ssd_scan_bwd_cuda, ssd_scan_bwd_plain,
+                       ssd_scan_cuda, ssd_scan_plain,
+                       ssd_scan_with_state_plain)
 
 #: kernel launches per wrapper since the last :func:`reset_launches`;
 #: ``ssd`` counts calls of the scan, each three kernels of
 #: ``csrc/ssd_scan.cu`` (state, carry, output passes), ``ssd_state`` the
 #: calls of the same three that also store the final state (prefill);
-#: ``ssd_bwd`` counts the SSD backward passes run on the card (PyTorch,
-#: not a kernel of this package yet); ``laplace`` counts the fused Laplace
+#: ``ssd_bwd`` the SSD backward's calls, each the passes of
+#: ``csrc/ssd_scan_bwd.cu`` (states, local sums, reverse carry, gradients,
+#: reduction); ``laplace`` counts the fused Laplace
 #: launches (one per ``laplace`` call of 1-3 dimensions), ``stencil`` the
 #: per-axis passes; ``attention_merge`` counts the split-kv merge launched
 #: after an ``attention`` call whose plan splits the keys;
@@ -843,10 +847,10 @@ def _ssd_meta(x, dt, A, B, C, chunk: int, final_state: bool = False):
 # ----------------------------------------------------------------------
 class _SSD(torch.autograd.Function):
     """Forward: the SSD kernel (CUDA tensors) or its plain version (CPU
-    tensors). Backward: PyTorch autograd of the plain version (the
-    masked chunked form, any length), recomputed from the saved inputs,
-    as the reference differentiates its jnp chunked form outside any
-    Pallas kernel."""
+    tensors). Backward: ``csrc/ssd_scan_bwd.cu`` (CUDA tensors) or its
+    plain version (CPU tensors), from the saved inputs: the reference
+    differentiates its jnp chunked form outside any Pallas kernel, so the
+    backward kernel has no TPU counterpart."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
@@ -856,23 +860,43 @@ class _SSD(torch.autograd.Function):
             return _ssd_meta(x, dt, A, B, C, chunk)
         if not _on_card(x, dt, A, B, C):
             return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        if any(ctx.needs_input_grad):
+            # a shape the backward refuses raises here, before the step
+            b, l, h, dh = x.shape
+            ssd_bwd_plan(b, l, h, dh, B.shape[-1], chunk,
+                         x.dtype == torch.bfloat16)
         LAUNCHES["ssd"] += 1
         return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
 
     @staticmethod
     def backward(ctx, gy):
         saved = ctx.saved_tensors
-        if _on_meta(*saved, gy):
-            _tally("ssd_bwd")    # its operations: the aten ops below
-        elif _on_card(*saved, gy):
-            LAUNCHES["ssd_bwd"] += 1
-        with torch.enable_grad(), torch.profiler.record_function("ssd_bwd"):
-            ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(saved, ctx.needs_input_grad)]
-            y = ssd_scan_plain(*ins, chunk=ctx.chunk)
-            got = iter(torch.autograd.grad(
-                y, [t for t in ins if t.requires_grad], gy))
-        return (*(next(got) if t.requires_grad else None for t in ins), None)
+        with torch.profiler.record_function("ssd_bwd"):
+            if _on_meta(*saved, gy):
+                grads = _ssd_bwd_meta(*saved, gy, ctx.chunk)
+            elif not _on_card(*saved, gy):
+                grads = ssd_scan_bwd_plain(*saved, gy, chunk=ctx.chunk)
+            else:
+                LAUNCHES["ssd_bwd"] += 1
+                grads = ssd_scan_bwd_cuda(*saved, gy, chunk=ctx.chunk)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def _ssd_bwd_meta(x, dt, A, B, C, gy, chunk: int):
+    """The meta route of the SSD backward kernel: its checks and
+    :func:`ssd_bwd_plan`, the backward's operations on this data
+    (:func:`ssd_bwd_flops`); x, dt, A, B, C and gy read, the five
+    gradients written."""
+    ssd_bwd_check(x, dt, A, B, C, gy)
+    b, l, h, dh = x.shape
+    n = B.shape[-1]
+    ssd_bwd_plan(b, l, h, dh, n, chunk, x.dtype == torch.bfloat16)
+    grads = tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                  for t in (x, dt, A, B, C))
+    _tally("ssd_bwd", ssd_bwd_flops(b, l, h, dh, n, chunk),
+           _nbytes(x, dt, A, B, C, gy, *grads))
+    return grads
 
 
 def ssd(x, dt, A, B, C, chunk: int = 64,

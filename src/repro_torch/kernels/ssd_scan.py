@@ -1,5 +1,6 @@
-"""Mamba-2 SSD chunked scan: the plain version and the launcher of
-``csrc/ssd_scan.cu``.
+"""Mamba-2 SSD chunked scan: the plain versions and the launchers of
+``csrc/ssd_scan.cu`` (the scan) and ``csrc/ssd_scan_bwd.cu`` (its
+backward).
 
 Counterpart of ``repro.kernels.ssd_scan``: the chunk loop carries the
 (d_state, d_head) fp32 state S, the NTX wide accumulator, from chunk to
@@ -17,9 +18,10 @@ import torch
 
 from . import _build, ref
 
-#: limits of the CUDA kernel (``kMaxChunk``, ``kMaxHeads``, ``kPad`` and
-#: ``kThreads`` in ``csrc/ssd_scan.cu``): one 16-row strip of a chunk per
-#: warp, 4 steps of the log-decay scan per lane
+#: limits of the CUDA kernels (``kMaxChunk``, ``kMaxHeads``, ``kPad`` and
+#: ``kThreads`` in ``csrc/ssd_scan.cuh``; ``kMaxHeadDim`` in
+#: ``csrc/ssd_scan_bwd.cu``): one 16-row strip of a chunk per warp, 4
+#: steps of the log-decay scan per lane
 MAX_CHUNK = 128
 MAX_HEAD_DIM = 128
 MAX_HEADS = 64
@@ -137,7 +139,8 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int = 64) -> torch.Tensor:
     the state carried from chunk to chunk, the decay exponent masked to
     -inf above the diagonal before ``exp``). A ragged tail is padded with
     dt = 0 and x = 0 and cut off again. ``ops.ssd``'s backward is
-    autograd of this function.
+    :func:`ssd_scan_bwd_plain` (CPU) or :func:`ssd_scan_bwd_cuda`; autograd
+    of this function is the tests' oracle for both.
 
     x: (b, l, h, dh); dt: (b, l, h); A: (h,); B/C: (b, l, n). Returns y
     (b, l, h, dh) in ``x.dtype``."""
@@ -164,6 +167,131 @@ def ssd_scan_with_state_plain(x, dt, A, B, C, chunk: int = 64):
     return y[:, :l].to(x.dtype), s
 
 
+def _log_decay(a):
+    """The inclusive cumsum of a = dt A over dim 2 (a chunk's steps) in the
+    order ``chunk_log_decay`` in ``csrc/ssd_scan.cuh`` adds it, so that
+    the backward's plain version and its kernel see the same log-decay
+    bits (at |la| in the thousands an fp32 ulp of la moves every exp of
+    it): 32 lanes of 4 consecutive steps each (more for a chunk above
+    128), summed in turn inside a lane, then a Hillis-Steele scan of the
+    lanes' sums, each lane's exclusive prefix added to its steps."""
+    F = torch.nn.functional
+    a = a.movedim(2, -1)
+    L = a.shape[-1]
+    per = max(4, -(-L // 32))
+    a = F.pad(a, (0, 32 * per - L)).unflatten(-1, (32, per))
+    q = [a[..., 0]]
+    for i in range(1, per):
+        q.append(q[-1] + a[..., i])
+    incl = q[-1]
+    lane = torch.arange(32, device=a.device)
+    for o in (1, 2, 4, 8, 16):
+        incl = torch.where(lane >= o, incl + F.pad(incl, (o, 0))[..., :32],
+                           incl)
+    excl = F.pad(incl, (1, 0))[..., :32]
+    la = torch.stack([excl + qi for qi in q], -1).flatten(-2)[..., :L]
+    return la.movedim(-1, 2)
+
+
+def _reverse_carry(local, la_last):
+    """R_c, the gradient of the state leaving chunk c: 0 after the last
+    chunk, R_{c-1} = local_c + exp(la_L,c) R_c (the forward's carry run
+    backward over the chunks)."""
+    r = torch.zeros_like(local[:, 0])
+    out = [r] * local.shape[1]
+    for c in reversed(range(local.shape[1])):
+        out[c] = r
+        r = torch.exp(la_last[:, c])[..., None, None] * r + local[:, c]
+    return torch.stack(out, 1)
+
+
+def ssd_scan_bwd_plain(x, dt, A, B, C, gy, chunk: int = 64):
+    """Plain version of ``csrc/ssd_scan_bwd.cu``: the gradients of
+    :func:`ssd_scan_plain`'s y for the upstream gradient gy, in closed
+    form and in the kernel's passes, in fp32 with every decay exponent
+    masked before ``exp``. Per (batch, head) and chunk of L steps, la is
+    the inclusive cumsum of dt A (added in the kernel's order,
+    :func:`_log_decay`), u_s = dt_s x_s, S_c the state entering
+    chunk c and R_c the gradient of the state leaving it:
+
+    (a) S_c, carried as the forward carries it;
+    (b) each chunk's own sum_t exp(la_t) C_t (x) gy_t;
+    (c) the reverse carry R_{c-1} = (b)_c + exp(la_L) R_c, R 0 after the
+        last chunk (``ops.ssd`` returns y only);
+    (d) per chunk, with M_ts = exp(la_t - la_s) (C_t . B_s) for s <= t:
+        du = M^T gy + diag(exp(la_L - la_s)) B R_c, dx = dt du;
+        dC_t = sum_{s<=t} exp(la_t - la_s) (gy_t . u_s) B_s
+               + exp(la_t) S_c gy_t;
+        dB_s = sum_{t>=s} exp(la_t - la_s) (gy_t . u_s) C_t
+               + exp(la_L - la_s) R_c u_s;
+        d la from every exponent (the state update's la_L too; P_tt,
+        which enters and leaves la_t, left out), summed backward inside
+        the chunk into d(dt A): A d(dt A) joins x . du in d dt, and
+        dt d(dt A) summed gives dA;
+    (e) dB and dC summed over heads, dA over batch and steps.
+
+    A ragged tail is padded as the forward pads it and cut off again.
+    Returns (dx, ddt, dA, dB, dC): dx, dB, dC in x's dtype, ddt and dA
+    fp32, as autograd of :func:`ssd_scan_plain` returns them."""
+    b, l, h, dh = x.shape
+    n = B.shape[-1]
+    if l == 0:
+        return (torch.zeros_like(x), torch.zeros_like(dt),
+                torch.zeros_like(A), torch.zeros_like(B), torch.zeros_like(C))
+    xf, dtf, Af, Bf, Cf = _padded_f32(x, dt, A, B, C, chunk)
+    gyf = torch.nn.functional.pad(gy.float(), (0, 0, 0, 0, 0, -l % chunk))
+    lpad = xf.shape[1]
+    nc, L = lpad // chunk, chunk
+    xc = xf.view(b, nc, L, h, dh)
+    gyc = gyf.view(b, nc, L, h, dh)
+    dtc = dtf.view(b, nc, L, h)
+    Bc, Cc = Bf.view(b, nc, L, n), Cf.view(b, nc, L, n)
+    la = _log_decay(dtc * Af)                                # (b,nc,L,h)
+    la_last = la[:, :, -1]                                   # (b,nc,h)
+    u = dtc[..., None] * xc
+    w_last = torch.exp(la_last[:, :, None] - la)             # exp(la_L-la_s)
+    e_la = torch.exp(la)
+    # (a) - (c)
+    S, _ = ref._carry(torch.einsum("bcsn,bcsh,bcshd->bchnd", Bc, w_last, u),
+                      la_last)
+    R = _reverse_carry(torch.einsum("bctn,bcth,bcthd->bchnd", Cc, e_la,
+                                    gyc), la_last)
+    # (d): (b, nc, t, s, h) pairs, masked before exp
+    tri = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    diff = la[:, :, :, None, :] - la[:, :, None, :, :]
+    dec = torch.exp(torch.where(tri[:, :, None], diff, float("-inf")))
+    G = torch.einsum("bctn,bcsn->bcts", Cc, Bc)[..., None]
+    Pp = dec * torch.einsum("bcthd,bcshd->bctsh", gyc, u)    # P'_ts
+    du_c = w_last[..., None] * torch.einsum("bcsn,bchnd->bcshd", Bc, R)
+    du = torch.einsum("bctsh,bcthd->bcshd", dec * G, gyc) + du_c
+    dC_c = torch.einsum("bcth,bcthd,bchnd->bcthn", e_la, gyc, S)
+    dC = torch.einsum("bctsh,bcsn->bctn", Pp, Bc) + dC_c.sum(3)
+    dB = torch.einsum("bctsh,bctn->bcsn", Pp, Cc) + torch.einsum(
+        "bcsh,bcshd,bchnd->bcsn", w_last, u, R)
+    # d la: P_ts = G_ts P'_ts enters la_t and leaves la_s (s < t: P_tt
+    # would enter and leave la_t, and only add rounding); the carried part
+    # (Q) enters la_t; the state update's terms (V) leave la_s and enter
+    # la_L, as does exp(la_L) <R_c, S_c>. Summed in fp64, as the kernel
+    # sums them: d(dt A) takes differences of sums whose terms can be far
+    # larger than it
+    eye = torch.eye(L, dtype=torch.bool, device=x.device)[:, :, None]
+    P = (Pp * G).masked_fill(eye, 0.0).double()
+    Q = (Cc[:, :, :, None, :] * dC_c).sum(-1).double()
+    V = (du_c * u).sum(-1).double()
+    dla = P.sum(3) - P.sum(2) + Q - V
+    dla[:, :, -1] += V.sum(2) + torch.exp(la_last).double() * (
+        R * S).sum((-2, -1)).double()
+    da = torch.flip(torch.cumsum(torch.flip(dla, [2]), 2), [2])
+    ddt = ((xc * du).sum(-1) + Af.double() * da).float()
+    dA = (dtc.double() * da).sum((0, 1, 2)).float()
+    dx = dtc[..., None] * du
+
+    def cut(t, dtype):
+        return t.reshape(b, lpad, *t.shape[3:])[:, :l].to(dtype)
+    return (cut(dx, x.dtype), cut(ddt, torch.float32), dA,
+            cut(dB, x.dtype), cut(dC, x.dtype))
+
+
 def ssd_check(x, dt, A, B, C) -> None:
     """Raise ``ValueError`` for operands the kernel refuses: shapes that
     do not match x (b, l, h, dh), x / B / C not all fp32 or all bf16, dt
@@ -183,6 +311,15 @@ def ssd_check(x, dt, A, B, C) -> None:
         raise ValueError(f"ssd takes fp32 dt and A, got {dt.dtype}/{A.dtype}")
 
 
+def ssd_bwd_check(x, dt, A, B, C, gy) -> None:
+    """:func:`ssd_check`, and gy of x's shape and dtype."""
+    ssd_check(x, dt, A, B, C)
+    if tuple(gy.shape) != tuple(x.shape) or gy.dtype != x.dtype:
+        raise ValueError(f"ssd backward takes gy of x's shape and dtype "
+                         f"{tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(gy.shape)} {gy.dtype}")
+
+
 def ssd_flops(b: int, l: int, h: int, dh: int, n: int, chunk: int) -> int:
     """The scan's operations on this data: per chunk of L steps, C B^T
     and W X over the s <= t pairs, L (L + 1) (n + dh), plus C S and the
@@ -192,6 +329,75 @@ def ssd_flops(b: int, l: int, h: int, dh: int, n: int, chunk: int) -> int:
     full, rest = divmod(l, chunk)
     return b * h * (full * per_chunk(chunk) + (per_chunk(rest) if rest
                                                else 0))
+
+
+def ssd_bwd_flops(b: int, l: int, h: int, dh: int, n: int,
+                  chunk: int) -> int:
+    """The backward's operations on this data, in :func:`ssd_flops`'s
+    manner: per chunk of L steps, over the s <= t pairs, C B^T, gy . u,
+    the intra-chunk dB and dC products (n each) and M^T gy (dh),
+    L (L + 1) (3 n + 2 dh); the recomputed state update, the reverse
+    carry's own sum, B R, gy S^T and u R^T, 10 L n dh; for every (batch,
+    head)."""
+    def per_chunk(L):
+        return L * (L + 1) * (3 * n + 2 * dh) + 10 * L * n * dh
+    full, rest = divmod(l, chunk)
+    return b * h * (full * per_chunk(chunk) + (per_chunk(rest) if rest
+                                               else 0))
+
+
+@dataclass(frozen=True)
+class SSDBwdPlan:
+    """How ``csrc/ssd_scan_bwd.cu`` cuts one backward call. Passes (a)
+    and (b) run the forward's state pass (and (a) its carry) at ``fwd``,
+    the forward's plan;
+    the gradient pass (d) takes a chunk padded to ``lp`` rows (16-row warp
+    strips), the head dim padded to ``dp``, d_state ``nb`` columns at a
+    time (``n_tiles`` stagings, zero-filled past n) and ``heads`` heads a
+    block, over a grid of ``(nc, b, head_groups)`` with ``smem`` bytes of
+    shared memory."""
+    fwd: SSDPlan
+    lp: int
+    dp: int
+    nb: int
+    heads: int
+    n_tiles: int
+    head_groups: int
+    smem: int
+
+
+def grad_smem(bf16: bool, lp: int, dp: int, nb: int, heads: int) -> int:
+    """Shared memory of one block of the gradient pass, as ``grad_smem``
+    in ``csrc/ssd_scan_bwd.cu`` counts it: C and B (``nb`` columns) and x
+    and gy (``dp`` columns), rows padded by ``PAD`` elements, bf16 as they
+    are or fp32; R and S (``nb`` x ``dp`` each) as three exact bf16 planes
+    or fp32; two fp64 sums a step; dt and the log-decay of each head,
+    three fp32 sums a step and a reduction's 16 floats."""
+    e = 2 if bf16 else 4
+    tiles = e * (2 * lp * (nb + PAD) + 2 * lp * (dp + PAD))
+    states = 2 * nb * (dp + PAD) * (6 if bf16 else 4)
+    return tiles + states + 16 * lp + 4 * (2 * heads * lp + 3 * lp + 16)
+
+
+def ssd_bwd_plan(b: int, l: int, h: int, dh: int, n: int, chunk: int,
+                 bf16: bool = True) -> SSDBwdPlan:
+    """The backward kernel's plan: the forward's plan for the states, and
+    for the gradient pass the widest d_state staging (all of it, then
+    halved in 16-column steps) that fits ``MAX_SMEM``. Raises
+    ``ValueError`` for what the kernel cannot run."""
+    fwd = scan_plan(b, l, h, dh, n, chunk, bf16)
+    lp, dp, np_ = _round_up(chunk, 16), _round_up(dh, 16), fwd.np
+    heads = max(1, min(HEADS_PER_BLOCK, h))
+    nb = np_
+    while grad_smem(bf16, lp, dp, nb, heads) > MAX_SMEM and nb > 16:
+        nb = max(16, _round_up(nb // 2, 16))
+    smem = grad_smem(bf16, lp, dp, nb, heads)
+    if smem > MAX_SMEM:
+        raise ValueError(f"ssd backward kernel: chunk {chunk}, head dim {dh}"
+                         f" need {smem} bytes of shared memory > {MAX_SMEM}")
+    return SSDBwdPlan(fwd=fwd, lp=lp, dp=dp, nb=nb, heads=heads,
+                      n_tiles=-(-np_ // nb),
+                      head_groups=-(-h // heads) if h else 0, smem=smem)
 
 
 def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 64,
@@ -229,3 +435,38 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 64,
             _build.stream_of(x))
     _build.check(code, "ntx_ssd_scan")
     return y if s_final is None else (y, s_final)
+
+
+def ssd_scan_bwd_cuda(x, dt, A, B, C, gy, chunk: int = 64,
+                      plan: SSDBwdPlan | None = None):
+    """Launch ``csrc/ssd_scan_bwd.cu``: the gradients of the scan's y for
+    the upstream gradient gy (x's shape and dtype), as
+    :func:`ssd_scan_bwd_plain` returns them. ``plan`` defaults to
+    :func:`ssd_bwd_plan`; another is passed only to test that the kernel
+    refuses it."""
+    ssd_bwd_check(x, dt, A, B, C, gy)
+    b, l, h, dh = x.shape
+    n = B.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    p = plan or ssd_bwd_plan(b, l, h, dh, n, chunk, bf16)
+    x, dt, A, B, C, gy = (t.contiguous() for t in (x, dt, A, B, C, gy))
+    nc = -(-l // chunk)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt, dB, dC = (torch.empty_like(t) for t in (x, dt, B, C))
+    dA = torch.empty((h,), **f32)
+    # scratch: the states entering each chunk and the gradients leaving
+    # it, exp(la_L) a chunk, the per-head dB and dC and per-chunk dA (fp64)
+    # partials that pass (e) sums in a fixed order
+    S, R = (torch.empty((b, nc, h, n, dh), **f32) for _ in range(2))
+    dec = torch.empty((b, nc, h), **f32)
+    dAp = torch.empty((b, nc, h), dtype=torch.float64, device=x.device)
+    dBp, dCp = (torch.empty((b, l, h, n), **f32) for _ in range(2))
+    f = p.fwd
+    with _build.on_device(x):
+        code = _build.library().ntx_ssd_scan_bwd(
+            *(t.data_ptr() for t in (x, dt, A, B, C, gy, dx, ddt, dA, dB,
+                                     dC, S, R, dec, dBp, dCp, dAp)),
+            b, l, h, dh, n, chunk, int(bf16), f.lp, f.np, f.dtile, f.heads,
+            p.lp, p.dp, p.nb, p.heads, _build.stream_of(x))
+    _build.check(code, "ntx_ssd_scan_bwd")
+    return dx, ddt, dA, dB, dC

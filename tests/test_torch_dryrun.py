@@ -87,6 +87,7 @@ def card_route(monkeypatch):
     for name, fn in (("_on_card", on_card), ("flash_attention_cuda", flash),
                      ("flash_attention_bwd_cuda", flash_bwd),
                      ("ssd_scan_cuda", ssd),
+                     ("ssd_scan_bwd_cuda", ssd_scan.ssd_scan_bwd_plain),
                      ("act_bwd_cuda", ne.act_bwd_plain),
                      ("adamw_cuda", ne.adamw_plain)):
         monkeypatch.setattr(ops, name, fn)

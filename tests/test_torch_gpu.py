@@ -188,15 +188,18 @@ def test_kernels_without_backward_raise_under_autograd(cuda):
 
 
 def test_ssd_gradient_on_the_card(cuda):
-    """ops.ssd on the card: the kernel forward, the PyTorch backward,
-    both against the CPU."""
+    """ops.ssd on the card: the forward kernel and the backward kernel
+    (csrc/ssd_scan_bwd.cu, one launch counted under ssd_bwd), both
+    against the CPU's plain versions."""
     ins = _ssd_inputs("cpu", 1, 160, 2, 16, 32, torch.float32)
     outs = []
+    ops.reset_launches()
     for dev in (cuda, "cpu"):
         xs = [t.to(dev).requires_grad_() for t in ins]
         y = ops.ssd(*xs, chunk=64)
         grads = torch.autograd.grad((y * y).sum(), xs)
         outs.append([y.cpu(), *(g.cpu() for g in grads)])
+    assert ops.launches()["ssd"] == ops.launches()["ssd_bwd"] == 1
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
 
@@ -878,6 +881,141 @@ def test_ssd_kernel_refuses_a_plan_it_cannot_run(cuda, dtype, change):
     with pytest.raises(RuntimeError, match="ntx_ssd_scan"):
         ssd_scan.ssd_scan_cuda(*ins, chunk=128,
                                plan=dataclasses.replace(p, **bad))
+
+
+# ----------------------------------------------------------------------
+# The SSD scan's backward kernel
+# ----------------------------------------------------------------------
+_SSD_BWD_SHAPES = [
+    (8, 1024, 64, 64, 128, 128),     # mamba2-1.3b's training shape
+    (8, 1024, 16, 64, 16, 128),      # jamba's 128 / 8 heads at d_state 16
+    (1, 1000, 3, 64, 128, 128),      # ragged last chunk (7 x 128 + 104)
+    (2, 80, 3, 16, 32, 16),
+    (2, 80, 3, 16, 32, 40),
+    (1, 100, 3, 24, 16, 40),         # ragged: 2 x 40 + 20
+    (2, 20, 1, 16, 16, 32),          # l < chunk
+    (2, 1, 3, 16, 32, 16),           # one step
+    (1, 64, 9, 24, 32, 64),          # l = chunk; 9 heads: a short group
+    (1, 130, 4, 128, 128, 128),      # dh 128: d_state in n-tiles (fp32)
+    (1, 77, 3, 48, 40, 50)]          # chunk, n, dh off the tile sizes
+
+
+def _ssd_bwd_case(dev, shape, dtype):
+    b, l, h, dh, n, chunk = shape
+    ins = _ssd_inputs(dev, b, l, h, dh, n, dtype)
+    g = torch.Generator(device=dev).manual_seed(3)
+    gy = torch.randn(ins[0].shape, generator=g, device=dev).to(dtype)
+    return ins, gy
+
+
+def _ssd_bwd_within_limits(got, want, ins):
+    """The limits of the backward kernel against its plain version, with
+    their reasons: a gradient stored in fp32 (all five in the fp32 route,
+    d dt in both) sums exact products in fp32 in another order, so max abs
+    error <= 1e-4 of its largest entry; dA is a sum over b l terms
+    dt d(dt A), each recovered from the plain version's d dt and dx, so
+    <= 1e-5 of the sum of |terms|; dx, dB, dC of the bf16 route are
+    rounded once at the store: relative L2 <= 1e-2 and max abs <= 2**-7
+    of the largest entry."""
+    x, dt, A = ins[0], ins[1], ins[2]
+    bf16 = x.dtype == torch.bfloat16
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    for name, a, w in zip(names, got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        a, w = a.float(), w.float()
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a - w).abs().max()) if w.numel() else 0.0
+        top = float(w.abs().max()) if w.numel() else 0.0
+        if name == "dA":
+            du = want[0].float() / dt[..., None]
+            terms = (dt * want[1] - (x.float() * du * dt[..., None]).sum(-1)
+                     ) / A
+            bound = 1e-5 * terms.abs().sum((0, 1))
+            assert bool(((a - w).abs() <= bound).all()), (name, err)
+        elif bf16 and name != "ddt":
+            rel = float((a - w).norm() / w.norm().clamp_min(1e-30))
+            assert rel <= 1e-2 and err <= 2.0 ** -7 * top, (name, rel, err)
+        else:
+            assert err <= 1e-4 * top, (name, err, top)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel(cuda, shape, dtype):
+    """csrc/ssd_scan_bwd.cu against ssd_scan_bwd_plain on the same CUDA
+    inputs (the model's distributions, the strong decay of queue 3
+    record 2), and a second call bit-equal (no float atomics)."""
+    from repro_torch.kernels import ssd_scan
+    ins, gy = _ssd_bwd_case(cuda, shape, getattr(torch, dtype))
+    got = ssd_scan.ssd_scan_bwd_cuda(*ins, gy, chunk=shape[-1])
+    want = ssd_scan.ssd_scan_bwd_plain(*ins, gy, chunk=shape[-1])
+    _ssd_bwd_within_limits(got, want, ins)
+    again = ssd_scan.ssd_scan_bwd_cuda(*ins, gy, chunk=shape[-1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_kernel_strong_decay_stays_finite(cuda, dtype):
+    """dt * A down to about -80 a step at chunk 128: the exponents are
+    masked before exp, so every gradient stays finite and on the plain
+    version."""
+    from repro_torch.kernels import ssd_scan
+    ins, gy = _ssd_bwd_case(cuda, (1, 256, 4, 64, 128, 128),
+                            getattr(torch, dtype))
+    ins = (ins[0], ins[1] * 5.0, *ins[2:])
+    got = ssd_scan.ssd_scan_bwd_cuda(*ins, gy, chunk=128)
+    want = ssd_scan.ssd_scan_bwd_plain(*ins, gy, chunk=128)
+    _ssd_bwd_within_limits(got, want, ins)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_ssd_backward_launches_the_kernel(cuda, dtype, monkeypatch):
+    """ops.ssd's backward on CUDA tensors runs the kernel, counted once
+    under ssd_bwd: with the plain forward and backward patched to raise it
+    still runs, and its gradients are the kernel's."""
+    from repro_torch.kernels import ssd_scan
+    ins, gy = _ssd_bwd_case(cuda, (2, 300, 5, 64, 64, 128),
+                            getattr(torch, dtype))
+    want = ssd_scan.ssd_scan_bwd_cuda(*ins, gy, chunk=128)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain SSD version ran on the card")
+    for mod in (ssd_scan, ops):
+        monkeypatch.setattr(mod, "ssd_scan_plain", refuse)
+        monkeypatch.setattr(mod, "ssd_scan_bwd_plain", refuse)
+    ops.reset_launches()
+    xs = [t.detach().clone().requires_grad_() for t in ins]
+    got = torch.autograd.grad(ops.ssd(*xs, chunk=128), xs, gy)
+    assert ops.launches()["ssd_bwd"] == 1 and ops.launches()["ssd"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("change", ["lp", "dp", "nb_odd", "nb_wide",
+                                    "heads_0", "smem", "fwd_lp"])
+def test_ssd_bwd_kernel_refuses_a_plan_it_cannot_run(cuda, change):
+    """A plan that does not match the shapes, or needs more shared memory
+    than a block has, is refused before any launch; a shape the planner
+    cannot fit raises ValueError, on the forward's call too."""
+    import dataclasses
+    from repro_torch.kernels import ssd_scan
+    ins, gy = _ssd_bwd_case(cuda, (1, 256, 4, 128, 128, 128),
+                            torch.bfloat16)
+    p = ssd_scan.ssd_bwd_plan(1, 256, 4, 128, 128, 128, True)
+    bad = {"lp": dict(lp=p.lp + 16), "dp": dict(dp=p.dp - 16),
+           "nb_odd": dict(nb=24), "nb_wide": dict(nb=p.fwd.np + 16),
+           "heads_0": dict(heads=0), "smem": dict(nb=p.fwd.np, heads=64),
+           "fwd_lp": dict(fwd=dataclasses.replace(p.fwd, lp=p.fwd.lp - 16))
+           }[change]
+    with pytest.raises(RuntimeError, match="ntx_ssd_scan_bwd"):
+        ssd_scan.ssd_scan_bwd_cuda(*ins, gy, chunk=128,
+                                   plan=dataclasses.replace(p, **bad))
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_bwd_plan(1, 256, 4, 129, 128, 128, True)
+    x = torch.zeros(1, 64, 2, 129, device=cuda, requires_grad=True)
+    dt, B = torch.ones(1, 64, 2, device=cuda), torch.zeros(1, 64, 8,
+                                                           device=cuda)
+    with pytest.raises(ValueError):
+        ops.ssd(x, dt, -torch.ones(2, device=cuda), B, B, chunk=64)
 
 
 def _offset_view(t, off):

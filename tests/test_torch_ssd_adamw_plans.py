@@ -35,11 +35,11 @@ def _const(source: str, name: str) -> int:
 # SSD
 # ----------------------------------------------------------------------
 def test_ssd_constants_match_the_kernel_source():
-    assert _const("ssd_scan.cu", "kMaxChunk") == ssd_scan.MAX_CHUNK
-    assert _const("ssd_scan.cu", "kMaxHeads") == ssd_scan.MAX_HEADS
-    assert _const("ssd_scan.cu", "kPad") == ssd_scan.PAD
-    assert _const("ssd_scan.cu", "kThreads") == ssd_scan.THREADS
-    assert _const("ssd_scan.cu", "kMaxSmem") == ssd_scan.MAX_SMEM
+    assert _const("ssd_scan.cuh", "kMaxChunk") == ssd_scan.MAX_CHUNK
+    assert _const("ssd_scan.cuh", "kMaxHeads") == ssd_scan.MAX_HEADS
+    assert _const("ssd_scan.cuh", "kPad") == ssd_scan.PAD
+    assert _const("ssd_scan.cuh", "kThreads") == ssd_scan.THREADS
+    assert _const("ssd_scan.cuh", "kMaxSmem") == ssd_scan.MAX_SMEM
 
 
 _SHAPES = [(8, 1024, 64, 64, 128, 128), (1, 1000, 3, 64, 128, 128),
